@@ -1,0 +1,10 @@
+"""repro_torch — the PyTorch and CUDA port of the LOMS sorting system.
+
+The JAX package ``repro`` is the reference; this package computes the same
+functions with PyTorch around hand-written CUDA kernels for Hopper
+(``csrc/``). It imports neither JAX nor the JAX package. Entry points run
+on the card unless the caller passes ``device="cpu"``.
+"""
+from .api import topk  # noqa: F401
+
+__all__ = ["topk"]

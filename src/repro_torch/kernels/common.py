@@ -1,0 +1,123 @@
+"""Plain PyTorch versions of the in-kernel primitives shared by the sorters.
+
+Counterpart of ``repro.kernels.common``. These are the kernels' plain
+versions: the CPU path of every wrapper, and what ``chip_smoke.py`` holds
+each CUDA kernel against on the card. They are written as the reference
+writes them (comparison clouds, then an exact scatter permute), so that
+their tie order is the reference's:
+
+* ``ranks_sort`` is a stable ascending rank (equal keys keep their order);
+* ``ranks_merge2`` merges two ascending runs with the first run winning
+  ties.
+
+Encoded keys always take the exact scatter permute (the reference's
+``use_mxu=False``), so the one-hot matrix-unit permute has no counterpart.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+#: float itemsize -> same-width signed integer type carrying the bit trick
+KEY_ITYPE = {2: torch.int16, 4: torch.int32}
+
+#: bit pattern of the canonical quiet NaN that every NaN maps to
+_CANONICAL_NAN = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC0,
+                  torch.float16: 0x7E00}
+
+
+def key_transformable(dtype: torch.dtype) -> bool:
+    """Whether ``dtype`` is a float type the total-order key map covers."""
+    return dtype in _CANONICAL_NAN
+
+
+def encode_key_values(x: torch.Tensor) -> torch.Tensor:
+    """Float tensor -> int32 keys with the same sort order, NaNs last.
+
+    Bijective and strictly monotonic over every float (finite, ±0, ±inf):
+    -0.0 stays below +0.0. NaNs canonicalise to the positive quiet NaN,
+    which maps above ``key(+inf)``. bf16/f16 bitcast to int16 and f32 to
+    int32; every key widens to int32."""
+    itype = KEY_ITYPE[x.element_size()]
+    mask = torch.iinfo(itype).max  # 0x7fff..: flip all but the sign
+    y = x.view(itype).masked_fill(torch.isnan(x), _CANONICAL_NAN[x.dtype])
+    return torch.where(y < 0, y ^ mask, y).to(torch.int32)
+
+
+def decode_key_values(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Exact inverse of :func:`encode_key_values` (``dtype`` = the
+    original float type). The downcast to a 16-bit key wraps, as the
+    reference's ``astype`` does, so pad keys decode to the same bits."""
+    itype = KEY_ITYPE[torch.empty((), dtype=dtype).element_size()]
+    mask = torch.iinfo(itype).max
+    k = k.to(torch.int32)
+    if itype == torch.int16:
+        y = (((k & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.int16)
+    else:
+        y = k
+    y = torch.where(y < 0, y ^ mask, y)
+    return y.view(dtype)
+
+
+def sentinel_max(dtype: torch.dtype):
+    if dtype.is_floating_point:
+        return float(torch.finfo(dtype).max)
+    return int(torch.iinfo(dtype).max)
+
+
+def sentinel_min(dtype: torch.dtype):
+    if dtype.is_floating_point:
+        return float(torch.finfo(dtype).min)
+    return int(torch.iinfo(dtype).min)
+
+
+def scatter_permute(vals: torch.Tensor, rank: torch.Tensor,
+                    payload: Optional[torch.Tensor] = None):
+    """``out[..., rank[i]] = vals[..., i]`` (the exact permute)."""
+    r = rank.long()
+    out = torch.zeros_like(vals).scatter(-1, r, vals)
+    if payload is None:
+        return out
+    return out, torch.zeros_like(payload).scatter(-1, r, payload)
+
+
+def ranks_sort(x: torch.Tensor) -> torch.Tensor:
+    """Stable full-sort ranks along the last axis (N-sorter comparator cloud)."""
+    n = x.shape[-1]
+    pos = torch.arange(n, device=x.device)
+    j_lt_i = pos[None, :] < pos[:, None]  # [i, j]: j < i
+    xi, xj = x[..., :, None], x[..., None, :]
+    before = (xj < xi) | ((xj == xi) & j_lt_i)
+    return before.sum(dim=-1).to(torch.int32)
+
+
+def ranks_merge2(lo: torch.Tensor, hi: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable 2-run merge ranks (S2MS cloud): ``lo`` wins ties.
+
+    Both runs ascend. ``lo_i`` counts the strictly smaller ``hi``;
+    ``hi_j`` counts ``lo_i <= hi_j`` — together a collision-free
+    permutation."""
+    m, n = lo.shape[-1], hi.shape[-1]
+    cmp_ = hi[..., None, :] < lo[..., :, None]  # (.., m, n): hi_j < lo_i
+    rank_lo = torch.arange(m, device=lo.device) + cmp_.sum(dim=-1)
+    rank_hi = torch.arange(n, device=hi.device) + (~cmp_).sum(dim=-2)
+    return rank_lo.to(torch.int32), rank_hi.to(torch.int32)
+
+
+def merge2_sorted(lo: torch.Tensor, hi: torch.Tensor,
+                  payload: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Single-stage stable merge of two ascending runs along the last axis."""
+    rank_lo, rank_hi = ranks_merge2(lo, hi)
+    vals = torch.cat([lo, hi], dim=-1)
+    rank = torch.cat([rank_lo, rank_hi], dim=-1)
+    if payload is None:
+        return scatter_permute(vals, rank)
+    return scatter_permute(vals, rank, torch.cat(list(payload), dim=-1))
+
+
+def sort_nsorter(x: torch.Tensor, payload: Optional[torch.Tensor] = None):
+    """Single-stage N-sorter along the last axis (ascending, stable)."""
+    rank = ranks_sort(x)
+    return scatter_permute(x, rank, payload)

@@ -1,0 +1,45 @@
+"""Carry a parameter tree of the JAX package over to the port.
+
+``params_from_jax`` takes the reference's ``model_init`` tree with every
+leaf turned into a numpy array (the caller converts; this module imports
+no JAX) and returns the port's parameters, so that both packages compute
+the same function. The stacked ``stack/body`` leaves, with their leading
+layer axis, become one dict per layer.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from .transformer import check_dense
+
+
+def _map(tree: Any, fn) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree: Mapping, cfg: ModelConfig,
+                    device: DeviceLike = None) -> dict:
+    """Reference parameter tree (numpy leaves) -> port parameters in
+    ``cfg.dtype`` on ``device``."""
+    check_dense(cfg)
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.dtype)
+    if "head" in tree["stack"] or "shared" in tree["stack"]:
+        raise NotImplementedError("only homogeneous dense stacks carry over")
+
+    def leaf(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dt)
+
+    body = tree["stack"]["body"]
+    n_layers = int(np.shape(body["ln1"]["scale"])[0])
+    out = {k: _map(v, leaf) for k, v in tree.items() if k != "stack"}
+    out["stack"] = {"body": [_map(body, lambda a, i=i: leaf(np.asarray(a)[i]))
+                             for i in range(n_layers)]}
+    return out

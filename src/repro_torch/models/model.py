@@ -1,0 +1,94 @@
+"""LM wrapper: init / forward / prefill / decode for the dense family.
+
+Counterpart of ``repro.models.model``. Parameters are a nested dict with
+the reference's names and layouts; the layer stack is a list of per-layer
+dicts (``params["stack"]["body"][i]``) where the reference stacks them on
+a leading layer axis.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from .layers import dense, dense_init, embed, rmsnorm
+from .transformer import stack_apply, stack_cache_init, stack_init
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def model_init(generator: Optional[torch.Generator], cfg: ModelConfig,
+               device: DeviceLike = None) -> dict:
+    """Random weights with the distributions of ``repro.models.model_init``:
+    embedding normal x 0.02, dense weights normal x 1/sqrt(fan_in), norms
+    ones. Each tensor is drawn in float32 and stored in ``cfg.dtype`` one
+    at a time, so the full-width model never holds a float32 copy of all
+    its weights. ``generator`` (on ``device``) makes the draw
+    reproducible; ``None`` seeds one with 0."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    dt = _dtype(cfg)
+    emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=generator,
+                      device=dev, dtype=torch.float32)
+    p = {"embed": {"emb": emb.mul_(0.02).to(dt)}}
+    del emb
+    p["stack"] = stack_init(generator, cfg, dt, dev)
+    p["final_norm"] = {"scale": torch.ones(cfg.d_model, dtype=dt, device=dev)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dt, dev)
+    return p
+
+
+def _logits(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return torch.matmul(x, p["embed"]["emb"].to(x.dtype).t())
+    return dense(p["lm_head"], x)
+
+
+def forward(p: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V)."""
+    x = embed(p["embed"], batch["tokens"], _dtype(cfg))
+    x, _ = stack_apply(p["stack"], x, cfg, mode="train")
+    return _logits(p, x, cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> dict:
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.cache_dtype) if cfg.cache_dtype else _dtype(cfg)
+    return stack_cache_init(cfg, batch, max_len, dt, dev)
+
+
+def prefill(p: dict, batch: dict, cache: dict, cfg: ModelConfig, *,
+            lengths: Optional[torch.Tensor] = None):
+    """Run the prompt through the stack, filling the cache
+    (``model.py:137``). Returns (last-position logits (B, V), cache).
+    With ``lengths`` (B,) the prompts are right-padded: logits come from
+    each row's position ``lengths - 1`` (causal attention keeps the valid
+    positions exact) and every layer's ``pos`` becomes ``lengths``."""
+    x = embed(p["embed"], batch["tokens"], _dtype(cfg))
+    x, cache = stack_apply(p["stack"], x, cfg, mode="prefill", caches=cache)
+    if lengths is None:
+        return _logits(p, x[:, -1:], cfg)[:, 0], cache
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=x.device)
+    rows = torch.arange(x.shape[0], device=x.device)
+    last = x[rows, (lengths - 1).long()][:, None]
+    for lc in cache["body"]:
+        lc["pos"] = lengths.clone()
+    return _logits(p, last, cfg)[:, 0], cache
+
+
+def decode_step(p: dict, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
+                *, positions: Optional[torch.Tensor] = None):
+    """One decode step (``model.py:157``). tokens (B, 1) -> (logits (B, V),
+    cache); ``positions`` (B, 1) are the RoPE positions of the tokens."""
+    x = embed(p["embed"], tokens, _dtype(cfg))
+    x, cache = stack_apply(p["stack"], x, cfg, mode="decode", caches=cache,
+                           positions=positions)
+    return _logits(p, x, cfg)[:, 0], cache

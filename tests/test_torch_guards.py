@@ -1,0 +1,106 @@
+"""Guards of the PyTorch port: it never imports JAX or the JAX package,
+it never drops to the CPU on its own, and ``chip_smoke.py`` finds the
+package by itself and fails cleanly without a card."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _env_without_pythonpath():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_import_every_module_without_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "import chip_smoke\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    env = dict(_env_without_pythonpath(), PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, str(ROOT)], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_source_scan_finds_no_jax_or_reference_import():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        roots = set(_imported_roots(f))
+        assert not roots & {"jax", "jaxlib", "repro"}, (f, roots)
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import init_cache, model_init
+    from repro_torch.serving import ServeConfig, generate
+
+    cfg = get_smoke_config("qwen3-8b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_init(None, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 1, 8)
+    params = model_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = np.zeros((1, 4), np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(params, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main(["--arch", "qwen3-8b", "--smoke", "--new-tokens", "2"])
+
+
+def test_chip_smoke_from_another_cwd_fails_without_a_card(no_card, tmp_path):
+    """It imports the package before it looks for a card, so this also
+    shows that it finds ``src/`` by itself."""
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+                         env=_env_without_pythonpath(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "ModuleNotFoundError" not in out.stderr + out.stdout
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory without the package it fails, card or no card."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=_env_without_pythonpath(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "src/repro_torch is not beside this script" in out.stderr
+    assert '"ok"' not in out.stdout
