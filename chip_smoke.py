@@ -10,18 +10,31 @@ script with a non-zero exit code when it fails:
 1. environment, the card's name and power limit, and the kernel build
    (nvcc, from ``src/repro_torch/csrc/`` only);
 2. every CUDA kernel against its plain PyTorch version on the card,
-   bit-equal values and indices, in bf16 and f32, on rows that hold NaN,
-   ±inf, ±0.0 and many ties;
-3. the main path: ``generate`` on Qwen3-8B at full width (bf16, random
-   weights from seed 0), batch 4, prompt 128, 16 new tokens, top_k 64,
-   temperature 0.8; the same with ragged prompt lengths; once greedy; and
-   the launcher on the smoke-width config (vocab 256: the router kernel).
-   Launch counts are zeroed just before each run and read just after it;
-   each run's first-step candidates and token (the full-width sampled run
-   and the launcher's) are checked against the plain top-k;
+   bit-equal values and indices (and permutations and payload lanes for
+   the segmented class kernels), in bf16, f32 and int32, on rows that
+   hold NaN, ±inf, ±0.0 and many ties;
+3. the main paths, each with its launch counts zeroed just before it and
+   read just after it:
+   a. ``generate`` on Qwen3-8B at full width (bf16, random weights from
+      seed 0), batch 4, prompt 128, 16 new tokens, top_k 64, temperature
+      0.8; the same with ragged prompt lengths; once greedy; and the
+      launcher on the smoke-width config (vocab 256: the router kernel);
+      each run's first-step candidates and token are checked against the
+      plain top-k;
+   b. the request scheduler (``ScheduledEngine``) on the same full-width
+      model: six staggered requests of mixed k, nucleus and greedy, each
+      stream checked bit-equal to a solo ``generate`` of it; and one
+      decode step, alone against a batch of 4, traced op by op with the
+      rows unpadded and padded (the padded one must not differ);
+   c. ``--engine`` at smoke width (vocab 256: the class sort per decode
+      tick), its first tick's candidates checked against the plain class
+      sort;
+   d. the segmented library calls (``segment_sort / segment_merge /
+      segment_topk / segment_argmax``) at the MoE grouping and re-rank
+      shapes, checked against the CPU;
 4. times (CUDA events) of every kernel beside its bound, its plain
-   version and ``torch.topk`` on the same input (a yardstick the port
-   never calls).
+   version and one PyTorch call on the same input (``torch.topk``,
+   ``torch.sort``: a yardstick the port never calls).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Needs one card.
@@ -47,6 +60,7 @@ INT32_PER_CLOCK_PER_SM = 64
 #: select) that folds it into a rank or a search bound
 OPS_PER_COMPARISON = 2
 SOURCE = "src/repro_torch/csrc/topk.cu"
+SEG_SOURCE = "src/repro_torch/csrc/segmented.cu"
 
 
 def log(*args) -> None:
@@ -207,6 +221,133 @@ def phase_kernels(dev, K, topk_block) -> dict:
     return err
 
 
+def seg_tile(rows, w, dtype, device, seed):
+    """A class tile with heavy ties; floats also hold NaN, ±inf and ±0.0,
+    int32 its extremes (INT32_MAX ties the key-domain sentinel)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        x = rng.integers(-3, 4, (rows, w)).astype(np.int32)
+        x[rng.random((rows, w)) < 0.05] = np.iinfo(np.int32).max
+        x[rng.random((rows, w)) < 0.05] = np.iinfo(np.int32).min
+        return torch.from_numpy(x).to(device)
+    x = (rng.integers(-3, 4, (rows, w)) * 0.5).astype(np.float32)
+    for val, frac in ((np.nan, 0.05), (np.inf, 0.05), (-np.inf, 0.05), (-0.0, 0.1)):
+        x[rng.random((rows, w)) < frac] = val
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+def seg_lens(rows, w, device, seed, full=False):
+    """Valid lengths from 0 to w (the first row full, the second empty)."""
+    import numpy as np
+    import torch
+
+    lens = np.random.default_rng(seed).integers(0, w + 1, (rows, 1)).astype(np.int32)
+    if full:
+        lens[:] = w
+    else:
+        lens[0], lens[1 % rows] = w, 0
+    return torch.from_numpy(lens).to(device)
+
+
+def require_same_class(name, got, want) -> float:
+    """Class-kernel results bit-equal: values, perm and every payload lane."""
+    import torch
+
+    (gv, gp, gl), (wv, wp, wl) = got, want
+    if gv.shape != wv.shape or not torch.equal(bits(gv), bits(wv)):
+        raise AssertionError(f"{name}: values differ from the plain version")
+    if (gp is None) != (wp is None) or (gp is not None and not torch.equal(gp, wp)):
+        raise AssertionError(f"{name}: permutations differ from the plain version")
+    for a, b in zip(gl, wl):
+        a = bits(a) if a.dtype.is_floating_point else a
+        b = bits(b) if b.dtype.is_floating_point else b
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: payload lanes differ from the plain version")
+    return max_abs_err(gv, wv)
+
+
+def plain_in_chunks(fn, rows, chunk=512):
+    """Run a plain class version over row chunks (its comparison clouds
+    are large at W = 1024) and stitch the results."""
+    import torch
+
+    parts = [fn(slice(i, min(i + chunk, rows))) for i in range(0, rows, chunk)]
+    perm = None if parts[0][1] is None else torch.cat([p[1] for p in parts])
+    return (torch.cat([p[0] for p in parts]), perm,
+            tuple(torch.cat([p[2][j] for p in parts]) for j in range(len(parts[0][2]))))
+
+
+def phase_seg_kernels(dev, SK, capable_families) -> dict:
+    """Phase 2, segmented: the class sort and class merge bit-equal to
+    their plain versions, values, perm and payload lanes."""
+    import torch
+
+    err = {"seg_sort": 0.0, "seg_merge": 0.0}
+    dtypes = (torch.bfloat16, torch.float32, torch.int32)
+
+    def sort_case(name, x, lens, pay, k_out, fam, flip):
+        got = SK.segment_class_sort(x, lens, pay, k_out=k_out, network=fam, flip=flip,
+                                    want_perm=True)
+        want = plain_in_chunks(lambda r: SK.segment_class_sort_plain(
+            x[r], lens[r], tuple(p[r] for p in pay), k_out=k_out, network=fam, flip=flip,
+            want_perm=True), x.shape[0])
+        err["seg_sort"] = max(err["seg_sort"], require_same_class(name, got, want))
+
+    # every width, dtype, order and capable family, lengths 0..W
+    for w in (2, 16, 64, 128, 256, 512, 1024):
+        for dt in dtypes:
+            x = seg_tile(64, w, dt, dev, seed=w)
+            lens = seg_lens(64, w, dev, seed=w + 1)
+            pay = (torch.arange(64 * w * 2, dtype=torch.int32, device=dev).reshape(64, w, 2),
+                   seg_tile(64, w, torch.bfloat16, dev, seed=w + 2))
+            for fam in capable_families("sort", (w,)):
+                for flip in (False, True):
+                    sort_case(f"class sort W={w} {dt} {fam} flip={flip}", x, lens, pay,
+                              max(1, w // 3), fam, flip)
+        log(f"  seg_sort W={w}: {', '.join(capable_families('sort', (w,)))} x bf16/f32/"
+            f"int32 x both orders, 64 rows, lens 0..W, 2 payload lanes: bit-equal")
+    # the shapes the paths give it
+    for name, rows, w, dt, k_out, flip, full, with_pay in (
+            ("engine decode tile (4, 256) f32 k_out 64", 4, 256, torch.float32, 64, True,
+             True, False),
+            ("MoE grouping sort (1, 1024) int32 + int32 payload", 1, 1024, torch.int32,
+             1024, False, True, True),
+            ("re-rank (4096, 1024) bf16 k_out 64", 4096, 1024, torch.bfloat16, 64, True,
+             False, False)):
+        x = seg_tile(rows, w, dt, dev, seed=rows + w)
+        lens = seg_lens(rows, w, dev, seed=rows, full=full)
+        pay = ((torch.arange(rows * w, dtype=torch.int32, device=dev).reshape(rows, w),)
+               if with_pay else ())
+        for fam in capable_families("sort", (w,)):
+            sort_case(f"{name} {fam}", x, lens, pay, k_out, fam, flip)
+        log(f"  seg_sort {name}: {', '.join(capable_families('sort', (w,)))}: bit-equal")
+    # merges: lengths below the widths, a payload lane, both orders
+    for wa, wb in ((16, 16), (64, 256), (512, 512)):
+        for dt in dtypes:
+            for flip in (False, True):
+                la, lb = seg_lens(64, wa, dev, seed=wa), seg_lens(64, wb, dev, seed=wb + 5)
+                a = SK.segment_class_sort_plain(seg_tile(64, wa, dt, dev, seed=1), la,
+                                                flip=flip)[0]
+                b = SK.segment_class_sort_plain(seg_tile(64, wb, dt, dev, seed=2), lb,
+                                                flip=flip)[0]
+                pay = (torch.arange(64 * (wa + wb), dtype=torch.int32,
+                                    device=dev).reshape(64, wa + wb),)
+                for fam in capable_families("merge2", (wa, wb)):
+                    got = SK.segment_class_merge(a, b, la, lb, pay, network=fam, flip=flip,
+                                                 want_perm=True)
+                    want = SK.segment_class_merge_plain(a, b, la, lb, pay, network=fam,
+                                                        flip=flip, want_perm=True)
+                    err["seg_merge"] = max(err["seg_merge"], require_same_class(
+                        f"class merge ({wa}, {wb}) {dt} {fam} flip={flip}", got, want))
+        log(f"  seg_merge ({wa}, {wb}): {', '.join(capable_families('merge2', (wa, wb)))}"
+            f" x bf16/f32/int32 x both orders, lens below the widths, payload: bit-equal")
+    torch.cuda.synchronize()
+    return err
+
+
 def phase_serve(dev, K):
     """Phase 3: the main path at full width, launches counted."""
     import numpy as np
@@ -264,6 +405,7 @@ def phase_serve(dev, K):
     )
     outs, launches = {}, {name: 0 for name in K.LAUNCHES}
     for name, run, want in runs:
+        want = {**{n: 0 for n in K.LAUNCHES}, **want}
         K.reset_launch_counts()
         outs[name] = run()
         torch.cuda.synchronize()
@@ -340,6 +482,368 @@ def phase_serve(dev, K):
         raise AssertionError(f"smoke logits on the card differ from the CPU by {diff}")
     log(f"  smoke config f32: card vs CPU prefill logits max |diff| {diff:.2e} (<= 1e-4)")
     return params, logits, smoke_logits, launches
+
+
+def sort_comparisons(lens) -> float:
+    """Comparisons a comparison sort needs for rows of these valid
+    lengths: n log2 n a row (the class sort's k_out prefix is part of
+    that sort)."""
+    import numpy as np
+
+    n = lens.reshape(-1).double().cpu().numpy()
+    return float((n * np.log2(np.maximum(n, 1))).sum())
+
+
+def phase_engine(dev, K, params, card) -> dict:
+    """Phase 3b: the request scheduler at full width. Six staggered
+    requests on four slots; every stream bit-equal to a solo ``generate``
+    of its request at batch 1 with ``cache_len`` = the slot capacity."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import topk_block
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeConfig, generate
+    from repro_torch.serving.scheduler import SamplingParams, ScheduledEngine, SchedulerConfig
+
+    cfg = get_config("qwen3-8b")
+    vocab = cfg.vocab_size
+    sched = SchedulerConfig(n_slots=4, page_size=16, pages_per_slot=9)  # ceil(144 / 16)
+    plens, arrivals = (128, 77, 128, 33, 100, 5), (0, 0, 1, 2, 4, 6)
+    sps = [SamplingParams(k=64, temperature=0.8, seed=11),
+           SamplingParams(k=16, temperature=1.0, seed=12),
+           SamplingParams(k=256, temperature=0.7, top_p=0.9, seed=13),
+           SamplingParams(temperature=0.0, seed=14),
+           SamplingParams(k=64, temperature=0.8, top_p=0.95, max_new_tokens=1, seed=15),
+           SamplingParams(k=64, temperature=0.8, max_new_tokens=8, seed=16)]
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in plens]
+
+    def levels(k):
+        return K.vocab_levels(vocab, topk_block(vocab, k))
+
+    eng = ScheduledEngine(params, cfg, sched, device=dev)
+    rids = [eng.submit(p, sp, arrival=a) for p, sp, a in zip(prompts, sps, arrivals)]
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(K.LAUNCHES)
+    # first tokens: one vocab top-k per sampled request; decode ticks: one
+    # stable top-k (the spill of segment_topk) per tick with a sampler
+    want = {n: 0 for n in K.LAUNCHES}
+    for sp in sps:
+        if not sp.greedy:
+            want["vocab_phase1"] += 1
+            want["vocab_merge_level"] += levels(sp.k)
+    for _, _, ks in eng.tick_log:
+        if ks:
+            want["vocab_phase1"] += 1
+            want["vocab_merge_level"] += levels(max(ks))
+    log(f"  launches, engine drain: {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"engine drain: launch counts {got} != {want}")
+    n_tok = sum(len(out[r]) for r in rids)
+    for rid, p, sp in zip(rids, prompts, sps):
+        K.reset_launch_counts()
+        solo = generate(params, {"tokens": p[None]}, cfg, ServeConfig(
+            max_new_tokens=sp.max_new_tokens, top_k=sp.k, top_p=sp.top_p,
+            temperature=sp.temperature, seed=sp.seed, cache_len=sched.slot_capacity),
+            device=dev)["tokens"][0]
+        torch.cuda.synchronize()
+        solo_got = dict(K.LAUNCHES)
+        solo_want = {n: 0 for n in K.LAUNCHES}
+        if not sp.greedy:
+            solo_want["vocab_phase1"] = sp.max_new_tokens
+            solo_want["vocab_merge_level"] = sp.max_new_tokens * levels(sp.k)
+        if solo_got != solo_want:
+            raise AssertionError(f"solo run {rid}: launch counts {solo_got} != {solo_want}")
+        r = eng.requests[rid]
+        if r.state.value != "done" or not np.array_equal(out[rid], solo):
+            raise AssertionError(f"request {rid} ({sp}): scheduled tokens {out[rid].tolist()} "
+                                 f"!= solo generate {solo.tolist()}")
+        log(f"  request {rid}: prompt {p.size}, arrival {r.arrival}, admitted at tick "
+            f"{r.admit_tick}, {len(out[rid])} tokens, TTFT {(r.t_first - r.t_submit) * 1e3:.2f} "
+            f"ms; bit-equal to solo generate (launches {solo_got['vocab_phase1']} phase 1, "
+            f"{solo_got['vocab_merge_level']} merge levels)")
+    ticks = np.asarray(eng.tick_s) * 1e3
+    log(f"  engine drain: {len(rids)} requests, {n_tok} tokens in {wall:.3f} s wall, "
+        f"{eng.t} ticks ({len(ticks)} decode ticks), {n_tok / wall:.1f} tok/s, decode tick "
+        f"p50 {np.percentile(ticks, 50):.3f} ms (max {ticks.max():.3f} ms); {card}")
+    return got
+
+
+def phase_invariance(dev, params, cfg, card) -> None:
+    """Does one row's decode step give other bits alone than inside a
+    batch of 4 on this card? Four requests are prefilled alone (prompts
+    of 128, 77, 33 and 100 tokens); one decode step then runs for each
+    alone and for the four together, once with the rows unpadded
+    (``DECODE_TILE`` 1) and once padded to ``DECODE_TILE`` as decode
+    runs them. Every weight product, RMS norm and the decode attention
+    of the stack is traced, and for each:
+
+    * *alone*: the op run again on one row of the batch's own input (M =
+      1 against the batch's M) gives that row other bits, counted over
+      the 4 rows and every layer (unpadded run only);
+    * *first break*: layer by layer, the first op whose input row has the
+      same bits in the two runs and whose output row does not.
+
+    The padded run fails the phase if any row's logits differ; the
+    unpadded one is reported, as the reason for the padding."""
+    import numpy as np
+    import torch
+
+    import repro_torch.models.attention as MA
+    import repro_torch.models.layers as ML
+    import repro_torch.models.model as MM
+    import repro_torch.models.transformer as MT
+    from repro_torch.models import init_cache, prefill
+
+    names = {id(params["lm_head"]): "lm_head", id(params["final_norm"]): "final_norm"}
+    for lay in params["stack"]["body"]:
+        names[id(lay["ln1"])], names[id(lay["ln2"])] = "ln1", "ln2"
+        for blk in ("attn", "ffn"):
+            for w, p in lay[blk].items():
+                names[id(p)] = f"{blk}.{w}"
+    rec = []  # (op, its function, its arguments, which of them hold rows, output)
+
+    def traced(real, kind):
+        def fn(p, x, *a):
+            y = real(p, x, *a)
+            rec.append((f"{kind} {names.get(id(p), '?')}", real, (p, x) + a, (1,), y))
+            return y
+        return fn
+
+    def traced_attention(q, k, v, valid_len):
+        y = real_attention(q, k, v, valid_len)
+        rec.append(("decode attention", real_attention, (q, k, v, valid_len), (0, 1, 2, 3), y))
+        return y
+
+    lens, cap = (128, 77, 33, 100), 144
+    rng = np.random.default_rng(3)
+    solo = []
+    with torch.inference_mode():
+        for n in lens:
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n)).astype(np.int32))
+            lg, c = prefill(params, {"tokens": toks.to(dev)}, init_cache(cfg, 1, cap, dev), cfg)
+            solo.append((torch.argmax(lg, -1).to(torch.int32)[:, None], c["body"]))
+
+    def step(rows):
+        """One decode step of these rows, on copies of their caches."""
+        body = [{"k": torch.cat([solo[r][1][i]["k"] for r in rows]),
+                 "v": torch.cat([solo[r][1][i]["v"] for r in rows]),
+                 "pos": torch.tensor([lens[r] for r in rows], dtype=torch.int32, device=dev)}
+                for i in range(cfg.n_layers)]
+        pos = torch.tensor([[lens[r]] for r in rows], dtype=torch.int32, device=dev)
+        rec.clear()
+        logits, _ = MM.decode_step(params, torch.cat([solo[r][0] for r in rows]),
+                                   {"body": body}, cfg, positions=pos)
+        return logits, list(rec)
+
+    def same(a, b):
+        return torch.equal(bits(a), bits(b))
+
+    def count(d, op):
+        d[op] = d.get(op, 0) + 1
+
+    seams = [(MA, "dense"), (ML, "dense"), (MM, "dense"), (MA, "rmsnorm"),
+             (MT, "rmsnorm"), (MM, "rmsnorm")]
+    saved = [(m, n, getattr(m, n)) for m, n in seams]
+    real_attention, tile = MA.decode_attention, MM.DECODE_TILE
+    try:
+        for m, n in seams:
+            setattr(m, n, traced(getattr(m, n), n))
+        MA.decode_attention = traced_attention
+        for t in (1, tile):
+            MM.DECODE_TILE = t
+            differ, worst, alone, first = 0, 0.0, {}, None
+            with torch.inference_mode():
+                lg4, rec4 = step(range(4))
+                for r in range(4):
+                    lg1, rec1 = step([r])
+                    if not same(lg4[r], lg1[0]):
+                        differ += 1
+                        worst = max(worst, (lg4[r].float() - lg1[0].float()).abs().max().item())
+                    layer = -1
+                    for (op, fn, args, held, y4), (*_, args1, _, y1) in zip(rec4, rec1):
+                        layer += op == "rmsnorm ln1"
+                        if t == 1:
+                            row = [a[r:r + 1] if i in held else a for i, a in enumerate(args)]
+                            if not same(fn(*row)[0], y4[r]):
+                                count(alone, op)
+                        x4, x1 = args[held[0]], args1[held[0]]
+                        if first is None and same(x4[r], x1[0]) and not same(y4[r], y1[0]):
+                            first = (op, layer, r, int((bits(y4[r]) != bits(y1[0])).sum()))
+            log(f"  decode rows padded to a multiple of {t}: rows whose logits differ, batch "
+                f"of 4 against alone: {differ} of 4 (max |diff| {worst:.4g})")
+            if t == 1:
+                log(f"    ops that give a row other bits alone (M = 1) than in the batch "
+                    f"(M = 4), over 4 rows x {cfg.n_layers} layers: {alone or 'none'}")
+            log("    first break: " + (f"{first[0]} in layer {first[1]}, row {first[2]}, "
+                                       f"{first[3]} elements differ" if first else "none"))
+            if t == tile and differ:
+                raise AssertionError(f"decode with rows padded to {t}: {differ} rows differ "
+                                     f"between batch 4 and alone (first break {first})")
+    finally:
+        for m, n, real in saved:
+            setattr(m, n, real)
+        MA.decode_attention, MM.DECODE_TILE = real_attention, tile
+    log(f"  {card}")
+
+
+def decode_tile_cost(dev, params, cfg, card) -> None:
+    """What the batch-invariant decode costs: ``generate`` at batch 4 with
+    the rows padded to DECODE_TILE = 8 and without padding (tile 1), in
+    turns 8, 1, 1, 8 within this run."""
+    import numpy as np
+
+    import repro_torch.models.model as MM
+    from repro_torch.serving import ServeConfig, generate
+
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+    sc = ServeConfig(max_new_tokens=16, top_k=64, temperature=0.8, time_steps=True)
+    tile = MM.DECODE_TILE
+    try:
+        for t in (tile, 1, 1, tile):
+            MM.DECODE_TILE = t
+            o = generate(params, {"tokens": toks}, cfg, sc, device=dev)
+            log(f"  generate B=4, decode rows padded to a multiple of {t}: step p50 "
+                f"{o['decode_step_p50_us'] / 1e3:.3f} ms, p99 "
+                f"{o['decode_step_p99_us'] / 1e3:.3f} ms; {card}")
+    finally:
+        MM.DECODE_TILE = tile
+
+
+def phase_engine_smoke(dev, K, SK, bsz, plen, new, k, temp):
+    """Phase 3c: ``--engine`` at smoke width. The class sort runs once per
+    decode tick with a sampling slot; the candidates of the first tick
+    with the most slots equal the plain class sort's on the same logits."""
+    import torch
+
+    import repro_torch.api as api
+    from repro_torch.launch import serve as launcher
+
+    first = {}
+    real = api.segment_topk
+
+    def spy(values, offsets, ks, **kw):  # keeps the first tick with the most rows
+        res = real(values, offsets, ks, **kw)
+        if len(ks) > len(first.get("call", (0, 0, ()))[2]):
+            first["call"] = (values.clone(), tuple(offsets), list(ks), res)
+        return res
+
+    args = ["--arch", "qwen3-8b", "--smoke", "--engine", "--batch", str(bsz),
+            "--prompt-len", str(plen), "--new-tokens", str(new), "--top-k", str(k),
+            "--temperature", str(temp), "--device", str(dev)]
+    api.segment_topk = spy
+    try:
+        K.reset_launch_counts()
+        res = launcher.main(args)
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+    finally:
+        api.segment_topk = real
+    eng = res["engine"]
+    want = {n: 0 for n in K.LAUNCHES}
+    want["router_topk"] = sum(not r.params.greedy for r in eng.requests.values())
+    want["seg_sort"] = sum(1 for _, _, ks in eng.tick_log if ks)
+    log(f"  launches, --engine at smoke width: {got} (expected {want}; "
+        f"{len(eng.tick_log)} decode ticks)")
+    if got != want:
+        raise AssertionError(f"--engine smoke: launch counts {got} != {want}")
+    if any(len(t) != new for t in res["tokens"].values()) or len(res["tokens"]) != bsz:
+        raise AssertionError("--engine smoke: not every request got its tokens")
+    values, offsets, ks, (vals, idx, out_offs) = first["call"]
+    v = offsets[1]
+    rows = values.view(-1, v)
+    k_out = max(ks)
+    pv, pp, _ = SK.segment_class_sort_plain(
+        rows, torch.full((rows.shape[0], 1), v, dtype=torch.int32, device=dev),
+        k_out=k_out, flip=True, want_perm=True)
+    want_v = torch.cat([pv[r, :kr] for r, kr in enumerate(ks)])
+    want_i = torch.cat([pp[r, :kr] for r, kr in enumerate(ks)])
+    require_equal("--engine decode tick: candidates", (vals, idx), (want_v, want_i))
+    log(f"  --engine first decode tick of {rows.shape[0]} slots: {rows.shape[0]} rows x {v}, "
+        f"ks {ks}: candidates bit-equal to the plain class sort")
+    return got, rows, k_out
+
+
+def phase_seg_library(dev, K, SK):
+    """Phase 3d: the segmented library calls at the shapes their users
+    give them, launches counted; the results equal the CPU's (the plain
+    versions) on every segment checked."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.segmented import bucket_merge_pairs, bucket_segments
+
+    rng = np.random.default_rng(3)
+    # MoE grouping sort: 1024 (token, expert) slots by expert id, token ids riding
+    experts = torch.from_numpy(rng.integers(0, 64, 1024).astype(np.int32))
+    tok_ids = torch.arange(1024, dtype=torch.int32)
+    # re-rank: 4096 queries x 1024 candidate scores (bf16), top-64 each
+    nq, nc, kq = 4096, 1024, 64
+    scores = seg_tile(nq, nc, torch.bfloat16, "cpu", seed=9).reshape(-1)
+    q_offs = tuple(range(0, (nq + 1) * nc, nc))
+    # merge each query's 64 kept candidates with a ragged list of new ones
+    nb = rng.integers(1, 65, 1024)
+    offs_a = tuple(range(0, 1025 * 64, 64))
+    offs_b = tuple(np.concatenate([[0], np.cumsum(nb)]).tolist())
+    a = seg_tile(1024, 64, torch.float32, "cpu", seed=4).reshape(-1)
+    b = seg_tile(1, int(offs_b[-1]), torch.float32, "cpu", seed=5).reshape(-1)
+
+    def calls(device, n_q):
+        qo = q_offs[:n_q + 1]
+        sa = repro_torch.segment_sort(a.to(device), offs_a, descending=True)
+        sb = repro_torch.segment_sort(b.to(device), offs_b, descending=True)
+        return (repro_torch.segment_sort(experts.to(device), (0, 1024), payload=tok_ids.to(device)),
+                repro_torch.segment_topk(scores[:qo[-1]].to(device), qo, kq),
+                repro_torch.segment_merge(sa, sb, offs_a, offs_b, descending=True,
+                                          payload=(torch.arange(offs_a[-1]).to(device),
+                                                   torch.arange(offs_b[-1]).to(device))),
+                repro_torch.segment_argmax(scores[:qo[-1]].to(device), qo))
+
+    K.reset_launch_counts()
+    card = calls(dev, nq)
+    torch.cuda.synchronize()
+    got = dict(K.LAUNCHES)
+    want = {n: 0 for n in K.LAUNCHES}
+    for lens in ([1024], np.diff(q_offs), np.diff(offs_a), nb, np.diff(q_offs)):
+        want["seg_sort"] += sum(c.width > 1 for c in bucket_segments(lens, 1024)[0])
+    want["seg_merge"] = len(bucket_merge_pairs(np.diff(offs_a), nb, 1024)[0])
+    log(f"  launches, segmented library calls: {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"segmented library calls: launch counts {got} != {want}")
+    n_check = 256  # the CPU's plain versions on the first 256 queries
+    cpu = calls("cpu", n_check)
+
+    def flat(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, dict):
+            return [t for v in x.values() for t in flat(v)]
+        if isinstance(x, (tuple, list)):
+            return [t for v in x for t in flat(v)]
+        return []
+
+    nt = n_check * kq
+    for name, g, c in zip(("segment_sort (MoE grouping)", "segment_topk (re-rank)",
+                           "segment_merge", "segment_argmax"), card, cpu):
+        gt, ct = flat(g), flat(c)
+        if name.startswith("segment_topk"):
+            gt = [t[:nt] for t in gt]
+        if name.startswith("segment_argmax"):
+            gt = [t[:n_check] for t in gt]
+        for x, y in zip(gt, ct):
+            x = x.cpu()
+            x, y = (bits(x), bits(y)) if x.dtype.is_floating_point else (x, y)
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}: the card differs from the CPU")
+        log(f"  {name}: equal to the CPU's plain versions")
+    return got
 
 
 def _leaves(tree):
@@ -453,6 +957,72 @@ def phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s) ->
     return rows
 
 
+def phase_seg_times(dev, SK, rows, k_out, launches, err, card, ops_per_s) -> list:
+    """Phase 4, segmented: the class sort at the engine's decode tile (the
+    first tick's logits at smoke width), the class merge at (512, 512),
+    each beside its bound, its plain version and one torch.sort call."""
+    import torch
+
+    out = []
+
+    def sort_row(x, lens, k_out, flip, pay=()):
+        s_, w = x.shape
+        call = lambda: SK.segment_class_sort(x, lens, pay, k_out=k_out, flip=flip,  # noqa: E731
+                                             want_perm=True)
+        plain = lambda: SK.segment_class_sort_plain(x, lens, pay, k_out=k_out,  # noqa: E731
+                                                    flip=flip, want_perm=True)
+        ms, eager = graph_ms(call, 200), cuda_ms(call, 200)
+        pl_ms = graph_ms(plain, 5)
+        lib = graph_ms(lambda: torch.sort(x, dim=-1, descending=flip, stable=True), 200)
+        isz = x.element_size()
+        nbytes = (s_ * w * isz + s_ * 4 + s_ * k_out * (isz + 4)
+                  + sum(p.numel() * p.element_size() * (1 + k_out / w) for p in pay))
+        return ms, eager, pl_ms, lib, bound_ms(nbytes, sort_comparisons(lens), ops_per_s)
+
+    full = torch.full((rows.shape[0], 1), rows.shape[1], dtype=torch.int32, device=dev)
+    ms, eager, pl_ms, lib, (b_ms, b_by) = sort_row(rows, full, k_out, True)
+    out.append(dict(name="seg_sort", route="cuda", source=SEG_SOURCE,
+                    replaces="src/repro/kernels/segmented.py:97",
+                    launches=launches["seg_sort"], max_abs_err=err["seg_sort"],
+                    ms=ms, plain_ms=pl_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    log(f"  seg_sort engine decode tile {tuple(rows.shape)} {rows.dtype} k_out {k_out}: "
+        f"{ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}; eager {eager:.4f} ms), plain "
+        f"{pl_ms:.4f} ms, torch.sort {lib:.4f} ms; {card}")
+    for name, s_, w, dt, k, flip, pay in (
+            ("MoE grouping sort", 1, 1024, torch.int32, 1024, False, True),
+            ("re-rank top-64", 4096, 1024, torch.bfloat16, 64, True, False)):
+        x = seg_tile(s_, w, dt, dev, seed=w)
+        lens = torch.full((s_, 1), w, dtype=torch.int32, device=dev)
+        pl = ((torch.arange(s_ * w, dtype=torch.int32, device=dev).reshape(s_, w),)
+              if pay else ())
+        ms2, eager2, pl2, lib2, (b2, by2) = sort_row(x, lens, k, flip, pl)
+        log(f"  seg_sort {name} ({s_}, {w}) {dt} k_out {k}: {ms2:.4f} ms (bound {b2:.6f} ms "
+            f"by {by2}; eager {eager2:.4f} ms), plain {pl2:.4f} ms, torch.sort {lib2:.4f} ms; "
+            f"{card}")
+    # class merge: 256 rows of (512, 512) f32, lengths below the widths, a payload
+    s_, wa, wb = 256, 512, 512
+    la, lb = seg_lens(s_, wa, dev, seed=1), seg_lens(s_, wb, dev, seed=2)
+    a = SK.segment_class_sort_plain(seg_tile(s_, wa, torch.float32, dev, seed=3), la)[0]
+    b = SK.segment_class_sort_plain(seg_tile(s_, wb, torch.float32, dev, seed=4), lb)[0]
+    pay = (torch.arange(s_ * (wa + wb), dtype=torch.int32, device=dev).reshape(s_, wa + wb),)
+    call = lambda: SK.segment_class_merge(a, b, la, lb, pay, want_perm=True)  # noqa: E731
+    ms, eager = graph_ms(call, 200), cuda_ms(call, 200)
+    pl_ms = graph_ms(lambda: SK.segment_class_merge_plain(a, b, la, lb, pay, want_perm=True), 5)
+    cat = torch.cat([a, b], dim=1)
+    lib = graph_ms(lambda: torch.sort(cat, dim=-1, stable=True), 200)
+    nbytes = s_ * (wa + wb) * (4 + 4) + s_ * 8 + s_ * (wa + wb) * (4 + 4 + 4)
+    # a merge needs one comparison per valid output lane
+    b_ms, b_by = bound_ms(nbytes, float((la + lb).sum()), ops_per_s)
+    out.append(dict(name="seg_merge", route="cuda", source=SEG_SOURCE,
+                    replaces="src/repro/kernels/segmented.py:115",
+                    launches=launches["seg_merge"], max_abs_err=err["seg_merge"],
+                    ms=ms, plain_ms=pl_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    log(f"  seg_merge ({s_}, {wa}+{wb}) f32 + payload: {ms:.4f} ms (bound {b_ms:.6f} ms by "
+        f"{b_by}; eager {eager:.4f} ms), plain {pl_ms:.4f} ms, torch.sort of the pair "
+        f"{lib:.4f} ms; {card}")
+    return out
+
+
 def profile_serve(dev, params, cfg, card) -> None:
     """Where a decode step's time goes: torch.profiler over four sampled
     decode steps of the main path (B=4 after a 128-token prompt), device
@@ -521,8 +1091,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from repro_torch.api import topk_block
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import segmented as SK
     from repro_torch.kernels import topk as K
+    from repro_torch.networks import capable_families
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -539,21 +1112,36 @@ def main() -> int:
         f"memory {HBM_BYTES_PER_S:.3e} B/s")
     build.build_all()
     log(f"  nvcc built {build.BUILD_INFO['built']} in {build.BUILD_INFO['seconds']:.1f} s")
-    for line in str(build.BUILD_INFO.get("ptxas_topk", "")).splitlines():
-        if "registers" in line or "spill" in line:
-            log("   " + line.strip())
+    for src in ("topk", "segmented"):
+        for line in str(build.BUILD_INFO.get(f"ptxas_{src}", "")).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"   {src}: " + line.strip())
 
     log("phase 2: kernels against their plain versions")
     err = phase_kernels(dev, K, topk_block)
+    err.update(phase_seg_kernels(dev, SK, capable_families))
 
-    log("phase 3: serve Qwen3-8B at full width")
+    log("phase 3a: serve Qwen3-8B at full width")
     params, logits, smoke_logits, launches = phase_serve(dev, K)
+    log("phase 3b: the request scheduler at full width")
+    runs = [launches, phase_engine(dev, K, params, card)]
+    phase_invariance(dev, params, get_config("qwen3-8b"), card)
+    log("phase 3c: --engine at smoke width")
+    got, tick_rows, tick_k = phase_engine_smoke(dev, K, SK, 4, 32, 16, 64, 0.8)
+    runs.append(got)
+    log("phase 3d: the segmented library calls")
+    runs.append(phase_seg_library(dev, K, SK))
+    launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}
+    log(f"  launches over all the main paths: {launches}")
+    idle = [n for n, c in launches.items() if c == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main paths: {idle}")
 
     log("phase 4: times")
     rows = phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s)
-    from repro_torch.configs import get_config
-
+    rows += phase_seg_times(dev, SK, tick_rows, tick_k, launches, err, card, ops_per_s)
     profile_serve(dev, params, get_config("qwen3-8b"), card)
+    decode_tile_cost(dev, params, get_config("qwen3-8b"), card)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

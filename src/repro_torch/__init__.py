@@ -3,8 +3,9 @@
 The JAX package ``repro`` is the reference; this package computes the same
 functions with PyTorch around hand-written CUDA kernels for Hopper
 (``csrc/``). It imports neither JAX nor the JAX package. Entry points run
-on the card unless the caller passes ``device="cpu"``.
+on the card unless the caller passes ``device="cpu"`` or a CPU tensor.
 """
-from .api import topk  # noqa: F401
+from .api import segment_argmax, segment_merge, segment_sort, segment_topk, topk  # noqa: F401
 
-__all__ = ["topk"]
+__all__ = ["topk", "segment_sort", "segment_merge", "segment_topk",
+           "segment_argmax"]

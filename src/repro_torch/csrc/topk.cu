@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "keys.cuh"
+
 namespace {
 
 constexpr int32_t KEY_PAD = INT32_MIN;  // pad slots: below every real key
@@ -46,39 +48,12 @@ constexpr int ROUTER_CAP = 2 * ROUTER_MAX_E;  // lists of one tree level
 constexpr int ROUTER_THREADS = 256;
 constexpr int MERGE_THREADS = 256;
 
-enum DType { F32 = 0, BF16 = 1, F16 = 2 };
-
-template <int DT> struct Bits { using T = uint16_t; };
-template <> struct Bits<F32> { using T = uint32_t; };
-
-// encode_key_values (kernels/common.py): float bits -> int32 key
-template <int DT>
-__device__ __forceinline__ int32_t encode_key(typename Bits<DT>::T bits) {
-  if (DT == F32) {
-    int32_t y = (int32_t)bits;
-    if ((bits & 0x7fffffffu) > 0x7f800000u) y = 0x7fc00000;  // canonical qNaN
-    return y < 0 ? (y ^ 0x7fffffff) : y;
-  } else {
-    const uint32_t b = bits;
-    const uint32_t inf = DT == BF16 ? 0x7f80u : 0x7c00u;
-    int16_t y = (int16_t)bits;
-    if ((b & 0x7fffu) > inf) y = (int16_t)(DT == BF16 ? 0x7fc0 : 0x7e00);
-    if (y < 0) y = (int16_t)(y ^ 0x7fff);
-    return (int32_t)y;  // widen to int32
-  }
-}
-
-// decode_key_values: the 16-bit keys narrow with wrap-around first
-template <int DT>
-__device__ __forceinline__ typename Bits<DT>::T decode_key(int32_t k) {
-  if (DT == F32) {
-    return (uint32_t)(k < 0 ? (k ^ 0x7fffffff) : k);
-  } else {
-    int16_t y = (int16_t)(uint16_t)(k & 0xffff);
-    if (y < 0) y = (int16_t)(y ^ 0x7fff);
-    return (uint16_t)y;
-  }
-}
+using repro_keys::Bits;
+using repro_keys::BF16;
+using repro_keys::F16;
+using repro_keys::F32;
+using repro_keys::decode_key;
+using repro_keys::encode_key;
 
 // #{a[i] >= key} (strict = false) or #{a[i] > key} (strict = true) for a
 // list a[0..n) sorted descending

@@ -2,7 +2,7 @@
 
 nvcc compiles each ``.cu`` file into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), and ctypes loads
-it. Builds happen at first use, never at import, into
+it; the sources share the headers ``csrc/*.cuh``. Builds happen at first use, never at import, into
 ``repro_torch/_build/`` (listed in ``.gitignore``; ``REPRO_TORCH_BUILD_DIR``
 overrides it). A library is named by the hash of its source and flags, so
 an edited source rebuilds and an unchanged one loads at once. All sources
@@ -51,7 +51,11 @@ def find_nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
+    """The library of ``src``, named by the hash of the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     return build_dir() / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 

@@ -72,14 +72,33 @@ def sentinel_min(dtype: torch.dtype):
     return int(torch.iinfo(dtype).min)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The integer view of a float tensor (itself otherwise): torch's CPU
+    gather and scatter rewrite the bits of a bfloat16 NaN, so the plain
+    versions move floats as integers."""
+    if t.dtype.is_floating_point and t.element_size() in KEY_ITYPE:
+        return t.view(KEY_ITYPE[t.element_size()])
+    return t
+
+
+def take_along(t: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """``torch.gather`` that keeps every bit of the values."""
+    return torch.gather(_bits(t), dim, idx.long()).view(t.dtype)
+
+
+def scatter_along(t: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """``zeros_like(t).scatter(dim, idx, t)`` that keeps every bit."""
+    b = _bits(t)
+    return torch.zeros_like(b).scatter(dim, idx.long(), b).view(t.dtype)
+
+
 def scatter_permute(vals: torch.Tensor, rank: torch.Tensor,
                     payload: Optional[torch.Tensor] = None):
     """``out[..., rank[i]] = vals[..., i]`` (the exact permute)."""
-    r = rank.long()
-    out = torch.zeros_like(vals).scatter(-1, r, vals)
+    out = scatter_along(vals, -1, rank)
     if payload is None:
         return out
-    return out, torch.zeros_like(payload).scatter(-1, r, payload)
+    return out, scatter_along(payload, -1, rank)
 
 
 def ranks_sort(x: torch.Tensor) -> torch.Tensor:
@@ -121,3 +140,39 @@ def sort_nsorter(x: torch.Tensor, payload: Optional[torch.Tensor] = None):
     """Single-stage N-sorter along the last axis (ascending, stable)."""
     rank = ranks_sort(x)
     return scatter_permute(x, rank, payload)
+
+
+def ceil_pow2(n: int) -> int:
+    """Smallest power of two >= ``n``; 0 and 1 give 1 (an empty or
+    one-element list needs no network)."""
+    n = int(n)
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def flip_keys(k: torch.Tensor) -> torch.Tensor:
+    """Exact order reversal: bitwise not for integer keys, negation for
+    raw floats."""
+    return -k if k.dtype.is_floating_point else ~k
+
+
+def stable_compact(valid: torch.Tensor, *arrays: torch.Tensor):
+    """Stable valid-first compaction along the last axis: the slots where
+    ``valid`` holds come first, both sides keep their order."""
+    if valid.shape[-1] <= 1:
+        return arrays if len(arrays) > 1 else arrays[0]
+    v = valid.to(torch.int32)
+    n_valid = v.sum(dim=-1, keepdim=True)
+    dest = torch.where(valid, torch.cumsum(v, dim=-1) - 1,
+                       n_valid + torch.cumsum(1 - v, dim=-1) - 1).long()
+    outs = tuple(scatter_along(a, -1, dest) for a in arrays)
+    return outs if len(outs) > 1 else outs[0]
+
+
+def gather_lanes(perm: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """``leaf[..., perm, :]`` along axis 1: ``perm`` (bt, L) positions,
+    ``leaf`` (bt, L[, F]); negative positions clamp to 0."""
+    idx = torch.where(perm < 0, 0, perm).long()
+    if leaf.ndim > idx.ndim:
+        idx = idx.reshape(idx.shape + (1,) * (leaf.ndim - idx.ndim))
+        idx = idx.expand(idx.shape[:2] + leaf.shape[2:])
+    return take_along(leaf, 1, idx)

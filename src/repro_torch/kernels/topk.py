@@ -44,9 +44,11 @@ PHASE1_MAX_BLOCK = 1024
 _KEY_PAD = torch.iinfo(torch.int32).min
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: kernel launches per kernel; incremented only where a kernel launches
+#: kernel launches per kernel (the segmented class kernels of
+#: ``segmented.py`` count here too); incremented only where a kernel launches
 LAUNCHES: Dict[str, int] = {"router_topk": 0, "vocab_phase1": 0,
-                            "vocab_merge_level": 0}
+                            "vocab_merge_level": 0, "seg_sort": 0,
+                            "seg_merge": 0}
 
 
 def reset_launch_counts() -> None:

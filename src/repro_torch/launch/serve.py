@@ -7,8 +7,9 @@
 ``repro.launch.serve`` plus ``--device`` (default ``cuda``; ``cpu`` only
 when asked). Weights are random, drawn from seed 0. ``--ragged`` draws a
 length per request in [1, prompt_len] and right-pads the batch.
-``--engine`` (the request scheduler) is not ported yet, nor are its
-``--slots`` and ``--page-size``.
+``--engine`` serves the same requests through the request scheduler
+(paged slots, continuous batching; ``--slots``, ``--page-size``): request
+r arrives at tick r with seed r.
 """
 from __future__ import annotations
 
@@ -29,12 +30,13 @@ def main(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--engine", action="store_true",
-                    help="serve through the request scheduler (not ported yet)")
+                    help="serve through the request scheduler "
+                         "(paged slots + continuous batching)")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.engine:
-        ap.error("--engine (the request scheduler) is not ported yet")
 
     import numpy as np
     import torch
@@ -57,6 +59,33 @@ def main(argv=None):
     if lengths is not None:
         for r, n in enumerate(lengths):  # right-pad past each valid length
             tokens[r, n:] = 0
+    if args.engine:
+        import math
+
+        from repro_torch.serving.scheduler import (SamplingParams, ScheduledEngine,
+                                                   SchedulerConfig)
+
+        assert cfg.family == "dense", \
+            "--engine bit-equality contract covers dense stacks"
+        lens = lengths if lengths is not None \
+            else np.full(args.batch, args.prompt_len, np.int32)
+        pages = math.ceil((args.prompt_len + args.new_tokens) / args.page_size)
+        eng = ScheduledEngine(params, cfg, SchedulerConfig(
+            n_slots=args.slots, page_size=args.page_size, pages_per_slot=pages),
+            device=dev)
+        rids = [eng.submit(tokens[r, :lens[r]],
+                           SamplingParams(k=args.top_k, top_p=args.top_p,
+                                          temperature=args.temperature,
+                                          max_new_tokens=args.new_tokens, seed=r),
+                           arrival=r)
+                for r in range(args.batch)]
+        out = eng.run()
+        print(f"[serve] engine drained {len(out)} requests in {eng.t} ticks "
+              f"({args.slots} slots, page {args.page_size})")
+        for rid in rids[:2]:
+            print(f"  rid {rid}: {out[rid]}")
+        return {"engine": eng, "tokens": out, "rids": rids}
+
     batch = {"tokens": tokens}
     if lengths is not None:
         batch["lengths"] = lengths

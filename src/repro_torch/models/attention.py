@@ -133,19 +133,21 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         assert sq == 1 and cache is not None
         idx = cache["pos"]  # int32 write slot: scalar, or (B,) per row
         kc, vc = cache["k"], cache["v"]
-        k_t = k[:, 0].to(kc.dtype)  # (b, hkv, d)
-        v_t = v[:, 0].to(vc.dtype)
+        nc = kc.shape[0]  # rows past the cache's are pads (decode_step)
+        k_t = k[:nc, 0].to(kc.dtype)  # (nc, hkv, d)
+        v_t = v[:nc, 0].to(vc.dtype)
         if idx.ndim == 0:
             kc[:, :, :, idx.long()] = k_t
             vc[:, :, idx.long(), :] = v_t
         else:
-            rows = torch.arange(b, device=x.device)
+            rows = torch.arange(nc, device=x.device)
             kc[rows, :, :, idx.long()] = k_t
             vc[rows, :, idx.long(), :] = v_t
         new_cache = {"k": kc, "v": vc, "pos": idx + 1}
-        qh = q[:, 0].reshape(b, hkv, g, hd)
-        out = decode_attention(qh, kc, vc, valid_len=idx + 1)
-        out = out.reshape(b, 1, h * hd)
+        qh = q[:nc, 0].reshape(nc, hkv, g, hd)
+        out = decode_attention(qh, kc, vc, valid_len=idx + 1).reshape(nc, 1, h * hd)
+        if nc < b:  # the pad rows' attention output is zero
+            out = torch.cat([out, out.new_zeros((b - nc, 1, h * hd))])
     else:
         if mode == "prefill" and cache is not None:
             kc, vc = cache["k"], cache["v"]

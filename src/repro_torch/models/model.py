@@ -17,6 +17,10 @@ from .layers import dense, dense_init, embed, rmsnorm
 from .transformer import stack_apply, stack_cache_init, stack_init
 
 
+#: decode pads its batch to a multiple of this many rows (see decode_step)
+DECODE_TILE = 8
+
+
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
@@ -87,8 +91,22 @@ def prefill(p: dict, batch: dict, cache: dict, cfg: ModelConfig, *,
 def decode_step(p: dict, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
                 *, positions: Optional[torch.Tensor] = None):
     """One decode step (``model.py:157``). tokens (B, 1) -> (logits (B, V),
-    cache); ``positions`` (B, 1) are the RoPE positions of the tokens."""
+    cache); ``positions`` (B, 1) are the RoPE positions of the tokens.
+
+    The rows run padded to a multiple of :data:`DECODE_TILE` (pad rows
+    take token 0 at position 0, have no cache and are dropped): every
+    weight product then has the same shape for one row as for a full
+    tile, so a row's logits do not depend on how many rows share the
+    step. Decode attention is one batched call over the cache's rows;
+    its result for a row does not depend on the batch either."""
+    b = tokens.shape[0]
+    pad = -b % DECODE_TILE
+    if positions is None:  # as attn_apply's default: position 0
+        positions = torch.zeros((b, 1), dtype=torch.int32, device=tokens.device)
+    if pad:
+        tokens = torch.cat([tokens, tokens.new_zeros((pad, 1))])
+        positions = torch.cat([positions, positions.new_zeros((pad, 1))])
     x = embed(p["embed"], tokens, _dtype(cfg))
     x, cache = stack_apply(p["stack"], x, cfg, mode="decode", caches=cache,
                            positions=positions)
-    return _logits(p, x, cfg)[:, 0], cache
+    return _logits(p, x, cfg)[:b, 0], cache

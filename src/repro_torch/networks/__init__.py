@@ -1,0 +1,12 @@
+"""repro_torch.networks — the comparator-network layer of the port.
+
+Family generators (LOMS column device, S2MS, 3-periodic, Batcher bitonic)
+emit merge-step programs; :func:`merge_runs` / :func:`run_sort_program`
+execute them in plain torch, and the CUDA class kernels run the same
+programs from their int32 encoding (:func:`encode_program`).
+"""
+from .families import PERIODIC3_MAX_WIDTH, divisor_cols, pick_merge_cols  # noqa: F401
+from .program import (MergeProgram, PairStage, SortProgram,  # noqa: F401
+                      encode_program, merge_runs, run_sort_program)
+from .registry import (NetworkFamily, capable_families, family_names,  # noqa: F401
+                       get_family, merge_program, sort_program)

@@ -1,0 +1,216 @@
+"""Merge-step program IR and its torch executors.
+
+Counterpart of ``repro.networks.program``. A :class:`MergeProgram`
+describes one oblivious 2-run merge: ``kind='columns'`` is the paper's
+column device (``n_cols == 1``: the single-stage S2MS rank-merge;
+``n_cols == C > 1``: C strided-column S2MS merges, then a rank-sort of
+each row of C values), ``kind='pairs'`` a sequence of compare-exchange
+:class:`PairStage`\\ s over the concatenated runs (optionally with the hi
+run reversed on entry). A :class:`SortProgram` is a pow2 merge tree of
+such programs. The family generators (:mod:`.families`) build them; the
+kernels take them through :mod:`.registry`.
+
+The executors here are the plain versions the CUDA class kernels
+(``csrc/segmented.cu``) are held against: the same comparisons and
+exact scatter permutes as the reference's ``jnp`` executors (the
+reference's one-hot matrix-unit permute has no counterpart; see
+``kernels/common.py``). Only the ``columns``/``n_cols == 1`` program is a
+stable merge (lo wins ties); column devices and pair networks make no
+cross-run tie-order promise, so their callers resolve validity by mask.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.common import merge2_sorted, sort_nsorter
+
+__all__ = ["PairStage", "MergeProgram", "SortProgram", "merge_runs",
+           "run_sort_program", "encode_program"]
+
+_PAIR_KINDS = {"xor": 0, "reflect": 1, "brick_odd": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class PairStage:
+    """One compare-exchange stage over a working vector of length L (the
+    min lands on the lower lane): ``xor`` pairs lanes i and i+d for
+    i mod 2d < d; ``reflect`` pairs i and L-1-i; ``brick_odd`` pairs
+    (1,2), (3,4), ... (L-3, L-2)."""
+
+    kind: str
+    d: int = 1
+
+    def __post_init__(self):
+        assert self.kind in _PAIR_KINDS, self.kind
+        assert self.d >= 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MergeProgram:
+    """A lowered 2-run merge ``(m, n) -> m + n`` along the last axis."""
+
+    family: str
+    m: int
+    n: int
+    kind: str  # 'columns' | 'pairs'
+    n_cols: int = 1
+    reverse_hi: bool = False
+    stages: Tuple[PairStage, ...] = ()
+
+    def __post_init__(self):
+        assert self.kind in ("columns", "pairs"), self.kind
+        if self.kind == "columns" and self.n_cols > 1:
+            assert self.m % self.n_cols == 0 and self.n % self.n_cols == 0, (
+                self.m, self.n, self.n_cols)
+
+    @property
+    def total(self) -> int:
+        return self.m + self.n
+
+
+@dataclasses.dataclass(frozen=True)
+class SortProgram:
+    """A pow2-width merge-tree sort: ``levels[i]`` merges run pairs of
+    length ``2**i``."""
+
+    family: str
+    width: int
+    levels: Tuple[MergeProgram, ...] = ()
+
+    def __post_init__(self):
+        run = 1
+        for mp in self.levels:
+            assert mp.m == run and mp.n == run, (mp.m, mp.n, run)
+            run *= 2
+        assert run == max(self.width, 1), (self.width, len(self.levels))
+
+
+# ---------------------------------------------------------------------------
+# executors (plain torch on the last axis)
+# ---------------------------------------------------------------------------
+
+
+def _xor_exchange(x, p, d: int):
+    """Compare-exchange lanes (i, i+d), i mod 2d < d, on the last axis."""
+    lead, L = x.shape[:-1], x.shape[-1]
+    y = x.reshape(lead + (L // (2 * d), 2, d))
+    a, b = y[..., 0, :], y[..., 1, :]
+    swap = a > b
+    out = torch.stack([torch.where(swap, b, a), torch.where(swap, a, b)],
+                      dim=-2).reshape(lead + (L,))
+    if p is None:
+        return out, None
+    q = p.reshape(lead + (L // (2 * d), 2, d))
+    pa, pb = q[..., 0, :], q[..., 1, :]
+    pout = torch.stack([torch.where(swap, pb, pa), torch.where(swap, pa, pb)],
+                       dim=-2).reshape(lead + (L,))
+    return out, pout
+
+
+def _apply_pair_stage(st: PairStage, x, p):
+    L = x.shape[-1]
+    if st.kind == "xor":
+        return _xor_exchange(x, p, st.d)
+    if st.kind == "reflect":
+        # both halves evaluate the same strict comparison, so the swap
+        # mask is consistent under ties
+        r = x.flip(-1)
+        left = torch.arange(L, device=x.device) < (L // 2)
+        swap = torch.where(left, x > r, r > x)
+        out = torch.where(swap, r, x)
+        return out, (None if p is None else torch.where(swap, p.flip(-1), p))
+    if L <= 2:  # brick_odd
+        return x, p
+    mid, pm = _xor_exchange(x[..., 1:L - 1], None if p is None else p[..., 1:L - 1], 1)
+    out = torch.cat([x[..., :1], mid, x[..., L - 1:]], dim=-1)
+    if p is None:
+        return out, None
+    return out, torch.cat([p[..., :1], pm, p[..., L - 1:]], dim=-1)
+
+
+def _merge_columns(prog: MergeProgram, lo, hi, payload):
+    """The UP-m/DN-n column device: column c merges ``hi[(C-1-c)%C::C]``
+    (first, so it wins ties) with ``lo[c::C]``; stage 2 rank-sorts each
+    row of C values."""
+    m, n, c_ = prog.m, prog.n, prog.n_cols
+    if c_ <= 1 or m % c_ or n % c_:
+        return merge2_sorted(lo, hi, payload=payload)
+    plo, phi = payload if payload is not None else (None, None)
+    cols, pcols = [], []
+    for c in range(c_):
+        av = lo[..., c::c_]
+        bv = hi[..., (c_ - 1 - c) % c_::c_]
+        if payload is not None:
+            col, pcol = merge2_sorted(
+                bv, av, payload=(phi[..., (c_ - 1 - c) % c_::c_], plo[..., c::c_]))
+            pcols.append(pcol)
+        else:
+            col = merge2_sorted(bv, av)
+        cols.append(col)
+    arr = torch.stack(cols, dim=-1)  # (..., R, C)
+    shape = lo.shape[:-1] + (m + n,)
+    if payload is not None:
+        arr, parr = sort_nsorter(arr, torch.stack(pcols, dim=-1))
+        return arr.reshape(shape), parr.reshape(shape)
+    return sort_nsorter(arr).reshape(shape)
+
+
+def _merge_pairs(prog: MergeProgram, lo, hi, payload):
+    x = torch.cat([lo, hi.flip(-1) if prog.reverse_hi else hi], dim=-1)
+    p = None
+    if payload is not None:
+        plo, phi = payload
+        p = torch.cat([plo, phi.flip(-1) if prog.reverse_hi else phi], dim=-1)
+    for st in prog.stages:
+        x, p = _apply_pair_stage(st, x, p)
+    return (x, p) if payload is not None else x
+
+
+def merge_runs(prog: MergeProgram, lo: torch.Tensor, hi: torch.Tensor, *,
+               payload: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Execute one merge program on ascending runs ``lo``/``hi`` (last
+    axis). With ``payload=(plo, phi)`` returns ``(vals, pvals)``."""
+    assert lo.shape[-1] == prog.m and hi.shape[-1] == prog.n, (
+        lo.shape, hi.shape, prog)
+    if prog.kind == "columns":
+        return _merge_columns(prog, lo, hi, payload)
+    return _merge_pairs(prog, lo, hi, payload)
+
+
+def run_sort_program(prog: SortProgram, keys: torch.Tensor,
+                     pos: Optional[torch.Tensor]):
+    """The merge-tree sort over pow2-width ``(bt, w)`` rows, optionally
+    carrying an int32 position lane through every permute. Returns
+    ``(keys, pos)``."""
+    bt, w = keys.shape[0], prog.width
+    assert keys.shape[-1] == w, (keys.shape, w)
+    for mp in prog.levels:
+        run = mp.m
+        g = w // (2 * run)
+        kv = keys.reshape(bt, g, 2 * run)
+        if pos is not None:
+            pv = pos.reshape(bt, g, 2 * run)
+            kv, pv = merge_runs(mp, kv[..., :run], kv[..., run:],
+                                payload=(pv[..., :run], pv[..., run:]))
+            pos = pv.reshape(bt, w)
+        else:
+            kv = merge_runs(mp, kv[..., :run], kv[..., run:])
+        keys = kv.reshape(bt, w)
+    return keys, pos
+
+
+def encode_program(levels) -> List[int]:
+    """Flatten merge programs into the int32 words the CUDA class kernels
+    read: ``[n_levels]`` then per level ``[m, n, kind (0 columns, 1
+    pairs), n_cols, reverse_hi, n_stages, (stage kind, d) * n_stages]``."""
+    words = [len(levels)]
+    for mp in levels:
+        words += [mp.m, mp.n, 0 if mp.kind == "columns" else 1,
+                  mp.n_cols if mp.kind == "columns" else 1,
+                  int(mp.reverse_hi), len(mp.stages)]
+        for st in mp.stages:
+            words += [_PAIR_KINDS[st.kind], st.d]
+    return words

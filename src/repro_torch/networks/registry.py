@@ -1,0 +1,69 @@
+"""Family registry: the only door the kernels use to obtain programs.
+
+Counterpart of ``repro.networks.registry`` (without the k-way and median
+schedule doors, which wait for the port of ``repro.core``). Kernels ask
+for a program by family name, so the family that runs, and with it the
+tie order, is chosen in one place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence, Tuple
+
+from .families import BUILTIN_FAMILIES, pick_merge_cols  # noqa: F401
+from .program import MergeProgram, SortProgram
+
+__all__ = ["NetworkFamily", "get_family", "family_names", "merge_program",
+           "sort_program", "capable_families", "pick_merge_cols"]
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkFamily:
+    name: str
+    merge: Callable[..., MergeProgram]  # (m, n, n_cols=None)
+    sort: Callable[[int], SortProgram]  # (w), w a power of two
+    merge_capable: Callable[[int, int], bool]
+    sort_capable: Callable[[int], bool]
+
+
+_REGISTRY = {name: NetworkFamily(name, m, s, mc, sc)
+             for name, (m, s, mc, sc) in BUILTIN_FAMILIES.items()}
+
+
+def get_family(name: str) -> NetworkFamily:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown network family {name!r}; "
+                         f"registered: {sorted(_REGISTRY)}") from None
+
+
+def family_names() -> Tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
+def merge_program(family: str, m: int, n: int,
+                  n_cols: Optional[int] = None) -> MergeProgram:
+    """The 2-run merge program of ``family`` at (m, n); ``n_cols``
+    overrides the column count of the column-device families."""
+    return get_family(family).merge(int(m), int(n), n_cols)
+
+
+def sort_program(family: str, width: int) -> SortProgram:
+    """The pow2-width merge-tree sort program of ``family``."""
+    return get_family(family).sort(int(width))
+
+
+def capable_families(op: str, lengths: Sequence[int]) -> Tuple[str, ...]:
+    """Families (loms first) able to realise ``op`` at static lengths:
+    ``'merge2'`` takes ``(m, n)``, ``'sort'`` takes ``(n,)`` and checks
+    the padded pow2 width."""
+    if op == "merge2":
+        m, n = (int(x) for x in lengths)
+        return tuple(f for f in _REGISTRY if _REGISTRY[f].merge_capable(m, n))
+    if op == "sort":
+        from repro_torch.kernels.common import ceil_pow2
+
+        w = ceil_pow2(int(lengths[0]))
+        return tuple(f for f in _REGISTRY if _REGISTRY[f].sort_capable(w))
+    raise ValueError(f"capable_families: unknown op {op!r}")

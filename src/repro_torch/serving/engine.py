@@ -1,17 +1,19 @@
 """Batched serving engine: prefill, decode loop, LOMS top-k sampling.
 
-Counterpart of ``repro.serving.engine`` (one int ``top_k`` per batch).
-Tokens stay on the device until the loop ends and are copied to the host
-once: a copy per step would make the host wait for every step. Per-step
-times are opt-in (``ServeConfig.time_steps``) because they need a
-synchronise per step. The request scheduler (``--engine``) and the obs
-spans and metrics wait for later slices.
+Counterpart of ``repro.serving.engine``: ``top_k`` / ``top_p`` are one
+value for the batch or one per request (the ragged ``segment_topk``
+path). Tokens stay on the device until the loop ends and are copied to
+the host once: a copy per step would make the host wait for every step.
+Per-step times are opt-in (``ServeConfig.time_steps``) because they need
+a synchronise per step. The request scheduler is
+:mod:`repro_torch.serving.scheduler`; the obs spans and metrics wait for
+a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -25,20 +27,24 @@ from .sample import sample_greedy, sample_topk
 @dataclasses.dataclass
 class ServeConfig:
     max_new_tokens: int = 16
-    top_k: int = 64
-    #: nucleus truncation within the top-k candidates
-    top_p: float = 1.0
+    #: one int, or one per request (the ragged segment_topk path)
+    top_k: Union[int, Sequence[int]] = 64
+    #: nucleus truncation within the top-k candidates; one float, or one
+    #: per request (which needs a per-request top_k too)
+    top_p: Union[float, Sequence[float]] = 1.0
     temperature: float = 1.0
     #: seeds the sampling generator
     seed: int = 0
-    #: KV-cache capacity override (>= prompt_len + max_new_tokens)
+    #: KV-cache capacity override (>= prompt_len + max_new_tokens); the
+    #: scheduler's oracle sets it to the slot capacity
     cache_len: Optional[int] = None
     #: synchronise after every decode step and report per-step times
     time_steps: bool = False
 
 
-def make_serve_step(cfg: ModelConfig, top_k: int = 64, temperature: float = 1.0,
-                    top_p: float = 1.0):
+def make_serve_step(cfg: ModelConfig, top_k: Union[int, Sequence[int]] = 64,
+                    temperature: float = 1.0,
+                    top_p: Union[float, Sequence[float]] = 1.0):
     """(params, tokens (B,1), cache, positions, generator) -> (next (B,1), cache)."""
 
     def serve_step(params, tokens, cache, positions, generator):

@@ -1,25 +1,29 @@
 """Decode-time sampling on the LOMS top-k kernels.
 
-Counterpart of ``repro.serving.sample`` for one int ``k`` per batch: the
+Counterpart of ``repro.serving.sample``. With one int ``k`` the
 candidates come from :func:`repro_torch.topk` (the CUDA vocab kernels on
-the card), then temperature, an optional nucleus inside the candidates,
-and one categorical draw per row.
+the card); with one ``k`` per request they come from one ragged
+:func:`repro_torch.segment_topk` call over the batch's rows (the class
+kernels, or the stable top-k for a vocabulary past the class width).
+Then temperature, an optional nucleus inside the candidates, and one
+categorical draw per row.
 
 All randomness goes through one seam, :func:`categorical`:
 ``argmax(logits + gumbel)``, which is how ``jax.random.categorical``
 draws. The noise comes from a ``torch.Generator``, or is handed in
 (``gumbel=``), which lets a test feed both packages the same draws.
 
-The ragged per-request-k path (segmented kernels) and ``k_max=None`` in
-:func:`sample_topp` (the sort kernel) wait for later slices.
+``k_max=None`` in :func:`sample_topp` (the sort kernel) waits for a
+later slice.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
-from repro_torch.api import topk
+from repro_torch.api import segment_topk, topk
 
 
 def gumbel_noise(shape, *, generator: Optional[torch.Generator],
@@ -71,25 +75,73 @@ def canonical_token(logits: torch.Tensor, vals: torch.Tensor,
     return torch.argmax((logits == chosen).to(torch.int8), dim=-1).to(torch.int32)
 
 
-def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(logits, dim=-1).to(torch.int32)
-
-
-def sample_topk(logits: torch.Tensor, *, k: int = 64, temperature: float = 1.0,
-                top_p: float = 1.0, generator: Optional[torch.Generator] = None,
+def sample_topk(logits: torch.Tensor, *, k: Union[int, Sequence[int]] = 64,
+                temperature: float = 1.0,
+                top_p: Union[float, Sequence[float]] = 1.0,
+                generator: Optional[torch.Generator] = None,
                 gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Top-k + temperature categorical sampling: (B, V) -> (B,) int32.
 
-    ``top_p < 1.0`` applies the nucleus inside the k candidates.
-    ``gumbel`` (B, k) replaces the generator's noise."""
-    if not isinstance(k, int):
-        raise NotImplementedError("per-request k (the segmented top-k) is not ported yet")
+    ``k`` may be one int per request: the scoring then runs as one ragged
+    ``segment_topk`` over the rows (:func:`_sample_topk_ragged`), and
+    ``top_p`` may then be one per request too. ``top_p < 1.0`` applies
+    the nucleus inside the k candidates. ``gumbel`` (B, k) replaces the
+    generator's noise (B, max k on the ragged path)."""
+    if not isinstance(k, (int, np.integer)):
+        ks = tuple(int(x) for x in k)
+        tps = ((float(top_p),) * len(ks) if isinstance(top_p, (int, float))
+               else tuple(float(x) for x in top_p))
+        return _sample_topk_ragged(logits, ks, temperature, tps,
+                                  generator=generator, gumbel=gumbel)
+    if not isinstance(top_p, (int, float)):
+        raise ValueError("per-request top_p needs per-request k")
     if temperature <= 0.0 or k == 1:
         return sample_greedy(logits)
     vals, _ = topk(logits, k)
     choice = scored_draw(vals, temperature, top_p if top_p < 1.0 else None,
                          generator=generator, gumbel=gumbel)
     return canonical_token(logits, vals, choice)
+
+
+def _sample_topk_ragged(logits: torch.Tensor, ks: Sequence[int],
+                       temperature: float, top_ps: Optional[Sequence[float]] = None,
+                       *, generator: Optional[torch.Generator] = None,
+                       gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mixed-k batch (the reference's ``_sample_topk_ragged``, ``sample.py:123``): each
+    row's top-``k_r`` through one ``segment_topk`` call, laid out dense as
+    (B, max k) with the lanes past a row's own k at -inf, then one
+    categorical draw per row over its own prefix."""
+    b, v = logits.shape
+    ks = tuple(int(x) for x in ks)
+    if len(ks) != b or not all(1 <= x <= v for x in ks):
+        raise ValueError(f"ks {ks} do not fit logits of shape {tuple(logits.shape)}")
+    top_ps = (1.0,) * b if top_ps is None else tuple(float(x) for x in top_ps)
+    if len(top_ps) != b or not all(0.0 < x <= 1.0 for x in top_ps):
+        raise ValueError(f"top_ps {top_ps} must be one per row in (0, 1]")
+    if temperature <= 0.0 or all(x == 1 for x in ks):
+        return sample_greedy(logits)
+    k_max = max(ks)
+    vals, _, out_offs = segment_topk(logits.reshape(-1), tuple(range(0, (b + 1) * v, v)), ks)
+    # CSR -> dense (B, k_max): pad lanes read one appended slot
+    gmap = np.full((b, k_max), out_offs[-1], np.int64)
+    for r in range(b):
+        gmap[r, :out_offs[r + 1] - out_offs[r]] = out_offs[r] + np.arange(
+            out_offs[r + 1] - out_offs[r])
+    vals_ext = torch.cat([vals, vals.new_zeros((1,))])
+    dense_v = vals_ext[torch.as_tensor(gmap, device=logits.device)]
+    cnts = torch.as_tensor(np.diff(np.asarray(out_offs)), device=logits.device)[:, None]
+    lane = torch.arange(k_max, device=logits.device)[None, :]
+    probs_logits = torch.where(lane < cnts, dense_v.float() / temperature,
+                               float("-inf"))
+    if any(p < 1.0 for p in top_ps):
+        probs_logits = nucleus_mask(probs_logits, torch.tensor(
+            top_ps, dtype=torch.float32, device=logits.device)[:, None])
+    choice = categorical(probs_logits, generator=generator, gumbel=gumbel)
+    return canonical_token(logits, dense_v, choice)
+
+
+def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def sample_topp(logits: torch.Tensor, *, p: float = 0.9,

@@ -104,3 +104,27 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert out.returncode != 0
     assert "src/repro_torch is not beside this script" in out.stderr
     assert '"ok"' not in out.stdout
+
+
+def test_scheduler_and_segment_ops_raise_without_a_card(no_card):
+    import repro_torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import model_init
+    from repro_torch.serving.scheduler import ScheduledEngine
+
+    x = np.arange(6, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.segment_topk(x, (0, 3, 6), 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.segment_sort(x, (0, 6))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.segment_merge(x, x, (0, 6), (0, 6))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.segment_argmax(x, (0, 6))
+    cfg = get_smoke_config("qwen3-8b")
+    params = model_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ScheduledEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main(["--arch", "qwen3-8b", "--smoke", "--engine", "--new-tokens", "2"])

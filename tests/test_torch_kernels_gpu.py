@@ -1,4 +1,5 @@
-"""On-card tests of the port's CUDA top-k kernels against their plain versions.
+"""On-card tests of the port's CUDA kernels (top-k, segmented class sort
+and merge) against their plain versions.
 
 Marked ``gpu``: each test skips without a CUDA card. This file imports
 neither JAX nor the JAX package, so it also runs where only PyTorch is
@@ -10,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch
 from repro_torch import topk
+from repro_torch.kernels import segmented as SK
 from repro_torch.kernels import topk as K
+from repro_torch.networks import capable_families
 
 pytestmark = pytest.mark.gpu
 
@@ -65,7 +69,8 @@ def test_launch_counts(cuda):
     topk(x, 64)
     topk(x[:, :256].contiguous(), 16)
     assert K.LAUNCHES == {"router_topk": 1, "vocab_phase1": 1,
-                          "vocab_merge_level": K.vocab_levels(151_936, 64)}
+                          "vocab_merge_level": K.vocab_levels(151_936, 64),
+                          "seg_sort": 0, "seg_merge": 0}
 
 
 def test_wrapper_rejects_bad_input(cuda):
@@ -73,3 +78,81 @@ def test_wrapper_rejects_bad_input(cuda):
         K.router_topk(torch.zeros(4, 64, dtype=torch.int32, device=cuda), 4)
     with pytest.raises(ValueError):
         K.vocab_topk(torch.zeros(4, 2048, device=cuda)[:, ::2], 4)
+
+
+def _class_tile(rows, w, dtype, seed):
+    """A class tile with heavy ties; floats also NaN, ±inf and ±0.0."""
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        x = rng.integers(-3, 4, (rows, w)).astype(np.int32)
+        x[rng.random((rows, w)) < 0.05] = np.iinfo(np.int32).max
+        return torch.from_numpy(x)
+    x = (rng.integers(-3, 4, (rows, w)) * 0.5).astype(np.float32)
+    for val, frac in ((np.nan, 0.05), (np.inf, 0.05), (-np.inf, 0.05), (-0.0, 0.1)):
+        x[rng.random((rows, w)) < frac] = val
+    return torch.from_numpy(x).to(dtype)
+
+
+def _lens(rows, w, seed):
+    lens = np.random.default_rng(seed).integers(0, w + 1, (rows, 1)).astype(np.int32)
+    lens[0], lens[1] = w, 0
+    return torch.from_numpy(lens)
+
+
+def _same_all(want, got):
+    for a, b in zip((want[0], want[1]) + tuple(want[2]), (got[0], got[1]) + tuple(got[2])):
+        assert torch.equal(_bits(a.cpu()) if a.dtype.is_floating_point else a.cpu(),
+                           _bits(b.cpu()) if b.dtype.is_floating_point else b.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("w", [2, 16, 64, 128, 256, 1024])
+@pytest.mark.parametrize("flip", [False, True])
+def test_seg_sort_kernel_matches_plain(cuda, dtype, w, flip):
+    x = _class_tile(21, w, dtype, seed=w)
+    lens = _lens(21, w, seed=w + 1)
+    pay = (torch.arange(21 * w * 3, dtype=torch.int32).reshape(21, w, 3),
+           _class_tile(21, w, torch.bfloat16, seed=w + 2))
+    for fam in capable_families("sort", (w,)):
+        want = SK.segment_class_sort_plain(x, lens, pay, k_out=max(1, w // 3),
+                                           network=fam, flip=flip, want_perm=True)
+        got = SK.segment_class_sort(x.to(cuda), lens.to(cuda), [p.to(cuda) for p in pay],
+                                    k_out=max(1, w // 3), network=fam, flip=flip,
+                                    want_perm=True)
+        _same_all(want, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("wa,wb", [(16, 16), (64, 256), (512, 512)])
+@pytest.mark.parametrize("flip", [False, True])
+def test_seg_merge_kernel_matches_plain(cuda, dtype, wa, wb, flip):
+    la, lb = _lens(9, wa, seed=wa), _lens(9, wb, seed=wb + 3)
+    a = SK.segment_class_sort_plain(_class_tile(9, wa, dtype, seed=1), la, flip=flip)[0]
+    b = SK.segment_class_sort_plain(_class_tile(9, wb, dtype, seed=2), lb, flip=flip)[0]
+    pay = (torch.arange(9 * (wa + wb), dtype=torch.int32).reshape(9, wa + wb),)
+    for fam in capable_families("merge2", (wa, wb)):
+        want = SK.segment_class_merge_plain(a, b, la, lb, pay, network=fam, flip=flip,
+                                            want_perm=True)
+        got = SK.segment_class_merge(a.to(cuda), b.to(cuda), la.to(cuda), lb.to(cuda),
+                                     [p.to(cuda) for p in pay], network=fam, flip=flip,
+                                     want_perm=True)
+        _same_all(want, got)
+
+
+def test_segment_topk_launches_one_class_sort(cuda):
+    K.reset_launch_counts()
+    x = _logits(4, 256, torch.float32).to(cuda).reshape(-1)
+    vals, idx, offs = repro_torch.segment_topk(x, (0, 256, 512, 768, 1024), (64, 16, 8, 1))
+    want = repro_torch.segment_topk(x.cpu(), (0, 256, 512, 768, 1024), (64, 16, 8, 1))
+    assert torch.equal(_bits(vals.cpu()), _bits(want[0])) and torch.equal(idx.cpu(), want[1])
+    assert offs == want[2]
+    assert K.LAUNCHES["seg_sort"] == 1 and K.LAUNCHES["seg_merge"] == 0
+
+
+def test_class_kernels_reject_bad_input(cuda):
+    with pytest.raises(TypeError):
+        SK.segment_class_sort(torch.zeros(2, 8, dtype=torch.float64, device=cuda),
+                              torch.zeros(2, 1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        SK.segment_class_sort(torch.zeros(2, 12, device=cuda),
+                              torch.zeros(2, 1, dtype=torch.int32, device=cuda))
