@@ -11,8 +11,8 @@ script with a non-zero exit code when it fails:
    (nvcc, from ``src/repro_torch/csrc/`` only);
 2. every CUDA kernel against its plain PyTorch version on the card,
    bit-equal values and indices (and permutations and payload lanes for
-   the segmented class kernels), in bf16, f32 and int32, on rows that
-   hold NaN, ±inf, ±0.0 and many ties;
+   the segmented class kernels, the 2-way merge and the fused sort), in
+   bf16, f32 and int32, on rows that hold NaN, ±inf, ±0.0 and many ties;
 3. the main paths, each with its launch counts zeroed just before it and
    read just after it:
    a. ``generate`` on Qwen3-8B at full width (bf16, random weights from
@@ -32,6 +32,16 @@ script with a non-zero exit code when it fails:
    d. the segmented library calls (``segment_sort / segment_merge /
       segment_topk / segment_argmax``) at the MoE grouping and re-rank
       shapes, checked against the CPU;
+   e. the library's ``merge`` and ``sort`` at their users' sizes: the
+      paper's 32 + 32 device over 65,536 rows, two kept lists of 512 per
+      query (descending, int32 ids), 32 new keys into runs of 65,536
+      (the global-scratch merge), sorts of (16,384, 1024) bf16 with a
+      payload and (16, 1007) descending, merges past the routing budget
+      ((8, 2^22) pairs and the stream-merge example's 100,000 + 100,000:
+      the grid merge), and the values-only ``segment_sort`` /
+      ``segment_merge`` spills; each checked bit-equal to the CPU's plain
+      versions, or for the largest values-only rows to torch.sort of the
+      keys, decoded;
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``: a yardstick the port never calls).
@@ -61,6 +71,9 @@ INT32_PER_CLOCK_PER_SM = 64
 OPS_PER_COMPARISON = 2
 SOURCE = "src/repro_torch/csrc/topk.cu"
 SEG_SOURCE = "src/repro_torch/csrc/segmented.cu"
+MERGE_SOURCE = "src/repro_torch/csrc/merge.cu"
+SORT_SOURCE = "src/repro_torch/csrc/sort.cu"
+GRID_SOURCE = "src/repro_torch/csrc/grid_merge.cu"
 
 
 def log(*args) -> None:
@@ -1023,6 +1036,367 @@ def phase_seg_times(dev, SK, rows, k_out, launches, err, card, ops_per_s) -> lis
     return out
 
 
+# ---------------------------------------------------------------------------
+# the library's merge and sort: kernel rows 1, 2 and 9
+# ---------------------------------------------------------------------------
+
+
+def total_order_sorted(x, descending=False):
+    """Rows in the total order of their keys (NaN last, -0.0 below +0.0):
+    the sorted inputs a merge takes."""
+    import torch
+
+    from repro_torch.kernels.common import encode_key_values, take_along
+
+    keys = encode_key_values(x) if x.dtype.is_floating_point else x
+    order = torch.argsort(keys, dim=-1, stable=True)
+    return take_along(x, 1, order.flip(-1) if descending else order)
+
+
+def finite_sorted(rows, n, dtype, device, seed):
+    """Ascending rows with ties, ±inf-free, without NaN and without -0.0:
+    the float rows on which the grid kernel's key merge and the plain
+    carry loop's raw-float merge agree."""
+    import torch
+
+    x = seg_tile(rows, n, dtype, device, seed)
+    x = torch.nan_to_num(x, nan=1.0, posinf=2.0, neginf=-2.0) + 0.0  # -0.0 + 0.0 = +0.0
+    return total_order_sorted(x)
+
+
+def sorted_keys_decoded(x):
+    """torch.sort of the keys of each row, decoded: the exact values-only
+    answer of a merge or sort (a yardstick, never the port's path)."""
+    import torch
+
+    from repro_torch.kernels.common import decode_key_values, encode_key_values
+
+    if not x.dtype.is_floating_point:
+        return torch.sort(x, dim=-1)[0]
+    return decode_key_values(torch.sort(encode_key_values(x), dim=-1)[0], x.dtype)
+
+
+def phase_merge_sort_kernels(dev, capable_families) -> dict:
+    """Phase 2, rows 1, 2 and 9: the 2-way merge, the fused sort and the
+    grid merge bit-equal to their plain versions (values, perm, payload
+    lanes with and without a feature dim) in bf16, f32 and int32 on rows
+    with NaN, ±inf, ±0.0 and heavy ties, every capable family, both
+    orders, pow2 and padded widths, and at the shapes of phase 3e."""
+    import torch
+
+    from repro_torch.kernels.common import ceil_pow2
+    from repro_torch.kernels.loms_merge import loms_merge2, loms_merge2_plain
+    from repro_torch.kernels.sort import loms_sort, loms_sort_plain
+    from repro_torch.networks import pick_merge_cols
+    from repro_torch.streaming.grid_merge import grid_chunked_merge2, grid_chunked_merge2_plain
+
+    err = {"loms_merge2": 0.0, "loms_sort": 0.0, "grid_merge2": 0.0}
+    dtypes = (torch.bfloat16, torch.float32, torch.int32)
+
+    def key(dt):
+        return dt if dt.is_floating_point else None
+
+    def lanes(rows, width, seed, feat=2):
+        return (torch.arange(rows * width * feat, dtype=torch.int32,
+                             device=dev).reshape(rows, width, feat),
+                seg_tile(rows, width, torch.bfloat16, dev, seed=seed))
+
+    def merge_case(name, a, b, pay, fam, desc, chunk=512):
+        kw = dict(network=fam, n_cols=pick_merge_cols(a.shape[1], b.shape[1]),
+                  key_dtype=key(a.dtype), descending=desc, want_perm=True)
+        got = loms_merge2(a, b, pay, **kw)
+        want = plain_in_chunks(lambda r: loms_merge2_plain(
+            a[r], b[r], tuple(p[r] for p in pay), **kw), a.shape[0], chunk)
+        err["loms_merge2"] = max(err["loms_merge2"], require_same_class(name, got, want))
+
+    def sort_case(name, x, pay, fam, desc, chunk=512):
+        kw = dict(network=fam, key_dtype=key(x.dtype), descending=desc, want_perm=True)
+        got = loms_sort(x, pay, **kw)
+        want = plain_in_chunks(lambda r: loms_sort_plain(
+            x[r], tuple(p[r] for p in pay), **kw), x.shape[0], chunk)
+        err["loms_sort"] = max(err["loms_sort"], require_same_class(name, got, want))
+
+    for m, n in ((8, 8), (16, 48), (64, 64), (512, 512), (1000, 24), (65_536, 32)):
+        rows = 16 if m + n > 2048 else 64
+        fams = capable_families("merge2", (m, n))
+        for dt in dtypes:
+            for desc in (False, True):
+                a = total_order_sorted(seg_tile(rows, m, dt, dev, seed=m), desc)
+                b = total_order_sorted(seg_tile(rows, n, dt, dev, seed=n + 1), desc)
+                for fam in fams:
+                    merge_case(f"merge ({m}, {n}) {dt} {fam} desc={desc}", a, b,
+                               lanes(rows, m + n, m + 2), fam, desc)
+        log(f"  loms_merge2 ({m}, {n}): {', '.join(fams)} x bf16/f32/int32 x both orders, "
+            f"{rows} rows, payload lanes (F=2 int32, bf16): bit-equal")
+    for n in (1, 2, 16, 37, 128, 1007, 1024):
+        fams = capable_families("sort", (ceil_pow2(n),))
+        for dt in dtypes:
+            x = seg_tile(33, n, dt, dev, seed=n)
+            for desc in (False, True):
+                for fam in fams:
+                    sort_case(f"sort n={n} {dt} {fam} desc={desc}", x, lanes(33, n, n + 3),
+                              fam, desc)
+        log(f"  loms_sort n={n}: {', '.join(fams)} x bf16/f32/int32 x both orders, 33 rows, "
+            f"payload lanes: bit-equal")
+    # the shapes of phase 3e
+    ids = lambda rows, w: (torch.arange(rows * w, dtype=torch.int32,  # noqa: E731
+                                        device=dev).reshape(rows, w),)
+    for name, rows, m, n, desc, pay in (
+            ("(65536, 32 + 32) f32", 65_536, 32, 32, False, False),
+            ("(4096, 512 + 512) f32 desc + int32 ids", 4096, 512, 512, True, True),
+            ("(64, 65536 + 32) f32 (global scratch)", 64, 65_536, 32, False, False)):
+        a = total_order_sorted(seg_tile(rows, m, torch.float32, dev, seed=rows + m), desc)
+        b = total_order_sorted(seg_tile(rows, n, torch.float32, dev, seed=rows + n + 1), desc)
+        merge_case(f"merge {name}", a, b, ids(rows, m + n) if pay else (), "loms", desc,
+                   chunk=8192 if m + n <= 64 else 512)
+        log(f"  loms_merge2 {name}: bit-equal")
+    for name, rows, n, dt, desc, pay in (
+            ("(16384, 1024) bf16 + int32 payload", 16_384, 1024, torch.bfloat16, False, True),
+            ("(16, 1007) f32 desc", 16, 1007, torch.float32, True, False)):
+        x = seg_tile(rows, n, dt, dev, seed=rows)
+        sort_case(f"sort {name}", x, ids(rows, n) if pay else (), "loms", desc, chunk=1024)
+        log(f"  loms_sort {name}: bit-equal")
+    # row 9: int32 keys with their extremes, and float rows as keys
+    for rows, na, nb in ((3, 1000, 300), (2, 37, 0), (2, 0, 5), (4, 4096, 4096),
+                         (1, 100_000, 100_000)):
+        for dt in (torch.int32, torch.float32):
+            if dt == torch.int32:
+                a = total_order_sorted(seg_tile(rows, na, dt, dev, seed=na))
+                b = total_order_sorted(seg_tile(rows, nb, dt, dev, seed=nb + 1))
+            else:
+                a = finite_sorted(rows, na, dt, dev, seed=na)
+                b = finite_sorted(rows, nb, dt, dev, seed=nb + 1)
+            got = grid_chunked_merge2(a, b)
+            want = grid_chunked_merge2_plain(a, b, tile=512)
+            if not torch.equal(bits(got) if dt.is_floating_point else got,
+                               bits(want) if dt.is_floating_point else want):
+                raise AssertionError(f"grid merge ({rows}, {na} + {nb}) {dt}: differs "
+                                     "from the plain version")
+            err["grid_merge2"] = max(err["grid_merge2"], max_abs_err(got, want))
+        log(f"  grid_merge2 ({rows}, {na} + {nb}) int32 keys and f32 rows: bit-equal to "
+            "the plain carry loop")
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_library_merge_sort(dev):
+    """Phase 3e: the library's merge and sort at the sizes their users
+    run, each call with its launch counts zeroed before and read after;
+    outputs bit-equal to the CPU's plain versions on the same input (all
+    rows or the first ones), or, for the largest values-only rows, to
+    torch.sort of the keys, decoded."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import topk as K
+    from repro_torch.segmented import bucket_merge_pairs
+
+    def f32_sorted(rows, n, seed, desc=False):
+        return total_order_sorted(seg_tile(rows, n, torch.float32, dev, seed=seed), desc)
+
+    def to_cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        return tuple(to_cpu(t) for t in x) if isinstance(x, (tuple, list)) else x
+
+    def same(name, got, want):
+        gs = got if isinstance(got, (tuple, list)) else (got,)
+        ws = want if isinstance(want, (tuple, list)) else (want,)
+        for g, w in zip(gs, ws):
+            g = g.cpu()
+            w = w.cpu()
+            if g.shape != w.shape or not torch.equal(
+                    bits(g) if g.dtype.is_floating_point else g,
+                    bits(w) if w.dtype.is_floating_point else w):
+                raise AssertionError(f"{name}: differs from the plain version")
+
+    rng = np.random.default_rng(14)
+    a1, b1 = f32_sorted(65_536, 32, 1), f32_sorted(65_536, 32, 2)
+    a2, b2 = f32_sorted(4096, 512, 3, desc=True), f32_sorted(4096, 512, 4, desc=True)
+    id2 = torch.arange(4096 * 1024, dtype=torch.int32, device=dev).reshape(4096, 1024)
+    a3, b3 = f32_sorted(64, 65_536, 5), f32_sorted(64, 32, 6)
+    x4 = seg_tile(16_384, 1024, torch.bfloat16, dev, seed=7)
+    p4 = torch.arange(16_384 * 1024, dtype=torch.int32, device=dev).reshape(16_384, 1024)
+    x5 = seg_tile(16, 1007, torch.float32, dev, seed=8)
+    a6, b6 = f32_sorted(8, 1 << 22, 9), f32_sorted(8, 1 << 22, 10)
+    a7 = torch.sort(torch.from_numpy(rng.standard_normal(100_000).astype(np.float32)))[0]
+    b7 = torch.sort(torch.from_numpy(rng.standard_normal(100_000).astype(np.float32)))[0]
+    a7, b7 = a7.to(dev), b7.to(dev)
+    n_seg, seg_len = 16, 65_536
+    v8 = seg_tile(1, n_seg * seg_len, torch.float32, dev, seed=11).reshape(-1)
+    offs8 = tuple(range(0, n_seg * seg_len + 1, seg_len))
+    la9 = np.array([1000] * 16 + [3000] * 16 + [40] * 32)
+    lb9 = np.array([600] * 16 + [50] * 16 + [20] * 32)
+    oa9 = tuple(np.concatenate([[0], np.cumsum(la9)]).tolist())
+    ob9 = tuple(np.concatenate([[0], np.cumsum(lb9)]).tolist())
+    a9 = repro_torch.segment_sort(seg_tile(1, oa9[-1], torch.float32, dev, seed=12)
+                                  .reshape(-1), oa9)
+    b9 = repro_torch.segment_sort(seg_tile(1, ob9[-1], torch.float32, dev, seed=13)
+                                  .reshape(-1), ob9)
+    spill_groups = len(bucket_merge_pairs(la9, lb9, 1024)[1])
+    chunks = seg_len // 512  # the sort spill's tiles a segment: merges = chunks - 1
+
+    def one(**kw):
+        return {**{n: 0 for n in K.LAUNCHES}, **kw}
+
+    cases = (
+        ("merge (65536, 32) + (65536, 32) f32: the paper's 32 + 32 device",
+         lambda: repro_torch.merge(a1, b1),
+         lambda: repro_torch.merge(a1.cpu(), b1.cpu()), one(loms_merge2=1)),
+        ("merge (4096, 512) + (4096, 512) f32 desc, int32 ids: two kept lists a query",
+         lambda: repro_torch.merge(a2, b2, descending=True,
+                                   payload=(id2[:, :512], id2[:, 512:])),
+         lambda: repro_torch.merge(a2[:1024].cpu(), b2[:1024].cpu(), descending=True,
+                                   payload=(id2[:1024, :512].cpu(), id2[:1024, 512:].cpu())),
+         one(loms_merge2=1)),
+        ("merge (64, 65536) + (64, 32) f32: new keys into a long run (global scratch)",
+         lambda: repro_torch.merge(a3, b3),
+         lambda: repro_torch.merge(a3.cpu(), b3.cpu()), one(loms_merge2=1)),
+        ("sort (16384, 1024) bf16 + int32 payload",
+         lambda: repro_torch.sort(x4, payload=p4),
+         lambda: repro_torch.sort(x4[:256].cpu(), payload=p4[:256].cpu()), one(loms_sort=1)),
+        ("sort (16, 1007) f32 desc",
+         lambda: repro_torch.sort(x5, descending=True),
+         lambda: repro_torch.sort(x5.cpu(), descending=True), one(loms_sort=1)),
+        ("merge (8, 2^22) + (8, 2^22) f32: past the budget, streams",
+         lambda: repro_torch.merge(a6, b6),
+         lambda: sorted_keys_decoded(torch.cat([a6, b6], dim=1)), one(grid_merge2=1)),
+        ("merge 100,000 + 100,000 f32 (the stream-merge example)",
+         lambda: repro_torch.merge(a7, b7),
+         lambda: repro_torch.merge(a7.cpu(), b7.cpu()), one(grid_merge2=1)),
+        ("segment_sort 16 x 65,536 f32, values only: the spill",
+         lambda: repro_torch.segment_sort(v8, offs8),
+         lambda: sorted_keys_decoded(v8.reshape(n_seg, seg_len)).reshape(-1),
+         one(seg_sort=1, grid_merge2=chunks - 1)),
+        ("segment_merge 64 pairs f32, values only, 32 past the class width",
+         lambda: repro_torch.segment_merge(a9, b9, oa9, ob9)[0],
+         lambda: repro_torch.segment_merge(a9.cpu(), b9.cpu(), oa9, ob9)[0],
+         one(seg_merge=1, grid_merge2=spill_groups)),
+    )
+    total = {n: 0 for n in K.LAUNCHES}
+    for name, call, plain, want in cases:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(K.LAUNCHES)
+        if counts != want:
+            raise AssertionError(f"{name}: launch counts {counts} != {want}")
+        for n, c in counts.items():
+            total[n] += c
+        ref = plain()
+        sub = got
+        if isinstance(got, tuple):  # values and a payload tree, first rows only
+            rows = ref[0].shape[0]
+            sub = (got[0][:rows], got[1][:rows])
+        elif got.ndim == 2 and ref.shape[0] < got.shape[0]:
+            sub = got[:ref.shape[0]]
+        same(name, to_cpu(sub), to_cpu(ref))
+        out = got[0] if isinstance(got, tuple) else got
+        if not bool(torch.isfinite(out.float()).any()) and out.numel():
+            raise AssertionError(f"{name}: no finite value out")
+        log(f"  {name}: {wall:.2f} ms eager (first call); launches "
+            f"{ {n: c for n, c in counts.items() if c} }; bit-equal to the plain version")
+    return total
+
+
+def phase_merge_sort_times(dev, launches, err, card, ops_per_s) -> list:
+    """Phase 4, rows 1, 2 and 9 at the shapes of phase 3e, each beside its
+    bound, its plain version and one PyTorch call (torch.sort of the
+    concatenation, or torch.sort(stable=True) and a gather)."""
+    import torch
+
+    from repro_torch.kernels.common import encode_key_values
+    from repro_torch.kernels.loms_merge import loms_merge2, loms_merge2_plain
+    from repro_torch.kernels.sort import loms_sort, loms_sort_plain
+    from repro_torch.networks import pick_merge_cols
+    from repro_torch.streaming.grid_merge import grid_chunked_merge2, grid_chunked_merge2_plain
+
+    rows = []
+
+    def row(name, source, replaces, ms, plain, nbytes, comparisons, lib):
+        b_ms, b_by = bound_ms(nbytes, comparisons, ops_per_s)
+        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                         launches=launches[name], max_abs_err=err[name], ms=ms,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        return b_ms, b_by
+
+    # row 1 at the three merges of 3e; the first is the kernels line's
+    merges = []
+    for name, bsz, m, n, desc, pay in (
+            ("(65536, 32 + 32) f32", 65_536, 32, 32, False, False),
+            ("(4096, 512 + 512) f32 desc + int32 ids", 4096, 512, 512, True, True),
+            ("(64, 65536 + 32) f32 (global scratch)", 64, 65_536, 32, False, False)):
+        a = total_order_sorted(seg_tile(bsz, m, torch.float32, dev, seed=m), desc)
+        b = total_order_sorted(seg_tile(bsz, n, torch.float32, dev, seed=n), desc)
+        lanes = ((torch.arange(bsz * (m + n), dtype=torch.int32, device=dev)
+                  .reshape(bsz, m + n),) if pay else ())
+        kw = dict(n_cols=pick_merge_cols(m, n), key_dtype=torch.float32, descending=desc)
+        ms = graph_ms(lambda: loms_merge2(a, b, lanes, **kw), 50)
+        plain = graph_ms(lambda: loms_merge2_plain(a, b, lanes, **kw), 3)
+        cat = torch.cat([a, b], dim=1)
+        if pay:
+            def lib_call():
+                v, i = torch.sort(cat, dim=-1, descending=desc, stable=True)
+                return v, torch.gather(lanes[0], 1, i)
+        else:
+            def lib_call():
+                return torch.sort(cat, dim=-1, descending=desc)
+        lib = graph_ms(lib_call, 50)
+        nbytes = bsz * (m + n) * (4 + 4) * (2 if pay else 1)
+        merges.append((name, ms, plain, lib, nbytes, bsz * (m + n)))
+    name, ms, plain, lib, nbytes, comps = merges[0]
+    row("loms_merge2", MERGE_SOURCE, "src/repro/kernels/loms_merge.py:49", ms, plain,
+        nbytes, comps, lib)
+    for name, ms, plain, lib, nbytes, comps in merges:
+        b_ms, b_by = bound_ms(nbytes, comps, ops_per_s)
+        log(f"  loms_merge2 {name}: {ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}), plain "
+            f"{plain:.4f} ms, torch.sort {lib:.4f} ms; {card}")
+    # row 2 at the two sorts of 3e; the first is the kernels line's
+    sorts = []
+    for name, bsz, n, dt, desc, pay in (
+            ("(16384, 1024) bf16 + int32 payload", 16_384, 1024, torch.bfloat16, False, True),
+            ("(16, 1007) f32 desc", 16, 1007, torch.float32, True, False)):
+        x = seg_tile(bsz, n, dt, dev, seed=n)
+        lanes = ((torch.arange(bsz * n, dtype=torch.int32, device=dev).reshape(bsz, n),)
+                 if pay else ())
+        kw = dict(key_dtype=dt, descending=desc)
+        ms = graph_ms(lambda: loms_sort(x, lanes, **kw), 20)
+        plain = graph_ms(lambda: loms_sort_plain(x, lanes, **kw), 2)
+
+        def lib_call():
+            v, i = torch.sort(x, dim=-1, descending=desc, stable=True)
+            return (v, torch.gather(lanes[0], 1, i)) if pay else v
+
+        lib = graph_ms(lib_call, 20)
+        nbytes = bsz * n * x.element_size() * 2 + (bsz * n * 4 * 2 if pay else 0)
+        lg = max(n - 1, 1).bit_length()  # log2 of the padded width
+        sorts.append((name, ms, plain, lib, nbytes, float(bsz * n * lg)))
+    name, ms, plain, lib, nbytes, comps = sorts[0]
+    row("loms_sort", SORT_SOURCE, "src/repro/kernels/sort.py:57", ms, plain, nbytes,
+        comps, lib)
+    for name, ms, plain, lib, nbytes, comps in sorts:
+        b_ms, b_by = bound_ms(nbytes, comps, ops_per_s)
+        log(f"  loms_sort {name}: {ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}), plain "
+            f"{plain:.4f} ms, torch.sort + gather {lib:.4f} ms; {card}")
+    # row 9 at (8, 2^22 + 2^22), on the int32 keys the library passes it
+    ka = encode_key_values(total_order_sorted(seg_tile(8, 1 << 22, torch.float32, dev, 1)))
+    kb = encode_key_values(total_order_sorted(seg_tile(8, 1 << 22, torch.float32, dev, 2)))
+    ms = graph_ms(lambda: grid_chunked_merge2(ka, kb), 20)
+    plain = cuda_ms(lambda: grid_chunked_merge2_plain(ka, kb, tile=512), 1, warm=0)
+    cat = torch.cat([ka, kb], dim=1)
+    lib = graph_ms(lambda: torch.sort(cat, dim=-1), 20)
+    b_ms, b_by = row("grid_merge2", GRID_SOURCE, "src/repro/streaming/grid_merge.py:43", ms,
+                     plain, cat.numel() * 4 * 2, float(cat.numel()), lib)
+    log(f"  grid_merge2 (8, 2^22 + 2^22) int32 keys: {ms:.4f} ms (bound {b_ms:.6f} ms by "
+        f"{b_by}), plain carry loop {plain:.1f} ms (one call), torch.sort {lib:.4f} ms; "
+        f"{card}")
+    return rows
+
+
 def profile_serve(dev, params, cfg, card) -> None:
     """Where a decode step's time goes: torch.profiler over four sampled
     decode steps of the main path (B=4 after a 128-token prompt), device
@@ -1112,7 +1486,7 @@ def main() -> int:
         f"memory {HBM_BYTES_PER_S:.3e} B/s")
     build.build_all()
     log(f"  nvcc built {build.BUILD_INFO['built']} in {build.BUILD_INFO['seconds']:.1f} s")
-    for src in ("topk", "segmented"):
+    for src in ("topk", "segmented", "merge", "sort", "grid_merge"):
         for line in str(build.BUILD_INFO.get(f"ptxas_{src}", "")).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"   {src}: " + line.strip())
@@ -1120,6 +1494,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     err = phase_kernels(dev, K, topk_block)
     err.update(phase_seg_kernels(dev, SK, capable_families))
+    err.update(phase_merge_sort_kernels(dev, capable_families))
 
     log("phase 3a: serve Qwen3-8B at full width")
     params, logits, smoke_logits, launches = phase_serve(dev, K)
@@ -1131,6 +1506,8 @@ def main() -> int:
     runs.append(got)
     log("phase 3d: the segmented library calls")
     runs.append(phase_seg_library(dev, K, SK))
+    log("phase 3e: the library's merge and sort")
+    runs.append(phase_library_merge_sort(dev))
     launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}
     log(f"  launches over all the main paths: {launches}")
     idle = [n for n, c in launches.items() if c == 0]
@@ -1140,6 +1517,7 @@ def main() -> int:
     log("phase 4: times")
     rows = phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s)
     rows += phase_seg_times(dev, SK, tick_rows, tick_k, launches, err, card, ops_per_s)
+    rows += phase_merge_sort_times(dev, launches, err, card, ops_per_s)
     profile_serve(dev, params, get_config("qwen3-8b"), card)
     decode_tile_cost(dev, params, get_config("qwen3-8b"), card)
     log(f"  total {time.perf_counter() - t_start:.1f} s")

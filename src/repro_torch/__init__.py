@@ -5,7 +5,9 @@ functions with PyTorch around hand-written CUDA kernels for Hopper
 (``csrc/``). It imports neither JAX nor the JAX package. Entry points run
 on the card unless the caller passes ``device="cpu"`` or a CPU tensor.
 """
-from .api import segment_argmax, segment_merge, segment_sort, segment_topk, topk  # noqa: F401
+from .api import (merge, segment_argmax, segment_merge, segment_sort,  # noqa: F401
+                  segment_topk, sort, topk)
+from .streaming import chunked_merge  # noqa: F401
 
-__all__ = ["topk", "segment_sort", "segment_merge", "segment_topk",
-           "segment_argmax"]
+__all__ = ["merge", "sort", "chunked_merge", "topk", "segment_sort",
+           "segment_merge", "segment_topk", "segment_argmax"]

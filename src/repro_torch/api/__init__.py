@@ -1,4 +1,6 @@
 """repro_torch.api — the port's public sorting-library entry points."""
-from .ops import (segment_argmax, segment_merge, segment_sort,  # noqa: F401
-                  segment_topk, topk, topk_block)
+from .dispatch import plan  # noqa: F401
+from .ops import (merge, segment_argmax, segment_merge, segment_sort,  # noqa: F401
+                  segment_topk, sort, topk, topk_block)
 from .payload import stabilize_ties  # noqa: F401
+from .spec import SortSpec  # noqa: F401

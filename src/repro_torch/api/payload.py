@@ -1,12 +1,53 @@
-"""Tie stabilisation for ``stable=True`` (counterpart of
-``repro.api.payload.stabilize_ties``)."""
+"""Axis handling, payload trees and tie stabilisation for the library's
+entry points (counterpart of ``repro.api.payload``).
+
+Every kernel works on canonical 2-D problems, ``(batch, length)`` with the
+sort axis last; these helpers move an arbitrary ``axis`` there and back
+and concatenate the per-list payload trees of a merge. Payload leaves may
+carry trailing feature dims beyond the values' shape.
+"""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.kernels.common import scatter_along, take_along
+
+
+def canonical_axis(axis: int, ndim: int) -> int:
+    ax = axis + ndim if axis < 0 else axis
+    if not 0 <= ax < ndim:
+        raise ValueError(f"axis {axis} out of range for ndim {ndim}")
+    return ax
+
+
+def to_batched_last(x: torch.Tensor, axis: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """Move ``axis`` last and flatten the rest: ``((B, L), lead shape)``."""
+    xm = torch.movedim(x, canonical_axis(axis, x.ndim), -1)
+    lead = tuple(xm.shape[:-1])
+    return xm.reshape(-1, xm.shape[-1]).contiguous(), lead
+
+
+def from_batched_last(x2: torch.Tensor, lead: Tuple[int, ...], axis: int,
+                      ndim: int) -> torch.Tensor:
+    """Inverse of :func:`to_batched_last` (the length along the axis may
+    differ, as after a merge)."""
+    xm = x2.reshape(lead + (x2.shape[-1],))
+    return torch.movedim(xm, -1, canonical_axis(axis, ndim))
+
+
+def concat_payload_trees(trees, axis: int, ndim: int):
+    """Concatenate the per-list payload trees of a merge along the sort
+    axis; the trees must have one structure."""
+    ax = canonical_axis(axis, ndim)
+    flat = [pytree.tree_flatten(t) for t in trees]
+    spec = flat[0][1]
+    if any(s != spec for _, s in flat):
+        raise ValueError("the payload trees of a merge need one structure")
+    leaves = [torch.cat(group, dim=ax) for group in zip(*(f for f, _ in flat))]
+    return pytree.tree_unflatten(leaves, spec)
 
 #: largest last axis stabilised with the oblivious comparison cloud; past
 #: it the pass sorts positions by equal-value run id instead (same output)

@@ -176,3 +176,16 @@ def gather_lanes(perm: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
         idx = idx.reshape(idx.shape + (1,) * (leaf.ndim - idx.ndim))
         idx = idx.expand(idx.shape[:2] + leaf.shape[2:])
     return take_along(leaf, 1, idx)
+
+
+def pad_tail_sorted(x: torch.Tensor, length: int) -> torch.Tensor:
+    """Pad the last axis of ascending rows out to ``length`` with the
+    dtype's maximum, so each row stays sorted. A genuine maximum ties its
+    pads: exact for values-only consumers, never for positions."""
+    pad = length - x.shape[-1]
+    if pad < 0:
+        raise ValueError(f"rows of {x.shape[-1]} are longer than {length}")
+    if pad == 0:
+        return x
+    fill = x.new_full(x.shape[:-1] + (pad,), sentinel_max(x.dtype))
+    return torch.cat([x, fill], dim=-1)

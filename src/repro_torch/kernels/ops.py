@@ -1,0 +1,48 @@
+"""Values-only wrappers over the merge and sort kernels (counterpart of
+``repro.kernels.ops`` ``merge2`` and ``sort``).
+
+The planner picks the family and column count. Floats go through the
+kernels as their total-order keys, which agrees with the reference's
+raw-float kernels on rows without NaN and without -0.0 tied to +0.0 (the
+reference's raw-float mode has no counterpart). Prefer
+``repro_torch.merge / sort``, which route as the reference does.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.streaming.planner import plan_op
+
+from .loms_merge import loms_merge2
+from .sort import loms_sort
+
+
+def _key_dtype(x: torch.Tensor):
+    return x.dtype if x.dtype.is_floating_point else None
+
+
+def merge2(a: torch.Tensor, b: torch.Tensor, *, n_cols: int = 2,
+           kind: str = "loms") -> torch.Tensor:
+    """Merge the sorted rows (B, m) and (B, n). ``kind`` names a
+    registered family; for loms, ``n_cols`` must divide both lengths."""
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError("merge2 takes (B, m) and (B, n) rows")
+    m, n = a.shape[-1], b.shape[-1]
+    if kind != "loms":
+        return loms_merge2(a, b, network=kind, key_dtype=_key_dtype(a))[0]
+    if m % n_cols or n % n_cols:
+        raise NotImplementedError(
+            f"n_cols={n_cols} does not divide ({m}, {n}): the reference runs the "
+            "schedule executor here, which is not ported (ROADMAP Queue 1, items 3 "
+            "and 4)")
+    plan = plan_op("merge2", (m, n), batch=a.shape[0], dtype=a.dtype)
+    return loms_merge2(a, b, network=plan.network, n_cols=n_cols,
+                       key_dtype=_key_dtype(a))[0]
+
+
+def sort(x: torch.Tensor) -> torch.Tensor:
+    """Sort every row of (B, n) in one launch of the fused sort."""
+    if x.ndim != 2:
+        raise ValueError("sort takes (B, n) rows")
+    plan = plan_op("sort", (x.shape[-1],), batch=x.shape[0], dtype=x.dtype)
+    return loms_sort(x, network=plan.network, key_dtype=_key_dtype(x))[0]

@@ -27,29 +27,22 @@ keys and int keys take the exact permute), so it has no counterpart.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.networks import (encode_program, merge_program, merge_runs,
-                                  pick_merge_cols, run_sort_program,
-                                  sort_program)
+from repro_torch.networks import (merge_program, merge_runs, pick_merge_cols,
+                                  run_sort_program, sort_program)
 from .common import (encode_key_values, flip_keys, gather_lanes, sentinel_max,
                      stable_compact)
+from .launch import (KEY_CODE, check_rc, cuda_checks, empty_payloads, library,
+                     payload_args, program_tensor, stream)
 from .topk import LAUNCHES
 
 #: widest class a sort launch takes (the reference's cutover, see
 #: ``segmented.core.max_class_width``) and widest merge pair
 SORT_MAX_WIDTH = 1024
 MERGE_MAX_WIDTH = 2048
-#: payload lanes one launch carries
-MAX_PAYLOADS = 8
-
-#: key type code of the kernels: floats are encoded, int32 is taken raw
-_KEY_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
-             torch.int32: 3}
-
 Result = Tuple[torch.Tensor, Optional[torch.Tensor], Tuple[torch.Tensor, ...]]
 
 
@@ -116,82 +109,10 @@ def segment_class_merge_plain(dense_a, dense_b, lens_a, lens_b, payloads=(), *,
                          k_out, want_perm, seg_pos=seg_pos)
 
 
-# ---------------------------------------------------------------------------
-# CUDA wrappers
-# ---------------------------------------------------------------------------
-
-_lib = None
-
-
-def _kernels() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        from .build import load
-
-        lib = load("segmented")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.repro_seg_sort.argtypes = [p, p, p, p, p, i, p, p, p,
-                                       i, i, i, i, i, p]
-        lib.repro_seg_merge.argtypes = [p, p, p, p, p, p, p, i, p, p, p,
-                                        i, i, i, i, i, i, p]
-        lib.repro_seg_sort.restype = ctypes.c_int
-        lib.repro_seg_merge.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-_PROGRAMS = {}
-
-
-def _program_tensor(device, kind: str, family: str, a: int, b: int = 0,
-                    n_cols: Optional[int] = None) -> torch.Tensor:
-    """The int32 words of a class program on ``device``, copied there once."""
-    key = (str(device), kind, family, a, b, n_cols)
-    t = _PROGRAMS.get(key)
-    if t is None:
-        levels = (sort_program(family, a).levels if kind == "sort"
-                  else [merge_program(family, a, b, n_cols)])
-        t = torch.tensor(encode_program(levels), dtype=torch.int32, device=device)
-        _PROGRAMS[key] = t
-    return t
-
-
-def _cuda_checks(tensors, key_dtype: torch.dtype, n_payloads: int) -> None:
-    if key_dtype not in _KEY_CODE:
-        raise TypeError(f"the CUDA class kernels take float32, bfloat16, "
-                        f"float16 or int32 values, not {key_dtype}")
-    if n_payloads > MAX_PAYLOADS:
-        raise ValueError(f"at most {MAX_PAYLOADS} payload lanes, got {n_payloads}")
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"tensor on {t.device}: every input of a CUDA "
-                             "class kernel lies on the card")
-        if not t.is_contiguous():
-            raise ValueError("the CUDA class kernels take contiguous tensors")
-        if t.numel() >= 2 ** 31:
-            raise ValueError(f"tensor of shape {tuple(t.shape)} is too large")
-
-
-def _payload_args(payloads, outs):
-    n = len(payloads)
-    ins = (ctypes.c_void_p * MAX_PAYLOADS)(*[p.data_ptr() for p in payloads])
-    pouts = (ctypes.c_void_p * MAX_PAYLOADS)(*[o.data_ptr() for o in outs])
-    row_bytes = (ctypes.c_int * MAX_PAYLOADS)(
-        *[(p[0, 0].numel() if p.shape[0] else 1) * p.element_size()
-          for p in payloads])
-    return n, ins, pouts, row_bytes
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _alloc_outputs(dense, payloads, s, k_out):
     out = torch.empty((s, k_out), dtype=dense.dtype, device=dense.device)
     perm = torch.empty((s, k_out), dtype=torch.int32, device=dense.device)
-    pouts = tuple(torch.empty((s, k_out) + p.shape[2:], dtype=p.dtype,
-                              device=p.device) for p in payloads)
-    return out, perm, pouts
+    return out, perm, empty_payloads(payloads, s, k_out)
 
 
 def segment_class_sort(dense: torch.Tensor, lens: torch.Tensor,
@@ -218,17 +139,15 @@ def segment_class_sort(dense: torch.Tensor, lens: torch.Tensor,
                                         network=network, flip=flip,
                                         want_perm=want_perm)
     lens = lens.to(torch.int32).contiguous()
-    _cuda_checks((dense, lens) + payloads, dense.dtype, len(payloads))
-    prog = _program_tensor(dense.device, "sort", network, w)
+    cuda_checks("class kernels", (dense, lens) + payloads, dense.dtype, len(payloads))
+    prog = program_tensor(dense.device, "sort", network, w)
     out, perm, pouts = _alloc_outputs(dense, payloads, s, k_out)
     if s:
-        n, ins, po, rb = _payload_args(payloads, pouts)
-        rc = _kernels().repro_seg_sort(
+        n, ins, po, rb = payload_args(payloads, pouts)
+        check_rc(library("segmented").repro_seg_sort(
             dense.data_ptr(), lens.data_ptr(), prog.data_ptr(), out.data_ptr(),
             perm.data_ptr(), n, ins, po, rb, s, w, k_out,
-            _KEY_CODE[dense.dtype], int(flip), _stream(dense))
-        if rc:
-            raise RuntimeError(f"seg_sort launch failed: cudaError {rc}")
+            KEY_CODE[dense.dtype], int(flip), stream(dense)), "seg_sort")
         LAUNCHES["seg_sort"] += 1
     return out, (perm if want_perm else None), pouts
 
@@ -270,19 +189,17 @@ def segment_class_merge(dense_a: torch.Tensor, dense_b: torch.Tensor,
             network=network, flip=flip, want_perm=want_perm, n_cols=n_cols)
     lens_a = lens_a.to(torch.int32).contiguous()
     lens_b = lens_b.to(torch.int32).contiguous()
-    _cuda_checks((dense_a, dense_b, lens_a, lens_b) + payloads, dense_a.dtype,
-                 len(payloads))
-    prog = _program_tensor(dense_a.device, "merge", network, wa, wb,
-                           n_cols if network == "loms" else None)
+    cuda_checks("class kernels", (dense_a, dense_b, lens_a, lens_b) + payloads,
+                dense_a.dtype, len(payloads))
+    prog = program_tensor(dense_a.device, "merge", network, wa, wb,
+                          n_cols if network == "loms" else None)
     out, perm, pouts = _alloc_outputs(dense_a, payloads, s, k_out)
     if s:
-        n, ins, po, rb = _payload_args(payloads, pouts)
-        rc = _kernels().repro_seg_merge(
+        n, ins, po, rb = payload_args(payloads, pouts)
+        check_rc(library("segmented").repro_seg_merge(
             dense_a.data_ptr(), dense_b.data_ptr(), lens_a.data_ptr(),
             lens_b.data_ptr(), prog.data_ptr(), out.data_ptr(), perm.data_ptr(),
-            n, ins, po, rb, s, wa, wb, k_out, _KEY_CODE[dense_a.dtype],
-            int(flip), _stream(dense_a))
-        if rc:
-            raise RuntimeError(f"seg_merge launch failed: cudaError {rc}")
+            n, ins, po, rb, s, wa, wb, k_out, KEY_CODE[dense_a.dtype],
+            int(flip), stream(dense_a)), "seg_merge")
         LAUNCHES["seg_merge"] += 1
     return out, (perm if want_perm else None), pouts

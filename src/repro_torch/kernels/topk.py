@@ -21,7 +21,6 @@ tensor runs the plain version. ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Tuple
 
 import torch
@@ -33,6 +32,7 @@ from .common import (
     merge2_sorted,
     sort_nsorter,
 )
+from .launch import check_rc, library, stream
 
 #: largest last-axis size the single-kernel router path handles
 ROUTER_TOPK_MAX = 512
@@ -44,11 +44,13 @@ PHASE1_MAX_BLOCK = 1024
 _KEY_PAD = torch.iinfo(torch.int32).min
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: kernel launches per kernel (the segmented class kernels of
-#: ``segmented.py`` count here too); incremented only where a kernel launches
+#: kernel launches per kernel (the kernels of ``segmented.py``,
+#: ``loms_merge.py``, ``sort.py`` and ``streaming/grid_merge.py`` count here
+#: too); incremented only where a kernel launches
 LAUNCHES: Dict[str, int] = {"router_topk": 0, "vocab_phase1": 0,
                             "vocab_merge_level": 0, "seg_sort": 0,
-                            "seg_merge": 0}
+                            "seg_merge": 0, "loms_merge2": 0, "loms_sort": 0,
+                            "grid_merge2": 0}
 
 
 def reset_launch_counts() -> None:
@@ -177,31 +179,6 @@ def vocab_topk_plain(x: torch.Tensor, k: int, block: int = 128
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-_lib = None
-
-
-def _kernels() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        from .build import load
-
-        lib = load("topk")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.repro_router_topk.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.repro_vocab_phase1.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
-        lib.repro_vocab_merge_level.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-        for fn in (lib.repro_router_topk, lib.repro_vocab_phase1,
-                   lib.repro_vocab_merge_level):
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-
-
 def _check_input(x: torch.Tensor, k: int, k_max: int) -> None:
     if x.ndim != 2:
         raise ValueError(f"top-k takes a 2-D (rows, axis) tensor, got {tuple(x.shape)}")
@@ -216,10 +193,6 @@ def _check_cuda(x: torch.Tensor) -> None:
         raise ValueError("the CUDA top-k kernels take a contiguous tensor")
     if x.shape[0] * x.shape[1] >= 2 ** 31:
         raise ValueError(f"tensor of shape {tuple(x.shape)} is too large")
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def router_topk(x: torch.Tensor, k: int, *, block: int = 32
@@ -240,10 +213,9 @@ def router_topk(x: torch.Tensor, k: int, *, block: int = 32
     v = torch.empty((t, k), dtype=x.dtype, device=x.device)
     i = torch.empty((t, k), dtype=torch.int32, device=x.device)
     if t:
-        rc = _kernels().repro_router_topk(
+        check_rc(library("topk").repro_router_topk(
             x.data_ptr(), v.data_ptr(), i.data_ptr(), t, e, k, block,
-            _DTYPE_CODE[x.dtype], _stream(x))
-        _check(rc, "router_topk")
+            _DTYPE_CODE[x.dtype], stream(x)), "router_topk")
         LAUNCHES["router_topk"] += 1
     return v, i
 
@@ -268,10 +240,10 @@ def vocab_phase1(x: torch.Tensor, k: int, block: int
     out = torch.empty((bsz, nblk, kk), dtype=x.dtype if single else torch.int32,
                       device=x.device)
     if bsz:
-        rc = _kernels().repro_vocab_phase1(
+        check_rc(library("topk").repro_vocab_phase1(
             x.data_ptr(), out.data_ptr(), out.data_ptr(), idx.data_ptr(), bsz, v,
-            nblk, block, kk, int(single), _DTYPE_CODE[x.dtype], _stream(x))
-        _check(rc, "vocab_phase1")
+            nblk, block, kk, int(single), _DTYPE_CODE[x.dtype], stream(x)),
+            "vocab_phase1")
         LAUNCHES["vocab_phase1"] += 1
     return out, idx
 
@@ -301,11 +273,10 @@ def vocab_merge_level(keys: torch.Tensor, idx: torch.Tensor, k: int,
     oidx = torch.empty((bsz, g, keep), dtype=torch.int32, device=dev)
     out = torch.empty((bsz, g, keep), dtype=decode_dtype or torch.int32, device=dev)
     if bsz * g:
-        rc = _kernels().repro_vocab_merge_level(
+        check_rc(library("topk").repro_vocab_merge_level(
             keys.data_ptr(), idx.data_ptr(), out.data_ptr(), out.data_ptr(),
             oidx.data_ptr(), bsz * g, ln, keep, int(decode_dtype is not None),
-            _DTYPE_CODE.get(decode_dtype, 0), _stream(keys))
-        _check(rc, "vocab_merge_level")
+            _DTYPE_CODE.get(decode_dtype, 0), stream(keys)), "vocab_merge_level")
         LAUNCHES["vocab_merge_level"] += 1
     return out, oidx
 

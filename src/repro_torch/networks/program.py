@@ -131,31 +131,28 @@ def _apply_pair_stage(st: PairStage, x, p):
     return out, torch.cat([p[..., :1], pm, p[..., L - 1:]], dim=-1)
 
 
+def _columns(x: torch.Tensor, c_: int) -> torch.Tensor:
+    """``(..., L) -> (..., C, L/C)``: column c holds ``x[..., c::C]``."""
+    return x.reshape(x.shape[:-1] + (x.shape[-1] // c_, c_)).transpose(-1, -2)
+
+
 def _merge_columns(prog: MergeProgram, lo, hi, payload):
     """The UP-m/DN-n column device: column c merges ``hi[(C-1-c)%C::C]``
     (first, so it wins ties) with ``lo[c::C]``; stage 2 rank-sorts each
-    row of C values."""
+    row of C values. The C column merges run as one batched merge."""
     m, n, c_ = prog.m, prog.n, prog.n_cols
     if c_ <= 1 or m % c_ or n % c_:
         return merge2_sorted(lo, hi, payload=payload)
-    plo, phi = payload if payload is not None else (None, None)
-    cols, pcols = [], []
-    for c in range(c_):
-        av = lo[..., c::c_]
-        bv = hi[..., (c_ - 1 - c) % c_::c_]
-        if payload is not None:
-            col, pcol = merge2_sorted(
-                bv, av, payload=(phi[..., (c_ - 1 - c) % c_::c_], plo[..., c::c_]))
-            pcols.append(pcol)
-        else:
-            col = merge2_sorted(bv, av)
-        cols.append(col)
-    arr = torch.stack(cols, dim=-1)  # (..., R, C)
+    # column c of hi is hi[(C-1-c)::C]: the columns in reverse order
+    av, bv = _columns(lo, c_), _columns(hi, c_).flip(-2)
     shape = lo.shape[:-1] + (m + n,)
     if payload is not None:
-        arr, parr = sort_nsorter(arr, torch.stack(pcols, dim=-1))
+        plo, phi = payload
+        col, pcol = merge2_sorted(bv, av, payload=(_columns(phi, c_).flip(-2),
+                                                   _columns(plo, c_)))
+        arr, parr = sort_nsorter(col.transpose(-1, -2), pcol.transpose(-1, -2))
         return arr.reshape(shape), parr.reshape(shape)
-    return sort_nsorter(arr).reshape(shape)
+    return sort_nsorter(merge2_sorted(bv, av).transpose(-1, -2)).reshape(shape)
 
 
 def _merge_pairs(prog: MergeProgram, lo, hi, payload):

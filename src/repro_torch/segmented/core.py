@@ -14,9 +14,10 @@ reference's: 1024 for every dtype the port takes) spill, grouped by exact
 length: top-k spills take the stable top-k (``repro_torch.topk(...,
 stable=True)``: the vocab kernels, then ``stabilize_ties``); sort and
 merge spills that carry a permutation take a stable argsort of the keys,
-as the reference's XLA path does. The values-only sort and merge spills
-run the streaming grid merge in the reference (kernel row 9), which is
-not ported: they raise ``NotImplementedError`` (ROADMAP Queue 1, item 6).
+as the reference's XLA path does. Values-only spills run on the keys as
+the reference's do: a sort spill chunk-sorts every tile of every row in
+one class-sort launch (kernel row 6), then merges the sorted runs
+pairwise with the grid merge (row 9); a merge spill is one grid merge.
 
 A card tensor runs the CUDA class kernels; a CPU tensor their plain
 versions, so the CPU tests exercise what the card runs. Only
@@ -32,10 +33,12 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.kernels.common import (encode_key_values, flip_keys,
-                                        key_transformable, sentinel_min,
-                                        take_along)
+from repro_torch.kernels.common import (decode_key_values, encode_key_values,
+                                        flip_keys, key_transformable, sentinel_max,
+                                        sentinel_min, take_along)
 from repro_torch.kernels.segmented import segment_class_merge, segment_class_sort
+from repro_torch.streaming.grid_merge import grid_chunked_merge2
+from repro_torch.streaming.planner import plan_chunked, sort_fits_vmem
 
 from .bucketing import (SizeClass, bucket_merge_pairs, bucket_segments,
                         gather_map, normalize_offsets, scatter_map,
@@ -43,30 +46,21 @@ from .bucketing import (SizeClass, bucket_merge_pairs, bucket_segments,
 
 #: hard cap on the dense class width (the reference's ``MAX_CLASS_WIDTH``)
 MAX_CLASS_WIDTH = 2048
-#: the reference planner's budget for one sort working set (8 MiB)
-_SORT_BUDGET = 8 * 1024 * 1024
 #: the network family the class launches run (the planner's heuristic
 #: default; the reference's autotune cache may pick another)
 NETWORK = "loms"
-
-_SPILL_VALUES = ("values-only spills of segments past the class width run the "
-                 "streaming grid merge (kernel row 9), which is not ported yet "
-                 "(ROADMAP Queue 1, item 6); pass a payload or keep segments "
-                 "<= {} long")
+#: the chunk a values-only sort spill sorts in one class launch, and the
+#: tile of its grid merges (the reference's ``min(512, max_class_width)``)
+SPILL_TILE = 512
 
 
 def max_class_width(dtype: torch.dtype) -> int:
     """Largest pow2 class width whose sort working set fits the
-    reference's budget at a one-row tile (``sort_fits_vmem``): the class
-    vs spill cutover, which decides tie order, so it is the reference's
-    and not a shared-memory budget of the card."""
-    it = max(torch.empty((), dtype=dtype).element_size(), 4)
-
-    def sort_bytes(w: int) -> int:
-        return (w // 2) * (w // 2) * 4 * 2 + w * (it + 4) * 2
-
+    reference's routing budget at a one-row tile (``sort_fits_vmem``):
+    the class vs spill cutover, which decides tie order, so it is the
+    reference's and not a shared-memory budget of the card."""
     w = MAX_CLASS_WIDTH
-    while w > 2 and sort_bytes(w) > _SORT_BUDGET:
+    while w > 2 and not sort_fits_vmem(w, dtype=dtype):
         w //= 2
     return w
 
@@ -135,6 +129,34 @@ def _keys_for(x: torch.Tensor, descending: bool) -> torch.Tensor:
     return flip_keys(keys) if descending else keys
 
 
+def _undo_keys(keys: torch.Tensor, dtype: torch.dtype, descending: bool) -> torch.Tensor:
+    """Sorted keys back to values: the inverse of :func:`_keys_for` (a NaN
+    comes out canonical, as the reference's values-only spills give it)."""
+    v = flip_keys(keys) if descending else keys
+    return decode_key_values(v, dtype) if key_transformable(dtype) else v
+
+
+def _spill_sort_values(dense: torch.Tensor, descending: bool, tile: int) -> torch.Tensor:
+    """Values-only sort of equal-length long rows: every tile of every row
+    sorted in one class launch, then the sorted runs of each row merged
+    pairwise by the grid merge."""
+    s, ln = dense.shape
+    keys = _keys_for(dense, descending)
+    c = -(-ln // tile)
+    if c * tile != ln:
+        keys = torch.cat([keys, keys.new_full((s, c * tile - ln),
+                                              sentinel_max(keys.dtype))], dim=1)
+    lens = torch.full((s * c, 1), tile, dtype=torch.int32, device=dense.device)
+    chunks = segment_class_sort(keys.reshape(s * c, tile).contiguous(), lens,
+                                network=NETWORK)[0]
+    runs = list(chunks.reshape(s, c, tile).unbind(1))
+    while len(runs) > 1:
+        nxt = [grid_chunked_merge2(runs[i].contiguous(), runs[i + 1].contiguous(),
+                                   tile=tile) for i in range(0, len(runs) - 1, 2)]
+        runs = nxt + runs[len(nxt) * 2:]
+    return _undo_keys(runs[0][:, :ln], dense.dtype, descending)
+
+
 def _spill_sort_perm(dense: torch.Tensor, descending: bool):
     """Permutation-carrying spill rows: a stable argsort of the keys, as
     the reference's batched XLA path."""
@@ -192,10 +214,12 @@ def segment_sort_impl(values: torch.Tensor, offsets, *, descending: bool = False
             _scatter(o, smap, r)
 
     for cls in spill:  # equal exact-length groups past the class width
-        if not need_perm:
-            raise NotImplementedError(_SPILL_VALUES.format(mw))
         gmap = gather_map(offs, cls, n)
         smap = scatter_map(offs, cls, cls.width)
+        if not need_perm:
+            _scatter(out_v, smap, _spill_sort_values(_take(vext, gmap), descending,
+                                                     min(SPILL_TILE, mw)))
+            continue
         res_v, res_perm = _spill_sort_perm(_take(vext, gmap), descending)
         _scatter(out_v, smap, res_v)
         _scatter(out_p, smap, res_perm)
@@ -282,14 +306,19 @@ def segment_merge_impl(a: torch.Tensor, b: torch.Tensor, offsets_a, offsets_b, *
             _scatter(o, smap, r)
 
     for ca, cb in spill:  # exact-length groups past the class width
-        if not need_perm:
-            raise NotImplementedError(_SPILL_VALUES.format(mw))
-        dense = torch.cat([_take(aext, gather_map(offs_a, ca, na)),
-                           _take(bext, gather_map(offs_b, cb, nb))], dim=1)
+        dense_a = _take(aext, gather_map(offs_a, ca, na))
+        dense_b = _take(bext, gather_map(offs_b, cb, nb))
         ln = ca.width + cb.width
         smap = scatter_map(out_offs, SizeClass(width=ln, seg_ids=ca.seg_ids,
                                                lens=(ln,) * ca.n), ln)
-        res_v, res_perm = _spill_sort_perm(dense, descending)
+        if not need_perm:  # one grid merge of the keys
+            ka, kb = _keys_for(dense_a, descending), _keys_for(dense_b, descending)
+            tile = plan_chunked(ca.width, cb.width, batch=ca.n, dtype=ka.dtype).tile
+            _scatter(out_v, smap, _undo_keys(grid_chunked_merge2(ka, kb, tile=tile),
+                                             a.dtype, descending))
+            continue
+        res_v, res_perm = _spill_sort_perm(torch.cat([dense_a, dense_b], dim=1),
+                                           descending)
         _scatter(out_v, smap, res_v)
         _scatter(out_p, smap, res_perm)
         for o, lx in zip(out_l, lext):

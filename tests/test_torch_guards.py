@@ -128,3 +128,19 @@ def test_scheduler_and_segment_ops_raise_without_a_card(no_card):
         ScheduledEngine(params, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launcher.main(["--arch", "qwen3-8b", "--smoke", "--engine", "--new-tokens", "2"])
+
+
+def test_merge_and_sort_raise_without_a_card(no_card):
+    import repro_torch
+
+    a = np.arange(8, dtype=np.float32).reshape(2, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.merge(a, a)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.sort(a)
+    # the CPU only when asked for: device="cpu" or CPU tensors
+    got = repro_torch.merge(a, a, device="cpu")
+    assert got.device.type == "cpu" and torch.equal(got, torch.sort(torch.cat(
+        [torch.from_numpy(a)] * 2, dim=1))[0])
+    assert repro_torch.sort(torch.from_numpy(a[:, ::-1].copy())).device.type == "cpu"
+    assert repro_torch.chunked_merge(torch.from_numpy(a), torch.from_numpy(a)).shape == (2, 8)

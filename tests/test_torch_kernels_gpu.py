@@ -1,5 +1,6 @@
 """On-card tests of the port's CUDA kernels (top-k, segmented class sort
-and merge) against their plain versions.
+and merge, the 2-way merge, the fused sort, the grid merge) against their
+plain versions.
 
 Marked ``gpu``: each test skips without a CUDA card. This file imports
 neither JAX nor the JAX package, so it also runs where only PyTorch is
@@ -15,7 +16,7 @@ import repro_torch
 from repro_torch import topk
 from repro_torch.kernels import segmented as SK
 from repro_torch.kernels import topk as K
-from repro_torch.networks import capable_families
+from repro_torch.networks import capable_families, pick_merge_cols
 
 pytestmark = pytest.mark.gpu
 
@@ -70,7 +71,8 @@ def test_launch_counts(cuda):
     topk(x[:, :256].contiguous(), 16)
     assert K.LAUNCHES == {"router_topk": 1, "vocab_phase1": 1,
                           "vocab_merge_level": K.vocab_levels(151_936, 64),
-                          "seg_sort": 0, "seg_merge": 0}
+                          "seg_sort": 0, "seg_merge": 0, "loms_merge2": 0,
+                          "loms_sort": 0, "grid_merge2": 0}
 
 
 def test_wrapper_rejects_bad_input(cuda):
@@ -156,3 +158,88 @@ def test_class_kernels_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         SK.segment_class_sort(torch.zeros(2, 12, device=cuda),
                               torch.zeros(2, 1, dtype=torch.int32, device=cuda))
+
+
+def _sorted_rows(rows, n, dtype, seed, descending=False):
+    """Rows of a class tile in the total order of their keys."""
+    from repro_torch.kernels.common import encode_key_values, take_along
+
+    x = _class_tile(rows, n, dtype, seed)
+    order = torch.argsort(encode_key_values(x) if dtype.is_floating_point else x,
+                          dim=-1, stable=True)
+    return take_along(x, 1, order.flip(-1) if descending else order)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("m,n", [(8, 8), (16, 48), (512, 512), (4096, 32), (20_000, 40)])
+@pytest.mark.parametrize("desc", [False, True])
+def test_loms_merge2_kernel_matches_plain(cuda, dtype, m, n, desc):
+    from repro_torch.kernels.loms_merge import loms_merge2, loms_merge2_plain
+
+    rows = 7
+    a = _sorted_rows(rows, m, dtype, 1, desc)
+    b = _sorted_rows(rows, n, dtype, 2, desc)
+    pay = (torch.arange(rows * (m + n) * 3, dtype=torch.int32).reshape(rows, m + n, 3),
+           _class_tile(rows, m + n, torch.bfloat16, seed=3))
+    key = dtype if dtype.is_floating_point else None
+    fams = capable_families("merge2", (m, n)) if m + n <= 1024 else ("loms",)
+    for fam in fams:
+        kw = dict(network=fam, n_cols=pick_merge_cols(m, n),
+                  key_dtype=key, descending=desc, want_perm=True)
+        want = loms_merge2_plain(a, b, pay, **kw)
+        got = loms_merge2(a.to(cuda), b.to(cuda), [p.to(cuda) for p in pay], **kw)
+        _same_all(want, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("n", [1, 2, 37, 128, 1007, 1024])
+@pytest.mark.parametrize("desc", [False, True])
+def test_loms_sort_kernel_matches_plain(cuda, dtype, n, desc):
+    from repro_torch.kernels.common import ceil_pow2
+    from repro_torch.kernels.sort import loms_sort, loms_sort_plain
+
+    rows = 9
+    x = _class_tile(rows, n, dtype, seed=n)
+    pay = (torch.arange(rows * n * 2, dtype=torch.int32).reshape(rows, n, 2),
+           _class_tile(rows, n, torch.bfloat16, seed=n + 1))
+    key = dtype if dtype.is_floating_point else None
+    for fam in capable_families("sort", (ceil_pow2(n),)):
+        kw = dict(network=fam, key_dtype=key, descending=desc, want_perm=True)
+        want = loms_sort_plain(x, pay, **kw)
+        got = loms_sort(x.to(cuda), [p.to(cuda) for p in pay], **kw)
+        _same_all(want, got)
+
+
+@pytest.mark.parametrize("na,nb", [(1000, 300), (37, 0), (0, 5), (4096, 4096),
+                                   (100_000, 3)])
+def test_grid_merge_kernel_matches_plain(cuda, na, nb):
+    """int32 keys with their extremes, and float rows as keys: on rows
+    without NaN and without -0.0 tied to +0.0 the card's key merge is the
+    plain carry loop's raw-float merge."""
+    from repro_torch.streaming.grid_merge import grid_chunked_merge2, grid_chunked_merge2_plain
+
+    for dtype in (torch.int32, torch.float32):
+        a = _sorted_rows(3, na, dtype, 5)
+        b = _sorted_rows(3, nb, dtype, 6)
+        if dtype.is_floating_point:  # finite, no NaN, no -0.0
+            a = torch.nan_to_num(a, nan=1.0, posinf=2.0, neginf=-2.0) + 0.0
+            b = torch.nan_to_num(b, nan=1.0, posinf=2.0, neginf=-2.0) + 0.0
+            a, b = a.sort(-1)[0], b.sort(-1)[0]
+        want = grid_chunked_merge2_plain(a, b, tile=64)
+        got = grid_chunked_merge2(a.to(cuda), b.to(cuda), tile=64)
+        assert torch.equal(_bits(got.cpu()) if dtype.is_floating_point else got.cpu(),
+                           _bits(want) if dtype.is_floating_point else want)
+
+
+def test_merge_and_sort_launch_their_kernels(cuda):
+    K.reset_launch_counts()
+    x = _class_tile(4, 64, torch.float32, seed=0).to(cuda)
+    a, b = repro_torch.sort(x[:2]), repro_torch.sort(x[2:])
+    got = repro_torch.merge(a, b)
+    want = repro_torch.merge(a.cpu(), b.cpu())
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+    long_a = repro_torch.sort(torch.randn(1, 1000, device=cuda))
+    repro_torch.merge(long_a.expand(3, 1000).contiguous().repeat(1, 4).sort(-1)[0],
+                      long_a.expand(3, 1000).contiguous().repeat(1, 4).sort(-1)[0])
+    assert (K.LAUNCHES["loms_sort"], K.LAUNCHES["loms_merge2"],
+            K.LAUNCHES["grid_merge2"]) == (3, 1, 1)

@@ -219,8 +219,10 @@ def test_spill_topk_matches_reference_stable_spill(monkeypatch):
     tv, ti, too = repro_torch.segment_topk(torch.from_numpy(x), offs, ks)
     _assert_same((jv, ji), (tv, ti))
     assert too == tuple(joo)
-    with pytest.raises(NotImplementedError, match="row 9"):
-        repro_torch.segment_sort(torch.from_numpy(x), offs)
+    # the values-only sort spill (kernel rows 6 + 9) sorts each segment
+    got = repro_torch.segment_sort(torch.from_numpy(x), offs)
+    np.testing.assert_array_equal(got.numpy(), np.concatenate(
+        [np.sort(x[:5000]), np.sort(x[5000:])]))
 
 
 @pytest.mark.parametrize("n,k,dtype", [(256, 64, "bfloat16"), (1000, 16, "float32")])
