@@ -11,8 +11,9 @@ script with a non-zero exit code when it fails:
    (nvcc, from ``src/repro_torch/csrc/`` only);
 2. every CUDA kernel against its plain PyTorch version on the card,
    bit-equal values and indices (and permutations and payload lanes for
-   the segmented class kernels, the 2-way merge and the fused sort), in
-   bf16, f32 and int32, on rows that hold NaN, ±inf, ±0.0 and many ties;
+   the segmented class kernels, the 2-way merge, the fused sort and the
+   k-way merge), in bf16, f32 and int32, on rows that hold NaN, ±inf,
+   ±0.0 and many ties;
 3. the main paths, each with its launch counts zeroed just before it and
    read just after it:
    a. ``generate`` on Qwen3-8B at full width (bf16, random weights from
@@ -42,9 +43,18 @@ script with a non-zero exit code when it fails:
       ``segment_merge`` spills; each checked bit-equal to the CPU's plain
       versions, or for the largest values-only rows to torch.sort of the
       keys, decoded;
+   f. the k-way merge and the median at their users' sizes (kernel row
+      8): the paper's 3 x 7 device (``merge_k`` and ``median_of_lists``)
+      over 1,048,576 rows, four vocab shards' kept top-64 lists merged
+      descending with their token ids (65,536 rows, bf16), 8 x 128 int32
+      over 16,384 rows (the six-stage device at 1,024), (100, 50, 25)
+      f32 over 65,536 rows, the median of 5 x 7 over 1,048,576 rows, and
+      ``chunked_merge_k`` of 8 runs of 2^20 (an external sort's merge
+      phase: 65,536 segment rows in one launch); each checked bit-equal
+      to the plain version run in chunks, or to torch.sort of the keys;
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
-   ``torch.sort``: a yardstick the port never calls).
+   ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Needs one card.
@@ -74,6 +84,7 @@ SEG_SOURCE = "src/repro_torch/csrc/segmented.cu"
 MERGE_SOURCE = "src/repro_torch/csrc/merge.cu"
 SORT_SOURCE = "src/repro_torch/csrc/sort.cu"
 GRID_SOURCE = "src/repro_torch/csrc/grid_merge.cu"
+KWAY_SOURCE = "src/repro_torch/csrc/kway.cu"
 
 
 def log(*args) -> None:
@@ -1397,6 +1408,277 @@ def phase_merge_sort_times(dev, launches, err, card, ops_per_s) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the k-way merge and the median: kernel row 8
+# ---------------------------------------------------------------------------
+
+
+def sorted_lists(rows, lens, dtype, device, seed, descending=False):
+    """``len(lens)`` class tiles, each row sorted in the total order of its
+    keys (descending: reversed)."""
+    return [total_order_sorted(seg_tile(rows, n, dtype, device, seed + j), descending)
+            for j, n in enumerate(lens)]
+
+
+def phase_kway_kernels(dev) -> dict:
+    """Phase 2, row 8: the k-way kernel bit-equal to its plain version
+    (values, perm, payload lanes with and without a feature dim) in bf16,
+    f32 and int32 on lists with NaN, ±inf, ±0.0 and heavy ties, both
+    orders, the full and the truncated (two-stage) device, the MWMS and
+    median schedules, and at the kernel shapes of phase 3f."""
+    import torch
+
+    from repro_torch.core import mwms_kway
+    from repro_torch.kernels.kway import kway_merge, kway_merge_plain
+    from repro_torch.kernels.ops import median_readout
+    from repro_torch.networks import kway_schedule, median_schedule
+
+    err = {"kway_merge": 0.0}
+
+    def case(name, x, sched, pay=(), chunk=512, **kw):
+        got = kway_merge(x, sched, pay, **kw)
+        want = plain_in_chunks(lambda r: kway_merge_plain(
+            x[r], sched, tuple(p[r] for p in pay), **kw), x.shape[0], chunk)
+        err["kway_merge"] = max(err["kway_merge"], require_same_class(name, got, want))
+
+    for lens in ((7, 7, 7), (3,) * 8, (64,) * 4, (100, 50, 25), (5,) * 5, (128,) * 8,
+                 (181,) * 8):
+        total, sched = sum(lens), kway_schedule(lens)
+        for dt in (torch.bfloat16, torch.float32, torch.int32):
+            key = dt if dt.is_floating_point else None
+            for desc in (False, True):
+                x = torch.cat(sorted_lists(33, lens, dt, dev, total, desc), dim=1)
+                pay = (torch.arange(33 * total * 2, dtype=torch.int32, device=dev)
+                       .reshape(33, total, 2), seg_tile(33, total, torch.bfloat16, dev, 3))
+                for n_stages in (None, 2):
+                    case(f"kway {lens} {dt} desc={desc} n_stages={n_stages}", x, sched, pay,
+                         n_stages=n_stages, lens=lens, key_dtype=key, descending=desc,
+                         want_perm=True)
+        log(f"  kway_merge {lens}: bf16/f32/int32 x both orders x full and two-stage "
+            "devices, 33 rows, payload lanes (F=2 int32, bf16): bit-equal")
+    x = torch.cat(sorted_lists(64, (7, 7, 7), torch.int32, dev, 5), dim=1)
+    med, pos = median_schedule((7, 7, 7))
+    for sched in (mwms_kway((7, 7, 7)), med, median_readout(med, pos)):
+        case(f"kway {sched.name}", x, sched, want_perm=True)
+    log("  kway_merge MWMS 3 x 7 and the median devices (all cells, the center "
+        "cell): bit-equal")
+    # the kernel shapes of phase 3f, in the modes the library calls them
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+    for name, rows, lens, dt, desc, pay, median in (
+            ("3 x 7 f32", 1 << 20, (7, 7, 7), f32, False, False, False),
+            ("3 x 7 int32 keys median", 1 << 20, (7, 7, 7), i32, False, False, True),
+            ("4 x 64 bf16 desc + int32 ids", 65_536, (64,) * 4, bf16, True, True, False),
+            ("8 x 128 int32", 16_384, (128,) * 8, i32, False, False, False),
+            ("(100, 50, 25) f32", 65_536, (100, 50, 25), f32, False, False, False),
+            ("5 x 7 int32 keys median", 1 << 20, (7,) * 5, i32, False, False, True),
+            ("the chunked merge's 8 x 128 int32 segments", 65_536, (128,) * 8, i32,
+             False, False, False)):
+        x = torch.cat(sorted_lists(rows, lens, dt, dev, rows % 97 + sum(lens), desc), dim=1)
+        lanes = ((torch.arange(rows * x.shape[1], dtype=torch.int32, device=dev)
+                  .reshape(rows, -1),) if pay else ())
+        if median:
+            sched, pos = median_schedule(lens)
+            sched = median_readout(sched, pos)
+        else:
+            sched = kway_schedule(lens)
+        case(f"kway {name}", x, sched, lanes, chunk=65_536 if sum(lens) <= 64 else 512,
+             lens=lens, key_dtype=dt if dt.is_floating_point else None, descending=desc)
+        log(f"  kway_merge ({rows}, {name}): bit-equal")
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_library_kway(dev):
+    """Phase 3f: the library's k-way calls at the sizes their users run,
+    each with its launch counts zeroed before and read after: one row-8
+    launch a call; outputs bit-equal to the plain version run in chunks
+    on the same input, or for the values-only merges to torch.sort of
+    the keys, decoded."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import topk as K
+    from repro_torch.kernels.common import decode_key_values, encode_key_values
+    from repro_torch.kernels.kway import kway_merge_plain
+    from repro_torch.networks import kway_schedule
+
+    def keys_of(x):
+        return encode_key_values(x) if x.dtype.is_floating_point else x
+
+    def kth_key(x, k):
+        """The k-th smallest of each row in the total order of the keys."""
+        ks = torch.sort(keys_of(x), dim=-1)[0][:, k]
+        return decode_key_values(ks, x.dtype) if x.dtype.is_floating_point else ks
+
+    def plain_median(lists, lens):
+        from repro_torch.kernels.ops import median_readout
+        from repro_torch.networks import median_schedule
+
+        x = keys_of(torch.cat(lists, dim=1))
+        med = median_readout(*median_schedule(lens))
+        got = plain_in_chunks(lambda r: kway_merge_plain(x[r], med), x.shape[0], 65_536)[0]
+        return decode_key_values(got[:, 0], lists[0].dtype)
+
+    def plain_merge(lists, lens, payload=None, desc=False):
+        x = torch.cat(lists, dim=1)
+        pay = () if payload is None else (torch.cat(payload, dim=1),)
+        key = x.dtype if x.dtype.is_floating_point else None
+        got = plain_in_chunks(lambda r: kway_merge_plain(
+            x[r], kway_schedule(lens), tuple(p[r] for p in pay), lens=lens,
+            key_dtype=key, descending=desc), x.shape[0])
+        return got[0] if payload is None else (got[0], got[2][0])
+
+    rng = np.random.default_rng(15)
+    a = sorted_lists(1 << 20, (7, 7, 7), torch.float32, dev, 41)
+    b = sorted_lists(65_536, (64,) * 4, torch.bfloat16, dev, 42, descending=True)
+    ids = [torch.from_numpy(rng.integers(0, 151_936, (65_536, 64)).astype(np.int32)).to(dev)
+           for _ in range(4)]
+    c = sorted_lists(16_384, (128,) * 8, torch.int32, dev, 43)
+    d = sorted_lists(65_536, (100, 50, 25), torch.float32, dev, 44)
+    e = sorted_lists(1 << 20, (7,) * 5, torch.float32, dev, 45)
+    runs = sorted_lists(1, (1 << 20,) * 8, torch.int32, dev, 46)
+    cat = lambda ls: torch.cat(ls, dim=1)  # noqa: E731
+
+    def one(**kw):
+        return {**{n: 0 for n in K.LAUNCHES}, **kw}
+
+    cases = (
+        ("merge_k 3 x 7 f32 over 1,048,576 rows: the paper's 3c_7r device",
+         lambda: repro_torch.merge_k(a), lambda: sorted_keys_decoded(cat(a))),
+        ("median_of_lists 3 x 7 f32 over 1,048,576 rows: its two-stage median",
+         lambda: repro_torch.median_of_lists(a), lambda: kth_key(cat(a), 10)),
+        ("merge_k 4 x 64 bf16 desc + int32 token ids over 65,536 rows: four vocab "
+         "shards' kept top-64",
+         lambda: repro_torch.merge_k(b, descending=True, payload=ids),
+         lambda: plain_merge(b, (64,) * 4, ids, desc=True)),
+        ("merge_k 8 x 128 int32 over 16,384 rows: the six-stage device at 1,024",
+         lambda: repro_torch.merge_k(c), lambda: torch.sort(cat(c), dim=1)[0]),
+        ("merge_k (100, 50, 25) f32 over 65,536 rows: mixed list sizes",
+         lambda: repro_torch.merge_k(d), lambda: plain_merge(d, (100, 50, 25))),
+        ("median_of_lists 5 x 7 f32 over 1,048,576 rows",
+         lambda: repro_torch.median_of_lists(e), lambda: plain_median(e, (7,) * 5)),
+        ("chunked_merge_k 8 runs of 2^20 int32 in one row: an external sort's merge "
+         "phase (tile 128, 65,536 segment rows)",
+         lambda: repro_torch.chunked_merge_k(runs), lambda: torch.sort(cat(runs), dim=1)[0]),
+    )
+    total = {n: 0 for n in K.LAUNCHES}
+    for name, call, ref in cases:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(K.LAUNCHES)
+        if counts != one(kway_merge=1):
+            raise AssertionError(f"{name}: launch counts {counts} != one k-way launch")
+        for n, c_ in counts.items():
+            total[n] += c_
+        want = ref()
+        gs = got if isinstance(got, tuple) else (got,)
+        ws = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(gs, ws):
+            if g.shape != w.shape or not torch.equal(
+                    bits(g) if g.dtype.is_floating_point else g,
+                    bits(w) if w.dtype.is_floating_point else w):
+                raise AssertionError(f"{name}: differs from the plain version")
+        if not bool(torch.isfinite(gs[0].float()).any()):
+            raise AssertionError(f"{name}: no finite value out")
+        log(f"  {name}: {wall:.2f} ms eager (first call); launches {counts['kway_merge']} "
+            f"kway_merge; bit-equal to the plain version, shape {tuple(gs[0].shape)}")
+    # two devices are the reference's as they are, faults included (the
+    # port is bit-equal to them): its Table 1 stage count is not a merge
+    # at (100, 50, 25), and its two-stage median is not the median for
+    # five lists; the builders' 0-1 checks skip both (ROADMAP Queue 3)
+    out = keys_of(repro_torch.merge_k(d))
+    bad = int((out[:, 1:] < out[:, :-1]).any(dim=1).sum())
+    log(f"  merge_k (100, 50, 25): {bad} of {out.shape[0]} rows come out unsorted; "
+        f"0-1 patterns not merged: {zero_one_faults((100, 50, 25))}")
+    med = repro_torch.median_of_lists(e)
+    bad = int((bits(med) != bits(kth_key(cat(e), 17))).sum())
+    log(f"  median_of_lists 5 x 7: {bad} of {med.shape[0]} rows differ from the 18th "
+        f"smallest; 0-1 patterns with a wrong median: {zero_one_faults((7,) * 5, True)}")
+    return total
+
+
+def zero_one_faults(lens, median=False) -> str:
+    """How many of the prod(len + 1) per-list-sorted 0-1 inputs the LOMS
+    device gets wrong (the 0-1 principle: none, for a merge network)."""
+    import numpy as np
+
+    from repro_torch.core import loms_kway, loms_median
+    from repro_torch.core.networks import _per_list_sorted_01_patterns, apply_schedule_np
+
+    pats = _per_list_sorted_01_patterns(lens)
+    want = np.sort(pats, axis=-1)
+    if median:
+        sched, pos = loms_median(lens)
+        bad = apply_schedule_np(sched, pats)[:, pos] != want[:, pos]
+    else:
+        bad = (apply_schedule_np(loms_kway(lens), pats) != want).any(axis=-1)
+    return f"{int(bad.sum())} of {len(pats)}"
+
+
+def phase_kway_times(dev, launches, err, card, ops_per_s) -> list:
+    """Phase 4, row 8: the paper's 3 x 7 device over 1,048,576 rows (the
+    kernels line's row) and its median, and four 64-lists in bf16 with
+    token ids over 65,536 rows, each beside its bound, its plain version
+    and one PyTorch call (torch.sort + gather, torch.kthvalue)."""
+    import torch
+
+    from repro_torch.kernels.kway import kway_merge, kway_merge_plain
+    from repro_torch.kernels.ops import median_readout
+    from repro_torch.networks import kway_schedule, median_schedule
+
+    rows, entries = [], []
+    lg = lambda k: max(k - 1, 1).bit_length()  # noqa: E731  ceil(log2 k)
+    # 3c_7r, values only, f32
+    bsz, lens = 1 << 20, (7, 7, 7)
+    x = torch.cat(sorted_lists(bsz, lens, torch.float32, dev, 51), dim=1)
+    sched = kway_schedule(lens)
+    ms = graph_ms(lambda: kway_merge(x, sched, key_dtype=torch.float32), 20)
+    plain = graph_ms(lambda: kway_merge_plain(x, sched, key_dtype=torch.float32), 3)
+    lib = graph_ms(lambda: torch.sort(x, dim=-1), 20)
+    entries.append(("3 x 7 f32 (1048576 rows)", ms, plain, lib, "torch.sort",
+                    bsz * 21 * 8, float(bsz * 21 * lg(3))))
+    # its median: the center cell only
+    med, pos = median_schedule(lens)
+    med = median_readout(med, pos)
+    ms_m = graph_ms(lambda: kway_merge(x, med, key_dtype=torch.float32), 20)
+    plain_m = graph_ms(lambda: kway_merge_plain(x, med, key_dtype=torch.float32), 3)
+    lib_m = graph_ms(lambda: torch.kthvalue(x, 11, dim=-1), 20)
+    entries.append(("3 x 7 f32 median (1048576 rows)", ms_m, plain_m, lib_m,
+                    "torch.kthvalue", bsz * 21 * 4 + bsz * 4, float(bsz * 21 * lg(3))))
+    # four 64-lists, bf16, descending, int32 token ids
+    bsz, lens = 65_536, (64,) * 4
+    xb = torch.cat(sorted_lists(bsz, lens, torch.bfloat16, dev, 52, descending=True), dim=1)
+    ids = torch.arange(bsz * 256, dtype=torch.int32, device=dev).reshape(bsz, 256)
+    sb = kway_schedule(lens)
+    kw = dict(lens=lens, key_dtype=torch.bfloat16, descending=True)
+    ms_b = graph_ms(lambda: kway_merge(xb, sb, (ids,), **kw), 20)
+    plain_b = graph_ms(lambda: kway_merge_plain(xb, sb, (ids,), **kw), 2)
+
+    def lib_b():
+        v, i = torch.sort(xb, dim=-1, descending=True, stable=True)
+        return v, torch.gather(ids, 1, i)
+
+    entries.append(("4 x 64 bf16 desc + int32 ids (65536 rows)", ms_b, plain_b,
+                    graph_ms(lib_b, 20), "torch.sort + gather", bsz * 256 * (2 + 4) * 2,
+                    float(bsz * 256 * lg(4))))
+    name, ms, plain, lib, _, nbytes, comps = entries[0]
+    b_ms, b_by = bound_ms(nbytes, comps, ops_per_s)
+    rows.append(dict(name="kway_merge", route="cuda", source=KWAY_SOURCE,
+                     replaces="src/repro/kernels/kway.py:70", launches=launches["kway_merge"],
+                     max_abs_err=err["kway_merge"], ms=ms, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lib))
+    for name, ms, plain, lib, lib_name, nbytes, comps in entries:
+        b_ms, b_by = bound_ms(nbytes, comps, ops_per_s)
+        log(f"  kway_merge {name}: {ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}), plain "
+            f"{plain:.4f} ms, {lib_name} {lib:.4f} ms; {card}")
+    return rows
+
+
 def profile_serve(dev, params, cfg, card) -> None:
     """Where a decode step's time goes: torch.profiler over four sampled
     decode steps of the main path (B=4 after a 128-token prompt), device
@@ -1486,7 +1768,7 @@ def main() -> int:
         f"memory {HBM_BYTES_PER_S:.3e} B/s")
     build.build_all()
     log(f"  nvcc built {build.BUILD_INFO['built']} in {build.BUILD_INFO['seconds']:.1f} s")
-    for src in ("topk", "segmented", "merge", "sort", "grid_merge"):
+    for src in ("topk", "segmented", "merge", "sort", "grid_merge", "kway"):
         for line in str(build.BUILD_INFO.get(f"ptxas_{src}", "")).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"   {src}: " + line.strip())
@@ -1495,6 +1777,7 @@ def main() -> int:
     err = phase_kernels(dev, K, topk_block)
     err.update(phase_seg_kernels(dev, SK, capable_families))
     err.update(phase_merge_sort_kernels(dev, capable_families))
+    err.update(phase_kway_kernels(dev))
 
     log("phase 3a: serve Qwen3-8B at full width")
     params, logits, smoke_logits, launches = phase_serve(dev, K)
@@ -1508,6 +1791,8 @@ def main() -> int:
     runs.append(phase_seg_library(dev, K, SK))
     log("phase 3e: the library's merge and sort")
     runs.append(phase_library_merge_sort(dev))
+    log("phase 3f: the k-way merge and the median")
+    runs.append(phase_library_kway(dev))
     launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}
     log(f"  launches over all the main paths: {launches}")
     idle = [n for n, c in launches.items() if c == 0]
@@ -1518,6 +1803,7 @@ def main() -> int:
     rows = phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s)
     rows += phase_seg_times(dev, SK, tick_rows, tick_k, launches, err, card, ops_per_s)
     rows += phase_merge_sort_times(dev, launches, err, card, ops_per_s)
+    rows += phase_kway_times(dev, launches, err, card, ops_per_s)
     profile_serve(dev, params, get_config("qwen3-8b"), card)
     decode_tile_cost(dev, params, get_config("qwen3-8b"), card)
     log(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -5,9 +5,10 @@ functions with PyTorch around hand-written CUDA kernels for Hopper
 (``csrc/``). It imports neither JAX nor the JAX package. Entry points run
 on the card unless the caller passes ``device="cpu"`` or a CPU tensor.
 """
-from .api import (merge, segment_argmax, segment_merge, segment_sort,  # noqa: F401
-                  segment_topk, sort, topk)
-from .streaming import chunked_merge  # noqa: F401
+from .api import (median_of_lists, merge, merge_k, segment_argmax,  # noqa: F401
+                  segment_merge, segment_sort, segment_topk, sort, topk)
+from .streaming import chunked_merge, chunked_merge_k  # noqa: F401
 
-__all__ = ["merge", "sort", "chunked_merge", "topk", "segment_sort",
-           "segment_merge", "segment_topk", "segment_argmax"]
+__all__ = ["merge", "merge_k", "sort", "median_of_lists", "chunked_merge",
+           "chunked_merge_k", "topk", "segment_sort", "segment_merge", "segment_topk",
+           "segment_argmax"]

@@ -1,5 +1,6 @@
 """Route selection for the library's entry points (counterpart of
-``repro.api.dispatch``, its rules for ``sort``, ``merge`` and ``topk``).
+``repro.api.dispatch``, its rules for ``sort``, ``merge``, ``merge_k``,
+``median`` and ``topk``).
 
 ``plan(spec)`` maps a :class:`~repro_torch.api.spec.SortSpec` to a
 :class:`Decision`: which route runs the problem and why. The rules are
@@ -20,12 +21,18 @@ the reference's decision table with its accelerator rows ("TPU") for
   merge  working set past the budget                streaming  chunked_merge
   merge  cuda, fits the budget                      cuda       loms_merge2
   merge  otherwise                                  schedule   loms_2way
+  merge_k the payload / stable / network rows of merge
+  merge_k total^2 cloud past the budget             streaming  chunked_merge_k
+  merge_k cuda, fits the budget                     cuda       kway_merge
+  merge_k otherwise                                 schedule   loms_kway
+  median cuda, loms, equal odd lists                cuda       kway_median
+  median otherwise                                  schedule   loms_median
 
 The budget is the reference's routing budget (``streaming.planner``).
 Not ported: the measured-cost override, the breaker reroute and the obs
 counters (ROADMAP Queue 1, items 4 and 8), the sharded rows (item 9),
-the segmented rows (the port's ``segment_*`` route themselves), explicit
-``backend=`` asks, and ``merge_k`` / ``median`` (kernel row 8).
+the segmented rows (the port's ``segment_*`` route themselves) and
+explicit ``backend=`` asks.
 """
 from __future__ import annotations
 
@@ -51,6 +58,12 @@ def _merge2_fits(spec: SortSpec) -> bool:
 
     m, n = spec.lengths[0], sum(spec.lengths[1:])
     return fits_vmem(m, n, dtype=dtype_of(spec.dtype))
+
+
+def _median_on_card(spec: SortSpec) -> bool:
+    """The kernel median is the LOMS device of equal odd-length lists."""
+    return (spec.network == "loms" and len(set(spec.lengths)) == 1
+            and spec.lengths[0] % 2 == 1)
 
 
 def plan(spec: SortSpec) -> Decision:
@@ -81,10 +94,11 @@ def plan(spec: SortSpec) -> Decision:
         return Decision("schedule", "loms_merge_tree",
                         "stable / over the budget / not on the card: the "
                         "schedule executor")
-    if spec.op != "merge":
-        raise NotImplementedError(
-            f"{spec.op} runs kernel row 8 (_kway_kernel), which is not ported "
-            "(ROADMAP Queue 2)")
+    if spec.op == "median":
+        if on_card and _median_on_card(spec):
+            return Decision("cuda", "kway_median", "equal odd lists: the two-stage "
+                            "device in one launch of the k-way kernel")
+        return Decision("schedule", "loms_median", "schedule executor median")
     if spec.needs_perm:
         if on_card and fused_eligible(spec):
             return Decision("cuda", "fused_payload",
@@ -95,12 +109,22 @@ def plan(spec: SortSpec) -> Decision:
     if spec.network != "loms":
         return Decision("schedule", "network",
                         f"network {spec.network!r}: the schedule executor")
-    if spec.ragged2:
-        return Decision("schedule", "ragged",
-                        "no common column count divides both lists")
-    if not _merge2_fits(spec):
-        return Decision("streaming", "chunked_merge",
-                        "working set past the budget: the grid merge")
+    if spec.op == "merge":
+        if spec.ragged2:
+            return Decision("schedule", "ragged",
+                            "no common column count divides both lists")
+        if not _merge2_fits(spec):
+            return Decision("streaming", "chunked_merge",
+                            "working set past the budget: the grid merge")
+        if on_card:
+            return Decision("cuda", "loms_merge2", "fits the budget")
+        return Decision("schedule", "loms_2way", f"{spec.device} host")
+    from repro_torch.streaming.planner import kway_fits_vmem
+
+    if not kway_fits_vmem(spec.total):
+        return Decision("streaming", "chunked_merge_k",
+                        "comparison cloud past the budget: the merge-path tiled k-way "
+                        "merge")
     if on_card:
-        return Decision("cuda", "loms_merge2", "fits the budget")
-    return Decision("schedule", "loms_2way", f"{spec.device} host")
+        return Decision("cuda", "kway_merge", "fits the budget")
+    return Decision("schedule", "loms_kway", f"{spec.device} host")

@@ -1,9 +1,11 @@
-"""The fused single-launch rungs of ``merge`` and ``sort`` (counterpart of
-``repro.api.fused``).
+"""The fused single-launch rungs of ``merge``, ``merge_k`` and ``sort``
+(counterpart of ``repro.api.fused``).
 
 On the reference's accelerator a ``repro.sort`` that fits its budget is
-one launch of the fused sort kernel (row 2), and a ``repro.merge`` of two
-lists that fits is one launch of the 2-way merge kernel (row 1): the
+one launch of the fused sort kernel (row 2), a ``repro.merge`` of two
+lists that fits is one launch of the 2-way merge kernel (row 1), and a
+``repro.merge_k`` of three or more lists whose comparison cloud fits is
+one launch of the k-way kernel (row 8) on ``kway_schedule(lens)``: the
 total-order key encode on load, the descending reversal, the payload
 lanes and the decode on store all happen inside it. :func:`fused_sort`
 and :func:`fused_merge_k` are those rungs, each differentiable: a
@@ -13,9 +15,6 @@ the permutation. With payload lanes the permutation is the kernel's own
 order need not be a stable argsort's); values-only, backward recomputes
 it with one stable argsort of the keys, the subgradient convention of a
 sort. The TPU had no backward kernel, so backward is plain torch.
-
-A k-way list (three or more) raises ``NotImplementedError``: it runs
-kernel row 8, which is not ported (ROADMAP Queue 2).
 """
 from __future__ import annotations
 
@@ -38,10 +37,10 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def fused_eligible(spec: SortSpec) -> bool:
-    """Whether the kernels run a sort or a 2-way merge as one fused
-    launch: the loms network, not ``stable``, and within the reference's
-    routing budget (a merge also needs a common column count)."""
-    from repro_torch.streaming.planner import fits_vmem, sort_fits_vmem
+    """Whether the kernels run a sort or a merge as one fused launch: the
+    loms network, not ``stable``, and within the reference's routing
+    budget (a 2-way merge also needs a common column count)."""
+    from repro_torch.streaming.planner import fits_vmem, kway_fits_vmem, sort_fits_vmem
 
     if spec.network != "loms" or spec.stable:
         return False
@@ -50,6 +49,8 @@ def fused_eligible(spec: SortSpec) -> bool:
     if spec.op == "merge":
         return not spec.ragged2 and fits_vmem(spec.lengths[0], spec.lengths[1],
                                               dtype=dtype_of(spec.dtype))
+    if spec.op == "merge_k":
+        return kway_fits_vmem(spec.total)
     return False
 
 
@@ -71,12 +72,12 @@ def fused_cfg_for(spec: SortSpec, batch: int, dtype: torch.dtype) -> Optional[Fu
     """The config of one eligible sort or merge (None if ineligible)."""
     from repro_torch.streaming.planner import plan_op
 
-    if spec.op not in ("sort", "merge") or not fused_eligible(spec):
+    kernel_op = {"sort": "sort", "merge": "merge2", "merge_k": "kway"}.get(spec.op)
+    if kernel_op is None or not fused_eligible(spec):
         return None
     key_dtype = (dtype if spec.nan_policy == "last" and key_transformable(dtype)
                  else None)
-    plan = plan_op("sort" if spec.op == "sort" else "merge2", spec.lengths,
-                   batch=batch, dtype=dtype)
+    plan = plan_op(kernel_op, spec.lengths, batch=batch, dtype=dtype)
     loms = plan.kind == "loms"
     return FusedCfg(op=spec.op, lens=tuple(spec.lengths), key_dtype=key_dtype,
                     descending=spec.descending, n_cols=plan.n_cols if loms else 2,
@@ -163,56 +164,58 @@ def fused_sort(cfg: FusedCfg, x: torch.Tensor, leaves: Sequence[torch.Tensor] = 
 
 
 # ---------------------------------------------------------------------------
-# 2-way merge (the fused rung, and the streaming rung of ops.merge)
+# merge of two or more lists
 # ---------------------------------------------------------------------------
 
 Run = Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor], Tuple[torch.Tensor, ...]]]
 
 
-class _Merge2(torch.autograd.Function):
+class _Merge(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg: FusedCfg, run: Run, a: torch.Tensor, b: torch.Tensor,
-                *leaves: torch.Tensor):
-        out, perm, pouts = run(a, b, leaves,
+    def forward(ctx, cfg: FusedCfg, run: Run, *tensors: torch.Tensor):
+        k = len(cfg.lens)
+        lists, leaves = tensors[:k], tensors[k:]
+        out, perm, pouts = run(lists, leaves,
                                want_perm=bool(leaves) and any(ctx.needs_input_grad))
         ctx.cfg = cfg
-        ctx.save_for_backward(a, b, perm, *leaves)
+        ctx.save_for_backward(perm, *tensors)
         return (out,) + tuple(pouts)
 
     @staticmethod
     def backward(ctx, ct_out, *ct_pouts):
-        a, b, perm, *leaves = ctx.saved_tensors
+        perm, *tensors = ctx.saved_tensors
+        k = len(ctx.cfg.lens)
+        lists, leaves = tensors[:k], tensors[k:]
         if perm is None:
-            perm = merge_order(ctx.cfg, (a, b))
-        ct_a = ct_b = None
-        ct_cat = _scatter_rows(ct_out, perm, torch.cat([a, b], dim=-1))
-        if ct_cat is not None:
-            ct_a, ct_b = ct_cat[:, :a.shape[1]], ct_cat[:, a.shape[1]:]
-        return (None, None, ct_a, ct_b,
+            perm = merge_order(ctx.cfg, lists)
+        ct_cat = _scatter_rows(ct_out, perm, torch.cat(lists, dim=-1))
+        ct_lists = ((None,) * k if ct_cat is None
+                    else torch.split(ct_cat, [t.shape[1] for t in lists], dim=1))
+        return (None, None, *ct_lists,
                 *(_scatter_rows(c, perm, leaf) for c, leaf in zip(ct_pouts, leaves)))
-
-
-def merge2_with_grad(cfg: FusedCfg, run: Run, a: torch.Tensor, b: torch.Tensor,
-                     leaves: Sequence[torch.Tensor] = ()):
-    """``run(a, b, leaves, want_perm=...) -> (out, perm, payload_outs)``
-    made differentiable: ``(values, payload_outs)``."""
-    res = _Merge2.apply(cfg, run, a, b, *leaves)
-    return res[0], tuple(res[1:])
 
 
 def fused_merge_k(cfg: FusedCfg, lists: Sequence[torch.Tensor],
                   leaves: Sequence[torch.Tensor] = ()):
-    """One-launch merge of two lists: ``(values, payload_outs)``; the
-    leaves are already concatenated along the list axis, (B, m + n[, F])."""
-    if len(lists) != 2 or cfg.op != "merge":
-        raise NotImplementedError(
-            "a k-way merge runs kernel row 8 (_kway_kernel), which is not "
-            "ported (ROADMAP Queue 2)")
-    from repro_torch.kernels.loms_merge import loms_merge2
+    """One-launch merge of the sorted lists (B, n_i): ``(values,
+    payload_outs)``; the leaves are already concatenated along the list
+    axis, (B, sum n_i[, F]). Two lists of a ``merge`` config run kernel
+    row 1, anything else kernel row 8 on ``kway_schedule(cfg.lens)``."""
+    if len(lists) == 2 and cfg.op == "merge":
+        from repro_torch.kernels.loms_merge import loms_merge2
 
-    def run(a, b, lv, want_perm):
-        return loms_merge2(a, b, lv, network=cfg.network, n_cols=cfg.n_cols,
-                           key_dtype=cfg.key_dtype, descending=cfg.descending,
-                           want_perm=want_perm)
+        def run(ls, lv, want_perm):
+            return loms_merge2(ls[0], ls[1], lv, network=cfg.network, n_cols=cfg.n_cols,
+                               key_dtype=cfg.key_dtype, descending=cfg.descending,
+                               want_perm=want_perm)
+    else:
+        from repro_torch.kernels.kway import kway_merge
+        from repro_torch.networks import kway_schedule
 
-    return merge2_with_grad(cfg, run, lists[0], lists[1], leaves)
+        def run(ls, lv, want_perm):
+            return kway_merge(torch.cat(list(ls), dim=-1), kway_schedule(cfg.lens), lv,
+                              lens=cfg.lens, key_dtype=cfg.key_dtype,
+                              descending=cfg.descending, want_perm=want_perm)
+
+    res = _Merge.apply(cfg, run, *lists, *leaves)
+    return res[0], tuple(res[1:])

@@ -11,11 +11,16 @@ Counterpart of ``repro.api.ops``:
 * ``segment_sort / segment_merge / segment_topk / segment_argmax`` over
   static CSR offsets (:mod:`repro_torch.segmented`): the class kernels for
   a card tensor, their plain versions for a CPU tensor.
-* ``merge`` and ``sort`` along any axis, routed by ``plan`` as the
-  reference routes them on its accelerator: one rung, the planned one,
-  and no degradation ladder (a failure raises). A fused rung is one
-  launch of kernel row 1 (merge) or row 2 (sort); a merge past the
-  routing budget streams through row 9. Routes the port lacks raise
+* ``merge``, ``merge_k``, ``sort`` and ``median_of_lists`` along any
+  axis, routed by ``plan`` as the reference routes them on its
+  accelerator: one rung, the planned one, and no degradation ladder (a
+  failure raises). A fused rung is one launch of kernel row 1 (merge),
+  row 2 (sort) or row 8 (k-way merge); the median is one launch of row 8
+  on the two-stage device; a merge past the routing budget streams
+  through row 9 (two lists) or row 8's tiles (more). The schedule
+  executor runs ``merge_k`` and ``median`` where the reference sends
+  them there (payloads past the budget, ``stable=True``, another
+  network, unequal median lists). Routes the port lacks raise
   ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -36,10 +41,10 @@ from repro_torch.kernels.topk import (
     vocab_topk,
 )
 
-from .payload import stabilize_ties
+from .payload import stabilize_ties, take_rows
 
-__all__ = ["topk", "topk_block", "merge", "sort", "segment_sort",
-           "segment_merge", "segment_topk", "segment_argmax"]
+__all__ = ["topk", "topk_block", "merge", "merge_k", "sort", "median_of_lists",
+           "segment_sort", "segment_merge", "segment_topk", "segment_argmax"]
 
 _KEY_PAD = torch.iinfo(torch.int32).min
 
@@ -158,8 +163,10 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 
 #: what each route the port lacks waits for
 _MISSING = {
-    "schedule": "the schedule executor (ROADMAP Queue 1, items 3 and 4)",
+    "schedule": "the schedule executor (ROADMAP Queue 1, item 4)",
 }
+#: the ops whose schedule route is ported
+_SCHEDULE_OPS = ("merge_k", "median")
 
 
 def _check_dtype(dtype: torch.dtype, nan_policy: str) -> None:
@@ -205,7 +212,8 @@ def _route(spec) -> str:
     from .dispatch import plan
 
     dec = plan(spec)
-    if dec.backend in _MISSING:
+    if dec.backend in _MISSING and not (dec.backend == "schedule"
+                                        and spec.op in _SCHEDULE_OPS):
         raise NotImplementedError(
             f"{spec.describe()} routes to {dec.backend}/{dec.detail} ({dec.reason}): "
             f"{_MISSING[dec.backend]} is not ported")
@@ -224,67 +232,211 @@ def merge(a, b, *, axis: int = -1, descending: bool = False, stable: bool = Fals
     payload_tree)``. NaNs order last and -0.0 below +0.0 (the total-order
     key); the values are the keys decoded, so a NaN comes out canonical.
     Tensors stay on their device; anything else goes to ``device``."""
+    return merge_k([a, b], axis=axis, descending=descending, stable=stable,
+                   payload=payload, nan_policy=nan_policy, network=network,
+                   device=device)
+
+
+class _DecodeSorted(torch.autograd.Function):
+    """Decode of sorted keys with the gradient of a value sort w.r.t. the
+    raw input (the reference's ``_decode_sorted``): backward recovers the
+    order by one stable argsort of the raw keys, reversed when
+    descending, and scatters the cotangent back."""
+
+    @staticmethod
+    def forward(ctx, raw: torch.Tensor, out_keys: torch.Tensor, descending: bool):
+        ctx.save_for_backward(raw)
+        ctx.descending = descending
+        return decode_key_values(out_keys, raw.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (raw,) = ctx.saved_tensors
+        order = torch.argsort(encode_key_values(raw), dim=-1, stable=True)
+        if ctx.descending:
+            order = order.flip(-1)
+        return torch.zeros_like(ct).scatter(-1, order, ct).to(raw.dtype), None, None
+
+
+class _DecodeMedian(torch.autograd.Function):
+    """Decode of the (B,) median keys with a gradient w.r.t. the (B, L)
+    raw input (the reference's ``_decode_median``): backward finds the
+    input that held the median by one stable argsort of the keys (the
+    middle position) and routes the cotangent there."""
+
+    @staticmethod
+    def forward(ctx, raw: torch.Tensor, out_keys: torch.Tensor):
+        ctx.save_for_backward(raw)
+        return decode_key_values(out_keys, raw.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (raw,) = ctx.saved_tensors
+        order = torch.argsort(encode_key_values(raw), dim=-1, stable=True)
+        j = order[..., raw.shape[-1] // 2]
+        lane = torch.arange(raw.shape[-1], device=raw.device)
+        g = torch.where(lane == j[..., None], ct[..., None], torch.zeros_like(ct[..., None]))
+        return g.to(raw.dtype), None
+
+
+def _lists_batched(lists, axis: int, device: DeviceLike):
+    """The lists as (B, n_i) rows of one dtype: ``(flats, lead, ax, ndim)``."""
+    from .payload import canonical_axis, to_batched_last
+
+    lists = [_as_tensor(t, device) for t in lists]
+    ndim = lists[0].ndim
+    if ndim < 1 or any(t.ndim != ndim for t in lists):
+        raise ValueError(f"lists of one rank needed, got {[tuple(t.shape) for t in lists]}")
+    ax = canonical_axis(axis, ndim)
+    flats, lead = [], None
+    for t in lists:
+        f, ld = to_batched_last(t, ax)
+        if lead is not None and ld != lead:
+            raise ValueError("the lists differ off the merge axis: "
+                             f"{[tuple(t.shape) for t in lists]}")
+        lead = ld
+        flats.append(f)
+    dt = flats[0].dtype
+    for f in flats[1:]:
+        dt = torch.promote_types(dt, f.dtype)
+    return [f.to(dt) for f in flats], lead, ax, ndim
+
+
+def _streaming_merge(cfg, flats):
+    """The streaming rung: the lists as ascending keys through
+    ``chunked_merge`` (row 9) or ``chunked_merge_k`` (row 8's tiles),
+    decoded with the gradient of a value sort."""
+    from repro_torch.streaming import chunked_merge_k
+
+    keys = [encode_key_values(f) for f in flats] if cfg.key_dtype else list(flats)
+    if cfg.descending:  # descending lists merge as their reversals
+        keys = [k.flip(-1) for k in keys]
+    out = chunked_merge_k(keys)
+    if cfg.descending:
+        out = out.flip(-1)
+    if cfg.key_dtype is None:
+        return out
+    return _DecodeSorted.apply(torch.cat(flats, dim=-1), out, cfg.descending)
+
+
+def _schedule_merge_k(spec, flats):
+    """The schedule rung of a k-way merge (the reference's executor rung):
+    keys, reversed when descending, through ``schedules.merge_k`` with the
+    position lane where the spec needs the permutation; ``stable=True``
+    then orders ties by position. Returns ``(values, perm | None)``."""
+    from . import schedules
+
+    key_dtype = flats[0].dtype if key_transformable(flats[0].dtype) else None
+    keys = [encode_key_values(f) for f in flats] if key_dtype else list(flats)
+    if spec.descending:
+        keys = [k.flip(-1) for k in keys]
+    raw = torch.cat(flats, dim=-1)
+    if not spec.needs_perm:
+        out = schedules.merge_k(keys, kind=spec.network)
+        if spec.descending:
+            out = out.flip(-1)
+        return (out if key_dtype is None
+                else _DecodeSorted.apply(raw, out, spec.descending)), None
+    pos, off = [], 0
+    for k in keys:
+        p = torch.arange(k.shape[1], dtype=torch.int32, device=k.device) + off
+        pos.append((p.flip(0) if spec.descending else p).expand(k.shape))
+        off += k.shape[1]
+    out, perm = schedules.merge_k(keys, kind=spec.network, payload=pos)
+    if spec.descending:
+        out, perm = out.flip(-1), perm.flip(-1)
+    if spec.stable:
+        out, perm = stabilize_ties(out, perm, descending=spec.descending)
+    if key_dtype is not None:  # the values are the raw input's at the positions
+        out = take_rows(raw, 1, perm)
+    return out, perm
+
+
+def merge_k(lists, *, axis: int = -1, descending: bool = False, stable: bool = False,
+            payload=None, nan_policy: str = "last", network: str = "loms",
+            device: DeviceLike = None):
+    """k-way merge of lists sorted along ``axis`` (all descending with
+    ``descending=True``). ``payload`` is a sequence of tensor trees, one a
+    list, of one structure; their leaves ride the merge permutation.
+    Returns the merged values, or ``(values, payload_tree)``.
+    ``network``: ``"loms"`` (the kernels), or ``"mwms"`` / ``"tree"`` (the
+    schedule executor, three lists or more). NaNs order last and
+    -0.0 below +0.0; the kernel routes' values are the keys decoded, so a
+    NaN comes out canonical. Tensors stay on their device; anything else
+    goes to ``device``."""
     from .fused import FusedCfg, fused_cfg_for, fused_merge_k
-    from .payload import (canonical_axis, concat_payload_trees, from_batched_last,
-                          to_batched_last)
+    from .payload import concat_payload_trees, from_batched_last
     from .spec import SortSpec
 
-    a, b = _as_tensor(a, device), _as_tensor(b, device)
-    if a.ndim != b.ndim or a.ndim < 1:
-        raise ValueError(f"merge takes two lists of one rank, got {tuple(a.shape)}, "
-                         f"{tuple(b.shape)}")
-    if a.dtype != b.dtype:
-        dt = torch.promote_types(a.dtype, b.dtype)
-        a, b = a.to(dt), b.to(dt)
-    _check_dtype(a.dtype, nan_policy)
-    ndim = a.ndim
-    ax = canonical_axis(axis, ndim)
-    (a2, lead), (b2, lead_b) = to_batched_last(a, ax), to_batched_last(b, ax)
-    if lead != lead_b:
-        raise ValueError(f"the lists differ off the merge axis: {tuple(a.shape)}, "
-                         f"{tuple(b.shape)}")
-    lens = (a2.shape[1], b2.shape[1])
-    batch = a2.shape[0]
-    spec = SortSpec(op="merge", lengths=lens, batch=batch,
-                    dtype=str(a2.dtype).split(".")[-1], axis=axis,
+    lists = list(lists)
+    if len(lists) < 2:
+        raise ValueError("merge_k needs at least two lists")
+    flats, lead, ax, ndim = _lists_batched(lists, axis, device)
+    _check_dtype(flats[0].dtype, nan_policy)
+    lens = tuple(f.shape[1] for f in flats)
+    batch = flats[0].shape[0]
+    spec = SortSpec(op="merge" if len(lists) == 2 else "merge_k", lengths=lens, batch=batch,
+                    dtype=str(flats[0].dtype).split(".")[-1], axis=axis,
                     descending=descending, stable=stable,
                     has_payload=payload is not None, network=network,
                     nan_policy=nan_policy)
     route = _route(spec)
+    ptree = None if payload is None else concat_payload_trees(list(payload), ax, ndim)
+    if route == "schedule":
+        from .payload import take_payload_tree
+
+        out2, perm2 = _schedule_merge_k(spec, flats)
+        out = from_batched_last(out2, lead, ax, ndim)
+        if payload is None:
+            return out
+        return out, take_payload_tree(ptree, from_batched_last(perm2, lead, ax, ndim),
+                                      ax, ndim)
     if route == "streaming":
-        key_dtype = a2.dtype if key_transformable(a2.dtype) else None
-        cfg = FusedCfg(op="merge", lens=lens, key_dtype=key_dtype, descending=descending)
-        out2, _ = _streaming_merge(cfg, a2, b2)
-        return from_batched_last(out2, lead, ax, ndim)
-    cfg = fused_cfg_for(spec, batch, a2.dtype)
+        key_dtype = flats[0].dtype if key_transformable(flats[0].dtype) else None
+        cfg = FusedCfg(op=spec.op, lens=lens, key_dtype=key_dtype, descending=descending)
+        return from_batched_last(_streaming_merge(cfg, flats), lead, ax, ndim)
+    cfg = fused_cfg_for(spec, batch, flats[0].dtype)
     if payload is None:
-        out2, _ = fused_merge_k(cfg, (a2, b2))
+        out2, _ = fused_merge_k(cfg, flats)
         return from_batched_last(out2, lead, ax, ndim)
-    lanes, rebuild = _fused_leaves(concat_payload_trees(list(payload), ax, ndim), ax, ndim)
-    out2, pouts = fused_merge_k(cfg, (a2, b2), lanes)
+    lanes, rebuild = _fused_leaves(ptree, ax, ndim)
+    out2, pouts = fused_merge_k(cfg, flats, lanes)
     return from_batched_last(out2, lead, ax, ndim), rebuild(pouts, sum(lens))
 
 
-def _streaming_merge(cfg, a2: torch.Tensor, b2: torch.Tensor):
-    """The streaming rung: the lists as ascending keys through
-    ``chunked_merge`` (kernel row 9), decoded; differentiable like the
-    fused rung (backward: one stable argsort of the keys)."""
-    from repro_torch.streaming import chunked_merge
+def median_of_lists(lists, *, axis: int = -1, nan_policy: str = "last",
+                    network: str = "loms", device: DeviceLike = None):
+    """Median of k equal odd-length lists sorted along ``axis`` (the
+    paper's early exit after two LOMS stages), shaped like the lists
+    without that axis. ``network="mwms"``: the MWMS baseline's device on
+    the schedule executor. Floats are medians of their total-order keys,
+    decoded. Tensors stay on their device; anything else goes to
+    ``device``."""
+    from repro_torch.kernels.ops import median_k
 
-    from .fused import merge2_with_grad
+    from . import schedules
+    from .spec import SortSpec
 
-    def run(a, b, leaves, want_perm):
-        ka, kb = (encode_key_values(a), encode_key_values(b)) if cfg.key_dtype else (a, b)
-        if cfg.descending:  # descending lists merge as their reversals
-            ka, kb = ka.flip(-1), kb.flip(-1)
-        out = chunked_merge(ka, kb)
-        if cfg.descending:
-            out = out.flip(-1)
-        if cfg.key_dtype is not None:
-            out = decode_key_values(out, cfg.key_dtype)
-        return out, None, ()
-
-    return merge2_with_grad(cfg, run, a2, b2)
+    flats, lead, _, _ = _lists_batched(lists, axis, device)
+    _check_dtype(flats[0].dtype, nan_policy)
+    lens = tuple(f.shape[1] for f in flats)
+    if network != "mwms" and not (len(lens) % 2 and len(set(lens)) == 1 and lens[0] % 2):
+        raise NotImplementedError(
+            f"the LOMS median device takes an odd number of equal odd-length lists, got "
+            f"{lens}; the reference falls to its lax rung (a sort) here, and the "
+            "degradation ladder is not ported (ROADMAP Queue 1, item 8)")
+    key_dtype = flats[0].dtype if key_transformable(flats[0].dtype) else None
+    keys = [encode_key_values(f) for f in flats] if key_dtype else flats
+    spec = SortSpec(op="median", lengths=lens,
+                    batch=flats[0].shape[0], dtype=str(keys[0].dtype).split(".")[-1],
+                    axis=axis, network=network, nan_policy=nan_policy)
+    if _route(spec) == "cuda":
+        out = median_k(keys)
+    else:
+        out = schedules.median_of_lists(keys, kind="mwms" if network == "mwms" else "loms")
+    if key_dtype is not None:
+        out = _DecodeMedian.apply(torch.cat(flats, dim=-1), out)
+    return out.reshape(lead)
 
 
 def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,

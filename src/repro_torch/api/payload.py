@@ -38,6 +38,43 @@ def from_batched_last(x2: torch.Tensor, lead: Tuple[int, ...], axis: int,
     return torch.movedim(xm, -1, canonical_axis(axis, ndim))
 
 
+class _Take(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, dim: int, idx: torch.Tensor):
+        ctx.save_for_backward(idx)
+        ctx.dim = dim
+        return take_along(t, dim, idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        return torch.zeros_like(ct).scatter_add(ctx.dim, idx, ct), None, None
+
+
+def take_rows(t: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """``torch.gather`` that keeps every bit of the values (see
+    ``take_along``) and is differentiable in ``t``; ``idx`` a permutation
+    along ``dim``."""
+    return _Take.apply(t, dim, idx.long())
+
+
+def take_payload_tree(tree, perm: torch.Tensor, axis: int, ndim: int):
+    """Gather every leaf of ``tree`` at ``perm`` along ``axis``; ``perm``
+    is shaped like the output values and holds positions along the axis of
+    the input leaves, which may carry trailing feature dims."""
+    ax = canonical_axis(axis, ndim)
+    idx = torch.movedim(perm, ax, ndim - 1)
+
+    def take(leaf):
+        lm = torch.movedim(leaf, ax, ndim - 1)
+        i = idx
+        if lm.ndim > ndim:
+            i = i.reshape(i.shape + (1,) * (lm.ndim - ndim)).expand(i.shape + lm.shape[ndim:])
+        return torch.movedim(take_rows(lm, ndim - 1, i), ndim - 1, ax)
+
+    return pytree.tree_map(take, tree)
+
+
 def concat_payload_trees(trees, axis: int, ndim: int):
     """Concatenate the per-list payload trees of a merge along the sort
     axis; the trees must have one structure."""

@@ -1,0 +1,230 @@
+"""The schedule-driven k-way List Offset merge (kernel row 8).
+
+Counterpart of ``repro.kernels.kway``: :func:`kway_merge` replaces
+``kway_merge_pallas`` (``_kway_kernel``, ``src/repro/kernels/kway.py:70``).
+It runs any :class:`~repro_torch.core.networks.Schedule` (the k-way LOMS
+merge, the early-exit median, mixed list sizes, the MWMS baseline) on
+(B, n_inputs) rows, each row the concatenation of the sorted lists:
+
+  descending: each list segment reversed on load (``lens``), positions
+  still indexing the original concatenation -> floats: the total-order
+  int32 key (``key_dtype``) -> scatter into the working vector at
+  ``setup_scatter`` (holes zero) -> per stage and class of equal groups:
+  take the group's cells, rank them (a stable N-sorter rank, or the S2MS
+  rank of a multi-run group: own index plus each other run's count of
+  values ``<=`` (earlier run) or ``<`` (later run)), permute values and
+  the position lane, write back -> gather at ``output_gather`` -> keys
+  decoded -> descending: output and positions reversed -> payload lanes
+  (B, n_inputs[, F]) gathered at the positions from the raw input.
+
+A CUDA tensor goes to ``kway_merge_kernel`` (``csrc/kway.cu``) or raises;
+a CPU tensor runs :func:`kway_merge_plain`, the reference's kernel body in
+torch ops. Floats always take the key (``key_dtype``): the reference's
+raw-float mode, which rides the one-hot matrix permute, has no
+counterpart. The kernel reads the schedule as int32 wiring words on the
+card (:func:`wiring_tensor`), encoded once per schedule; the descending
+reversal is folded into them.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.networks import Schedule, _run_ranks, _stage_classes
+from .common import (decode_key_values, encode_key_values, gather_lanes, ranks_sort,
+                     scatter_permute)
+from .launch import (KEY_CODE, check_rc, cuda_checks, empty_payloads, library,
+                     payload_args, stream)
+from .topk import LAUNCHES
+
+Result = Tuple[torch.Tensor, Optional[torch.Tensor], Tuple[torch.Tensor, ...]]
+
+#: working-vector cells a CTA holds in shared memory (16 B a cell: keys,
+#: positions and their second buffers, of the 232,448 B a CTA may opt in to)
+MAX_SIZE = 232_448 // 16
+
+
+def _stages(sched: Schedule, n_stages: Optional[int]):
+    return sched.stages if n_stages is None else sched.stages[:n_stages]
+
+
+def _source_order(n_in: int, lens: Optional[Sequence[int]], descending: bool) -> np.ndarray:
+    """For each position of the ascending problem, the position in the
+    input it is read from: each list segment reversed when descending."""
+    src = np.arange(n_in)
+    if descending:
+        offs = np.cumsum((0,) + tuple(lens))
+        src = np.concatenate([src[offs[j]:offs[j + 1]][::-1] for j in range(len(lens))])
+    return src
+
+
+def _check(x, sched, payloads, lens, key_dtype, descending):
+    if x.ndim != 2 or x.shape[1] != sched.n_inputs:
+        raise ValueError(f"the schedule {sched.name} takes (B, {sched.n_inputs}) rows, "
+                         f"got {tuple(x.shape)}")
+    if x.dtype.is_floating_point and key_dtype != x.dtype:
+        raise NotImplementedError(
+            "float rows merge as total-order keys: pass key_dtype=x.dtype (the "
+            "reference's raw-float mode has no counterpart in the port)")
+    if key_dtype is not None and key_dtype != x.dtype:
+        raise ValueError(f"key_dtype {key_dtype} is not the rows' dtype {x.dtype}")
+    if descending and (lens is None or sum(lens) != x.shape[1]):
+        raise ValueError(f"descending needs the list lengths: lens={lens}, "
+                         f"{x.shape[1]} inputs")
+    for p in payloads:
+        if p.ndim not in (2, 3) or p.shape[:2] != x.shape:
+            raise ValueError(f"payload lane of shape {tuple(p.shape)} does not match "
+                             f"{tuple(x.shape)}[, F]")
+
+
+_PLAIN_INDEX: Dict[tuple, tuple] = {}
+
+
+def _plain_index(device, sched: Schedule, n_stages, lens, descending):
+    """The plain version's index tensors on ``device``, made once (so that
+    a CUDA-graph capture of it copies nothing from the host): the input
+    order, the setup scatter, each class's cells and the output gather."""
+    key = (id(sched), n_stages, tuple(lens) if descending else None, descending,
+           str(device))
+    hit = _PLAIN_INDEX.get(key)
+    if hit is None:
+        def idx(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.long).to(device)
+
+        classes = tuple((runs, idx(i.reshape(-1)), i.shape)
+                        for st in _stages(sched, n_stages) for _, runs, i in _stage_classes(st))
+        hit = (sched, idx(_source_order(sched.n_inputs, lens, descending)),
+               idx(sched.setup_scatter), classes, idx(sched.output_gather))
+        _PLAIN_INDEX[key] = hit
+    return hit[1:]
+
+
+def kway_merge_plain(x: torch.Tensor, sched: Schedule, payloads: Sequence[torch.Tensor] = (),
+                     *, n_stages: Optional[int] = None,
+                     lens: Optional[Sequence[int]] = None,
+                     key_dtype: Optional[torch.dtype] = None, descending: bool = False,
+                     want_perm: bool = False) -> Result:
+    """Plain version of ``_kway_kernel`` (``kway.py:70``)."""
+    bt, n_in = x.shape
+    need_pos = bool(payloads) or want_perm
+    src, setup, classes, gather = _plain_index(x.device, sched, n_stages, lens, descending)
+    x = x[:, src]
+    if key_dtype is not None:
+        x = encode_key_values(x)
+    w = torch.zeros((bt, sched.size), dtype=x.dtype, device=x.device)
+    w[:, setup] = x
+    wp = None
+    if need_pos:
+        wp = torch.zeros((bt, sched.size), dtype=torch.int32, device=x.device)
+        wp[:, setup] = src.to(torch.int32).expand(bt, n_in)
+    for runs, flat, shape in classes:
+        vals = w[:, flat].reshape((bt,) + shape)
+        rank = ranks_sort(vals) if runs is None else _run_ranks(vals, runs)
+        if need_pos:
+            pvals = wp[:, flat].reshape((bt,) + shape)
+            vals, pvals = scatter_permute(vals, rank, pvals)
+            wp[:, flat] = pvals.reshape(bt, -1)
+        else:
+            vals = scatter_permute(vals, rank)
+        w[:, flat] = vals.reshape(bt, -1)
+    out = w[:, gather]
+    perm = wp[:, gather] if need_pos else None
+    if key_dtype is not None:
+        out = decode_key_values(out, key_dtype)
+    if descending:
+        out = out.flip(-1)
+        perm = None if perm is None else perm.flip(-1)
+    pouts = tuple(gather_lanes(perm, p) for p in payloads)
+    return out, (perm if want_perm else None), pouts
+
+
+# ---------------------------------------------------------------------------
+# the wiring on the card and the CUDA wrapper
+# ---------------------------------------------------------------------------
+
+_WIRING: Dict[tuple, Tuple[Schedule, torch.Tensor]] = {}
+
+
+def encode_wiring(sched: Schedule, n_stages: Optional[int] = None,
+                  lens: Optional[Sequence[int]] = None,
+                  descending: bool = False) -> np.ndarray:
+    """The int32 words ``csrc/kway.cu`` reads, in order:
+
+      [size, n_inputs, n_outputs, n_classes]
+      src[size]: the input position each cell loads (-1: a hole), the
+        descending reversal folded in
+      per stage, per class (``_stage_classes`` order):
+        [G, n, n_runs, runs[n_runs]] idx[G * n]   (n_runs 0: a rank sort)
+      gather[n_outputs]: the cell each output reads (reversed when
+        descending)
+    """
+    n_in = sched.n_inputs
+    src = np.full(sched.size, -1, dtype=np.int64)
+    src[np.asarray(sched.setup_scatter)] = _source_order(n_in, lens, descending)
+    classes = [c for st in _stages(sched, n_stages) for c in _stage_classes(st)]
+    words = [np.array([sched.size, n_in, sched.n_outputs, len(classes)]), src]
+    for n, runs, idx in classes:
+        runs = tuple(runs or ())
+        words.append(np.array([idx.shape[0], n, len(runs), *runs]))
+        words.append(idx.reshape(-1))
+    gather = np.asarray(sched.output_gather)
+    words.append(gather[::-1] if descending else gather)
+    return np.concatenate(words).astype(np.int32)
+
+
+def wiring_tensor(device, sched: Schedule, n_stages: Optional[int] = None,
+                  lens: Optional[Sequence[int]] = None,
+                  descending: bool = False) -> torch.Tensor:
+    """The wiring words of one schedule on ``device``, copied there once.
+    Keyed by the schedule's identity; the cache holds the schedule, so
+    its id stays its own."""
+    key = (id(sched), n_stages, tuple(lens) if descending else None, descending,
+           str(device))
+    hit = _WIRING.get(key)
+    if hit is None:
+        words = encode_wiring(sched, n_stages, lens, descending)
+        hit = (sched, torch.from_numpy(words).to(device))
+        _WIRING[key] = hit
+    return hit[1]
+
+
+def kway_merge(x: torch.Tensor, sched: Schedule, payloads: Sequence[torch.Tensor] = (),
+               *, n_stages: Optional[int] = None, lens: Optional[Sequence[int]] = None,
+               key_dtype: Optional[torch.dtype] = None, descending: bool = False,
+               want_perm: bool = False) -> Result:
+    """Run ``sched`` on the rows of ``x`` (B, n_inputs) -> (B, n_outputs).
+
+    ``n_stages`` stops after that many stages (the median's early exit).
+    ``key_dtype`` (the rows' float dtype) merges floats as their
+    total-order keys (NaN last, -0.0 below +0.0) and decodes on store;
+    int32 rows are keys already. ``descending``: the lists, and the
+    output, are descending; needs ``lens``. ``payloads``: (B, n_inputs[,
+    F]) lanes returned gathered at the permutation. Returns ``(out, perm
+    | None, payload_outs)``; ``perm`` holds positions in the input row."""
+    payloads = tuple(payloads)
+    _check(x, sched, payloads, lens, key_dtype, descending)
+    if x.device.type == "cpu":
+        return kway_merge_plain(x, sched, payloads, n_stages=n_stages, lens=lens,
+                                key_dtype=key_dtype, descending=descending,
+                                want_perm=want_perm)
+    cuda_checks("k-way merge kernel", (x,) + payloads, x.dtype, len(payloads))
+    if sched.size > MAX_SIZE:
+        raise ValueError(f"the schedule {sched.name} has {sched.size} cells, more than "
+                         f"a CTA's shared memory holds ({MAX_SIZE})")
+    bsz, n_out = x.shape[0], sched.n_outputs
+    out = torch.empty((bsz, n_out), dtype=x.dtype, device=x.device)
+    perm = (torch.empty((bsz, n_out), dtype=torch.int32, device=x.device)
+            if want_perm else None)
+    pouts = empty_payloads(payloads, bsz, n_out)
+    if bsz and n_out:
+        wiring = wiring_tensor(x.device, sched, n_stages, lens, descending)
+        npay, ins, po, rb = payload_args(payloads, pouts)
+        check_rc(library("kway").repro_kway_merge(
+            x.data_ptr(), wiring.data_ptr(), out.data_ptr(),
+            None if perm is None else perm.data_ptr(), npay, ins, po, rb, bsz,
+            sched.size, sched.n_inputs, n_out, KEY_CODE[x.dtype], stream(x)),
+            "kway_merge")
+        LAUNCHES["kway_merge"] += 1
+    return out, perm, pouts

@@ -3,8 +3,8 @@ key type codes, the payload-lane arguments, the program words on the
 card, the input checks and the stream.
 
 The kernels (``csrc/topk.cu``, ``segmented.cu``, ``merge.cu``,
-``sort.cu``, ``grid_merge.cu``) take raw pointers through a plain C
-interface; the wrappers turn tensors into those arguments with these
+``sort.cu``, ``grid_merge.cu``, ``kway.cu``) take raw pointers through a
+plain C interface; the wrappers turn tensors into those arguments with these
 helpers. Nothing here runs on the CPU path.
 """
 from __future__ import annotations
@@ -36,6 +36,7 @@ _SIGNATURES = {
     "merge": {"repro_loms_merge2": [P, P, P, P, P, I, P, P, P, P, I, I, I, I, I, I, P]},
     "sort": {"repro_loms_sort": [P, P, P, P, I, P, P, P, I, I, I, I, I, P]},
     "grid_merge": {"repro_grid_merge2": [P, P, P, I, I, I, I, P]},
+    "kway": {"repro_kway_merge": [P, P, P, P, I, P, P, P, I, I, I, I, I, P]},
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

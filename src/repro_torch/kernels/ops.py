@@ -1,18 +1,26 @@
-"""Values-only wrappers over the merge and sort kernels (counterpart of
-``repro.kernels.ops`` ``merge2`` and ``sort``).
+"""Values-only wrappers over the merge, sort and k-way kernels
+(counterpart of ``repro.kernels.ops`` ``merge2``, ``sort``, ``merge_k`` and
+``median_k``).
 
 The planner picks the family and column count. Floats go through the
 kernels as their total-order keys, which agrees with the reference's
 raw-float kernels on rows without NaN and without -0.0 tied to +0.0 (the
 reference's raw-float mode has no counterpart). Prefer
-``repro_torch.merge / sort``, which route as the reference does.
+``repro_torch.merge / merge_k / sort / median_of_lists``, which route as
+the reference does.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+from typing import Sequence
+
 import torch
 
+from repro_torch.networks import kway_schedule, median_schedule
 from repro_torch.streaming.planner import plan_op
 
+from .kway import kway_merge
 from .loms_merge import loms_merge2
 from .sort import loms_sort
 
@@ -46,3 +54,29 @@ def sort(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("sort takes (B, n) rows")
     plan = plan_op("sort", (x.shape[-1],), batch=x.shape[0], dtype=x.dtype)
     return loms_sort(x, network=plan.network, key_dtype=_key_dtype(x))[0]
+
+
+def merge_k(lists: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Merge the sorted rows (B, len_i) of k lists in one launch of the
+    k-way kernel on ``kway_schedule(lens)``."""
+    lens = tuple(int(t.shape[-1]) for t in lists)
+    x = torch.cat(list(lists), dim=-1).contiguous()
+    return kway_merge(x, kway_schedule(lens), key_dtype=_key_dtype(x))[0]
+
+
+@functools.lru_cache(maxsize=None)
+def median_readout(sched, pos: int):
+    """The median device reading out only its center cell: the same
+    stages, one output (the reference reads all and slices ``[..., pos]``;
+    the kernel then writes one value a row instead of all of them)."""
+    return dataclasses.replace(sched, name=f"{sched.name}_center",
+                               output_gather=(sched.output_gather[pos],))
+
+
+def median_k(lists: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Median (B,) of k equal odd-length sorted rows after the two LOMS
+    stages, in one launch of the k-way kernel."""
+    lens = tuple(int(t.shape[-1]) for t in lists)
+    sched, pos = median_schedule(lens)
+    x = torch.cat(list(lists), dim=-1).contiguous()
+    return kway_merge(x, median_readout(sched, pos), key_dtype=_key_dtype(x))[0][:, 0]

@@ -45,12 +45,12 @@ _KEY_PAD = torch.iinfo(torch.int32).min
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: kernel launches per kernel (the kernels of ``segmented.py``,
-#: ``loms_merge.py``, ``sort.py`` and ``streaming/grid_merge.py`` count here
-#: too); incremented only where a kernel launches
+#: ``loms_merge.py``, ``sort.py``, ``kway.py`` and ``streaming/grid_merge.py``
+#: count here too); incremented only where a kernel launches
 LAUNCHES: Dict[str, int] = {"router_topk": 0, "vocab_phase1": 0,
                             "vocab_merge_level": 0, "seg_sort": 0,
                             "seg_merge": 0, "loms_merge2": 0, "loms_sort": 0,
-                            "grid_merge2": 0}
+                            "grid_merge2": 0, "kway_merge": 0}
 
 
 def reset_launch_counts() -> None:

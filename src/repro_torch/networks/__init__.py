@@ -9,4 +9,5 @@ from .families import PERIODIC3_MAX_WIDTH, divisor_cols, pick_merge_cols  # noqa
 from .program import (MergeProgram, PairStage, SortProgram,  # noqa: F401
                       encode_program, merge_runs, run_sort_program)
 from .registry import (NetworkFamily, capable_families, family_names,  # noqa: F401
-                       get_family, merge_program, sort_program)
+                       get_family, kway_schedule, median_schedule, merge_program,
+                       sort_program)

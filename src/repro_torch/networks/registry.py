@@ -1,9 +1,10 @@
 """Family registry: the only door the kernels use to obtain programs.
 
-Counterpart of ``repro.networks.registry`` (without the k-way and median
-schedule doors, which wait for the port of ``repro.core``). Kernels ask
-for a program by family name, so the family that runs, and with it the
-tie order, is chosen in one place.
+Counterpart of ``repro.networks.registry``. Kernels ask for a program by
+family name, so the family that runs, and with it the tie order, is
+chosen in one place. ``kway_schedule`` / ``median_schedule`` route the
+k-way and median Schedule builders (``repro_torch.core.loms``) through
+the same door, so the kernel layer never imports ``core`` itself.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from .families import BUILTIN_FAMILIES, pick_merge_cols  # noqa: F401
 from .program import MergeProgram, SortProgram
 
 __all__ = ["NetworkFamily", "get_family", "family_names", "merge_program",
-           "sort_program", "capable_families", "pick_merge_cols"]
+           "sort_program", "capable_families", "pick_merge_cols", "kway_schedule",
+           "median_schedule"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,3 +69,17 @@ def capable_families(op: str, lengths: Sequence[int]) -> Tuple[str, ...]:
         w = ceil_pow2(int(lengths[0]))
         return tuple(f for f in _REGISTRY if _REGISTRY[f].sort_capable(w))
     raise ValueError(f"capable_families: unknown op {op!r}")
+
+
+def kway_schedule(lens: Sequence[int], n_stages: Optional[int] = None):
+    """The k-way LOMS merge Schedule (the paper's Table 1 stage counts)."""
+    from repro_torch.core import loms
+
+    return loms.loms_kway(tuple(int(x) for x in lens), n_stages)
+
+
+def median_schedule(lens: Sequence[int]):
+    """(Schedule, median position) of the early-exit k-way median."""
+    from repro_torch.core import loms
+
+    return loms.loms_median(tuple(int(x) for x in lens))

@@ -1,6 +1,6 @@
-"""The merge planner: which route, family, column count and tile a merge
-or sort takes (the part of ``repro.streaming.planner`` the library's
-``merge`` and ``sort`` need).
+"""The merge planner: which route, family, column count and tile a merge,
+k-way merge or sort takes (the part of ``repro.streaming.planner`` the
+library's ``merge``, ``merge_k`` and ``sort`` need).
 
 The closed-form heuristics are the reference's, and so is the budget the
 working-set predicates are held to. That budget is **the reference's
@@ -78,6 +78,13 @@ def sort_fits_vmem(n: int, *, block_batch: int = 1,
     return _vmem_bytes_sort(n, block_batch, dtype) <= ROUTING_BUDGET
 
 
+def kway_fits_vmem(total: int) -> bool:
+    """The reference's fused k-way merge vs streaming cutover: its kernel
+    materialises a total² float32 comparison cloud a row, so total² · 4
+    bytes within the budget (total <= 1,448)."""
+    return total * total * 4 <= ROUTING_BUDGET
+
+
 def plan_merge2(m: int, n: int) -> MergePlan:
     """One UP-m/DN-n merge: the column count nearest the comparator-cost
     optimum among the common divisors (``pick_merge_cols``); none: the
@@ -107,11 +114,32 @@ def plan_chunked(total_a: int, total_b: int, *, batch: int = 1,
     return dataclasses.replace(plan_merge2(tile, tile), tile=tile)
 
 
+def plan_kway(total: int) -> MergePlan:
+    """The fused k-way merge: the schedule's own wiring, nothing to pick
+    (the reference's plan only sizes its batch tile)."""
+    return MergePlan(kind="loms", n_cols=2)
+
+
+def plan_chunked_k(lens: Sequence[int], *, batch: int = 1,
+                   tile: Optional[int] = None) -> MergePlan:
+    """The k-way streaming merge: k tile segments an output tile, the
+    largest tile (128 down to 16) whose (k · tile)² cloud fits the budget
+    across the whole batch."""
+    k = len(lens)
+    if tile is None:
+        tile = 128
+        while tile > 16 and max(batch, 1) * (k * tile) * (k * tile) * 4 > ROUTING_BUDGET:
+            tile //= 2
+    return MergePlan(kind="schedule", n_cols=k, tile=int(tile))
+
+
 _HEURISTICS = {
     "merge2": lambda lengths, batch, dtype: plan_merge2(lengths[0], lengths[1]),
     "sort": lambda lengths, batch, dtype: plan_sort(lengths[0]),
+    "kway": lambda lengths, batch, dtype: plan_kway(sum(lengths)),
     "chunked2": lambda lengths, batch, dtype: plan_chunked(lengths[0], lengths[1],
                                                            batch=batch, dtype=dtype),
+    "chunked_k": lambda lengths, batch, dtype: plan_chunked_k(lengths, batch=batch),
 }
 
 

@@ -144,3 +144,22 @@ def test_merge_and_sort_raise_without_a_card(no_card):
         [torch.from_numpy(a)] * 2, dim=1))[0])
     assert repro_torch.sort(torch.from_numpy(a[:, ::-1].copy())).device.type == "cpu"
     assert repro_torch.chunked_merge(torch.from_numpy(a), torch.from_numpy(a)).shape == (2, 8)
+
+
+def test_merge_k_and_median_raise_without_a_card(no_card):
+    import repro_torch
+
+    lists = [np.sort(np.random.default_rng(j).standard_normal((2, 7)).astype(np.float32))
+             for j in range(3)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.merge_k(lists)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.median_of_lists(lists)
+    # the CPU only when asked for: device="cpu" or CPU tensors
+    want = torch.sort(torch.from_numpy(np.concatenate(lists, axis=1)), dim=1)[0]
+    got = repro_torch.merge_k(lists, device="cpu")
+    assert got.device.type == "cpu" and torch.equal(got, want)
+    med = repro_torch.median_of_lists([torch.from_numpy(x) for x in lists])
+    assert med.device.type == "cpu" and torch.equal(med, want[:, 10])
+    assert torch.equal(repro_torch.chunked_merge_k([torch.from_numpy(x) for x in lists]),
+                       want)

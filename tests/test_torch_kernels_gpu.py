@@ -1,6 +1,6 @@
 """On-card tests of the port's CUDA kernels (top-k, segmented class sort
-and merge, the 2-way merge, the fused sort, the grid merge) against their
-plain versions.
+and merge, the 2-way merge, the fused sort, the grid merge, the k-way
+merge) against their plain versions.
 
 Marked ``gpu``: each test skips without a CUDA card. This file imports
 neither JAX nor the JAX package, so it also runs where only PyTorch is
@@ -72,7 +72,7 @@ def test_launch_counts(cuda):
     assert K.LAUNCHES == {"router_topk": 1, "vocab_phase1": 1,
                           "vocab_merge_level": K.vocab_levels(151_936, 64),
                           "seg_sort": 0, "seg_merge": 0, "loms_merge2": 0,
-                          "loms_sort": 0, "grid_merge2": 0}
+                          "loms_sort": 0, "grid_merge2": 0, "kway_merge": 0}
 
 
 def test_wrapper_rejects_bad_input(cuda):
@@ -243,3 +243,69 @@ def test_merge_and_sort_launch_their_kernels(cuda):
                       long_a.expand(3, 1000).contiguous().repeat(1, 4).sort(-1)[0])
     assert (K.LAUNCHES["loms_sort"], K.LAUNCHES["loms_merge2"],
             K.LAUNCHES["grid_merge2"]) == (3, 1, 1)
+
+
+def _sorted_lists(rows, lens, dtype, seed, descending=False):
+    """The concatenation of ``len(lens)`` sorted lists, each in the total
+    order of its keys."""
+    return torch.cat([_sorted_rows(rows, n, dtype, seed + j, descending)
+                      for j, n in enumerate(lens)], dim=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("lens", [(7, 7, 7), (3,) * 8, (64,) * 4, (100, 50, 25),
+                                  (5,) * 5, (128,) * 8, (181,) * 8])
+@pytest.mark.parametrize("desc", [False, True])
+def test_kway_kernel_matches_plain(cuda, dtype, lens, desc):
+    from repro_torch.kernels.kway import kway_merge, kway_merge_plain
+    from repro_torch.networks import kway_schedule
+
+    rows, total = 5, sum(lens)
+    x = _sorted_lists(rows, lens, dtype, 11, desc)
+    pay = (torch.arange(rows * total * 3, dtype=torch.int32).reshape(rows, total, 3),
+           _class_tile(rows, total, torch.bfloat16, seed=4))
+    sched = kway_schedule(lens)
+    key = dtype if dtype.is_floating_point else None
+    for n_stages in (None, 2):
+        kw = dict(n_stages=n_stages, lens=lens, key_dtype=key, descending=desc,
+                  want_perm=True)
+        want = kway_merge_plain(x, sched, pay, **kw)
+        got = kway_merge(x.to(cuda), sched, [p.to(cuda) for p in pay], **kw)
+        _same_all(want, got)
+
+
+def test_kway_kernel_runs_mwms_and_median_schedules(cuda):
+    from repro_torch.core import mwms_kway
+    from repro_torch.kernels.kway import kway_merge, kway_merge_plain
+    from repro_torch.kernels.ops import median_readout
+    from repro_torch.networks import median_schedule
+
+    lens = (7, 7, 7)
+    x = _sorted_lists(64, lens, torch.int32, 21)
+    med, pos = median_schedule(lens)
+    for sched in (mwms_kway(lens), med, median_readout(med, pos)):
+        want = kway_merge_plain(x, sched, want_perm=True)
+        _same_all(want, kway_merge(x.to(cuda), sched, want_perm=True))
+
+
+def test_merge_k_median_and_chunked_merge_k_launch_row_8(cuda):
+    """The library's k-way calls on card tensors equal the same calls on
+    the CPU (the plain versions), one row-8 launch each."""
+    K.reset_launch_counts()
+    lists = [_sorted_rows(6, 7, torch.float32, seed) for seed in range(3)]
+    got = repro_torch.merge_k([t.to(cuda) for t in lists])
+    assert torch.equal(_bits(got.cpu()), _bits(repro_torch.merge_k(lists)))
+    got = repro_torch.median_of_lists([t.to(cuda) for t in lists])
+    assert torch.equal(_bits(got.cpu()), _bits(repro_torch.median_of_lists(lists)))
+    desc = [_sorted_rows(5, 64, torch.bfloat16, seed, descending=True) for seed in range(4)]
+    ids = [torch.arange(5 * 64, dtype=torch.int32).reshape(5, 64) + 1000 * j
+           for j in range(4)]
+    gv, gp = repro_torch.merge_k([t.to(cuda) for t in desc], descending=True,
+                                 payload=[i.to(cuda) for i in ids])
+    wv, wp = repro_torch.merge_k(desc, descending=True, payload=ids)
+    assert torch.equal(_bits(gv.cpu()), _bits(wv)) and torch.equal(gp.cpu(), wp)
+    runs = [_sorted_rows(2, n, torch.int32, n) for n in (1000, 700, 3000)]
+    got = repro_torch.chunked_merge_k([t.to(cuda) for t in runs])
+    assert torch.equal(got.cpu(), torch.sort(torch.cat(runs, dim=1), dim=1)[0])
+    assert K.LAUNCHES["kway_merge"] == 4
+    assert sum(K.LAUNCHES.values()) == 4
