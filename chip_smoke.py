@@ -13,7 +13,12 @@ script with a non-zero exit code when it fails:
    bit-equal values and indices (and permutations and payload lanes for
    the segmented class kernels, the 2-way merge, the fused sort and the
    k-way merge), in bf16, f32 and int32, on rows that hold NaN, ±inf,
-   ±0.0 and many ties;
+   ±0.0 and many ties; the sort executor of the fused sort and the class
+   sort at every lanes-a-thread layout at the shapes of phases 3d and 3e;
+   and the 2-way merge, the fused sort and the k-way merge in the
+   reference's raw-float mode (``use_mxu=True``, the values-only
+   wrappers' mode), NaN bits included, on rows with -0.0 / +0.0 mixes,
+   all-negative rows with a -0.0, ±inf and NaN;
 3. the main paths, each with its launch counts zeroed just before it and
    read just after it:
    a. ``generate`` on Qwen3-8B at full width (bf16, random weights from
@@ -206,6 +211,27 @@ def search_steps(n: int) -> int:
     return max(n, 1).bit_length()
 
 
+#: lanes a thread of the sort executor held in phase 2 (0: the plan's)
+LANE_LAYOUTS = (0, 1, 4, 8)
+
+
+class sort_lanes:
+    """Force the lanes a thread of the sort executor (rows 2 and 6)."""
+
+    def __init__(self, lanes: int):
+        self.lanes = lanes
+
+    def __enter__(self):
+        from repro_torch.kernels import launch
+
+        self.old, launch.SORT_LANES = launch.SORT_LANES, self.lanes
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import launch
+
+        launch.SORT_LANES = self.old
+
+
 def phase_kernels(dev, K, topk_block) -> dict:
     """Phase 2: every kernel bit-equal to its plain version on the card."""
     import torch
@@ -312,13 +338,16 @@ def phase_seg_kernels(dev, SK, capable_families) -> dict:
     err = {"seg_sort": 0.0, "seg_merge": 0.0}
     dtypes = (torch.bfloat16, torch.float32, torch.int32)
 
-    def sort_case(name, x, lens, pay, k_out, fam, flip):
-        got = SK.segment_class_sort(x, lens, pay, k_out=k_out, network=fam, flip=flip,
-                                    want_perm=True)
+    def sort_case(name, x, lens, pay, k_out, fam, flip, layouts=(0,)):
         want = plain_in_chunks(lambda r: SK.segment_class_sort_plain(
             x[r], lens[r], tuple(p[r] for p in pay), k_out=k_out, network=fam, flip=flip,
             want_perm=True), x.shape[0])
-        err["seg_sort"] = max(err["seg_sort"], require_same_class(name, got, want))
+        for lanes in layouts:
+            with sort_lanes(lanes):
+                got = SK.segment_class_sort(x, lens, pay, k_out=k_out, network=fam,
+                                            flip=flip, want_perm=True)
+            err["seg_sort"] = max(err["seg_sort"], require_same_class(
+                f"{name} lanes={lanes}", got, want))
 
     # every width, dtype, order and capable family, lengths 0..W
     for w in (2, 16, 64, 128, 256, 512, 1024):
@@ -346,8 +375,9 @@ def phase_seg_kernels(dev, SK, capable_families) -> dict:
         pay = ((torch.arange(rows * w, dtype=torch.int32, device=dev).reshape(rows, w),)
                if with_pay else ())
         for fam in capable_families("sort", (w,)):
-            sort_case(f"{name} {fam}", x, lens, pay, k_out, fam, flip)
-        log(f"  seg_sort {name}: {', '.join(capable_families('sort', (w,)))}: bit-equal")
+            sort_case(f"{name} {fam}", x, lens, pay, k_out, fam, flip, LANE_LAYOUTS)
+        log(f"  seg_sort {name}: {', '.join(capable_families('sort', (w,)))}, lanes a thread "
+            f"{LANE_LAYOUTS}: bit-equal")
     # merges: lengths below the widths, a payload lane, both orders
     for wa, wb in ((16, 16), (64, 256), (512, 512)):
         for dt in dtypes:
@@ -1023,6 +1053,11 @@ def phase_seg_times(dev, SK, rows, k_out, launches, err, card, ops_per_s) -> lis
         log(f"  seg_sort {name} ({s_}, {w}) {dt} k_out {k}: {ms2:.4f} ms (bound {b2:.6f} ms "
             f"by {by2}; eager {eager2:.4f} ms), plain {pl2:.4f} ms, torch.sort {lib2:.4f} ms; "
             f"{card}")
+        for er in (4, 8):  # the sort executor's two layouts of a 1024-wide row
+            with sort_lanes(er):
+                t = graph_ms(lambda: SK.segment_class_sort(x, lens, pl, k_out=k, flip=flip,
+                                                           want_perm=True), 200)
+            log(f"  seg_sort {name} at {er} lanes a thread: {t:.4f} ms; {card}")
     # class merge: 256 rows of (512, 512) f32, lengths below the widths, a payload
     s_, wa, wb = 256, 512, 512
     la, lb = seg_lens(s_, wa, dev, seed=1), seg_lens(s_, wb, dev, seed=2)
@@ -1120,12 +1155,15 @@ def phase_merge_sort_kernels(dev, capable_families) -> dict:
             a[r], b[r], tuple(p[r] for p in pay), **kw), a.shape[0], chunk)
         err["loms_merge2"] = max(err["loms_merge2"], require_same_class(name, got, want))
 
-    def sort_case(name, x, pay, fam, desc, chunk=512):
+    def sort_case(name, x, pay, fam, desc, chunk=512, layouts=(0,)):
         kw = dict(network=fam, key_dtype=key(x.dtype), descending=desc, want_perm=True)
-        got = loms_sort(x, pay, **kw)
         want = plain_in_chunks(lambda r: loms_sort_plain(
             x[r], tuple(p[r] for p in pay), **kw), x.shape[0], chunk)
-        err["loms_sort"] = max(err["loms_sort"], require_same_class(name, got, want))
+        for lanes in layouts:
+            with sort_lanes(lanes):
+                got = loms_sort(x, pay, **kw)
+            err["loms_sort"] = max(err["loms_sort"], require_same_class(
+                f"{name} lanes={lanes}", got, want))
 
     for m, n in ((8, 8), (16, 48), (64, 64), (512, 512), (1000, 24), (65_536, 32)):
         rows = 16 if m + n > 2048 else 64
@@ -1165,8 +1203,9 @@ def phase_merge_sort_kernels(dev, capable_families) -> dict:
             ("(16384, 1024) bf16 + int32 payload", 16_384, 1024, torch.bfloat16, False, True),
             ("(16, 1007) f32 desc", 16, 1007, torch.float32, True, False)):
         x = seg_tile(rows, n, dt, dev, seed=rows)
-        sort_case(f"sort {name}", x, ids(rows, n) if pay else (), "loms", desc, chunk=1024)
-        log(f"  loms_sort {name}: bit-equal")
+        sort_case(f"sort {name}", x, ids(rows, n) if pay else (), "loms", desc,
+                  chunk=1024, layouts=LANE_LAYOUTS)
+        log(f"  loms_sort {name}: bit-equal at lanes a thread {LANE_LAYOUTS} (0: the plan's)")
     # row 9: int32 keys with their extremes, and float rows as keys
     for rows, na, nb in ((3, 1000, 300), (2, 37, 0), (2, 0, 5), (4, 4096, 4096),
                          (1, 100_000, 100_000)):
@@ -1386,6 +1425,10 @@ def phase_merge_sort_times(dev, launches, err, card, ops_per_s) -> list:
         nbytes = bsz * n * x.element_size() * 2 + (bsz * n * 4 * 2 if pay else 0)
         lg = max(n - 1, 1).bit_length()  # log2 of the padded width
         sorts.append((name, ms, plain, lib, nbytes, float(bsz * n * lg)))
+        for er in (4, 8):  # the sort executor's two layouts of a 1024-wide row
+            with sort_lanes(er):
+                t = graph_ms(lambda: loms_sort(x, lanes, **kw), 20)
+            log(f"  loms_sort {name} at {er} lanes a thread: {t:.4f} ms; {card}")
     name, ms, plain, lib, nbytes, comps = sorts[0]
     row("loms_sort", SORT_SOURCE, "src/repro/kernels/sort.py:57", ms, plain, nbytes,
         comps, lib)
@@ -1484,6 +1527,104 @@ def phase_kway_kernels(dev) -> dict:
         case(f"kway {name}", x, sched, lanes, chunk=65_536 if sum(lens) <= 64 else 512,
              lens=lens, key_dtype=dt if dt.is_floating_point else None, descending=desc)
         log(f"  kway_merge ({rows}, {name}): bit-equal")
+    torch.cuda.synchronize()
+    return err
+
+
+def special_float_rows(rows, n, dtype, device, seed, sort):
+    """Rows with a -0.0 / +0.0 mix, all-negative rows with a -0.0, one
+    +inf, one -inf, one NaN, several NaNs, the rest tied halves (sorted in
+    raw-float order, NaN last, when ``sort``)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-6, 7, (rows, n)) * 0.5).astype(np.float32)
+    for r in range(0, rows, 8):
+        x[r] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+        if r + 7 < rows:
+            x[r + 1] = -np.abs(x[r + 1]) - 1.0
+            x[r + 1, rng.integers(n)] = -0.0
+            x[r + 2, rng.integers(n)] = np.inf
+            x[r + 3, rng.integers(n)] = -np.inf
+            x[r + 4, rng.integers(n)] = np.nan
+            x[r + 5, rng.integers(0, n, 3)] = np.nan
+            x[r + 6, rng.integers(n)] = -0.0
+            x[r + 7] = -(np.arange(n, dtype=np.float32) + 1.0)
+            x[r + 7, 0] = -0.0
+    x = np.sort(x, axis=-1) if sort else x
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+def phase_rawfloat_kernels(dev) -> dict:
+    """Phase 2, the raw-float mode of rows 1, 2 and 8 (the reference's
+    use_mxu=True, which its values-only wrappers take for float rows):
+    each kernel bit-equal to its plain version on the card, NaN bits
+    included (both write the canonical quiet NaN), values and positions,
+    both orders, every capable family; and the values-only wrappers of
+    ``kernels.ops`` on card rows bit-equal to the same calls on the CPU."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import ceil_pow2
+    from repro_torch.kernels.kway import kway_merge, kway_merge_plain
+    from repro_torch.kernels.loms_merge import loms_merge2, loms_merge2_plain
+    from repro_torch.kernels.ops import median_readout
+    from repro_torch.kernels.sort import loms_sort, loms_sort_plain
+    from repro_torch.networks import (capable_families, kway_schedule, median_schedule,
+                                      pick_merge_cols)
+
+    err = {"loms_merge2": 0.0, "loms_sort": 0.0, "kway_merge": 0.0}
+
+    def check(name, key, got, want):
+        err[key] = max(err[key], require_same_class(name, got, want))
+
+    rows = 64
+    for dt in (torch.bfloat16, torch.float32):
+        for m, n in ((4, 4), (32, 32), (64, 32)):
+            for desc in (False, True):
+                a = special_float_rows(rows, m, dt, dev, m, True)
+                b = special_float_rows(rows, n, dt, dev, n + 1, True)
+                if desc:
+                    a, b = a.flip(-1).contiguous(), b.flip(-1).contiguous()
+                for fam in capable_families("merge2", (m, n)):
+                    kw = dict(network=fam, n_cols=pick_merge_cols(m, n), use_mxu=True,
+                              descending=desc, want_perm=True)
+                    check(f"raw merge ({m}, {n}) {dt} {fam} desc={desc}", "loms_merge2",
+                          loms_merge2(a, b, **kw), loms_merge2_plain(a, b, **kw))
+        for n in (8, 1007, 1024):
+            x = special_float_rows(rows, n, dt, dev, n, False)
+            for fam in capable_families("sort", (ceil_pow2(n),)):
+                for desc in (False, True):
+                    for perm in (False, True):
+                        kw = dict(network=fam, use_mxu=True, descending=desc, want_perm=perm)
+                        check(f"raw sort n={n} {dt} {fam} desc={desc} perm={perm}",
+                              "loms_sort", loms_sort(x, **kw), loms_sort_plain(x, **kw))
+        lens = (7, 7, 7)
+        x = torch.cat([special_float_rows(rows, 7, dt, dev, 40 + j, True) for j in range(3)],
+                      dim=1)
+        med, pos = median_schedule(lens)
+        for sched in (kway_schedule(lens), med, median_readout(med, pos)):
+            kw = dict(use_mxu=True, want_perm=True)
+            check(f"raw kway {sched.name} {dt}", "kway_merge", kway_merge(x, sched, **kw),
+                  kway_merge_plain(x, sched, **kw))
+        log(f"  raw-float mode {dt}: merge (4, 4), (32, 32), (64, 32); sort n = 8, 1007, "
+            f"1024; k-way 3 x 7 and its medians: bit-equal to the plain versions, NaN bits "
+            f"and positions included")
+    a, b = special_float_rows(rows, 32, torch.float32, dev, 1, True), \
+        special_float_rows(rows, 32, torch.float32, dev, 2, True)
+    x = special_float_rows(rows, 1007, torch.bfloat16, dev, 3, False)
+    lists = [special_float_rows(rows, 7, torch.float32, dev, 4 + j, True) for j in range(3)]
+    cpu = [t.cpu() for t in lists]
+    for name, got, want in (
+            ("merge2", ops.merge2(a, b), ops.merge2(a.cpu(), b.cpu())),
+            ("sort", ops.sort(x), ops.sort(x.cpu())),
+            ("merge_k", ops.merge_k(lists), ops.merge_k(cpu)),
+            ("median_k", ops.median_k(lists), ops.median_k(cpu))):
+        if not torch.equal(bits(got.cpu()), bits(want)):
+            raise AssertionError(f"kernels.ops.{name}: the card differs from the CPU")
+    log("  kernels.ops merge2 / sort / merge_k / median_k on special floats: the card's "
+        "raw-float kernels bit-equal to the CPU's plain versions")
     torch.cuda.synchronize()
     return err
 
@@ -1778,6 +1919,8 @@ def main() -> int:
     err.update(phase_seg_kernels(dev, SK, capable_families))
     err.update(phase_merge_sort_kernels(dev, capable_families))
     err.update(phase_kway_kernels(dev))
+    for name, e in phase_rawfloat_kernels(dev).items():
+        err[name] = max(err[name], e)
 
     log("phase 3a: serve Qwen3-8B at full width")
     params, logits, smoke_logits, launches = phase_serve(dev, K)

@@ -10,8 +10,9 @@ their tie order is the reference's:
 * ``ranks_merge2`` merges two ascending runs with the first run winning
   ties.
 
-Encoded keys always take the exact scatter permute (the reference's
-``use_mxu=False``), so the one-hot matrix-unit permute has no counterpart.
+Encoded keys and integers take the exact scatter permute (the reference's
+``use_mxu=False``). Raw floats take :func:`onehot_permute`, the rule of
+the reference's float32 one-hot matrix permute (``use_mxu=True``).
 """
 from __future__ import annotations
 
@@ -60,6 +61,29 @@ def decode_key_values(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return y.view(dtype)
 
 
+def check_mode(dtype: torch.dtype, key_dtype: Optional[torch.dtype],
+               use_mxu: bool, n_payloads: int = 0) -> None:
+    """The value modes of the merge, sort and k-way kernels: float rows
+    as total-order keys (``key_dtype`` = their dtype), int32 rows as
+    keys, or float rows raw with the reference's one-hot permute
+    (``use_mxu``, no ``key_dtype``; positions, but no payload lanes)."""
+    if use_mxu and n_payloads:
+        raise NotImplementedError(
+            "payload lanes in the raw-float mode: the colliding positions of a NaN "
+            "row index past the row; the reference's callers carry none there")
+    if key_dtype is not None and key_dtype != dtype:
+        raise ValueError(f"key_dtype {key_dtype} is not the rows' dtype {dtype}")
+    if use_mxu and (key_dtype is not None or not dtype.is_floating_point):
+        raise NotImplementedError(
+            "use_mxu permutes raw floats; the reference's float32 matrix permute of "
+            "integer keys (exact only below 2**24) has no counterpart")
+    if dtype.is_floating_point and key_dtype is None and not use_mxu:
+        raise NotImplementedError(
+            "float rows go as total-order keys (key_dtype=dtype) or raw with the "
+            "one-hot permute (use_mxu=True); raw floats through the exact permute "
+            "have no counterpart")
+
+
 def sentinel_max(dtype: torch.dtype):
     if dtype.is_floating_point:
         return float(torch.finfo(dtype).max)
@@ -101,6 +125,57 @@ def scatter_permute(vals: torch.Tensor, rank: torch.Tensor,
     return out, scatter_along(payload, -1, rank)
 
 
+#: the longest permuted vector whose zero sum keeps the sign of its
+#: products in the reference's one-hot permute (see :func:`onehot_permute`)
+SIGNED_ZERO_LANES = 7
+
+
+def canonical_nan(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every NaN replaced by the canonical quiet NaN's bits
+    (conversions write other NaN bits on the card than on the CPU)."""
+    itype = KEY_ITYPE[x.element_size()]
+    return x.view(itype).masked_fill(torch.isnan(x), _CANONICAL_NAN[x.dtype]).view(x.dtype)
+
+
+def onehot_permute(vals: torch.Tensor, rank: torch.Tensor,
+                   payload: Optional[torch.Tensor] = None):
+    """The reference's one-hot matrix permute (``use_mxu=True``): output
+    slot j is the float32 sum over every lane i of ``(rank[i] == j) *
+    vals[i]``, then cast back to the dtype. Its rule, lane by lane:
+
+    * slot j holds the sum of the lanes that land on it (one lane when
+      the ranks are a permutation, none or several where a NaN made them
+      collide), plus ``0 * vals[i]`` of every other lane;
+    * so it is NaN where any lane that does not land on it is ±inf or NaN
+      (0 x inf and 0 x NaN are NaN);
+    * a zero sum is +0.0, except in a vector of at most
+      :data:`SIGNED_ZERO_LANES` lanes whose every lane has its sign bit
+      set: there it is -0.0. That is how XLA's CPU compiler sums the
+      reference's batched products: a short vector's sum starts from its
+      first product (0 x a negative lane is -0.0), a longer one's from
+      +0.0. It held at every shape the reference's kernels permute (each
+      with a batch of at least 8 vectors); a single vector always sums
+      from +0.0.
+
+    NaN comes out as the canonical quiet NaN (the reference's bits are
+    the host FPU's). The position lane (``payload``) is summed the same
+    way: the sum of the positions that land, 0 where none does."""
+    v = vals.float()
+    bad = ~torch.isfinite(v)
+    slot = torch.zeros_like(v).scatter_add(-1, rank.long(), v)
+    landed_bad = torch.zeros_like(rank, dtype=torch.int32).scatter_add(
+        -1, rank.long(), bad.to(torch.int32))
+    n_bad = bad.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    slot = slot.masked_fill(n_bad > landed_bad, float("nan"))
+    if v.shape[-1] <= SIGNED_ZERO_LANES:
+        negative = torch.signbit(v).all(dim=-1, keepdim=True)
+        slot = slot.masked_fill((slot == 0) & negative, -0.0)
+    out = canonical_nan(slot.to(vals.dtype))
+    if payload is None:
+        return out
+    return out, torch.zeros_like(payload).scatter_add(-1, rank.long(), payload)
+
+
 def ranks_sort(x: torch.Tensor) -> torch.Tensor:
     """Stable full-sort ranks along the last axis (N-sorter comparator cloud)."""
     n = x.shape[-1]
@@ -126,20 +201,24 @@ def ranks_merge2(lo: torch.Tensor, hi: torch.Tensor
 
 
 def merge2_sorted(lo: torch.Tensor, hi: torch.Tensor,
-                  payload: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """Single-stage stable merge of two ascending runs along the last axis."""
+                  payload: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  use_mxu: bool = False):
+    """Single-stage stable merge of two ascending runs along the last axis
+    (``use_mxu``: the one-hot permute of raw floats)."""
     rank_lo, rank_hi = ranks_merge2(lo, hi)
     vals = torch.cat([lo, hi], dim=-1)
     rank = torch.cat([rank_lo, rank_hi], dim=-1)
+    permute = onehot_permute if use_mxu else scatter_permute
     if payload is None:
-        return scatter_permute(vals, rank)
-    return scatter_permute(vals, rank, torch.cat(list(payload), dim=-1))
+        return permute(vals, rank)
+    return permute(vals, rank, torch.cat(list(payload), dim=-1))
 
 
-def sort_nsorter(x: torch.Tensor, payload: Optional[torch.Tensor] = None):
+def sort_nsorter(x: torch.Tensor, payload: Optional[torch.Tensor] = None,
+                 use_mxu: bool = False):
     """Single-stage N-sorter along the last axis (ascending, stable)."""
     rank = ranks_sort(x)
-    return scatter_permute(x, rank, payload)
+    return (onehot_permute if use_mxu else scatter_permute)(x, rank, payload)
 
 
 def ceil_pow2(n: int) -> int:

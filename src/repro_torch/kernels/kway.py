@@ -19,10 +19,11 @@ merge, the early-exit median, mixed list sizes, the MWMS baseline) on
 
 A CUDA tensor goes to ``kway_merge_kernel`` (``csrc/kway.cu``) or raises;
 a CPU tensor runs :func:`kway_merge_plain`, the reference's kernel body in
-torch ops. Floats always take the key (``key_dtype``): the reference's
-raw-float mode, which rides the one-hot matrix permute, has no
-counterpart. The kernel reads the schedule as int32 wiring words on the
-card (:func:`wiring_tensor`), encoded once per schedule; the descending
+torch ops. ``use_mxu`` is the reference's raw-float mode (float rows
+without ``key_dtype``): raw float ranks and the rule of the one-hot
+matrix permute (``common.onehot_permute``) for every group. The kernel
+reads the schedule as int32 wiring words on the card
+(:func:`wiring_tensor`), encoded once per schedule; the descending
 reversal is folded into them.
 """
 from __future__ import annotations
@@ -33,8 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.networks import Schedule, _run_ranks, _stage_classes
-from .common import (decode_key_values, encode_key_values, gather_lanes, ranks_sort,
-                     scatter_permute)
+from .common import (canonical_nan, check_mode, decode_key_values, encode_key_values,
+                     gather_lanes, onehot_permute, ranks_sort, scatter_permute)
 from .launch import (KEY_CODE, check_rc, cuda_checks, empty_payloads, library,
                      payload_args, stream)
 from .topk import LAUNCHES
@@ -42,8 +43,9 @@ from .topk import LAUNCHES
 Result = Tuple[torch.Tensor, Optional[torch.Tensor], Tuple[torch.Tensor, ...]]
 
 #: working-vector cells a CTA holds in shared memory (16 B a cell: keys,
-#: positions and their second buffers, of the 232,448 B a CTA may opt in to)
-MAX_SIZE = 232_448 // 16
+#: positions and their second buffers, of the 232,448 B a CTA may opt in
+#: to; the raw-float mode 24 B, with its landed-bad counts and vector flags)
+MAX_SIZE = {False: 232_448 // 16, True: 232_448 // 24}
 
 
 def _stages(sched: Schedule, n_stages: Optional[int]):
@@ -60,16 +62,11 @@ def _source_order(n_in: int, lens: Optional[Sequence[int]], descending: bool) ->
     return src
 
 
-def _check(x, sched, payloads, lens, key_dtype, descending):
+def _check(x, sched, payloads, lens, key_dtype, descending, use_mxu):
     if x.ndim != 2 or x.shape[1] != sched.n_inputs:
         raise ValueError(f"the schedule {sched.name} takes (B, {sched.n_inputs}) rows, "
                          f"got {tuple(x.shape)}")
-    if x.dtype.is_floating_point and key_dtype != x.dtype:
-        raise NotImplementedError(
-            "float rows merge as total-order keys: pass key_dtype=x.dtype (the "
-            "reference's raw-float mode has no counterpart in the port)")
-    if key_dtype is not None and key_dtype != x.dtype:
-        raise ValueError(f"key_dtype {key_dtype} is not the rows' dtype {x.dtype}")
+    check_mode(x.dtype, key_dtype, use_mxu, len(payloads))
     if descending and (lens is None or sum(lens) != x.shape[1]):
         raise ValueError(f"descending needs the list lengths: lens={lens}, "
                          f"{x.shape[1]} inputs")
@@ -105,7 +102,7 @@ def kway_merge_plain(x: torch.Tensor, sched: Schedule, payloads: Sequence[torch.
                      *, n_stages: Optional[int] = None,
                      lens: Optional[Sequence[int]] = None,
                      key_dtype: Optional[torch.dtype] = None, descending: bool = False,
-                     want_perm: bool = False) -> Result:
+                     want_perm: bool = False, use_mxu: bool = False) -> Result:
     """Plain version of ``_kway_kernel`` (``kway.py:70``)."""
     bt, n_in = x.shape
     need_pos = bool(payloads) or want_perm
@@ -115,6 +112,7 @@ def kway_merge_plain(x: torch.Tensor, sched: Schedule, payloads: Sequence[torch.
         x = encode_key_values(x)
     w = torch.zeros((bt, sched.size), dtype=x.dtype, device=x.device)
     w[:, setup] = x
+    permute = onehot_permute if use_mxu else scatter_permute
     wp = None
     if need_pos:
         wp = torch.zeros((bt, sched.size), dtype=torch.int32, device=x.device)
@@ -124,10 +122,10 @@ def kway_merge_plain(x: torch.Tensor, sched: Schedule, payloads: Sequence[torch.
         rank = ranks_sort(vals) if runs is None else _run_ranks(vals, runs)
         if need_pos:
             pvals = wp[:, flat].reshape((bt,) + shape)
-            vals, pvals = scatter_permute(vals, rank, pvals)
+            vals, pvals = permute(vals, rank, pvals)
             wp[:, flat] = pvals.reshape(bt, -1)
         else:
-            vals = scatter_permute(vals, rank)
+            vals = permute(vals, rank)
         w[:, flat] = vals.reshape(bt, -1)
     out = w[:, gather]
     perm = wp[:, gather] if need_pos else None
@@ -136,6 +134,8 @@ def kway_merge_plain(x: torch.Tensor, sched: Schedule, payloads: Sequence[torch.
     if descending:
         out = out.flip(-1)
         perm = None if perm is None else perm.flip(-1)
+    if use_mxu:  # the kernel's NaN (torch's CPU ops rewrite bf16 NaN bits)
+        out = canonical_nan(out)
     pouts = tuple(gather_lanes(perm, p) for p in payloads)
     return out, (perm if want_perm else None), pouts
 
@@ -193,26 +193,27 @@ def wiring_tensor(device, sched: Schedule, n_stages: Optional[int] = None,
 def kway_merge(x: torch.Tensor, sched: Schedule, payloads: Sequence[torch.Tensor] = (),
                *, n_stages: Optional[int] = None, lens: Optional[Sequence[int]] = None,
                key_dtype: Optional[torch.dtype] = None, descending: bool = False,
-               want_perm: bool = False) -> Result:
+               want_perm: bool = False, use_mxu: bool = False) -> Result:
     """Run ``sched`` on the rows of ``x`` (B, n_inputs) -> (B, n_outputs).
 
     ``n_stages`` stops after that many stages (the median's early exit).
     ``key_dtype`` (the rows' float dtype) merges floats as their
     total-order keys (NaN last, -0.0 below +0.0) and decodes on store;
-    int32 rows are keys already. ``descending``: the lists, and the
-    output, are descending; needs ``lens``. ``payloads``: (B, n_inputs[,
+    int32 rows are keys already. ``use_mxu`` (float rows without
+    ``key_dtype``): the reference's raw-float mode. ``descending``: the
+    lists, and the output, are descending; needs ``lens``. ``payloads``: (B, n_inputs[,
     F]) lanes returned gathered at the permutation. Returns ``(out, perm
     | None, payload_outs)``; ``perm`` holds positions in the input row."""
     payloads = tuple(payloads)
-    _check(x, sched, payloads, lens, key_dtype, descending)
+    _check(x, sched, payloads, lens, key_dtype, descending, use_mxu)
     if x.device.type == "cpu":
         return kway_merge_plain(x, sched, payloads, n_stages=n_stages, lens=lens,
                                 key_dtype=key_dtype, descending=descending,
-                                want_perm=want_perm)
+                                want_perm=want_perm, use_mxu=use_mxu)
     cuda_checks("k-way merge kernel", (x,) + payloads, x.dtype, len(payloads))
-    if sched.size > MAX_SIZE:
+    if sched.size > MAX_SIZE[use_mxu]:
         raise ValueError(f"the schedule {sched.name} has {sched.size} cells, more than "
-                         f"a CTA's shared memory holds ({MAX_SIZE})")
+                         f"a CTA's shared memory holds ({MAX_SIZE[use_mxu]})")
     bsz, n_out = x.shape[0], sched.n_outputs
     out = torch.empty((bsz, n_out), dtype=x.dtype, device=x.device)
     perm = (torch.empty((bsz, n_out), dtype=torch.int32, device=x.device)
@@ -224,7 +225,7 @@ def kway_merge(x: torch.Tensor, sched: Schedule, payloads: Sequence[torch.Tensor
         check_rc(library("kway").repro_kway_merge(
             x.data_ptr(), wiring.data_ptr(), out.data_ptr(),
             None if perm is None else perm.data_ptr(), npay, ins, po, rb, bsz,
-            sched.size, sched.n_inputs, n_out, KEY_CODE[x.dtype], stream(x)),
+            sched.size, sched.n_inputs, n_out, KEY_CODE[x.dtype], int(use_mxu), stream(x)),
             "kway_merge")
         LAUNCHES["kway_merge"] += 1
     return out, perm, pouts

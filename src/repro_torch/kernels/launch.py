@@ -10,6 +10,7 @@ helpers. Nothing here runs on the CPU path.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -30,14 +31,18 @@ _SIGNATURES = {
         "repro_vocab_merge_level": [P, P, P, P, P, I, I, I, I, I, P],
     },
     "segmented": {
-        "repro_seg_sort": [P, P, P, P, P, I, P, P, P, I, I, I, I, I, P],
+        "repro_seg_sort": [P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P],
         "repro_seg_merge": [P, P, P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, P],
     },
-    "merge": {"repro_loms_merge2": [P, P, P, P, P, I, P, P, P, P, I, I, I, I, I, I, P]},
-    "sort": {"repro_loms_sort": [P, P, P, P, I, P, P, P, I, I, I, I, I, P]},
+    "merge": {"repro_loms_merge2": [P, P, P, P, P, I, P, P, P, P, I, I, I, I, I, I, I, P]},
+    "sort": {"repro_loms_sort": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, P]},
     "grid_merge": {"repro_grid_merge2": [P, P, P, I, I, I, I, P]},
-    "kway": {"repro_kway_merge": [P, P, P, P, I, P, P, P, I, I, I, I, I, P]},
+    "kway": {"repro_kway_merge": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, P]},
 }
+
+#: lanes a thread of the sort executor of the fused sort and the class
+#: sort (``csrc/program.cuh`` ``sort_plan``); 0: the launch plan's choice
+SORT_LANES = 0
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -78,6 +83,15 @@ def program_tensor(device, kind: str, family: str, a: int, b: int = 0,
         t = torch.tensor(encode_program(levels), dtype=torch.int32, device=device)
         _PROGRAMS[key] = t
     return t
+
+
+@functools.lru_cache(maxsize=None)
+def sort_prefix(family: str, width: int) -> int:
+    """The S2MS levels at the bottom of the sort program, which the sort
+    executor runs as one register sort (``networks.s2ms_prefix``)."""
+    from repro_torch.networks import s2ms_prefix, sort_program
+
+    return s2ms_prefix(sort_program(family, width))
 
 
 def cuda_checks(what: str, tensors: Sequence[torch.Tensor], key_dtype: torch.dtype,

@@ -13,9 +13,10 @@ loms_merge.py:49``). It merges the sorted rows ``a`` (B, m) and ``b``
 
 A CUDA tensor goes to ``loms_merge2_kernel`` (``csrc/merge.cu``) or
 raises; a CPU tensor runs :func:`loms_merge2_plain`, the reference's
-kernel body in torch ops. Floats always take the key (``key_dtype``):
-the reference's raw-float mode, which rides the one-hot matrix permute,
-has no counterpart.
+kernel body in torch ops. ``use_mxu`` is the reference's raw-float mode
+(float rows without ``key_dtype``, the values-only wrapper's mode): raw
+float comparisons and the rule of the one-hot matrix permute
+(``common.onehot_permute``) at every column-device permute.
 """
 from __future__ import annotations
 
@@ -24,21 +25,25 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.networks import merge_program, merge_runs
-from .common import decode_key_values, encode_key_values, gather_lanes
+from .common import (canonical_nan, check_mode, decode_key_values, encode_key_values,
+                     gather_lanes)
 from .launch import (KEY_CODE, check_rc, cuda_checks, empty_payloads, library,
                      payload_args, program_tensor, stream)
 from .topk import LAUNCHES
 
 Result = Tuple[torch.Tensor, Optional[torch.Tensor], Tuple[torch.Tensor, ...]]
 
-#: lanes of one row that fit a CTA's shared memory (16 B a lane of the
-#: 232,448 B a CTA may opt in to); longer rows run in a global scratch
-SMEM_MAX_LANES = 232_448 // 16
+#: words a lane of the merge kernel holds (keys, positions and their
+#: second buffers; the raw-float mode also its landed-bad counts and
+#: vector flags)
+LANE_WORDS = {False: 4, True: 6}
+#: shared memory a CTA may opt in to; a longer row runs in global scratch
+SMEM_BYTES = 232_448
 #: CTAs that walk over the rows in the global-scratch case (two an SM)
 SCRATCH_CTAS_PER_SM = 2
 
 
-def _check(a, b, payloads, network, n_cols, key_dtype):
+def _check(a, b, payloads, network, n_cols, key_dtype, use_mxu):
     if a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]:
         raise ValueError(f"merge2 takes (B, m) and (B, n), got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
@@ -48,12 +53,7 @@ def _check(a, b, payloads, network, n_cols, key_dtype):
     n = b.shape[1]
     if network == "loms" and (m % n_cols or n % n_cols):
         raise ValueError(f"n_cols={n_cols} must divide both runs ({m}, {n})")
-    if a.dtype.is_floating_point and key_dtype != a.dtype:
-        raise NotImplementedError(
-            "float rows merge as total-order keys: pass key_dtype=a.dtype (the "
-            "reference's raw-float mode has no counterpart in the port)")
-    if key_dtype is not None and key_dtype != a.dtype:
-        raise ValueError(f"key_dtype {key_dtype} is not the rows' dtype {a.dtype}")
+    check_mode(a.dtype, key_dtype, use_mxu, len(payloads))
     for p in payloads:
         if p.ndim not in (2, 3) or p.shape[:2] != (bsz, m + n):
             raise ValueError(f"payload lane of shape {tuple(p.shape)} does not "
@@ -63,7 +63,8 @@ def _check(a, b, payloads, network, n_cols, key_dtype):
 def loms_merge2_plain(a: torch.Tensor, b: torch.Tensor,
                       payloads: Sequence[torch.Tensor] = (), *, network: str = "loms",
                       n_cols: int = 2, key_dtype: Optional[torch.dtype] = None,
-                      descending: bool = False, want_perm: bool = False) -> Result:
+                      descending: bool = False, want_perm: bool = False,
+                      use_mxu: bool = False) -> Result:
     """Plain version of ``_loms2_kernel`` (``loms_merge.py:49``)."""
     bsz, m = a.shape
     n = b.shape[1]
@@ -77,11 +78,13 @@ def loms_merge2_plain(a: torch.Tensor, b: torch.Tensor,
         ia, ib = ia.flip(0), ib.flip(0)
     pa, pb = ia.expand(bsz, m), (ib + m).expand(bsz, n)
     prog = merge_program(network, m, n, n_cols if network == "loms" else None)
-    out, perm = merge_runs(prog, a, b, payload=(pa, pb))
+    out, perm = merge_runs(prog, a, b, payload=(pa, pb), use_mxu=use_mxu)
     if key_dtype is not None:
         out = decode_key_values(out, key_dtype)
     if descending:
         out, perm = out.flip(-1), perm.flip(-1)
+    if use_mxu:  # the kernel's NaN (torch's CPU ops rewrite bf16 NaN bits)
+        out = canonical_nan(out)
     pouts = tuple(gather_lanes(perm, p) for p in payloads)
     return out, (perm if want_perm else None), pouts
 
@@ -89,22 +92,24 @@ def loms_merge2_plain(a: torch.Tensor, b: torch.Tensor,
 def loms_merge2(a: torch.Tensor, b: torch.Tensor, payloads: Sequence[torch.Tensor] = (),
                 *, network: str = "loms", n_cols: int = 2,
                 key_dtype: Optional[torch.dtype] = None, descending: bool = False,
-                want_perm: bool = False) -> Result:
+                want_perm: bool = False, use_mxu: bool = False) -> Result:
     """Merge the sorted rows ``a`` (B, m) and ``b`` (B, n) -> (B, m + n).
 
     ``network`` names a registered family; for loms ``n_cols`` must divide
     m and n. ``key_dtype`` (the rows' float dtype) merges floats as their
     total-order keys (NaN last, -0.0 below +0.0) and decodes on store;
-    int32 rows are keys already. ``descending``: the rows, and the output,
+    int32 rows are keys already. ``use_mxu`` (float rows without
+    ``key_dtype``): the reference's raw-float mode. ``descending``: the
+    rows, and the output,
     are descending. ``payloads``: (B, m + n[, F]) lanes, the two lists'
     payloads concatenated, returned permuted. Returns ``(out, perm | None,
     payload_outs)``; ``perm`` holds positions in ``concat(a, b)``."""
     payloads = tuple(payloads)
-    _check(a, b, payloads, network, n_cols, key_dtype)
+    _check(a, b, payloads, network, n_cols, key_dtype, use_mxu)
     if a.device.type == "cpu":
         return loms_merge2_plain(a, b, payloads, network=network, n_cols=n_cols,
                                  key_dtype=key_dtype, descending=descending,
-                                 want_perm=want_perm)
+                                 want_perm=want_perm, use_mxu=use_mxu)
     cuda_checks("merge kernel", (a, b) + payloads, a.dtype, len(payloads))
     bsz, m = a.shape
     n = b.shape[1]
@@ -117,15 +122,16 @@ def loms_merge2(a: torch.Tensor, b: torch.Tensor, payloads: Sequence[torch.Tenso
         prog = program_tensor(a.device, "merge", network, m, n,
                               n_cols if network == "loms" else None)
         scratch, ctas = None, 0
-        if total > SMEM_MAX_LANES:
+        words = LANE_WORDS[use_mxu]
+        if total * 4 * words > SMEM_BYTES:
             sms = torch.cuda.get_device_properties(a.device).multi_processor_count
             ctas = min(bsz, SCRATCH_CTAS_PER_SM * sms)
-            scratch = torch.empty(ctas * 4 * total, dtype=torch.int32, device=a.device)
+            scratch = torch.empty(ctas * words * total, dtype=torch.int32, device=a.device)
         npay, ins, po, rb = payload_args(payloads, pouts)
         check_rc(library("merge").repro_loms_merge2(
             a.data_ptr(), b.data_ptr(), prog.data_ptr(), out.data_ptr(),
             None if perm is None else perm.data_ptr(), npay, ins, po, rb,
             None if scratch is None else scratch.data_ptr(), ctas, bsz, m, n,
-            KEY_CODE[a.dtype], int(descending), stream(a)), "loms_merge2")
+            KEY_CODE[a.dtype], int(use_mxu), int(descending), stream(a)), "loms_merge2")
         LAUNCHES["loms_merge2"] += 1
     return out, perm, pouts

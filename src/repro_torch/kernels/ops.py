@@ -2,11 +2,13 @@
 (counterpart of ``repro.kernels.ops`` ``merge2``, ``sort``, ``merge_k`` and
 ``median_k``).
 
-The planner picks the family and column count. Floats go through the
-kernels as their total-order keys, which agrees with the reference's
-raw-float kernels on rows without NaN and without -0.0 tied to +0.0 (the
-reference's raw-float mode has no counterpart). Prefer
-``repro_torch.merge / merge_k / sort / median_of_lists``, which route as
+The planner picks the family, the column count and ``use_mxu``. As in
+the reference, float rows go through the kernels raw, in the raw-float
+mode (``use_mxu=True``: raw float comparisons and the rule of the
+reference's one-hot matrix permute, ``common.onehot_permute``: a ±inf or
+NaN turns the other lanes of its permuted vector into NaN, and a -0.0
+mostly comes out as +0.0); int32 rows take the exact permute. Prefer ``repro_torch.merge / merge_k / sort
+/ median_of_lists``, which sort floats as total-order keys and route as
 the reference does.
 """
 from __future__ import annotations
@@ -25,8 +27,9 @@ from .loms_merge import loms_merge2
 from .sort import loms_sort
 
 
-def _key_dtype(x: torch.Tensor):
-    return x.dtype if x.dtype.is_floating_point else None
+def _use_mxu(plan, x: torch.Tensor) -> bool:
+    """The reference's ``plan.use_mxu and use_mxu_for(dtype)``."""
+    return plan.use_mxu and x.dtype.is_floating_point
 
 
 def merge2(a: torch.Tensor, b: torch.Tensor, *, n_cols: int = 2,
@@ -37,7 +40,10 @@ def merge2(a: torch.Tensor, b: torch.Tensor, *, n_cols: int = 2,
         raise ValueError("merge2 takes (B, m) and (B, n) rows")
     m, n = a.shape[-1], b.shape[-1]
     if kind != "loms":
-        return loms_merge2(a, b, network=kind, key_dtype=_key_dtype(a))[0]
+        # the reference's default use_mxu=True; the port's int32 rows keep
+        # the exact permute (the reference's float32 matrix permute of
+        # integers is exact only below 2**24)
+        return loms_merge2(a, b, network=kind, use_mxu=a.dtype.is_floating_point)[0]
     if m % n_cols or n % n_cols:
         raise NotImplementedError(
             f"n_cols={n_cols} does not divide ({m}, {n}): the reference runs the "
@@ -45,7 +51,7 @@ def merge2(a: torch.Tensor, b: torch.Tensor, *, n_cols: int = 2,
             "and 4)")
     plan = plan_op("merge2", (m, n), batch=a.shape[0], dtype=a.dtype)
     return loms_merge2(a, b, network=plan.network, n_cols=n_cols,
-                       key_dtype=_key_dtype(a))[0]
+                       use_mxu=_use_mxu(plan, a))[0]
 
 
 def sort(x: torch.Tensor) -> torch.Tensor:
@@ -53,7 +59,7 @@ def sort(x: torch.Tensor) -> torch.Tensor:
     if x.ndim != 2:
         raise ValueError("sort takes (B, n) rows")
     plan = plan_op("sort", (x.shape[-1],), batch=x.shape[0], dtype=x.dtype)
-    return loms_sort(x, network=plan.network, key_dtype=_key_dtype(x))[0]
+    return loms_sort(x, network=plan.network, use_mxu=_use_mxu(plan, x))[0]
 
 
 def merge_k(lists: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -61,7 +67,8 @@ def merge_k(lists: Sequence[torch.Tensor]) -> torch.Tensor:
     k-way kernel on ``kway_schedule(lens)``."""
     lens = tuple(int(t.shape[-1]) for t in lists)
     x = torch.cat(list(lists), dim=-1).contiguous()
-    return kway_merge(x, kway_schedule(lens), key_dtype=_key_dtype(x))[0]
+    plan = plan_op("kway", lens, batch=x.shape[0], dtype=x.dtype)
+    return kway_merge(x, kway_schedule(lens), use_mxu=_use_mxu(plan, x))[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,4 +86,5 @@ def median_k(lists: Sequence[torch.Tensor]) -> torch.Tensor:
     lens = tuple(int(t.shape[-1]) for t in lists)
     sched, pos = median_schedule(lens)
     x = torch.cat(list(lists), dim=-1).contiguous()
-    return kway_merge(x, median_readout(sched, pos), key_dtype=_key_dtype(x))[0][:, 0]
+    plan = plan_op("kway", lens, batch=x.shape[0], dtype=x.dtype)
+    return kway_merge(x, median_readout(sched, pos), use_mxu=_use_mxu(plan, x))[0][:, 0]

@@ -35,8 +35,9 @@ from repro_torch.networks import (merge_program, merge_runs, pick_merge_cols,
                                   run_sort_program, sort_program)
 from .common import (encode_key_values, flip_keys, gather_lanes, sentinel_max,
                      stable_compact)
+from . import launch
 from .launch import (KEY_CODE, check_rc, cuda_checks, empty_payloads, library,
-                     payload_args, program_tensor, stream)
+                     payload_args, program_tensor, sort_prefix, stream)
 from .topk import LAUNCHES
 
 #: widest class a sort launch takes (the reference's cutover, see
@@ -147,7 +148,8 @@ def segment_class_sort(dense: torch.Tensor, lens: torch.Tensor,
         check_rc(library("segmented").repro_seg_sort(
             dense.data_ptr(), lens.data_ptr(), prog.data_ptr(), out.data_ptr(),
             perm.data_ptr(), n, ins, po, rb, s, w, k_out,
-            KEY_CODE[dense.dtype], int(flip), stream(dense)), "seg_sort")
+            KEY_CODE[dense.dtype], int(flip), sort_prefix(network, w), launch.SORT_LANES,
+            stream(dense)), "seg_sort")
         LAUNCHES["seg_sort"] += 1
     return out, (perm if want_perm else None), pouts
 

@@ -12,6 +12,12 @@ Every row of ``x`` (B, n) is sorted by the family's merge tree:
   descending position: a reversal, not the class sort's ``~key``) ->
   payload lanes (B, n[, F]) gathered at the positions.
 
+``use_mxu`` is the reference's raw-float mode (float rows without
+``key_dtype``, the values-only wrapper's mode): the levels compare the
+raw floats (NaN compares false, -0.0 ties +0.0), pads are the dtype's
+finite maximum, and every column-device permute follows the rule of the
+reference's one-hot matrix permute (``common.onehot_permute``).
+
 A CUDA tensor goes to ``loms_sort_kernel`` (``csrc/sort.cu``) or raises;
 a CPU tensor runs :func:`loms_sort_plain`, the reference's kernel body in
 torch ops.
@@ -23,10 +29,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.networks import run_sort_program, sort_program
-from .common import (ceil_pow2, decode_key_values, encode_key_values, gather_lanes,
-                     sentinel_max, stable_compact)
+from .common import (canonical_nan, ceil_pow2, check_mode, decode_key_values,
+                     encode_key_values, gather_lanes, sentinel_max, stable_compact)
+from . import launch
 from .launch import (KEY_CODE, check_rc, cuda_checks, empty_payloads, library,
-                     payload_args, program_tensor, stream)
+                     payload_args, program_tensor, sort_prefix, stream)
 from .topk import LAUNCHES
 
 Result = Tuple[torch.Tensor, Optional[torch.Tensor], Tuple[torch.Tensor, ...]]
@@ -37,7 +44,8 @@ MAX_WIDTH = 8192
 
 def loms_sort_plain(x: torch.Tensor, payloads: Sequence[torch.Tensor] = (), *,
                     network: str = "loms", key_dtype: Optional[torch.dtype] = None,
-                    descending: bool = False, want_perm: bool = False) -> Result:
+                    descending: bool = False, want_perm: bool = False,
+                    use_mxu: bool = False) -> Result:
     """Plain version of ``_sort_kernel`` (``sort.py:57``)."""
     bsz, n = x.shape
     keys = encode_key_values(x) if key_dtype is not None else x
@@ -48,7 +56,7 @@ def loms_sort_plain(x: torch.Tensor, payloads: Sequence[torch.Tensor] = (), *,
     need_pos = bool(payloads) or want_perm
     pos = (torch.arange(npad, dtype=torch.int32, device=x.device).expand(bsz, npad)
            if need_pos else None)
-    keys, pos = run_sort_program(sort_program(network, npad), keys, pos)
+    keys, pos = run_sort_program(sort_program(network, npad), keys, pos, use_mxu)
     if need_pos and npad != n:
         # the column devices make no cross-run tie promise, so a pad that
         # ties a genuine maximum may sit in the live prefix: the mask decides
@@ -60,38 +68,38 @@ def loms_sort_plain(x: torch.Tensor, payloads: Sequence[torch.Tensor] = (), *,
     if descending:
         out = out.flip(-1)
         perm = None if perm is None else perm.flip(-1)
+    if use_mxu:  # the kernel's NaN (torch's CPU ops rewrite bf16 NaN bits)
+        out = canonical_nan(out)
     pouts = tuple(gather_lanes(perm, p) for p in payloads)
     return out, (perm if want_perm else None), pouts
 
 
 def loms_sort(x: torch.Tensor, payloads: Sequence[torch.Tensor] = (), *,
               network: str = "loms", key_dtype: Optional[torch.dtype] = None,
-              descending: bool = False, want_perm: bool = False) -> Result:
+              descending: bool = False, want_perm: bool = False,
+              use_mxu: bool = False) -> Result:
     """Sort every row of ``x`` (B, n) in one launch.
 
     ``network`` names a registered family (its sort tree runs at
     ``ceil_pow2(n)``). ``key_dtype`` (the rows' float dtype) sorts floats
     as their total-order keys (NaN last, -0.0 below +0.0) and decodes on
-    store; int32 rows are keys already. ``payloads``: (B, n[, F]) lanes
-    returned permuted. Returns ``(out, perm | None, payload_outs)``;
-    ``perm`` holds input positions."""
+    store; int32 rows are keys already. ``use_mxu`` (float rows without
+    ``key_dtype``): the reference's raw-float mode. ``payloads``: (B,
+    n[, F]) lanes returned permuted. Returns ``(out, perm | None,
+    payload_outs)``; ``perm`` holds input positions."""
     payloads = tuple(payloads)
     if x.ndim != 2:
         raise ValueError(f"sort takes (B, n), got {tuple(x.shape)}")
     bsz, n = x.shape
-    if x.dtype.is_floating_point and key_dtype != x.dtype:
-        raise NotImplementedError(
-            "float rows sort as total-order keys: pass key_dtype=x.dtype (the "
-            "reference's raw-float mode has no counterpart in the port)")
-    if key_dtype is not None and key_dtype != x.dtype:
-        raise ValueError(f"key_dtype {key_dtype} is not the rows' dtype {x.dtype}")
+    check_mode(x.dtype, key_dtype, use_mxu, len(payloads))
     for p in payloads:
         if p.ndim not in (2, 3) or p.shape[:2] != (bsz, n):
             raise ValueError(f"payload lane of shape {tuple(p.shape)} does not "
                              f"match ({bsz}, {n}[, F])")
     if x.device.type == "cpu":
         return loms_sort_plain(x, payloads, network=network, key_dtype=key_dtype,
-                               descending=descending, want_perm=want_perm)
+                               descending=descending, want_perm=want_perm,
+                               use_mxu=use_mxu)
     width = ceil_pow2(n)
     if width > MAX_WIDTH:
         raise ValueError(f"the CUDA sort takes rows up to {MAX_WIDTH}, got {n}")
@@ -105,6 +113,7 @@ def loms_sort(x: torch.Tensor, payloads: Sequence[torch.Tensor] = (), *,
         check_rc(library("sort").repro_loms_sort(
             x.data_ptr(), prog.data_ptr(), out.data_ptr(),
             None if perm is None else perm.data_ptr(), npay, ins, po, rb, bsz, n,
-            width, KEY_CODE[x.dtype], int(descending), stream(x)), "loms_sort")
+            width, sort_prefix(network, width), KEY_CODE[x.dtype], int(use_mxu),
+            int(descending), launch.SORT_LANES, stream(x)), "loms_sort")
         LAUNCHES["loms_sort"] += 1
     return out, perm, pouts

@@ -10,11 +10,11 @@ run reversed on entry). A :class:`SortProgram` is a pow2 merge tree of
 such programs. The family generators (:mod:`.families`) build them; the
 kernels take them through :mod:`.registry`.
 
-The executors here are the plain versions the CUDA class kernels
-(``csrc/segmented.cu``) are held against: the same comparisons and
-exact scatter permutes as the reference's ``jnp`` executors (the
-reference's one-hot matrix-unit permute has no counterpart; see
-``kernels/common.py``). Only the ``columns``/``n_cols == 1`` program is a
+The executors here are the plain versions the CUDA kernels are held
+against: the same comparisons and permutes as the reference's ``jnp``
+executors, the exact scatter permute or, with ``use_mxu`` (raw floats),
+the rule of the reference's one-hot matrix permute
+(``kernels/common.onehot_permute``). Only the ``columns``/``n_cols == 1`` program is a
 stable merge (lo wins ties); column devices and pair networks make no
 cross-run tie-order promise, so their callers resolve validity by mask.
 """
@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels.common import merge2_sorted, sort_nsorter
 
 __all__ = ["PairStage", "MergeProgram", "SortProgram", "merge_runs",
-           "run_sort_program", "encode_program"]
+           "run_sort_program", "s2ms_prefix", "encode_program"]
 
 _PAIR_KINDS = {"xor": 0, "reflect": 1, "brick_odd": 2}
 
@@ -136,23 +136,26 @@ def _columns(x: torch.Tensor, c_: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (x.shape[-1] // c_, c_)).transpose(-1, -2)
 
 
-def _merge_columns(prog: MergeProgram, lo, hi, payload):
+def _merge_columns(prog: MergeProgram, lo, hi, payload, use_mxu: bool):
     """The UP-m/DN-n column device: column c merges ``hi[(C-1-c)%C::C]``
     (first, so it wins ties) with ``lo[c::C]``; stage 2 rank-sorts each
-    row of C values. The C column merges run as one batched merge."""
+    row of C values. The C column merges run as one batched merge (each
+    column its own permuted vector, as in the reference)."""
     m, n, c_ = prog.m, prog.n, prog.n_cols
     if c_ <= 1 or m % c_ or n % c_:
-        return merge2_sorted(lo, hi, payload=payload)
+        return merge2_sorted(lo, hi, payload=payload, use_mxu=use_mxu)
     # column c of hi is hi[(C-1-c)::C]: the columns in reverse order
     av, bv = _columns(lo, c_), _columns(hi, c_).flip(-2)
     shape = lo.shape[:-1] + (m + n,)
     if payload is not None:
         plo, phi = payload
         col, pcol = merge2_sorted(bv, av, payload=(_columns(phi, c_).flip(-2),
-                                                   _columns(plo, c_)))
-        arr, parr = sort_nsorter(col.transpose(-1, -2), pcol.transpose(-1, -2))
+                                                   _columns(plo, c_)), use_mxu=use_mxu)
+        arr, parr = sort_nsorter(col.transpose(-1, -2), pcol.transpose(-1, -2),
+                                 use_mxu=use_mxu)
         return arr.reshape(shape), parr.reshape(shape)
-    return sort_nsorter(merge2_sorted(bv, av).transpose(-1, -2)).reshape(shape)
+    col = merge2_sorted(bv, av, use_mxu=use_mxu)
+    return sort_nsorter(col.transpose(-1, -2), use_mxu=use_mxu).reshape(shape)
 
 
 def _merge_pairs(prog: MergeProgram, lo, hi, payload):
@@ -167,36 +170,56 @@ def _merge_pairs(prog: MergeProgram, lo, hi, payload):
 
 
 def merge_runs(prog: MergeProgram, lo: torch.Tensor, hi: torch.Tensor, *,
-               payload: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+               payload: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               use_mxu: bool = False):
     """Execute one merge program on ascending runs ``lo``/``hi`` (last
-    axis). With ``payload=(plo, phi)`` returns ``(vals, pvals)``."""
+    axis). With ``payload=(plo, phi)`` returns ``(vals, pvals)``.
+    ``use_mxu``: raw floats, permuted by the one-hot rule (the pair
+    stages move values exactly either way)."""
     assert lo.shape[-1] == prog.m and hi.shape[-1] == prog.n, (
         lo.shape, hi.shape, prog)
     if prog.kind == "columns":
-        return _merge_columns(prog, lo, hi, payload)
+        return _merge_columns(prog, lo, hi, payload, use_mxu)
     return _merge_pairs(prog, lo, hi, payload)
 
 
 def run_sort_program(prog: SortProgram, keys: torch.Tensor,
-                     pos: Optional[torch.Tensor]):
+                     pos: Optional[torch.Tensor], use_mxu: bool = False,
+                     first_level: int = 0):
     """The merge-tree sort over pow2-width ``(bt, w)`` rows, optionally
-    carrying an int32 position lane through every permute. Returns
-    ``(keys, pos)``."""
+    carrying an int32 position lane through every permute, from level
+    ``first_level`` on (the rows' runs of ``2**first_level`` already
+    sorted). Returns ``(keys, pos)``."""
     bt, w = keys.shape[0], prog.width
     assert keys.shape[-1] == w, (keys.shape, w)
-    for mp in prog.levels:
+    for mp in prog.levels[first_level:]:
         run = mp.m
         g = w // (2 * run)
         kv = keys.reshape(bt, g, 2 * run)
         if pos is not None:
             pv = pos.reshape(bt, g, 2 * run)
             kv, pv = merge_runs(mp, kv[..., :run], kv[..., run:],
-                                payload=(pv[..., :run], pv[..., run:]))
+                                payload=(pv[..., :run], pv[..., run:]), use_mxu=use_mxu)
             pos = pv.reshape(bt, w)
         else:
-            kv = merge_runs(mp, kv[..., :run], kv[..., run:])
+            kv = merge_runs(mp, kv[..., :run], kv[..., run:], use_mxu=use_mxu)
         keys = kv.reshape(bt, w)
     return keys, pos
+
+
+def s2ms_prefix(prog: SortProgram) -> int:
+    """How many levels at the bottom of ``prog`` are S2MS merges
+    (``columns`` with ``n_cols <= 1``). Positions start as the lane
+    index and an S2MS level lets lo win ties while every lo position is
+    below every hi position, so after these levels each group of
+    ``2**prefix`` lanes is sorted by the unique pair (key, position):
+    any correct sort of that pair gives the same bits."""
+    j = 0
+    for mp in prog.levels:
+        if mp.kind != "columns" or mp.n_cols > 1:
+            break
+        j += 1
+    return j
 
 
 def encode_program(levels) -> List[int]:

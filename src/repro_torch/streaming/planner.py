@@ -33,12 +33,16 @@ ROUTING_BUDGET = 8 * 1024 * 1024
 @dataclasses.dataclass(frozen=True)
 class MergePlan:
     """Resolved knobs for one sort or merge (the reference's ``MergePlan``
-    without ``block_batch``, ``use_mxu``, ``block`` and the measured time:
-    a CUDA kernel takes a row, or a few narrow rows, a CTA)."""
+    without ``block_batch``, ``block`` and the measured time: a CUDA
+    kernel takes a row, or a few narrow rows, a CTA)."""
 
     kind: str = "loms"  # 'loms' (the kernels) | 'schedule' (the executor)
     n_cols: int = 2
     network: str = "loms"
+    #: the reference's one-hot matrix permute of raw floats: True for a
+    #: float dtype, as every heuristic of the reference plans it (the
+    #: values-only wrappers of ``kernels.ops`` take it)
+    use_mxu: bool = True
     tile: int = 512  # the streaming merge's tile
 
 
@@ -85,19 +89,20 @@ def kway_fits_vmem(total: int) -> bool:
     return total * total * 4 <= ROUTING_BUDGET
 
 
-def plan_merge2(m: int, n: int) -> MergePlan:
+def plan_merge2(m: int, n: int, dtype: torch.dtype = torch.float32) -> MergePlan:
     """One UP-m/DN-n merge: the column count nearest the comparator-cost
     optimum among the common divisors (``pick_merge_cols``); none: the
     schedule executor."""
     n_cols = pick_merge_cols(m, n)
+    use_mxu = dtype.is_floating_point
     if n_cols == 1:
-        return MergePlan(kind="schedule", n_cols=2)
-    return MergePlan(kind="loms", n_cols=n_cols)
+        return MergePlan(kind="schedule", n_cols=2, use_mxu=use_mxu)
+    return MergePlan(kind="loms", n_cols=n_cols, use_mxu=use_mxu)
 
 
-def plan_sort(n: int) -> MergePlan:
+def plan_sort(n: int, dtype: torch.dtype = torch.float32) -> MergePlan:
     """The fused sort: the loms family's merge tree at ``ceil_pow2(n)``."""
-    return MergePlan(kind="loms", n_cols=2)
+    return MergePlan(kind="loms", n_cols=2, use_mxu=dtype.is_floating_point)
 
 
 def plan_chunked(total_a: int, total_b: int, *, batch: int = 1,
@@ -111,16 +116,17 @@ def plan_chunked(total_a: int, total_b: int, *, batch: int = 1,
                                                dtype) > ROUTING_BUDGET:
             tile //= 2
     tile = max(2, tile - (tile % 2))
-    return dataclasses.replace(plan_merge2(tile, tile), tile=tile)
+    return dataclasses.replace(plan_merge2(tile, tile, dtype), tile=tile)
 
 
-def plan_kway(total: int) -> MergePlan:
+def plan_kway(total: int, dtype: torch.dtype = torch.float32) -> MergePlan:
     """The fused k-way merge: the schedule's own wiring, nothing to pick
     (the reference's plan only sizes its batch tile)."""
-    return MergePlan(kind="loms", n_cols=2)
+    return MergePlan(kind="loms", n_cols=2, use_mxu=dtype.is_floating_point)
 
 
 def plan_chunked_k(lens: Sequence[int], *, batch: int = 1,
+                   dtype: torch.dtype = torch.float32,
                    tile: Optional[int] = None) -> MergePlan:
     """The k-way streaming merge: k tile segments an output tile, the
     largest tile (128 down to 16) whose (k · tile)² cloud fits the budget
@@ -130,16 +136,18 @@ def plan_chunked_k(lens: Sequence[int], *, batch: int = 1,
         tile = 128
         while tile > 16 and max(batch, 1) * (k * tile) * (k * tile) * 4 > ROUTING_BUDGET:
             tile //= 2
-    return MergePlan(kind="schedule", n_cols=k, tile=int(tile))
+    return MergePlan(kind="schedule", n_cols=k, use_mxu=dtype.is_floating_point,
+                     tile=int(tile))
 
 
 _HEURISTICS = {
-    "merge2": lambda lengths, batch, dtype: plan_merge2(lengths[0], lengths[1]),
-    "sort": lambda lengths, batch, dtype: plan_sort(lengths[0]),
-    "kway": lambda lengths, batch, dtype: plan_kway(sum(lengths)),
+    "merge2": lambda lengths, batch, dtype: plan_merge2(lengths[0], lengths[1], dtype),
+    "sort": lambda lengths, batch, dtype: plan_sort(lengths[0], dtype),
+    "kway": lambda lengths, batch, dtype: plan_kway(sum(lengths), dtype),
     "chunked2": lambda lengths, batch, dtype: plan_chunked(lengths[0], lengths[1],
                                                            batch=batch, dtype=dtype),
-    "chunked_k": lambda lengths, batch, dtype: plan_chunked_k(lengths, batch=batch),
+    "chunked_k": lambda lengths, batch, dtype: plan_chunked_k(lengths, batch=batch,
+                                                              dtype=dtype),
 }
 
 

@@ -1,6 +1,8 @@
 """On-card tests of the port's CUDA kernels (top-k, segmented class sort
 and merge, the 2-way merge, the fused sort, the grid merge, the k-way
-merge) against their plain versions.
+merge) against their plain versions, in the key mode and in the
+reference's raw-float mode (``use_mxu=True``: rows 1, 2 and 8), and the
+sort executor of rows 2 and 6 at every lanes-a-thread layout.
 
 Marked ``gpu``: each test skips without a CUDA card. This file imports
 neither JAX nor the JAX package, so it also runs where only PyTorch is
@@ -309,3 +311,129 @@ def test_merge_k_median_and_chunked_merge_k_launch_row_8(cuda):
     assert torch.equal(got.cpu(), torch.sort(torch.cat(runs, dim=1), dim=1)[0])
     assert K.LAUNCHES["kway_merge"] == 4
     assert sum(K.LAUNCHES.values()) == 4
+
+
+@pytest.fixture
+def sort_lanes():
+    """Force the lanes a thread of the sort executor (rows 2 and 6)."""
+    from repro_torch.kernels import launch
+
+    old = launch.SORT_LANES
+    yield lambda lanes: setattr(launch, "SORT_LANES", lanes)
+    launch.SORT_LANES = old
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("n", [8, 64, 100, 1024, 2048, 5000, 8192])
+def test_sort_executor_layouts_match_plain(cuda, sort_lanes, lanes, n):
+    """Rows 2 and 6 with ER lanes a thread in one or more chunks (2048 to
+    8192 wide rows: several chunks), every capable family."""
+    from repro_torch.kernels.common import ceil_pow2
+    from repro_torch.kernels.sort import loms_sort, loms_sort_plain
+
+    sort_lanes(lanes)
+    w = ceil_pow2(n)
+    x = _class_tile(5, n, torch.bfloat16, seed=n)
+    pay = (torch.arange(5 * n, dtype=torch.int32).reshape(5, n),)
+    for fam in capable_families("sort", (w,)):
+        for desc in (False, True):
+            kw = dict(network=fam, key_dtype=torch.bfloat16, descending=desc,
+                      want_perm=True)
+            _same_all(loms_sort_plain(x, pay, **kw),
+                      loms_sort(x.to(cuda), [p.to(cuda) for p in pay], **kw))
+        if w <= 1024:
+            xs = _class_tile(5, w, torch.int32, seed=w)
+            lens = _lens(5, w, seed=w)
+            for flip in (False, True):
+                kw = dict(k_out=max(1, w // 2), network=fam, flip=flip, want_perm=True)
+                _same_all(SK.segment_class_sort_plain(xs, lens, **kw),
+                          SK.segment_class_sort(xs.to(cuda), lens.to(cuda), **kw))
+
+
+def _special_rows(rows, n, dtype, seed, sort):
+    """Rows with -0.0 / +0.0 mixes, all-negative rows with a -0.0, ±inf,
+    one and several NaNs (sorted in raw-float order when ``sort``)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-6, 7, (rows, n)) * 0.5).astype(np.float32)
+    x[0] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    x[1] = -np.abs(x[1]) - 1.0
+    x[1, rng.integers(n)] = -0.0
+    x[2, rng.integers(n)] = np.inf
+    x[3, rng.integers(n)] = -np.inf
+    x[4, rng.integers(n)] = np.nan
+    x[5, rng.integers(0, n, 3)] = np.nan
+    x[6, 0] = -0.0
+    x[7] = -(np.arange(n, dtype=np.float32) + 1.0)
+    x[7, 0] = -0.0
+    x = np.sort(x, axis=-1) if sort else x
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(4, 4), (32, 32), (64, 32), (1000, 24)])
+@pytest.mark.parametrize("desc", [False, True])
+def test_raw_float_merge_kernel_matches_plain(cuda, dtype, m, n, desc):
+    """Row 1 in the raw-float mode: NaN bits compared too (both sides
+    write the canonical NaN)."""
+    from repro_torch.kernels.loms_merge import loms_merge2, loms_merge2_plain
+
+    a, b = _special_rows(12, m, dtype, 1, True), _special_rows(12, n, dtype, 2, True)
+    if desc:
+        a, b = a.flip(-1).contiguous(), b.flip(-1).contiguous()
+    for fam in capable_families("merge2", (m, n)):
+        kw = dict(network=fam, n_cols=pick_merge_cols(m, n), use_mxu=True,
+                  descending=desc, want_perm=True)
+        _same_all(loms_merge2_plain(a, b, **kw), loms_merge2(a.to(cuda), b.to(cuda), **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [8, 37, 1007, 1024])
+@pytest.mark.parametrize("want_perm", [False, True])
+def test_raw_float_sort_kernel_matches_plain(cuda, dtype, n, want_perm):
+    from repro_torch.kernels.common import ceil_pow2
+    from repro_torch.kernels.sort import loms_sort, loms_sort_plain
+
+    x = _special_rows(12, n, dtype, n, False)
+    for fam in capable_families("sort", (ceil_pow2(n),)):
+        for desc in (False, True):
+            kw = dict(network=fam, use_mxu=True, descending=desc, want_perm=want_perm)
+            want, got = loms_sort_plain(x, **kw), loms_sort(x.to(cuda), **kw)
+            assert torch.equal(_bits(got[0].cpu()), _bits(want[0]))
+            assert (got[1] is None) == (want[1] is None)
+            if want_perm:
+                assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lens", [(7, 7, 7), (3,) * 8, (64,) * 4])
+def test_raw_float_kway_kernel_matches_plain(cuda, dtype, lens):
+    from repro_torch.kernels.kway import kway_merge, kway_merge_plain
+    from repro_torch.kernels.ops import median_readout
+    from repro_torch.networks import kway_schedule, median_schedule
+
+    x = torch.cat([_special_rows(12, n, dtype, 30 + j, True) for j, n in enumerate(lens)],
+                  dim=1)
+    scheds = [kway_schedule(lens)]
+    if len(set(lens)) == 1 and len(lens) % 2 and lens[0] % 2:
+        med, pos = median_schedule(lens)
+        scheds += [med, median_readout(med, pos)]
+    for sched in scheds:
+        for n_stages in (None, 1):
+            kw = dict(n_stages=n_stages, use_mxu=True, want_perm=True)
+            _same_all(kway_merge_plain(x, sched, **kw), kway_merge(x.to(cuda), sched, **kw))
+
+
+def test_values_only_wrappers_take_the_raw_float_mode(cuda):
+    """``kernels.ops`` on card rows equals the same call on the CPU."""
+    from repro_torch.kernels import ops
+
+    a = _special_rows(12, 32, torch.float32, 1, True)
+    b = _special_rows(12, 32, torch.float32, 2, True)
+    x = _special_rows(12, 1007, torch.bfloat16, 3, False)
+    lists = [_special_rows(12, 7, torch.float32, 4 + j, True) for j in range(3)]
+    cuda_lists = [t.to(cuda) for t in lists]
+    for got, want in ((ops.merge2(a.to(cuda), b.to(cuda)), ops.merge2(a, b)),
+                      (ops.sort(x.to(cuda)), ops.sort(x)),
+                      (ops.merge_k(cuda_lists), ops.merge_k(lists)),
+                      (ops.median_k(cuda_lists), ops.median_k(lists))):
+        assert torch.equal(_bits(got.cpu()), _bits(want))
