@@ -15,10 +15,15 @@ script with a non-zero exit code when it fails:
    k-way merge), in bf16, f32 and int32, on rows that hold NaN, ±inf,
    ±0.0 and many ties; the sort executor of the fused sort and the class
    sort at every lanes-a-thread layout at the shapes of phases 3d and 3e;
-   and the 2-way merge, the fused sort and the k-way merge in the
-   reference's raw-float mode (``use_mxu=True``, the values-only
-   wrappers' mode), NaN bits included, on rows with -0.0 / +0.0 mixes,
-   all-negative rows with a -0.0, ±inf and NaN;
+   the tiled 2-way merge forced onto short rows at tiles of 1, 5 and 64
+   rows (several CTAs a row); the k-way merge's executors (a thread a row
+   up to 64 cells, the one-thread and warp sorts of the (key, index)
+   pairs, the two-chain merge) at every schedule of phase 3f, the medians
+   and MWMS in bf16, f32 and int32; and the 2-way merge, the fused sort
+   and the k-way merge in the reference's raw-float mode
+   (``use_mxu=True``, the values-only wrappers' mode), NaN bits included,
+   on rows with -0.0 / +0.0 mixes, all-negative rows with a -0.0, ±inf
+   and NaN;
 3. the main paths, each with its launch counts zeroed just before it and
    read just after it:
    a. ``generate`` on Qwen3-8B at full width (bf16, random weights from
@@ -41,7 +46,7 @@ script with a non-zero exit code when it fails:
    e. the library's ``merge`` and ``sort`` at their users' sizes: the
       paper's 32 + 32 device over 65,536 rows, two kept lists of 512 per
       query (descending, int32 ids), 32 new keys into runs of 65,536
-      (the global-scratch merge), sorts of (16,384, 1024) bf16 with a
+      (the tiled merge: several CTAs a row), sorts of (16,384, 1024) bf16 with a
       payload and (16, 1007) descending, merges past the routing budget
       ((8, 2^22) pairs and the stream-merge example's 100,000 + 100,000:
       the grid merge), and the values-only ``segment_sort`` /
@@ -59,7 +64,8 @@ script with a non-zero exit code when it fails:
       to the plain version run in chunks, or to torch.sort of the keys;
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
-   ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls).
+   ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
+   row 8 also at 8 x 128 int32 and at the chunked_merge_k segments.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Needs one card.
@@ -213,6 +219,24 @@ def search_steps(n: int) -> int:
 
 #: lanes a thread of the sort executor held in phase 2 (0: the plan's)
 LANE_LAYOUTS = (0, 1, 4, 8)
+
+
+class merge_tile:
+    """Force the rows a tile of the tiled 2-way merge (row 1), and with it
+    the tiled kernel on every row a single-level program merges."""
+
+    def __init__(self, rows: int):
+        self.rows = rows
+
+    def __enter__(self):
+        from repro_torch.kernels import launch
+
+        self.old, launch.MERGE_TILE = launch.MERGE_TILE, self.rows
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import launch
+
+        launch.MERGE_TILE = self.old
 
 
 class sort_lanes:
@@ -1187,13 +1211,29 @@ def phase_merge_sort_kernels(dev, capable_families) -> dict:
                               fam, desc)
         log(f"  loms_sort n={n}: {', '.join(fams)} x bf16/f32/int32 x both orders, 33 rows, "
             f"payload lanes: bit-equal")
+    # the tiled kernel of the single-level programs (s2ms, loms columns),
+    # forced onto short rows at small tiles so that several CTAs share a row
+    for m, n in ((8, 8), (16, 48), (512, 512), (1000, 24), (65_536, 32)):
+        rows = 4 if m + n > 2048 else 24
+        for dt in dtypes:
+            for desc in (False, True):
+                a = total_order_sorted(seg_tile(rows, m, dt, dev, seed=m + 5), desc)
+                b = total_order_sorted(seg_tile(rows, n, dt, dev, seed=n + 6), desc)
+                for tile in (1, 5, 64):
+                    with merge_tile(tile):
+                        for fam in ("loms", "s2ms"):
+                            merge_case(f"tiled merge ({m}, {n}) tile={tile} {dt} {fam} "
+                                       f"desc={desc}", a, b, lanes(rows, m + n, m + 7), fam,
+                                       desc)
+        log(f"  loms_merge2 tiled ({m}, {n}): tiles of 1, 5, 64 rows x loms/s2ms x "
+            f"bf16/f32/int32 x both orders, {rows} rows, payload lanes: bit-equal")
     # the shapes of phase 3e
     ids = lambda rows, w: (torch.arange(rows * w, dtype=torch.int32,  # noqa: E731
                                         device=dev).reshape(rows, w),)
     for name, rows, m, n, desc, pay in (
             ("(65536, 32 + 32) f32", 65_536, 32, 32, False, False),
             ("(4096, 512 + 512) f32 desc + int32 ids", 4096, 512, 512, True, True),
-            ("(64, 65536 + 32) f32 (global scratch)", 64, 65_536, 32, False, False)):
+            ("(64, 65536 + 32) f32 (tiled)", 64, 65_536, 32, False, False)):
         a = total_order_sorted(seg_tile(rows, m, torch.float32, dev, seed=rows + m), desc)
         b = total_order_sorted(seg_tile(rows, n, torch.float32, dev, seed=rows + n + 1), desc)
         merge_case(f"merge {name}", a, b, ids(rows, m + n) if pay else (), "loms", desc,
@@ -1300,7 +1340,7 @@ def phase_library_merge_sort(dev):
          lambda: repro_torch.merge(a2[:1024].cpu(), b2[:1024].cpu(), descending=True,
                                    payload=(id2[:1024, :512].cpu(), id2[:1024, 512:].cpu())),
          one(loms_merge2=1)),
-        ("merge (64, 65536) + (64, 32) f32: new keys into a long run (global scratch)",
+        ("merge (64, 65536) + (64, 32) f32: new keys into a long run (tiled)",
          lambda: repro_torch.merge(a3, b3),
          lambda: repro_torch.merge(a3.cpu(), b3.cpu()), one(loms_merge2=1)),
         ("sort (16384, 1024) bf16 + int32 payload",
@@ -1379,7 +1419,7 @@ def phase_merge_sort_times(dev, launches, err, card, ops_per_s) -> list:
     for name, bsz, m, n, desc, pay in (
             ("(65536, 32 + 32) f32", 65_536, 32, 32, False, False),
             ("(4096, 512 + 512) f32 desc + int32 ids", 4096, 512, 512, True, True),
-            ("(64, 65536 + 32) f32 (global scratch)", 64, 65_536, 32, False, False)):
+            ("(64, 65536 + 32) f32 (tiled)", 64, 65_536, 32, False, False)):
         a = total_order_sorted(seg_tile(bsz, m, torch.float32, dev, seed=m), desc)
         b = total_order_sorted(seg_tile(bsz, n, torch.float32, dev, seed=n), desc)
         lanes = ((torch.arange(bsz * (m + n), dtype=torch.int32, device=dev)
@@ -1484,8 +1524,8 @@ def phase_kway_kernels(dev) -> dict:
             x[r], sched, tuple(p[r] for p in pay), **kw), x.shape[0], chunk)
         err["kway_merge"] = max(err["kway_merge"], require_same_class(name, got, want))
 
-    for lens in ((7, 7, 7), (3,) * 8, (64,) * 4, (100, 50, 25), (5,) * 5, (128,) * 8,
-                 (181,) * 8):
+    for lens in ((7, 7, 7), (3,) * 8, (64,) * 4, (100, 50, 25), (5,) * 5, (7,) * 5,
+                 (128,) * 8, (181,) * 8):
         total, sched = sum(lens), kway_schedule(lens)
         for dt in (torch.bfloat16, torch.float32, torch.int32):
             key = dt if dt.is_floating_point else None
@@ -1499,12 +1539,18 @@ def phase_kway_kernels(dev) -> dict:
                          want_perm=True)
         log(f"  kway_merge {lens}: bf16/f32/int32 x both orders x full and two-stage "
             "devices, 33 rows, payload lanes (F=2 int32, bf16): bit-equal")
-    x = torch.cat(sorted_lists(64, (7, 7, 7), torch.int32, dev, 5), dim=1)
-    med, pos = median_schedule((7, 7, 7))
-    for sched in (mwms_kway((7, 7, 7)), med, median_readout(med, pos)):
-        case(f"kway {sched.name}", x, sched, want_perm=True)
-    log("  kway_merge MWMS 3 x 7 and the median devices (all cells, the center "
-        "cell): bit-equal")
+    for dt in (torch.bfloat16, torch.float32, torch.int32):
+        key = dt if dt.is_floating_point else None
+        for lens in ((7, 7, 7), (7,) * 5):
+            x = torch.cat(sorted_lists(64, lens, dt, dev, 5), dim=1)
+            med, pos = median_schedule(lens)
+            scheds = (med, median_readout(med, pos))
+            if len(lens) == 3:
+                scheds += (mwms_kway(lens),)
+            for sched in scheds:
+                case(f"kway {sched.name} {dt}", x, sched, want_perm=True, key_dtype=key)
+    log("  kway_merge MWMS 3 x 7 and the 3 x 7 and 5 x 7 median devices (all cells, the "
+        "center cell): bf16/f32/int32: bit-equal")
     # the kernel shapes of phase 3f, in the modes the library calls them
     f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
     for name, rows, lens, dt, desc, pay, median in (
@@ -1763,9 +1809,11 @@ def zero_one_faults(lens, median=False) -> str:
 
 def phase_kway_times(dev, launches, err, card, ops_per_s) -> list:
     """Phase 4, row 8: the paper's 3 x 7 device over 1,048,576 rows (the
-    kernels line's row) and its median, and four 64-lists in bf16 with
-    token ids over 65,536 rows, each beside its bound, its plain version
-    and one PyTorch call (torch.sort + gather, torch.kthvalue)."""
+    kernels line's row) and its median, four 64-lists in bf16 with token
+    ids over 65,536 rows, and eight 128-lists of int32 keys over 16,384
+    rows and over the 65,536 segment rows of chunked_merge_k, each beside
+    its bound, its plain version and one PyTorch call (torch.sort (+
+    gather), torch.kthvalue)."""
     import torch
 
     from repro_torch.kernels.kway import kway_merge, kway_merge_plain
@@ -1807,6 +1855,22 @@ def phase_kway_times(dev, launches, err, card, ops_per_s) -> list:
     entries.append(("4 x 64 bf16 desc + int32 ids (65536 rows)", ms_b, plain_b,
                     graph_ms(lib_b, 20), "torch.sort + gather", bsz * 256 * (2 + 4) * 2,
                     float(bsz * 256 * lg(4))))
+    # eight 128-lists of int32 keys: merge_k at 16,384 rows, and the 65,536
+    # segment rows of chunked_merge_k of 8 x 2^20 (the same device; its
+    # plain version is timed at the first shape only)
+    s8 = kway_schedule((128,) * 8)
+    plain_8 = None
+    for bsz in (16_384, 65_536):
+        x8 = torch.cat(sorted_lists(bsz, (128,) * 8, torch.int32, dev, 53), dim=1)
+        ms_8 = graph_ms(lambda: kway_merge(x8, s8), 20)
+        if plain_8 is None:
+            plain_8 = graph_ms(lambda: kway_merge_plain(x8, s8), 1)
+        name = ("8 x 128 int32 (16384 rows)" if bsz == 16_384 else
+                "8 x 128 int32 (65536 rows: the chunked_merge_k segments)")
+        entries.append((name, ms_8, plain_8 if bsz == 16_384 else float("nan"),
+                        graph_ms(lambda: torch.sort(x8, dim=-1), 20), "torch.sort",
+                        bsz * 1024 * 4 * 2, float(bsz * 1024 * lg(8))))
+        del x8
     name, ms, plain, lib, _, nbytes, comps = entries[0]
     b_ms, b_by = bound_ms(nbytes, comps, ops_per_s)
     rows.append(dict(name="kway_merge", route="cuda", source=KWAY_SOURCE,

@@ -21,9 +21,12 @@
 // Up to the opt-in shared-memory limit of a CTA (227 KB, 14,528 lanes)
 // the row lives in shared memory; a longer row (the reference fuses
 // skewed merges such as 65,536 + 32, whose working set fits its budget)
-// runs the same executor in a global scratch buffer the wrapper allocates,
-// one slot per CTA, the CTAs walking over the rows. Narrow rows pack
-// several to a CTA so that a CTA holds at least 256 lanes.
+// goes to merge_tile_kernel below when its program is a single level of
+// columns in the key mode, and otherwise (the pair-stage families, the
+// raw-float mode) runs the same executor in a global scratch buffer the
+// wrapper allocates, one slot per CTA, the CTAs walking over the rows.
+// Narrow rows pack several to a CTA so that a CTA holds at least 256
+// lanes.
 //
 // What bounds it on the H100: bytes (each input read once, each output
 // written once) for the shared-memory rows; the column device's binary
@@ -35,6 +38,28 @@
 // level by level with the rule of the reference's one-hot permute
 // (program.cuh run_program_raw); the values are stored as the levels left
 // them.
+//
+//   merge_tile_kernel  <- the same kernel, key mode, on rows of any length
+//
+// A single-level program of columns (s2ms: C = 1; loms: the column device,
+// C <= 16) in the key mode is local: output row r of its (R, C) stack,
+// R = (m + n) / C, needs only the r-th element of each column's merge
+// (column c merges its first run F_c -- hi[(C-1-c)::C], or lo when C = 1
+// -- with its second S_c -- lo[c::C], or hi -- F winning ties), and each
+// row of C is ranked stably by column. So merge_tile_kernel cuts the stack
+// into tiles of T rows, a CTA each, and runs a long row (65,536 + 32: past
+// the shared memory of one CTA, where loms_merge2_kernel walks one CTA a
+// row over global scratch, half the card idle at 64 rows) on every SM: a
+// thread finds its start in column c's merge by a merge-path diagonal
+// search under the program's tie rule (F[f] goes out before S[s - 1 - f]
+// iff F[f] <= S[s - 1 - f]: the S lanes count F <=, the F lanes count S
+// <), merges TILE_STEPS rows of that column from device memory into shared
+// memory, and after one barrier a thread a row sorts its C (key, column)
+// words in registers -- the stable rank -- and stores keys, positions and
+// payloads directly, C consecutive outputs a thread. One launch, no
+// scratch, each input read once (bound: bytes). Descending reverses both
+// rows on load and the output on store, so the tiles are cut in the
+// ascending problem's coordinates.
 
 #include "program.cuh"
 
@@ -135,7 +160,155 @@ int launch_kt(const void* a, const void* b, const int* prog, void* out, int32_t*
   return launch<KT, false>(a, b, prog, out, perm, pl, scratch, ctas, B, m, n, desc, s);
 }
 
+constexpr int TILE_THREADS = 256;
+constexpr int TILE_STEPS = 8;  // merge steps a thread: rows of one column
+
+// The ascending problem of one row: lo = a (descending: reversed), hi = b
+// (reversed), as keys, and their positions in the original concat(a, b)
+template <int KT>
+struct MergeRow {
+  const void *a, *b;
+  size_t ra, rb;  // the row's first element in a and in b
+  int m, n, desc;
+  __device__ __forceinline__ int lo_pos(int i) const { return desc ? m - 1 - i : i; }
+  __device__ __forceinline__ int hi_pos(int j) const { return m + (desc ? n - 1 - j : j); }
+  __device__ __forceinline__ int32_t key(int pos) const {  // the key at a position
+    return pos < m ? load_key<KT>(a, ra + pos) : load_key<KT>(b, rb + pos - m);
+  }
+};
+
+// The sort of a row of C <= S words (key, column) in registers, stable by
+// column; the positions read again from the columns after it
+template <int S, bool NARROW>
+__device__ __forceinline__ void tile_row_sort(const int32_t* k, const int32_t* p, int C,
+                                              int T, int rr, int32_t (&key)[16],
+                                              int32_t (&pos)[16]) {
+  typename Pair<NARROW>::T v[S];
+#pragma unroll
+  for (int c = 0; c < S; ++c)
+    v[c] = c < C ? pack_pair<NARROW>(k[c * T + rr], c) : pair_max<NARROW>();
+  bitonic_sort<S, 2>(v, 0);
+#pragma unroll
+  for (int c = 0; c < S; ++c) {
+    if (c < C) {
+      key[c] = pair_key<NARROW>(v[c]);
+      pos[c] = p[pair_pos<NARROW>(v[c]) * T + rr];
+    }
+  }
+}
+
+template <int KT>
+__global__ void __launch_bounds__(TILE_THREADS)
+merge_tile_kernel(const void* __restrict__ a, const void* __restrict__ b,
+                  void* __restrict__ out, int32_t* __restrict__ perm, Lanes pl, int m, int n,
+                  int C, int T, int tiles, int desc) {
+  constexpr bool NARROW = KT == K_BF16 || KT == K_F16;
+  extern __shared__ __align__(16) int32_t sm[];
+  int32_t *k = sm, *p = sm + C * T;  // row r - r0 of column c at c * T + r - r0
+  const int L = m + n, R = L / C;
+  const int row = blockIdx.x / tiles, tile = blockIdx.x - row * tiles;
+  const int r0 = tile * T, rows = min(T, R - r0);
+  const MergeRow<KT> mr{a, b, (size_t)row * m, (size_t)row * n, m, n, desc};
+  // column c: F wins ties; F[i] = hi[(C-1-c) + C i] (C = 1: lo[i]), S[i] =
+  // lo[c + C i] (C = 1: hi[i]); as positions in concat(a, b)
+  const int lenF = C > 1 ? n / C : m, lenS = C > 1 ? m / C : n;
+  const int segs = (rows + TILE_STEPS - 1) / TILE_STEPS;
+  for (int t = threadIdx.x; t < C * segs; t += blockDim.x) {
+    const int c = t / segs, s = r0 + (t - c * segs) * TILE_STEPS;
+    const int cnt = min(TILE_STEPS, r0 + rows - s);
+    auto fpos = [&](int i) { return C > 1 ? mr.hi_pos(C - 1 - c + C * i) : mr.lo_pos(i); };
+    auto spos = [&](int i) { return C > 1 ? mr.lo_pos(c + C * i) : mr.hi_pos(i); };
+    int lo = max(0, s - lenS), hi = min(s, lenF);
+    while (lo < hi) {  // F[mid] goes out before S[s - 1 - mid]: more than mid of F
+      const int mid = (lo + hi) >> 1;
+      if (mr.key(fpos(mid)) <= mr.key(spos(s - 1 - mid))) lo = mid + 1; else hi = mid;
+    }
+    int iF = lo, iS = s - lo;
+    int32_t pF = iF < lenF ? fpos(iF) : 0, pS = iS < lenS ? spos(iS) : 0;
+    int32_t vF = iF < lenF ? mr.key(pF) : 0, vS = iS < lenS ? mr.key(pS) : 0;
+    for (int q = 0; q < cnt; ++q) {
+      const bool take_f = iF < lenF && (iS >= lenS || vF <= vS);
+      const int d = c * T + s - r0 + q;
+      k[d] = take_f ? vF : vS;
+      p[d] = take_f ? pF : pS;
+      if (take_f) {
+        if (++iF < lenF) vF = mr.key(pF = fpos(iF));
+      } else {
+        if (++iS < lenS) vS = mr.key(pS = spos(iS));
+      }
+    }
+  }
+  __syncthreads();
+  for (int rr = threadIdx.x; rr < rows; rr += blockDim.x) {
+    int32_t key[16], pos[16];
+    if (C == 1) {
+      key[0] = k[rr];
+      pos[0] = p[rr];
+    } else if (C == 2) {
+      tile_row_sort<2, NARROW>(k, p, C, T, rr, key, pos);
+    } else if (C <= 4) {
+      tile_row_sort<4, NARROW>(k, p, C, T, rr, key, pos);
+    } else if (C <= 8) {
+      tile_row_sort<8, NARROW>(k, p, C, T, rr, key, pos);
+    } else {
+      tile_row_sort<16, NARROW>(k, p, C, T, rr, key, pos);
+    }
+    const size_t base = (size_t)row * L;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      if (q < C) {
+        const int j = (r0 + rr) * C + q;
+        const size_t dst = base + (desc ? L - 1 - j : j);
+        store_key<KT>(out, dst, key[q]);
+        if (perm) perm[dst] = pos[q];
+        store_payloads(pl, base + pos[q], dst);
+      }
+    }
+  }
+}
+
+template <int KT>
+int launch_tiles(const void* a, const void* b, void* out, int32_t* perm, const Lanes& pl,
+                 int B, int m, int n, int C, int T, int desc, cudaStream_t s) {
+  const int R = (m + n) / C;
+  if (T <= 0) T = TILE_STEPS * TILE_THREADS / C;
+  const int tiles = (R + T - 1) / T;
+  const long long ctas = (long long)B * tiles;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)C * T * 2 * sizeof(int32_t);
+  static size_t granted = 0;  // shared memory asked for (per KT)
+  const cudaError_t err = allow_smem(merge_tile_kernel<KT>, smem, granted);
+  if (err != cudaSuccess) return (int)err;
+  merge_tile_kernel<KT><<<(int)ctas, TILE_THREADS, smem, s>>>(a, b, out, perm, pl, m, n, C,
+                                                              T, tiles, desc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The tiled key-mode merge of a single-level program of C columns (C = 1:
+// s2ms; 2..16: the loms column device, C dividing m and n): tiles of T
+// rows of the column stack a CTA (T = 0: 2048 / C rows). Launches on the
+// caller's stream and returns cudaGetLastError(); key_code as below, no
+// raw-float mode.
+extern "C" int repro_merge_tiles(const void* a, const void* b, void* out, void* perm,
+                                 int n_payload, void** p_in, void** p_out, const int* p_bytes,
+                                 int B, int m, int n, int C, int T, int key_code, int desc,
+                                 void* stream) {
+  if (n_payload < 0 || n_payload > MAXP || m <= 0 || n <= 0 || C < 1 || C > 16 ||
+      m % C || n % C || T < 0)
+    return (int)cudaErrorInvalidValue;
+  const Lanes pl = make_lanes(n_payload, p_in, p_out, p_bytes);
+  int32_t* pm = static_cast<int32_t*>(perm);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (key_code) {
+    case K_F32: return launch_tiles<K_F32>(a, b, out, pm, pl, B, m, n, C, T, desc, s);
+    case K_BF16: return launch_tiles<K_BF16>(a, b, out, pm, pl, B, m, n, C, T, desc, s);
+    case K_F16: return launch_tiles<K_F16>(a, b, out, pm, pl, B, m, n, C, T, desc, s);
+    case K_I32: return launch_tiles<K_I32>(a, b, out, pm, pl, B, m, n, C, T, desc, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // Launches on the caller's stream, does not synchronise, and returns
 // cudaGetLastError() (0 = the launch was accepted). key_code: 0 float32,

@@ -554,18 +554,28 @@ __device__ void run_program_raw(const int* __restrict__ prog, float* k, int32_t*
 
 constexpr int SORT_THREADS = 256;
 
-// The (key, position) pair as one ordered word: a 64-bit word for 32-bit
-// keys; for 16-bit keys (bf16, f16: every key in [-32768, 32767], the pad
-// INT32_MAX above them) a 32-bit word of 17 key bits and 13 position bits
-// (rows up to 8192 lanes), whose shuffles and compares cost half.
+// The (key, tie) pair as one ordered word, the tie a word unique among the
+// lanes sorted together (the lane's position in a sort prefix; in the
+// k-way merge the cell's index in its group's idx order, with the cell's
+// position beside it): a 64-bit word for 32-bit keys, the tie its low 32
+// bits; for 16-bit keys (bf16, f16: every key in [-32768, 32767], the pad
+// INT32_MAX above them) a 32-bit word of 17 key bits and a 13-bit tie
+// (below 8192), whose shuffles and compares cost half. PAIR_MAX lies above
+// every pair: the pad of a group narrower than its sort.
 template <bool NARROW> struct Pair { using T = long long; };
 template <> struct Pair<true> { using T = uint32_t; };
 
 template <bool NARROW>
-__device__ __forceinline__ typename Pair<NARROW>::T pack_pair(int32_t key, int32_t pos) {
+__device__ __forceinline__ typename Pair<NARROW>::T pack_pair(int32_t key, int32_t tie) {
   if (NARROW)
-    return ((uint32_t)(key == INT32_MAX ? 65536 : key + 32768) << 13) | (uint32_t)pos;
-  return (long long)(((unsigned long long)(uint32_t)key << 32) | (uint32_t)pos);
+    return ((uint32_t)(key == INT32_MAX ? 65536 : key + 32768) << 13) | (uint32_t)tie;
+  return (long long)(((unsigned long long)(uint32_t)key << 32) | (uint32_t)tie);
+}
+
+template <bool NARROW>
+__device__ __forceinline__ typename Pair<NARROW>::T pair_max() {
+  if constexpr (NARROW) return 0xffffffffu;
+  else return 0x7fffffffffffffffLL;
 }
 
 template <bool NARROW>
@@ -577,6 +587,7 @@ __device__ __forceinline__ int32_t pair_key(typename Pair<NARROW>::T v) {
   return (int32_t)((long long)v >> 32);
 }
 
+// the tie word (sort_prefix: the lane's position)
 template <bool NARROW>
 __device__ __forceinline__ int32_t pair_pos(typename Pair<NARROW>::T v) {
   return NARROW ? (int32_t)(v & 8191u) : (int32_t)v;
@@ -617,27 +628,33 @@ __device__ __forceinline__ void bitonic_merge(T (&v)[ER], int i0) {
   }
 }
 
+// The levels K..S of the bitonic sort, those below k0 left out: where every
+// aligned block of k0 / 2 lanes is sorted already, ascending where the
+// lane's bit k0 / 2 is clear and descending where it is set, the levels from
+// k0 on sort the group (k0 = 2: all of them)
 template <int S, int K, int ER, typename T>
-__device__ __forceinline__ void bitonic_sort(T (&v)[ER], int i0) {
+__device__ __forceinline__ void bitonic_sort(T (&v)[ER], int i0, int k0 = 2) {
   if constexpr (K <= S) {
-    bitonic_merge<S, K, K / 2>(v, i0);
-    bitonic_sort<S, 2 * K>(v, i0);
+    if (K >= k0) bitonic_merge<S, K, K / 2>(v, i0);
+    bitonic_sort<S, 2 * K>(v, i0, k0);
   }
 }
 
 // Bitonic sort of every aligned group of S lanes (S <= 32 * ER) of the
 // warp's lanes, S a power of two known at compile time; v[q] is lane i0 + q.
+// From level k0 on (bitonic_sort); S = 32 * ER sorts the warp's lanes as
+// one group, by __shfl_xor_sync (the k-way merge's warp sort).
 template <int ER, typename T>
-__device__ __forceinline__ void sort_groups(T (&v)[ER], int i0, int S) {
+__device__ __forceinline__ void sort_groups(T (&v)[ER], int i0, int S, int k0 = 2) {
   switch (S) {
-    case 2: bitonic_sort<2, 2>(v, i0); break;
-    case 4: bitonic_sort<4, 2>(v, i0); break;
-    case 8: bitonic_sort<8, 2>(v, i0); break;
-    case 16: bitonic_sort<16, 2>(v, i0); break;
-    case 32: bitonic_sort<32, 2>(v, i0); break;
-    case 64: if constexpr (ER >= 2) bitonic_sort<64, 2>(v, i0); break;
-    case 128: if constexpr (ER >= 4) bitonic_sort<128, 2>(v, i0); break;
-    case 256: if constexpr (ER >= 8) bitonic_sort<256, 2>(v, i0); break;
+    case 2: bitonic_sort<2, 2>(v, i0, k0); break;
+    case 4: bitonic_sort<4, 2>(v, i0, k0); break;
+    case 8: bitonic_sort<8, 2>(v, i0, k0); break;
+    case 16: bitonic_sort<16, 2>(v, i0, k0); break;
+    case 32: bitonic_sort<32, 2>(v, i0, k0); break;
+    case 64: if constexpr (ER >= 2) bitonic_sort<64, 2>(v, i0, k0); break;
+    case 128: if constexpr (ER >= 4) bitonic_sort<128, 2>(v, i0, k0); break;
+    case 256: if constexpr (ER >= 8) bitonic_sort<256, 2>(v, i0, k0); break;
     default: break;  // S == 1: nothing to sort
   }
 }

@@ -33,7 +33,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.networks import Schedule, _run_ranks, _stage_classes
+from repro_torch.core.networks import Schedule, _apply_stage, _run_ranks, _stage_classes
 from .common import (canonical_nan, check_mode, decode_key_values, encode_key_values,
                      gather_lanes, onehot_permute, ranks_sort, scatter_permute)
 from .launch import (KEY_CODE, check_rc, cuda_checks, empty_payloads, library,
@@ -144,50 +144,181 @@ def kway_merge_plain(x: torch.Tensor, sched: Schedule, payloads: Sequence[torch.
 # the wiring on the card and the CUDA wrapper
 # ---------------------------------------------------------------------------
 
-_WIRING: Dict[tuple, Tuple[Schedule, torch.Tensor]] = {}
+#: schedule id -> (the schedule, its wiring words on a device, whether
+#: they hold a warp class)
+_WIRING: Dict[tuple, Tuple[Schedule, torch.Tensor, bool]] = {}
+#: schedule id -> (the schedule, its two-chain classes)
+_CHAINS: Dict[int, tuple] = {}
+
+
+#: the executors of a class in ``csrc/kway.cu`` (the wiring's ``exec``
+#: word): a counted stable rank a cell; a binary search of each other run
+#: a cell; a register sort of the (key, index) pairs by one thread; by a
+#: warp; by a warp that merges the group's two chains (its even and its
+#: odd cells) where a vote finds both sorted, and sorts them otherwise
+E_RANK, E_SEARCH, E_THREAD, E_WARP, E_MERGE = range(5)
+#: widest group a thread (E_THREAD) and a warp (E_WARP, E_MERGE) sort
+THREAD_MAX, WARP_MAX = 8, 128
+#: cells of the schedules the kernel runs a thread a row (no warp sorts)
+ROW_MAX = 64
+
+
+def executor(n: int, runs: Optional[Sequence[int]], size: int, raw: bool = False,
+             chains: bool = False) -> int:
+    """The executor of a class of groups of n cells in a schedule of
+    ``size`` cells: any group of at most 8 cells by one thread (an S2MS
+    group's runs checked sorted first, else searched); a wider N-sorter
+    (no runs) of at most 128 cells by a warp (schedules past ``ROW_MAX``
+    cells), merging two chains where ``chains`` (the group's even and odd
+    cells, in idx order, came sorted on the probe of
+    :func:`two_chain_classes`), the others counted; a wider S2MS group
+    (runs) whose runs share one power-of-two length, up to 128 cells, by a
+    warp from the level above its runs (schedules past ``ROW_MAX``), any
+    other by binary searches. The raw-float mode counts every class
+    (E_RANK, E_SEARCH)."""
+    if not raw and n <= THREAD_MAX:
+        return E_THREAD
+    warp = not raw and size > ROW_MAX and THREAD_MAX < n <= WARP_MAX
+    if runs is None:
+        return (E_MERGE if chains else E_WARP) if warp else E_RANK
+    r = runs[0]
+    if warp and (r & (r - 1)) == 0 and all(x == r for x in runs):
+        return E_WARP
+    return E_SEARCH
+
+
+def two_chain_classes(sched: Schedule, n_stages: Optional[int] = None) -> set:
+    """(stage, class) of the N-sorter classes of 9 to 128 cells whose
+    every group, before its stage, held its even cells and its odd cells
+    (in idx order) each non-decreasing on a probe: 256 rows of sorted
+    lists of small, heavily tied integers (``meta['lens']``). In a LOMS
+    merge the column stages after a serpentine row stage are such groups
+    (sorting rows keeps the rows of one direction sorted down a column).
+    A hint only: the kernel votes on the loaded pairs and sorts them fully
+    where the chains are not sorted."""
+    hit = _CHAINS.get(id(sched))
+    if hit is None:
+        hit = (sched, _probe_chains(sched))
+        _CHAINS[id(sched)] = hit
+    n = len(sched.stages) if n_stages is None else n_stages
+    return {(si, ci) for si, ci in hit[1] if si < n}
+
+
+def _probe_chains(sched: Schedule) -> set:
+    lens = sched.meta_dict().get("lens")
+    if lens is None or sched.size <= ROW_MAX:
+        return set()
+    rng = np.random.default_rng(0)
+    hi = np.repeat([2, 8, 64, 1 << 20], 64)[:, None]
+    x = np.concatenate([np.sort(rng.integers(0, hi, (256, n)), axis=1) for n in lens], axis=1)
+    w = torch.zeros((256, sched.size), dtype=torch.int64)
+    w[:, torch.as_tensor(sched.setup_scatter)] = torch.from_numpy(x)
+    found = set()
+    for si, st in enumerate(sched.stages):
+        for ci, (n, runs, idx) in enumerate(_stage_classes(st)):
+            if runs is None and THREAD_MAX < n <= WARP_MAX:
+                v = w[:, torch.from_numpy(idx.astype(np.int64))]
+                if all(bool((c[..., 1:] >= c[..., :-1]).all()) for c in (v[..., 0::2],
+                                                                          v[..., 1::2])):
+                    found.add((si, ci))
+        w, _ = _apply_stage(st, w, None)
+    return found
+
+
+def _warp_lanes(n: int) -> int:
+    """32 x the pairs a lane of the warp sort of n cells holds."""
+    return 32 * (1 if n <= 32 else 2 if n <= 64 else 4)
+
+
+def class_layout(idx: np.ndarray, ex: int) -> np.ndarray:
+    """A class's (G, n) cells in the order the kernel reads them: E_THREAD
+    transposed (cell q of group g at q * G + g, so a warp's threads, on
+    consecutive groups, read consecutive words); E_WARP and E_MERGE
+    lane-major (cell i of a group at (i % ER) * 32 + i // ER of its 32 * ER
+    words, ER the pairs a lane holds); the others as they are."""
+    ng, n = idx.shape
+    if ex == E_THREAD:
+        return idx.T.reshape(-1)
+    if ex in (E_WARP, E_MERGE):
+        s = _warp_lanes(n)
+        er, i = s // 32, np.arange(n)
+        out = np.zeros((ng, s), dtype=idx.dtype)
+        out[:, (i % er) * 32 + i // er] = idx
+        return out.reshape(-1)
+    return idx.reshape(-1)
 
 
 def encode_wiring(sched: Schedule, n_stages: Optional[int] = None,
                   lens: Optional[Sequence[int]] = None,
-                  descending: bool = False) -> np.ndarray:
+                  descending: bool = False, raw: bool = False) -> np.ndarray:
     """The int32 words ``csrc/kway.cu`` reads, in order:
 
-      [size, n_inputs, n_outputs, n_classes]
+      [size, n_inputs, n_outputs, n_stages]
       src[size]: the input position each cell loads (-1: a hole), the
         descending reversal folded in
-      per stage, per class (``_stage_classes`` order):
-        [G, n, n_runs, runs[n_runs]] idx[G * n]   (n_runs 0: a rank sort)
+      per stage: [n_classes, n_pass] pass[n_pass] (the cells no group of
+        the stage holds), then per class (``_stage_classes`` order):
+        [G, n, exec, n_runs, runs[n_runs]] cells (n_runs 0: a rank sort;
+        exec: :func:`executor`; the cells in :func:`class_layout`'s order)
       gather[n_outputs]: the cell each output reads (reversed when
         descending)
-    """
+
+    ``raw``: the raw-float mode's words (every class counted, the cells as
+    they are)."""
     n_in = sched.n_inputs
     src = np.full(sched.size, -1, dtype=np.int64)
     src[np.asarray(sched.setup_scatter)] = _source_order(n_in, lens, descending)
-    classes = [c for st in _stages(sched, n_stages) for c in _stage_classes(st)]
-    words = [np.array([sched.size, n_in, sched.n_outputs, len(classes)]), src]
-    for n, runs, idx in classes:
-        runs = tuple(runs or ())
-        words.append(np.array([idx.shape[0], n, len(runs), *runs]))
-        words.append(idx.reshape(-1))
+    stages = _stages(sched, n_stages)
+    chains = set() if raw else two_chain_classes(sched, n_stages)
+    words = [np.array([sched.size, n_in, sched.n_outputs, len(stages)]), src]
+    for si, st in enumerate(stages):
+        classes = _stage_classes(st)
+        held = np.zeros(sched.size, dtype=bool)
+        for _, _, idx in classes:
+            held[idx.reshape(-1)] = True
+        passed = np.flatnonzero(~held)
+        words.append(np.array([len(classes), len(passed)]))
+        words.append(passed)
+        for ci, (n, runs, idx) in enumerate(classes):
+            ex = executor(n, runs, sched.size, raw, (si, ci) in chains)
+            words.append(np.array([idx.shape[0], n, ex, len(runs or ()), *(runs or ())]))
+            words.append(class_layout(idx, ex))
     gather = np.asarray(sched.output_gather)
     words.append(gather[::-1] if descending else gather)
     return np.concatenate(words).astype(np.int32)
 
 
 def wiring_tensor(device, sched: Schedule, n_stages: Optional[int] = None,
-                  lens: Optional[Sequence[int]] = None,
-                  descending: bool = False) -> torch.Tensor:
-    """The wiring words of one schedule on ``device``, copied there once.
+                  lens: Optional[Sequence[int]] = None, descending: bool = False,
+                  raw: bool = False) -> Tuple[torch.Tensor, bool]:
+    """The wiring words of one schedule on ``device``, copied there once,
+    and whether they hold a warp class (the kernel's build to launch).
     Keyed by the schedule's identity; the cache holds the schedule, so
     its id stays its own."""
-    key = (id(sched), n_stages, tuple(lens) if descending else None, descending,
+    key = (id(sched), n_stages, tuple(lens) if descending else None, descending, raw,
            str(device))
     hit = _WIRING.get(key)
     if hit is None:
-        words = encode_wiring(sched, n_stages, lens, descending)
-        hit = (sched, torch.from_numpy(words).to(device))
+        words = encode_wiring(sched, n_stages, lens, descending, raw)
+        hit = (sched, torch.from_numpy(words).to(device), _has_warp_classes(words))
         _WIRING[key] = hit
-    return hit[1]
+    return hit[1], hit[2]
+
+
+def _has_warp_classes(words: np.ndarray) -> bool:
+    """Whether the wiring holds an E_WARP or E_MERGE class (the classes
+    before the first such one are ng * n words each)."""
+    size, n_st = int(words[0]), int(words[3])
+    o = 4 + size
+    for _ in range(n_st):
+        n_cls, n_pass = int(words[o]), int(words[o + 1])
+        o += 2 + n_pass
+        for _ in range(n_cls):
+            ng, n, ex, nr = (int(w) for w in words[o:o + 4])
+            if ex in (E_WARP, E_MERGE):
+                return True
+            o += 4 + nr + ng * n
+    return False
 
 
 def kway_merge(x: torch.Tensor, sched: Schedule, payloads: Sequence[torch.Tensor] = (),
@@ -220,10 +351,10 @@ def kway_merge(x: torch.Tensor, sched: Schedule, payloads: Sequence[torch.Tensor
             if want_perm else None)
     pouts = empty_payloads(payloads, bsz, n_out)
     if bsz and n_out:
-        wiring = wiring_tensor(x.device, sched, n_stages, lens, descending)
+        wiring, warp = wiring_tensor(x.device, sched, n_stages, lens, descending, use_mxu)
         npay, ins, po, rb = payload_args(payloads, pouts)
         check_rc(library("kway").repro_kway_merge(
-            x.data_ptr(), wiring.data_ptr(), out.data_ptr(),
+            x.data_ptr(), wiring.data_ptr(), wiring.numel(), int(warp), out.data_ptr(),
             None if perm is None else perm.data_ptr(), npay, ins, po, rb, bsz,
             sched.size, sched.n_inputs, n_out, KEY_CODE[x.dtype], int(use_mxu), stream(x)),
             "kway_merge")

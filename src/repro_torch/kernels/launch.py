@@ -34,15 +34,21 @@ _SIGNATURES = {
         "repro_seg_sort": [P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P],
         "repro_seg_merge": [P, P, P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, P],
     },
-    "merge": {"repro_loms_merge2": [P, P, P, P, P, I, P, P, P, P, I, I, I, I, I, I, I, P]},
+    "merge": {"repro_loms_merge2": [P, P, P, P, P, I, P, P, P, P, I, I, I, I, I, I, I, P],
+              "repro_merge_tiles": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P]},
     "sort": {"repro_loms_sort": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, P]},
     "grid_merge": {"repro_grid_merge2": [P, P, P, I, I, I, I, P]},
-    "kway": {"repro_kway_merge": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, P]},
+    "kway": {"repro_kway_merge": [P, P, I, I, P, P, I, P, P, P, I, I, I, I, I, I, P]},
 }
 
 #: lanes a thread of the sort executor of the fused sort and the class
 #: sort (``csrc/program.cuh`` ``sort_plan``); 0: the launch plan's choice
 SORT_LANES = 0
+#: rows of the column stack a CTA of the tiled 2-way merge takes
+#: (``csrc/merge.cu`` ``merge_tile_kernel``); 0: the plan's, which tiles
+#: only the rows past a CTA's shared memory; > 0 forces that many rows a
+#: tile on every row the tiled kernel takes
+MERGE_TILE = 0
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

@@ -12,11 +12,16 @@ loms_merge.py:49``). It merges the sorted rows ``a`` (B, m) and ``b``
   (B, m + n[, F]) gathered at the positions.
 
 A CUDA tensor goes to ``loms_merge2_kernel`` (``csrc/merge.cu``) or
-raises; a CPU tensor runs :func:`loms_merge2_plain`, the reference's
-kernel body in torch ops. ``use_mxu`` is the reference's raw-float mode
-(float rows without ``key_dtype``, the values-only wrapper's mode): raw
-float comparisons and the rule of the one-hot matrix permute
-(``common.onehot_permute``) at every column-device permute.
+raises; in the key mode, a single-level program of at most 16 columns
+(s2ms, the loms column device) whose row passes a CTA's shared memory
+goes to ``merge_tile_kernel`` instead, which cuts the column stack into
+tiles of rows, a CTA each (``launch.MERGE_TILE`` forces a tile size, and
+the tiled kernel, on every row such a program merges). A CPU tensor runs
+:func:`loms_merge2_plain`, the reference's kernel body in torch ops.
+``use_mxu`` is the reference's raw-float mode (float rows without
+``key_dtype``, the values-only wrapper's mode): raw float comparisons and
+the rule of the one-hot matrix permute (``common.onehot_permute``) at
+every column-device permute.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 from repro_torch.networks import merge_program, merge_runs
 from .common import (canonical_nan, check_mode, decode_key_values, encode_key_values,
                      gather_lanes)
+from . import launch
 from .launch import (KEY_CODE, check_rc, cuda_checks, empty_payloads, library,
                      payload_args, program_tensor, stream)
 from .topk import LAUNCHES
@@ -41,6 +47,21 @@ LANE_WORDS = {False: 4, True: 6}
 SMEM_BYTES = 232_448
 #: CTAs that walk over the rows in the global-scratch case (two an SM)
 SCRATCH_CTAS_PER_SM = 2
+#: widest column device of the tiled kernel (a row of C sorted in registers)
+TILE_MAX_COLS = 16
+
+
+def tile_cols(network: str, m: int, n: int, n_cols: int, use_mxu: bool) -> int:
+    """The column count C of the program if the tiled kernel can run it
+    (the key mode, a single level of columns: s2ms C = 1, loms C <= 16,
+    both runs non-empty), else 0."""
+    if use_mxu or m <= 0 or n <= 0:
+        return 0
+    if network == "s2ms":
+        return 1
+    if network == "loms" and n_cols <= TILE_MAX_COLS:
+        return n_cols
+    return 0
 
 
 def _check(a, b, payloads, network, n_cols, key_dtype, use_mxu):
@@ -118,7 +139,16 @@ def loms_merge2(a: torch.Tensor, b: torch.Tensor, payloads: Sequence[torch.Tenso
     perm = (torch.empty((bsz, total), dtype=torch.int32, device=a.device)
             if want_perm else None)
     pouts = empty_payloads(payloads, bsz, total)
-    if bsz and total:
+    cols = tile_cols(network, m, n, n_cols, use_mxu)
+    if bsz and total and cols and (launch.MERGE_TILE > 0
+                                   or total * 4 * LANE_WORDS[False] > SMEM_BYTES):
+        npay, ins, po, rb = payload_args(payloads, pouts)
+        check_rc(library("merge").repro_merge_tiles(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if perm is None else perm.data_ptr(), npay, ins, po, rb, bsz, m, n, cols,
+            launch.MERGE_TILE, KEY_CODE[a.dtype], int(descending), stream(a)), "merge_tiles")
+        LAUNCHES["loms_merge2"] += 1
+    elif bsz and total:
         prog = program_tensor(a.device, "merge", network, m, n,
                               n_cols if network == "loms" else None)
         scratch, ctas = None, 0

@@ -437,3 +437,141 @@ def test_values_only_wrappers_take_the_raw_float_mode(cuda):
                       (ops.merge_k(cuda_lists), ops.merge_k(lists)),
                       (ops.median_k(cuda_lists), ops.median_k(lists))):
         assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+def _one_launch(name, fn):
+    """fn() with the launch counts zeroed before: exactly one launch of
+    kernel ``name``."""
+    K.reset_launch_counts()
+    got = fn()
+    assert K.LAUNCHES[name] == 1 and sum(K.LAUNCHES.values()) == 1, dict(K.LAUNCHES)
+    return got
+
+
+KWAY_LIBRARY_SCHEDULES = {  # chip_smoke.py phase 3f: (lens, dtype, descending, ids, median)
+    "3x7 f32": ((7, 7, 7), torch.float32, False, False, False),
+    "3x7 f32 median": ((7, 7, 7), torch.float32, False, False, True),
+    "4x64 bf16 desc + ids": ((64,) * 4, torch.bfloat16, True, True, False),
+    "8x128 int32": ((128,) * 8, torch.int32, False, False, False),
+    "100_50_25 f32": ((100, 50, 25), torch.float32, False, False, False),
+    "5x7 f32 median": ((7,) * 5, torch.float32, False, False, True),
+}
+
+
+@pytest.mark.parametrize("name", list(KWAY_LIBRARY_SCHEDULES))
+def test_kway_executor_paths_match_plain(cuda, name):
+    """Row 8 at the schedules of the library's main paths, in the modes it
+    calls them: the schedules of at most 64 cells a thread a row, the
+    others G rows a CTA with the warp sorts of their column stages (and of
+    4 x 64's and 8 x 128's stage-0 runs of 16); one launch a call."""
+    from repro_torch.kernels.kway import kway_merge, kway_merge_plain
+    from repro_torch.kernels.ops import median_readout
+    from repro_torch.networks import kway_schedule, median_schedule
+
+    lens, dtype, desc, ids, median = KWAY_LIBRARY_SCHEDULES[name]
+    rows, total = 40, sum(lens)
+    x = _sorted_lists(rows, lens, dtype, 61, desc)
+    pay = ((torch.arange(rows * total, dtype=torch.int32).reshape(rows, total),)
+           if ids else ())
+    sched = median_readout(*median_schedule(lens)) if median else kway_schedule(lens)
+    key = dtype if dtype.is_floating_point else None
+    kw = dict(key_dtype=key, want_perm=True)
+    if not median:
+        kw.update(lens=lens, descending=desc)
+    want = kway_merge_plain(x, sched, pay, **kw)
+    got = _one_launch("kway_merge", lambda: kway_merge(x.to(cuda), sched,
+                                                       [p.to(cuda) for p in pay], **kw))
+    _same_all(want, got)
+
+
+def test_kway_chunked_segments_with_fill_keys(cuda):
+    """The chunked_merge_k segment rows: 8 sorted runs of 128 int32 keys,
+    each padded with INT32_MAX fill, and genuine INT32_MAX keys."""
+    from repro_torch.kernels.kway import kway_merge, kway_merge_plain
+    from repro_torch.networks import kway_schedule
+
+    x = _sorted_lists(64, (128,) * 8, torch.int32, 71)
+    fill = torch.arange(128)[None, :] >= torch.randint(0, 129, (64 * 8, 1),
+                                                       generator=torch.Generator().manual_seed(0))
+    x = torch.where(fill.reshape(64, 8, 128), torch.iinfo(torch.int32).max,
+                    x.reshape(64, 8, 128)).reshape(64, 1024)
+    sched = kway_schedule((128,) * 8)
+    want = kway_merge_plain(x, sched, want_perm=True)
+    got = _one_launch("kway_merge", lambda: kway_merge(x.to(cuda), sched, want_perm=True))
+    _same_all(want, got)
+
+
+@pytest.fixture
+def merge_tile():
+    """Force the rows a tile of the tiled 2-way merge (row 1)."""
+    from repro_torch.kernels import launch
+
+    old = launch.MERGE_TILE
+    yield lambda rows: setattr(launch, "MERGE_TILE", rows)
+    launch.MERGE_TILE = old
+
+
+@pytest.mark.parametrize("tile", [1, 3, 16])
+@pytest.mark.parametrize("m,n", [(8, 8), (16, 48), (512, 512), (1000, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_tiled_merge_on_short_rows_matches_plain(cuda, merge_tile, tile, m, n, dtype):
+    """Row 1's tiled kernel forced onto short rows at small tiles, so that
+    several CTAs share a row: loms and s2ms, both orders, payload lanes;
+    one launch a call."""
+    from repro_torch.kernels.loms_merge import loms_merge2, loms_merge2_plain
+
+    merge_tile(tile)
+    rows = 6
+    pay = (torch.arange(rows * (m + n) * 2, dtype=torch.int32).reshape(rows, m + n, 2),
+           _class_tile(rows, m + n, torch.bfloat16, seed=9))
+    key = dtype if dtype.is_floating_point else None
+    for desc in (False, True):
+        a = _sorted_rows(rows, m, dtype, 7, desc)
+        b = _sorted_rows(rows, n, dtype, 8, desc)
+        for fam in ("loms", "s2ms"):
+            kw = dict(network=fam, n_cols=pick_merge_cols(m, n), key_dtype=key,
+                      descending=desc, want_perm=True)
+            want = loms_merge2_plain(a, b, pay, **kw)
+            got = _one_launch("loms_merge2", lambda: loms_merge2(
+                a.to(cuda), b.to(cuda), [p.to(cuda) for p in pay], **kw))
+            _same_all(want, got)
+
+
+@pytest.mark.parametrize("desc", [False, True])
+def test_tiled_merge_long_row_matches_plain(cuda, desc):
+    """(4, 65,536 + 32) f32, past a CTA's shared memory: the plan's tiles,
+    int32 ids as a payload; one launch."""
+    from repro_torch.kernels.loms_merge import loms_merge2, loms_merge2_plain
+
+    m, n, rows = 65_536, 32, 4
+    a = _sorted_rows(rows, m, torch.float32, 17, desc)
+    b = _sorted_rows(rows, n, torch.float32, 18, desc)
+    ids = (torch.arange(rows * (m + n), dtype=torch.int32).reshape(rows, m + n),)
+    for fam in ("loms", "s2ms"):
+        kw = dict(network=fam, n_cols=pick_merge_cols(m, n), key_dtype=torch.float32,
+                  descending=desc, want_perm=True)
+        want = loms_merge2_plain(a, b, ids, **kw)
+        got = _one_launch("loms_merge2", lambda: loms_merge2(
+            a.to(cuda), b.to(cuda), [p.to(cuda) for p in ids], **kw))
+        _same_all(want, got)
+
+
+@pytest.mark.parametrize("lens", [(3,) * 8, (64,) * 4, (128,) * 8])
+def test_kway_executors_on_unsorted_lists_match_the_emulation(cuda, lens):
+    """Lists that break the sorted-input contract, where a warp sort's vote
+    fails and it sorts its group from level 2: the kernel equals the CPU
+    emulation of its executors (tests/test_torch_kway_pairs.py). (The
+    binary searches of an S2MS group, like the reference's counts, give
+    colliding ranks on unsorted runs; 3 x 8's runs are single cells.)"""
+    from test_torch_kway_pairs import kway_emulated
+
+    from repro_torch.kernels.kway import kway_merge
+    from repro_torch.networks import kway_schedule
+
+    sched = kway_schedule(lens)
+    x = _class_tile(24, sum(lens), torch.int32, seed=5)
+    x[:12] = _sorted_lists(12, lens, torch.int32, 31)  # half the rows keep the contract
+    for n_stages in (None, 1):
+        want = kway_emulated(x, sched, n_stages=n_stages)
+        got = kway_merge(x.to(cuda), sched, n_stages=n_stages, want_perm=True)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
