@@ -16,7 +16,12 @@ script with a non-zero exit code when it fails:
    ±0.0 and many ties; the sort executor of the fused sort and the class
    sort at every lanes-a-thread layout at the shapes of phases 3d and 3e;
    the tiled 2-way merge forced onto short rows at tiles of 1, 5 and 64
-   rows (several CTAs a row); the k-way merge's executors (a thread a row
+   rows (several CTAs a row); the vocab merge tree (row 5) at B = 1, 4
+   and 8, k 16, 64 and 256, block 16 with k 64, in its plan's one launch
+   and at forced subtrees of 2, 4 and 32 lists; the grid merge (row 9) at
+   its own tiles and forced tiles of 256 and 768 outputs, on strided row
+   views, and the values-only sort spill at 3, 5 and 128 runs a row with
+   one launch a level; the k-way merge's executors (a thread a row
    up to 64 cells, the one-thread and warp sorts of the (key, index)
    pairs, the two-chain merge) at every schedule of phase 3f, the medians
    and MWMS in bf16, f32 and int32; and the 2-way merge, the fused sort
@@ -50,7 +55,8 @@ script with a non-zero exit code when it fails:
       payload and (16, 1007) descending, merges past the routing budget
       ((8, 2^22) pairs and the stream-merge example's 100,000 + 100,000:
       the grid merge), and the values-only ``segment_sort`` /
-      ``segment_merge`` spills; each checked bit-equal to the CPU's plain
+      ``segment_merge`` spills (the sort spill of 16 x 65,536: one grid
+      merge a level, 7); each checked bit-equal to the CPU's plain
       versions, or for the largest values-only rows to torch.sort of the
       keys, decoded;
    f. the k-way merge and the median at their users' sizes (kernel row
@@ -65,7 +71,8 @@ script with a non-zero exit code when it fails:
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
-   row 8 also at 8 x 128 int32 and at the chunked_merge_k segments.
+   row 8 also at 8 x 128 int32 and at the chunked_merge_k segments, row
+   9 also the whole values-only sort spill of phase 3e.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Needs one card.
@@ -163,9 +170,11 @@ def special_logits(rows, n, dtype, device, seed):
     rng = np.random.default_rng(seed)
     x = (rng.integers(-64, 65, (rows, n)) * 0.125).astype(np.float32)
     x[0, :6] = [np.nan, np.inf, -np.inf, 0.0, -0.0, -np.nan]
-    x[1, -5:] = [-0.0, 0.0, np.inf, np.nan, -np.inf]
-    x[2, :] = 0.0
-    x[2, 1::3] = -0.0
+    if rows > 1:
+        x[1, -5:] = [-0.0, 0.0, np.inf, np.nan, -np.inf]
+    if rows > 2:
+        x[2, :] = 0.0
+        x[2, 1::3] = -0.0
     return torch.from_numpy(x).to(device=device, dtype=dtype)
 
 
@@ -239,6 +248,45 @@ class merge_tile:
         launch.MERGE_TILE = self.old
 
 
+class vocab_group:
+    """Force the lists a CTA of the vocab merge tree takes (row 5) and the
+    threads of its CTAs."""
+
+    def __init__(self, group: int, threads: int = 512):
+        self.group, self.threads = group, threads
+
+    def __enter__(self):
+        from repro_torch.kernels import launch
+        from repro_torch.kernels import topk as K
+
+        self.old = launch.VOCAB_GROUP, K.TREE_THREADS
+        launch.VOCAB_GROUP, K.TREE_THREADS = self.group, self.threads
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import launch
+        from repro_torch.kernels import topk as K
+
+        launch.VOCAB_GROUP, K.TREE_THREADS = self.old
+
+
+class grid_items:
+    """Force the outputs a thread of the grid merge takes (row 9), and so
+    its tile (that many times 256)."""
+
+    def __init__(self, items: int):
+        self.items = items
+
+    def __enter__(self):
+        from repro_torch.kernels import launch
+
+        self.old, launch.GRID_ITEMS = launch.GRID_ITEMS, self.items
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import launch
+
+        launch.GRID_ITEMS = self.old
+
+
 class sort_lanes:
     """Force the lanes a thread of the sort executor (rows 2 and 6)."""
 
@@ -270,27 +318,33 @@ def phase_kernels(dev, K, topk_block) -> dict:
             err["router_topk"] = max(err["router_topk"], require_equal(
                 f"router T={t} E={e} k={k} {dtype}", got, K.router_topk_plain(x, k, blk)))
             log(f"  router_topk T={t} E={e} k={k} block={blk} {dtype}: bit-equal")
-        for k in (64, 16, 256):
-            b, v = 8, 151_936
-            x = special_logits(b, v, dtype, dev, seed=k)
-            blk = topk_block(v, k)
+        # the serving shapes (k 64, 16, 256 at their planner's block), B = 1, 4
+        # and 8, k 64 at block 16 (lists that grow 16 -> 32 -> 64), and a
+        # vocab of 3000 (one launch); the tree at its plan and at forced
+        # subtrees of 2, 4 and 32 lists
+        for b, v, k, blk in ((8, 151_936, 64, None), (8, 151_936, 16, None),
+                             (8, 151_936, 256, None), (1, 151_936, 64, None),
+                             (4, 151_936, 64, None), (4, 151_936, 64, 16),
+                             (3, 3000, 64, 16)):
+            x = special_logits(b, v, dtype, dev, seed=k + b)
+            blk = blk or topk_block(v, k)
             keys, idx = K.vocab_phase1(x, k, blk)
             pk, pi = K.vocab_phase1_plain(x, k, blk)
             err["vocab_phase1"] = max(err["vocab_phase1"], require_equal(
-                f"phase1 k={k} {dtype}", (keys, idx), (pk, pi)))
-            levels = 0
-            while keys.shape[1] > 1:
-                dec = dtype if keys.shape[1] == 2 else None
-                got = K.vocab_merge_level(keys, idx, k, dec)
-                want = K.vocab_merge_level_plain(keys, idx, k, dec)
+                f"phase1 B={b} k={k} {dtype}", (keys, idx), (pk, pi)))
+            want = K.vocab_merge_tree_plain(keys, idx, k, dtype)
+            for group, threads in ((0, 512), (2, 512), (4, 512), (32, 512), (0, 128)):
+                with vocab_group(group, threads):
+                    got = K.vocab_merge_tree(keys, idx, k, dtype)
                 err["vocab_merge_level"] = max(err["vocab_merge_level"], require_equal(
-                    f"merge level {levels} k={k} {dtype}", got, want))
-                keys, idx = got
-                levels += 1
-            require_equal(f"vocab top-k k={k} {dtype}", K.vocab_topk(x, k, block=blk),
+                    f"merge tree B={b} k={k} block={blk} group={group} threads {threads} "
+                    f"{dtype}", got, want))
+            require_equal(f"vocab top-k B={b} k={k} {dtype}", K.vocab_topk(x, k, block=blk),
                           K.vocab_topk_plain(x, k, blk))
-            log(f"  vocab B={b} V={v} k={k} block={blk} {dtype}: phase 1 and "
-                f"{levels} merge levels bit-equal")
+            plan = K.vocab_merge_plan(keys.shape[1], keys.shape[2], k)
+            log(f"  vocab B={b} V={v} k={k} block={blk} {dtype}: phase 1 and the merge tree "
+                f"({K.vocab_levels(v, blk)} levels in passes of {plan}; forced subtrees "
+                "of 2, 4, 32 lists; CTAs of 128 threads) bit-equal")
     torch.cuda.synchronize()
     return err
 
@@ -465,11 +519,13 @@ def phase_serve(dev, K):
 
     vocab = cfg.vocab_size
     blk = topk_block(vocab, k)
-    levels = K.vocab_levels(vocab, blk)
+    tree = K.vocab_merge_launches(vocab, blk, k)
+    if tree > 2:
+        raise AssertionError(f"the merge tree takes {tree} launches a call, not at most 2")
     # one draw per new token: a sampled full-width run launches phase 1
     # and the merge tree per token, greedy launches nothing, and the
     # smoke-width launcher (vocab 256) the router kernel per token
-    vocab_run = {"router_topk": 0, "vocab_phase1": new, "vocab_merge_level": new * levels}
+    vocab_run = {"router_topk": 0, "vocab_phase1": new, "vocab_merge_level": new * tree}
     runs = (
         ("sampled", lambda: generate(params, {"tokens": tokens}, cfg, sc, device=dev),
          vocab_run),
@@ -493,7 +549,8 @@ def phase_serve(dev, K):
             raise AssertionError(f"{name} run: launch counts {got} != {want}")
         for n, c in got.items():
             launches[n] += c
-    log(f"  vocab block {blk}, {levels} merge levels per sampled token; "
+    log(f"  vocab block {blk}, {K.vocab_levels(vocab, blk)} merge levels in {tree} "
+        f"launches per sampled token; "
         f"main path in all: {launches}")
     out, out_r, out_g, out_s = (outs[n] for n in ("sampled", "ragged", "greedy",
                                                   "smoke launcher"))
@@ -597,8 +654,11 @@ def phase_engine(dev, K, params, card) -> dict:
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in plens]
 
-    def levels(k):
-        return K.vocab_levels(vocab, topk_block(vocab, k))
+    def levels(k):  # merge-tree launches of one vocab top-k call
+        n = K.vocab_merge_launches(vocab, topk_block(vocab, k), k)
+        if n > 2:
+            raise AssertionError(f"the merge tree takes {n} launches at k {k}, not at most 2")
+        return n
 
     eng = ScheduledEngine(params, cfg, sched, device=dev)
     rids = [eng.submit(p, sp, arrival=a) for p, sp, a in zip(prompts, sps, arrivals)]
@@ -645,7 +705,7 @@ def phase_engine(dev, K, params, card) -> dict:
         log(f"  request {rid}: prompt {p.size}, arrival {r.arrival}, admitted at tick "
             f"{r.admit_tick}, {len(out[rid])} tokens, TTFT {(r.t_first - r.t_submit) * 1e3:.2f} "
             f"ms; bit-equal to solo generate (launches {solo_got['vocab_phase1']} phase 1, "
-            f"{solo_got['vocab_merge_level']} merge levels)")
+            f"{solo_got['vocab_merge_level']} merge-tree launches)")
     ticks = np.asarray(eng.tick_s) * 1e3
     log(f"  engine drain: {len(rids)} requests, {n_tok} tokens in {wall:.3f} s wall, "
         f"{eng.t} ticks ({len(ticks)} decode ticks), {n_tok / wall:.1f} tok/s, decode tick "
@@ -988,18 +1048,12 @@ def phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s) ->
                      replaces="src/repro/kernels/topk.py:122",
                      launches=launches["vocab_phase1"], max_abs_err=err["vocab_phase1"],
                      ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
-    # merge levels: the whole tree of one sampled token, on phase 1's lists
+    # the merge tree of one sampled token, on phase 1's lists (its launches)
     keys, idx = K.vocab_phase1(logits, k, vb)
-
-    def tree(merge):
-        kx, ix = keys, idx
-        while kx.shape[1] > 1:
-            kx, ix = merge(kx, ix, k, logits.dtype if kx.shape[1] == 2 else None)
-        return kx, ix
-
-    eager["vocab_merge_level"] = cuda_ms(lambda: tree(K.vocab_merge_level), 100)
-    ms = graph_ms(lambda: tree(K.vocab_merge_level), 100)
-    plain = graph_ms(lambda: tree(K.vocab_merge_level_plain), 5)
+    eager["vocab_merge_level"] = cuda_ms(
+        lambda: K.vocab_merge_tree(keys, idx, k, logits.dtype), 100)
+    ms = graph_ms(lambda: K.vocab_merge_tree(keys, idx, k, logits.dtype), 100)
+    plain = graph_ms(lambda: K.vocab_merge_tree_plain(keys, idx, k, logits.dtype), 5)
     flat = keys.view(bsz, nblk * kk)
     lib = graph_ms(lambda: torch.topk(flat, k, dim=-1), 100)
     comps, g, ln = 0, nblk, kk
@@ -1154,6 +1208,7 @@ def phase_merge_sort_kernels(dev, capable_families) -> dict:
     orders, pow2 and padded widths, and at the shapes of phase 3e."""
     import torch
 
+    from repro_torch.kernels import topk as K
     from repro_torch.kernels.common import ceil_pow2
     from repro_torch.kernels.loms_merge import loms_merge2, loms_merge2_plain
     from repro_torch.kernels.sort import loms_sort, loms_sort_plain
@@ -1246,9 +1301,23 @@ def phase_merge_sort_kernels(dev, capable_families) -> dict:
         sort_case(f"sort {name}", x, ids(rows, n) if pay else (), "loms", desc,
                   chunk=1024, layouts=LANE_LAYOUTS)
         log(f"  loms_sort {name}: bit-equal at lanes a thread {LANE_LAYOUTS} (0: the plan's)")
-    # row 9: int32 keys with their extremes, and float rows as keys
+    # row 9: int32 keys with their extremes, and float rows as keys, at the
+    # wrapper's tiles (up to 4096 outputs) and at forced tiles of 256 and
+    # 768 (ties across tile boundaries), B = 1, 4 and 8; then rows read in
+    # place from one buffer (strided views), and the sort spill's levels
+    def grid_case(name, a, b, want):
+        for items in (0, 1, 3):
+            with grid_items(items):
+                got = grid_chunked_merge2(a, b)
+            if not torch.equal(bits(got) if got.dtype.is_floating_point else got,
+                               bits(want) if want.dtype.is_floating_point else want):
+                tile = f"a tile of {items * 256}" if items else "the wrapper's tile"
+                raise AssertionError(f"grid merge {name}, {tile}: differs from the plain "
+                                     "version")
+            err["grid_merge2"] = max(err["grid_merge2"], max_abs_err(got, want))
+
     for rows, na, nb in ((3, 1000, 300), (2, 37, 0), (2, 0, 5), (4, 4096, 4096),
-                         (1, 100_000, 100_000)):
+                         (1, 100_000, 100_000), (8, 5000, 3333), (1, 70_001, 1)):
         for dt in (torch.int32, torch.float32):
             if dt == torch.int32:
                 a = total_order_sorted(seg_tile(rows, na, dt, dev, seed=na))
@@ -1256,17 +1325,48 @@ def phase_merge_sort_kernels(dev, capable_families) -> dict:
             else:
                 a = finite_sorted(rows, na, dt, dev, seed=na)
                 b = finite_sorted(rows, nb, dt, dev, seed=nb + 1)
-            got = grid_chunked_merge2(a, b)
-            want = grid_chunked_merge2_plain(a, b, tile=512)
-            if not torch.equal(bits(got) if dt.is_floating_point else got,
-                               bits(want) if dt.is_floating_point else want):
-                raise AssertionError(f"grid merge ({rows}, {na} + {nb}) {dt}: differs "
-                                     "from the plain version")
-            err["grid_merge2"] = max(err["grid_merge2"], max_abs_err(got, want))
+            grid_case(f"({rows}, {na} + {nb}) {dt}", a, b,
+                      grid_chunked_merge2_plain(a, b, tile=512))
         log(f"  grid_merge2 ({rows}, {na} + {nb}) int32 keys and f32 rows: bit-equal to "
-            "the plain carry loop")
+            "the plain carry loop at the wrapper's tiles and at 256 and 768 outputs")
+    for dt in (torch.int32, torch.bfloat16):
+        if dt.is_floating_point:  # no NaN, no -0.0: the key merge is the raw one
+            buf = torch.cat([finite_sorted(4, n, dt, dev, seed=n) for n in (1701, 1299)], 1)
+        else:
+            buf = torch.cat([total_order_sorted(seg_tile(4, n, dt, dev, seed=n))
+                             for n in (1701, 1299)], dim=1)
+        a, b = buf[:, :1701], buf[:, 1701:]
+        grid_case(f"strided (4, 1701 + 1299) {dt}", a, b, grid_chunked_merge2_plain(
+            a.contiguous(), b.contiguous(), tile=512))
+    log("  grid_merge2 on strided row views (4, 1701 + 1299) int32 and bf16: bit-equal")
+    from repro_torch.segmented.core import _spill_sort_values
+
+    for s_, ln in ((4, 1100), (1, 2500), (8, 65_536), (1, 65_536)):
+        x = seg_tile(s_, ln, torch.float32, dev, seed=ln + s_)
+        K.reset_launch_counts()
+        got = _spill_sort_values(x, False, 512)
+        torch.cuda.synchronize()
+        c = -(-ln // 512)
+        if K.LAUNCHES["grid_merge2"] != spill_merges(c):
+            raise AssertionError(f"sort spill ({s_}, {ln}): {K.LAUNCHES['grid_merge2']} grid "
+                                 f"merges, not {spill_merges(c)}")
+        want = _spill_sort_values(x.cpu(), False, 512)
+        if not torch.equal(bits(got.cpu()), bits(want)):
+            raise AssertionError(f"sort spill ({s_}, {ln}): differs from the plain version")
+        log(f"  values-only sort spill ({s_}, {ln}) f32: {c} runs in "
+            f"{spill_merges(c)} grid-merge launches, bit-equal to the plain version")
     torch.cuda.synchronize()
     return err
+
+
+def spill_merges(c: int) -> int:
+    """Grid-merge launches of the values-only sort spill of ``c`` runs: one a
+    level of pairs, and one more where an odd run meets the carried rest."""
+    m, rest, n = c, False, 0
+    while m + rest > 1:
+        n += (m // 2 > 0) + (m % 2 == 1 and rest)
+        m, rest = m // 2, rest or m % 2 == 1
+    return n
 
 
 def phase_library_merge_sort(dev):
@@ -1325,7 +1425,7 @@ def phase_library_merge_sort(dev):
     b9 = repro_torch.segment_sort(seg_tile(1, ob9[-1], torch.float32, dev, seed=13)
                                   .reshape(-1), ob9)
     spill_groups = len(bucket_merge_pairs(la9, lb9, 1024)[1])
-    chunks = seg_len // 512  # the sort spill's tiles a segment: merges = chunks - 1
+    chunks = seg_len // 512  # the sort spill's runs a segment: one launch a level
 
     def one(**kw):
         return {**{n: 0 for n in K.LAUNCHES}, **kw}
@@ -1358,7 +1458,7 @@ def phase_library_merge_sort(dev):
         ("segment_sort 16 x 65,536 f32, values only: the spill",
          lambda: repro_torch.segment_sort(v8, offs8),
          lambda: sorted_keys_decoded(v8.reshape(n_seg, seg_len)).reshape(-1),
-         one(seg_sort=1, grid_merge2=chunks - 1)),
+         one(seg_sort=1, grid_merge2=spill_merges(chunks))),
         ("segment_merge 64 pairs f32, values only, 32 past the class width",
          lambda: repro_torch.segment_merge(a9, b9, oa9, ob9)[0],
          lambda: repro_torch.segment_merge(a9.cpu(), b9.cpu(), oa9, ob9)[0],
@@ -1488,6 +1588,15 @@ def phase_merge_sort_times(dev, launches, err, card, ops_per_s) -> list:
     log(f"  grid_merge2 (8, 2^22 + 2^22) int32 keys: {ms:.4f} ms (bound {b_ms:.6f} ms by "
         f"{b_by}), plain carry loop {plain:.1f} ms (one call), torch.sort {lib:.4f} ms; "
         f"{card}")
+    # the values-only sort spill of phase 3e: one class sort, one grid merge a level
+    from repro_torch.segmented.core import _spill_sort_values
+
+    xs = seg_tile(16, 65_536, torch.float32, dev, seed=11)
+    spill = graph_ms(lambda: _spill_sort_values(xs, False, 512), 20)
+    b_ms, b_by = bound_ms(xs.numel() * 4 * 2, float(xs.numel() * 16), ops_per_s)
+    log(f"  sort spill 16 x 65,536 f32 (a class sort, {spill_merges(128)} grid merges): "
+        f"{spill:.4f} ms (bound {b_ms:.6f} ms by {b_by}), torch.sort "
+        f"{graph_ms(lambda: torch.sort(xs, dim=-1), 20):.4f} ms; {card}")
     return rows
 
 

@@ -3,7 +3,7 @@
 of their main paths, for one copy of the port's package:
 
   python3 scripts/time_sort_kernels.py [--src DIR] [--label NAME] [--lanes N]
-                                       [--kernels 2,6] [--breakdown]
+                                       [--kernels 2,6,8,1,9,5] [--breakdown]
 
 ``--kernels`` names the kernel rows to time (default ``2,6``): row 2 the
 fused sort and row 6 the class sort at their five shapes; row 8 the k-way
@@ -33,12 +33,28 @@ doubling adds one column-device level, so the differences are the
 levels' costs; with row 8 asked, the k-way merge of 8 x 128 int32 over
 16,384 rows, of 4 x 64 bf16 descending with ids over 65,536 rows and of
 3 x 7 f32 over 1,048,576 rows cut after each stage (``n_stages``), so the
-differences are the stages' costs. Needs a
-card; exits 2 without one.
+differences are the stages' costs; with row 9 asked, the grid merge at
+(8, 2^22 + 2^22) cut into its split pass and its merge (a package that
+has the split pass), and the values-only spill level by level; with row 5
+asked, the vocab merge tree at (4, 151,936) k 64 cut into its two passes,
+and the whole tree at subtrees of 32, 64 and 128 lists and 256, 512 and
+1024 threads a CTA (a package whose tree has them). ``--grid-items`` forces the outputs a
+thread of the grid merge takes (its tile: 256 times that). Row 9
+(``--kernels 9``): ``grid_chunked_merge2`` at (8, 2^22 + 2^22) int32
+(tied keys, and uniform random keys), ``repro_torch.merge`` of 100,000 +
+100,000 f32, the whole values-only ``segment_sort`` of 16 x 65,536 f32
+(eager: the call from Python, host cost included) and each level of its
+spill alone, with the grid-merge launches of each; the yardstick is
+``torch.sort`` of the same rows. Row 5 (``--kernels 5``): the vocab merge
+tree after phase 1 at (1, 4, 8) x 151,936 bf16, k 64 (block 64, 12
+levels) and at (4, 151,936) k 64 with block 16 (lists of 16 that grow to
+64), with its launches; the yardstick is ``torch.topk`` of the phase-1
+lists. Needs a card; exits 2 without one.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -184,6 +200,221 @@ def merge_cases(ops_per_s):
     return cases
 
 
+def grid_cases(ops_per_s):
+    """Row 9 at its main paths' shapes, as :func:`kway_cases`; each case
+    also says whether it is timed as a CUDA graph or eagerly."""
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels.common import encode_key_values
+    from repro_torch.streaming.grid_merge import grid_chunked_merge2
+
+    def bound(total, comparisons):
+        return max(total * 8 / HBM_BYTES_PER_S, comparisons * 2 / ops_per_s) * 1e3
+
+    cases = []
+    f32 = torch.float32
+    ka = encode_key_values(sorted_lists(8, (1 << 22,), f32, 1))
+    kb = encode_key_values(sorted_lists(8, (1 << 22,), f32, 2))
+    rng = np.random.default_rng(3)
+    ra, rb = (torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, (8, 1 << 22),
+                                            dtype=np.int64).astype(np.int32))
+              .cuda().sort(-1)[0] for _ in range(2))
+    for name, a, b in (("row 9 grid_chunked_merge2 (8, 2^22 + 2^22) int32, tied keys", ka, kb),
+                       ("row 9 grid_chunked_merge2 (8, 2^22 + 2^22) int32, random keys",
+                        ra, rb)):
+        cat = torch.cat([a, b], dim=1)
+        cases.append((name, 20, lambda a=a, b=b: grid_chunked_merge2(a, b),
+                      ("torch.sort", lambda cat=cat: torch.sort(cat, dim=-1)),
+                      bound(cat.numel(), cat.numel()), "graph"))
+    a7, b7 = (torch.from_numpy(rng.standard_normal(100_000).astype(np.float32)).cuda()
+              .sort()[0] for _ in range(2))
+    cat7 = torch.cat([a7, b7])
+    cases.append(("row 9 repro_torch.merge 100,000 + 100,000 f32", 50,
+                  lambda: repro_torch.merge(a7, b7),
+                  ("torch.sort", lambda: torch.sort(cat7)), bound(200_000, 200_000), "graph"))
+    s, n = 16, 65_536
+    v8 = tile(1, s * n, f32, 11).reshape(-1)
+    offs8 = tuple(range(0, s * n + 1, n))
+    rows8 = v8.reshape(s, n)
+    cases.append(("row 9 segment_sort 16 x 65,536 f32, values only (the spill), eager", 10,
+                  lambda: repro_torch.segment_sort(v8, offs8),
+                  ("torch.sort", lambda: torch.sort(rows8, dim=-1)),
+                  bound(s * n, s * n * 16), "eager"))
+    keys = encode_key_values(tile(s, n, f32, 12))
+    for lvl in range(1, 8):
+        ln = 512 << (lvl - 1)
+        cur = keys.reshape(s, n // ln, ln).sort(-1)[0].reshape(s, n)
+        pairs = cur.reshape(s * n // (2 * ln), 2 * ln)
+        cases.append((f"row 9 spill level {lvl}: ({s * n // (2 * ln)}, {ln} + {ln}) int32", 20,
+                      spill_level(cur, ln),
+                      ("torch.sort", lambda p=pairs: torch.sort(p, dim=-1)),
+                      bound(s * n, s * n), "graph"))
+    return cases
+
+
+def spill_level(cur, ln):
+    """One level of the values-only sort spill on the (rows, W) runs of
+    length ``ln`` in ``cur``, as the imported package runs it: one launch
+    (a package with ``spill_merge_level``) or one launch a pair of runs."""
+    from repro_torch.segmented import core
+
+    m = cur.shape[1] // ln
+    level = getattr(core, "spill_merge_level", None)
+    if level is not None:
+        return lambda: level(cur, m, ln, 0, 512)
+    from repro_torch.streaming.grid_merge import grid_chunked_merge2
+
+    runs = list(cur.reshape(cur.shape[0], m, ln).unbind(1))
+    if ln > 512:  # past the first level the runs are whole tensors
+        runs = [r.contiguous() for r in runs]
+    return lambda: [grid_chunked_merge2(runs[i].contiguous(), runs[i + 1].contiguous(),
+                                        tile=512) for i in range(0, m - 1, 2)]
+
+
+def vocab_cases(ops_per_s):
+    """Row 5, the vocab merge tree after phase 1, as :func:`kway_cases`."""
+    import torch
+
+    from repro_torch.kernels import topk as K
+
+    v, k = 151_936, 64
+    rng = np.random.default_rng(5)
+    cases = []
+    for bsz, blk in ((4, 64), (1, 64), (8, 64), (4, 16)):
+        x = torch.from_numpy(rng.standard_normal((bsz, v)).astype(np.float32) * 3).to(
+            device="cuda", dtype=torch.bfloat16)
+        keys, idx = K.vocab_phase1(x, k, blk)
+        nblk, kk = keys.shape[1], keys.shape[2]
+        tree = getattr(K, "vocab_merge_tree", None) or functools.partial(level_chain, K)
+        flat = keys.view(bsz, nblk * kk)
+        comps, g, ln = 0, nblk, kk
+        while g > 1:
+            comps += bsz * g * ln * max(ln, 1).bit_length()
+            g, ln = g // 2, min(k, 2 * ln)
+        bound = max((bsz * nblk * kk * 8 + bsz * k * 6) / HBM_BYTES_PER_S,
+                    comps * 2 / ops_per_s) * 1e3
+        cases.append((f"row 5 vocab merge tree ({bsz}, {v}) bf16 k {k}, block {blk} "
+                      f"({nblk} lists of {kk})", 100,
+                      lambda keys=keys, idx=idx, tree=tree: tree(keys, idx, k, torch.bfloat16),
+                      ("torch.topk", lambda flat=flat: torch.topk(flat, k, dim=-1)), bound,
+                      "graph"))
+    return cases
+
+
+def grid_breakdown_cases():
+    """Row 9 cut into its split pass and its merge at (8, 2^22 + 2^22) (a
+    package whose grid merge has the split pass), and the spill's levels."""
+    import torch
+
+    from repro_torch.kernels.common import encode_key_values
+    from repro_torch.streaming import grid_merge as GM
+
+    cases = []
+    ka = encode_key_values(sorted_lists(8, (1 << 22,), torch.float32, 1))
+    kb = encode_key_values(sorted_lists(8, (1 << 22,), torch.float32, 2))
+    phases = getattr(GM, "grid_merge2_phases", None)
+    if phases is not None:
+        out, splits = phases(ka, kb)
+        for what, ph in (("split pass", 1), ("merge", 2), ("split pass + merge", 3)):
+            cases.append((f"row 9 (8, 2^22 + 2^22) int32, {what}", 20,
+                          lambda ph=ph: phases(ka, kb, out=out, splits=splits, which=ph)))
+    else:
+        cases.append(("row 9 (8, 2^22 + 2^22) int32, one kernel (no split pass)", 20,
+                      lambda: GM.grid_chunked_merge2(ka, kb)))
+    s, n = 16, 65_536
+    keys = encode_key_values(tile(s, n, torch.float32, 12))
+    for lvl in range(1, 8):
+        ln = 512 << (lvl - 1)
+        cur = keys.reshape(s, n // ln, ln).sort(-1)[0].reshape(s, n)
+        cases.append((f"row 9 spill level {lvl}: ({s * n // (2 * ln)}, {ln} + {ln}) int32",
+                      20, spill_level(cur, ln)))
+    return cases
+
+
+def vocab_breakdown_cases():
+    """Row 5 at (4, 151,936) bf16 k 64 (block 64) cut into its passes (a
+    package with ``vocab_merge_tree_launch``): the first pass alone, the
+    second alone (the lists of each row in one CTA), both in one launch
+    (the last CTA of each row merges the second), and the whole tree at
+    other subtree sizes and thread counts."""
+    import torch
+
+    from repro_torch.kernels import topk as K
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((4, 151_936)).astype(np.float32) * 3).to(
+        device="cuda", dtype=torch.bfloat16)
+    keys, idx = K.vocab_phase1(x, 64, 64)
+    one = getattr(K, "vocab_merge_tree_launch", None)
+    if one is None:
+        return [("row 5 (4, 151936) k 64: the tree, one launch a level", 100,
+                 lambda: level_chain(K, keys, idx, 64, None))]
+    from repro_torch.kernels import launch
+
+    def knobs(fn, threads, group=0):
+        def call():
+            old = K.TREE_THREADS, launch.VOCAB_GROUP
+            K.TREE_THREADS, launch.VOCAB_GROUP = threads, group
+            try:
+                return fn()
+            finally:
+                K.TREE_THREADS, launch.VOCAB_GROUP = old
+        return call
+
+    g1, g2 = K.vocab_merge_plan(keys.shape[1], keys.shape[2], 64)
+    mid_k, mid_i = one(keys, idx, 64, g1)
+    cases = [(f"row 5 (4, 151936) k 64: pass 1 (subtrees of {1 << g1} lists)", 100,
+              lambda: one(keys, idx, 64, g1)),
+             (f"row 5 (4, 151936) k 64: pass 2 ({1 << g2} lists a row, one CTA)", 100,
+              lambda: one(mid_k, mid_i, 64, g2, 0, torch.bfloat16)),
+             ("row 5 (4, 151936) k 64: both passes, one launch", 100,
+              lambda: one(keys, idx, 64, g1, g2, torch.bfloat16))]
+    for group in (32, 64, 128):
+        for threads in (256, 512, 1024):
+            cases.append((f"row 5 (4, 151936) k 64: the tree, subtrees of {group} lists, "
+                          f"{threads} threads a CTA", 100,
+                          knobs(lambda: K.vocab_merge_tree(keys, idx, 64, torch.bfloat16),
+                                threads, group)))
+    return cases
+
+
+def level_chain(K, kx, ix, k, dtype):
+    """The tree one launch a level (a package with ``vocab_merge_level``)."""
+    while kx.shape[1] > 1:
+        kx, ix = K.vocab_merge_level(kx, ix, k, dtype if kx.shape[1] == 2 else None)
+    return kx, ix
+
+
+def launches_of(fn) -> dict:
+    """The kernel launches one call of ``fn`` makes (nonzero counts)."""
+    import torch
+
+    from repro_torch.kernels import topk as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    return {n: c for n, c in K.LAUNCHES.items() if c}
+
+
+def events_ms(fn, iters: int) -> float:
+    """Eager time of one call (host launch cost included), CUDA events."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def graph_ms(fn, iters: int) -> float:
     import torch
 
@@ -214,8 +445,10 @@ def main() -> int:
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--lanes", type=int, default=0)
     ap.add_argument("--breakdown", action="store_true")
+    ap.add_argument("--grid-items", type=int, default=0,
+                    help="outputs a thread of the grid merge (a package that sizes them)")
     ap.add_argument("--kernels", default="2,6",
-                    help="comma-separated kernel rows among 2, 6, 8, 1")
+                    help="comma-separated kernel rows among 2, 6, 8, 1, 9, 5")
     args = ap.parse_args()
     rows_asked = {int(r) for r in args.kernels.split(",")}
     sys.path.insert(0, os.path.abspath(args.src))
@@ -230,6 +463,8 @@ def main() -> int:
 
     if args.lanes:
         launch.SORT_LANES = args.lanes
+    if args.grid_items:
+        launch.GRID_ITEMS = args.grid_items
 
     card = card_line()
     ops_per_s = (torch.cuda.get_device_properties(0).multi_processor_count * 64
@@ -285,6 +520,10 @@ def main() -> int:
         cases.append((name, 200, lambda x=x, lens=lens, lanes=lanes, k_out=k_out, flip=flip:
                       SK.segment_class_sort(x, lens, lanes, k_out=k_out, flip=flip,
                                             want_perm=True)))
+    if args.breakdown and 9 in rows_asked:
+        cases += grid_breakdown_cases()
+    if args.breakdown and 5 in rows_asked:
+        cases += vocab_breakdown_cases()
     for name, iters, fn in cases:
         print(json.dumps({"label": args.label, "lanes": args.lanes, "shape": name,
                           "ms": graph_ms(fn, iters), "card": card}), flush=True)
@@ -296,6 +535,21 @@ def main() -> int:
         print(json.dumps({"label": args.label, "shape": name, "ms": graph_ms(fn, iters),
                           "torch": lib_name, "torch_ms": graph_ms(lib, iters),
                           "bound_ms": bound, "card": card}), flush=True)
+    timed = []
+    for r in (9, 5):
+        if r in rows_asked and not args.breakdown:
+            timed += grid_cases(ops_per_s) if r == 9 else vocab_cases(ops_per_s)
+    for name, iters, fn, (lib_name, lib), bound, how in timed:
+        try:
+            ms = graph_ms(fn, iters) if how == "graph" else events_ms(fn, iters)
+        except RuntimeError as err:  # a call that cannot be captured in a graph
+            print(f"time_sort_kernels: {name}: no graph ({err}); timed eagerly",
+                  file=sys.stderr)
+            how, ms = "eager", events_ms(fn, iters)
+        print(json.dumps({"label": args.label, "shape": name, "ms": ms, "timing": how,
+                          "launches": launches_of(fn), "torch": lib_name,
+                          "torch_ms": graph_ms(lib, iters), "bound_ms": bound,
+                          "card": card}), flush=True)
     return 0
 
 

@@ -5,7 +5,7 @@
 //
 //   router_topk_kernel        <- _router_topk_kernel  (topk.py:60)
 //   vocab_phase1_kernel       <- _phase1_kernel       (topk.py:122)
-//   vocab_merge_level_kernel  <- _merge_level_kernel  (topk.py:142)
+//   vocab_merge_tree_kernel   <- _merge_level_kernel  (topk.py:142)
 //
 // Each computes what its TPU kernel computes, bit for bit: values and int32
 // indices, tie order included. Floats become total-order int32 keys on
@@ -30,10 +30,13 @@
 // integer operations, and the merge tree by launch latency and by the
 // dependent loads of its binary searches. The design answers are simple:
 // phase 1 keeps its block in shared memory and each thread counts its own
-// rank (no scatter through global memory); a merge level stages the keys
-// of its pairs in shared memory so the searches never leave the SM; every
-// store writes the final slot directly. No wgmma, no TMA: none of this is
-// a matrix product, and the loads are one coalesced pass.
+// rank (no scatter through global memory); the merge tree (12 levels at
+// V = 151,936, k 64) runs in one launch at the serving shapes, so launch
+// latency is paid once and not once a level: a CTA merges a subtree of up
+// to 8192 (key, index) pairs in shared memory (vocab_merge_tree_kernel),
+// its searches never leaving the SM, and the last CTA of each row merges
+// the subtrees' lists. No wgmma, no TMA: none of this is a matrix product,
+// and the loads are one coalesced pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,7 +49,9 @@ constexpr int32_t KEY_PAD = INT32_MIN;  // pad slots: below every real key
 constexpr int ROUTER_MAX_E = 512;       // kernels/topk.py ROUTER_TOPK_MAX
 constexpr int ROUTER_CAP = 2 * ROUTER_MAX_E;  // lists of one tree level
 constexpr int ROUTER_THREADS = 256;
-constexpr int MERGE_THREADS = 256;
+constexpr int TREE_MAX_THREADS = 1024;
+constexpr int TREE_IPT = 4;            // outputs a thread merges at a time, at most
+constexpr int TREE_MAX_SMEM = 2 * 8192 * 8;  // two buffers of 8192 words (TREE_MAX_PAIRS)
 
 using repro_keys::Bits;
 using repro_keys::BF16;
@@ -186,37 +191,202 @@ __global__ void vocab_phase1_kernel(const typename Bits<DT>::T* __restrict__ x,
   }
 }
 
-// One tree level: pairs of descending lists (pairs, 2, len) -> (pairs,
-// keep). A CTA stages the keys of ppc pairs in shared memory; each thread
-// places one element by a binary search in the other list.
-template <int DT>
-__global__ void vocab_merge_level_kernel(const int32_t* __restrict__ ikey,
-                                         const int32_t* __restrict__ iidx,
-                                         int32_t* __restrict__ okey,
-                                         typename Bits<DT>::T* __restrict__ oval,
-                                         int32_t* __restrict__ oidx,
-                                         int pairs, int len, int keep, int ppc,
-                                         int decode) {
-  extern __shared__ int32_t sk[];
-  const int first = blockIdx.x * ppc;
-  const size_t p0 = first;
-  const int n = min(ppc, pairs - first) * 2 * len;
-  const int32_t* kin = ikey + p0 * 2 * len;
-  const int32_t* iin = iidx + p0 * 2 * len;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) sk[t] = kin[t];
-  __syncthreads();
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    const int lp = t / (2 * len), e = t % (2 * len);
-    const int side = e / len, p = e % len;
-    const int32_t* a = sk + lp * 2 * len;
-    const int32_t key = sk[t];
-    const int pos = side == 0 ? p + count_desc(a + len, len, key, false)
-                              : p + count_desc(a, len, key, true);
-    if (pos < keep) {
-      const size_t o = (p0 + lp) * keep + pos;
-      if (decode) oval[o] = decode_key<DT>(key); else okey[o] = key;
-      oidx[o] = iin[t];
+// The tree's elements in shared memory: (key, index) packed into one
+// 64-bit word, key high. The order of the words is the tree's order: by
+// key, and among equal keys by index, the higher first (the N-sorter reads
+// its stable ranks backwards, and each merge lets the second list, the
+// higher indices, win ties); the pads (INT32_MIN, -1) are all one word.
+// So a merge compares whole words, and its ties are the pads' alone: any
+// merge of the words gives the reference's lists bit for bit.
+__device__ __forceinline__ long long pack(int32_t key, int32_t idx) {
+  return (long long)(((unsigned long long)(uint32_t)key << 32) | (uint32_t)idx);
+}
+
+// One level by merge paths, for any lengths: pairs of descending lists of
+// ln (one after the other in cur) merged into lists of keep, in nxt. A
+// thread takes ipt consecutive outputs of one pair (ipt sized so that the
+// level is about one pass of the CTA's threads: up to 4 on the widest
+// levels, 1 on the top ones): a merge path along their diagonal (a[p]
+// precedes b[q] only if a[p] > b[q]), then a serial merge with the two
+// heads in registers.
+__device__ void merge_level(const long long* cur, long long* nxt, int pairs, int ln,
+                            int keep) {
+  int ipt = 1;
+  while (ipt < TREE_IPT && pairs * keep > ipt * (int)blockDim.x) ipt <<= 1;
+  const int chunks = (keep + ipt - 1) / ipt;
+  for (int w = threadIdx.x; w < pairs * chunks; w += blockDim.x) {
+    const int p = w / chunks, d = (w - p * chunks) * ipt;
+    const long long* A = cur + 2 * p * ln;
+    const long long* B = A + ln;
+    int lo = d > ln ? d - ln : 0, hi = d < ln ? d : ln;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (A[mid] > B[d - 1 - mid]) lo = mid + 1; else hi = mid;
     }
+    int ia = lo, ib = d - lo;
+    long long va = A[min(ia, ln - 1)], vb = B[min(ib, ln - 1)];
+    long long* o = nxt + p * keep + d;
+#pragma unroll
+    for (int j = 0; j < TREE_IPT; ++j) {
+      if (j < ipt && d + j < keep) {
+        const bool ta = ia < ln && (ib >= ln || va > vb);
+        o[j] = ta ? va : vb;
+        if (ta) { ++ia; va = A[min(ia, ln - 1)]; }
+        else { ++ib; vb = B[min(ib, ln - 1)]; }
+      }
+    }
+  }
+}
+
+// One level in registers, for lists of ln merged into keep = 32 EO, keep =
+// ln (the top half) or 2 ln (all), powers of two: a warp takes a pair,
+// word l + 32 j of the output in lane l, slot j. The pair's two descending
+// lists, the second reversed, form a bitonic sequence (keep = 2 ln: one
+// after the other; keep = ln: their word-wise maxima, which hold the top
+// ln); the merge network sorts it descending, the strides of 32 and up
+// inside a lane, the smaller ones across lanes by __shfl_xor_sync. With
+// unique words (the pads aside, which are all one word) this is the merge
+// that the second list wins ties in.
+template <int EO>
+__device__ void warp_level(const long long* cur, long long* nxt, int pairs, int ln) {
+  constexpr int keep = 32 * EO;
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int p = threadIdx.x >> 5; p < pairs; p += warps) {
+    const long long* A = cur + 2 * p * ln;
+    const long long* B = A + ln;
+    long long v[EO];
+#pragma unroll
+    for (int j = 0; j < EO; ++j) {
+      const int i = lane + 32 * j;
+      if (ln == keep) {
+        const long long a = A[i], b = B[keep - 1 - i];
+        v[j] = a > b ? a : b;
+      } else {
+        v[j] = i < ln ? A[i] : B[2 * ln - 1 - i];
+      }
+    }
+#pragma unroll
+    for (int s = EO / 2; s >= 1; s >>= 1) {
+#pragma unroll
+      for (int j = 0; j < EO; ++j) {
+        if ((j & s) == 0) {
+          const long long x = v[j], y = v[j + s];
+          v[j] = x > y ? x : y;
+          v[j + s] = x > y ? y : x;
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 16; s >= 1; s >>= 1) {
+      const bool upper = lane & s;
+#pragma unroll
+      for (int j = 0; j < EO; ++j) {
+        const long long o = __shfl_xor_sync(0xffffffffu, v[j], s);
+        v[j] = upper ? (o < v[j] ? o : v[j]) : (o > v[j] ? o : v[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < EO; ++j) nxt[p * keep + lane + 32 * j] = v[j];
+  }
+}
+
+// Merge `levels` levels of the lists in cur (2^levels lists of ln, one
+// after the other) in shared memory, ping-ponging with nxt; each level
+// keeps min(k, 2 ln): in registers where the lengths allow (warp_level:
+// keep of 32 to 256, ln = keep or keep / 2, powers of two), else by merge
+// paths. Returns the buffer that holds the one list left; ln becomes its
+// length.
+__device__ long long* merge_levels(long long* cur, long long* nxt, int& ln, int k,
+                                   int levels) {
+  int cnt = 1 << levels;
+  for (int l = 0; l < levels; ++l) {
+    const int keep = min(k, 2 * ln), pairs = cnt >> 1;
+    const bool regs = (ln & (ln - 1)) == 0 && (keep == ln || keep == 2 * ln);
+    if (regs && keep == 32) warp_level<1>(cur, nxt, pairs, ln);
+    else if (regs && keep == 64) warp_level<2>(cur, nxt, pairs, ln);
+    else if (regs && keep == 128) warp_level<4>(cur, nxt, pairs, ln);
+    else if (regs && keep == 256) warp_level<8>(cur, nxt, pairs, ln);
+    else merge_level(cur, nxt, pairs, ln, keep);
+    __syncthreads();
+    long long* t = cur; cur = nxt; nxt = t;
+    cnt = pairs;
+    ln = keep;
+  }
+  return cur;
+}
+
+// The merge tree, one launch per call at the serving shapes. A CTA takes
+// G = 2^levels consecutive lists of one row: a subtree of the reference's
+// tree (the list count is a power of two, so aligned groups are its
+// subtrees and the pairing and tie order are its own), loaded as (key,
+// index) pairs and merged by merge_levels. With tail_levels = 0 it writes
+// its list out (decoded when it is the tree's last). Otherwise it writes
+// its list to the scratch (skey, sidx), and the last CTA of the row to
+// finish (a per-row ticket after a __threadfence, which that CTA resets to
+// 0 for the next launch) reads the row's lists back and merges the
+// remaining tail_levels levels: the rest of the tree, in the same launch.
+template <int DT>
+__global__ void __launch_bounds__(TREE_MAX_THREADS)
+vocab_merge_tree_kernel(const int32_t* __restrict__ ikey, const int32_t* __restrict__ iidx,
+                        int32_t* __restrict__ okey, typename Bits<DT>::T* __restrict__ oval,
+                        int32_t* __restrict__ oidx, int32_t* skey, int32_t* sidx,
+                        int* tickets, int len, int k, int levels, int tail_levels,
+                        int decode) {
+  extern __shared__ long long tree_smem[];
+  __shared__ int last;
+  const int n = len << levels;
+  const int per_row = 1 << tail_levels;  // groups of one row
+  const size_t base = (size_t)blockIdx.x * n;
+  long long* cur = tree_smem;
+  if ((n & 3) == 0 && ((reinterpret_cast<uintptr_t>(ikey) | reinterpret_cast<uintptr_t>(iidx))
+                       & 15) == 0) {  // every group starts on a 16-byte boundary
+    const int4* k4 = reinterpret_cast<const int4*>(ikey + base);
+    const int4* i4 = reinterpret_cast<const int4*>(iidx + base);
+#pragma unroll 2
+    for (int q = threadIdx.x; q < (n >> 2); q += blockDim.x) {
+      const int4 kq = __ldg(k4 + q), iq = __ldg(i4 + q);
+      cur[4 * q] = pack(kq.x, iq.x);
+      cur[4 * q + 1] = pack(kq.y, iq.y);
+      cur[4 * q + 2] = pack(kq.z, iq.z);
+      cur[4 * q + 3] = pack(kq.w, iq.w);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n; e += blockDim.x)
+      cur[e] = pack(ikey[base + e], iidx[base + e]);
+  }
+  __syncthreads();
+  int ln = len;
+  cur = merge_levels(cur, tree_smem + n, ln, k, levels);
+  size_t ob = (size_t)blockIdx.x * ln;
+  if (tail_levels) {
+    for (int e = threadIdx.x; e < ln; e += blockDim.x) {
+      skey[ob + e] = (int32_t)(cur[e] >> 32);
+      sidx[ob + e] = (int32_t)cur[e];
+    }
+    __threadfence();
+    __syncthreads();
+    const int row = blockIdx.x / per_row;
+    if (threadIdx.x == 0) {
+      last = atomicAdd(tickets + row, 1) == per_row - 1;
+      if (last) tickets[row] = 0;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const size_t rb = (size_t)row * per_row * ln;
+    const int m = per_row * ln;
+    cur = tree_smem;
+    for (int e = threadIdx.x; e < m; e += blockDim.x)
+      cur[e] = pack(__ldcg(skey + rb + e), __ldcg(sidx + rb + e));
+    __syncthreads();
+    cur = merge_levels(cur, tree_smem + m, ln, k, tail_levels);
+    ob = (size_t)row * ln;
+  }
+  for (int e = threadIdx.x; e < ln; e += blockDim.x) {
+    const long long v = cur[e];
+    if (decode) oval[ob + e] = decode_key<DT>((int32_t)(v >> 32));
+    else okey[ob + e] = (int32_t)(v >> 32);
+    oidx[ob + e] = (int32_t)v;
   }
 }
 
@@ -241,15 +411,30 @@ void launch_phase1(const void* x, int32_t* okey, void* oval, int32_t* oidx,
 }
 
 template <int DT>
-void launch_merge(const int32_t* ikey, const int32_t* iidx, int32_t* okey,
-                  void* oval, int32_t* oidx, int pairs, int len, int keep,
-                  int decode, cudaStream_t s) {
+int launch_tree(const int32_t* ikey, const int32_t* iidx, int32_t* okey, void* oval,
+                int32_t* oidx, int32_t* skey, int32_t* sidx, int* tickets, int groups,
+                int len, int k, int levels, int tail_levels, int decode, int threads,
+                cudaStream_t s) {
   using B = typename Bits<DT>::T;
-  const int ppc = 2 * len >= MERGE_THREADS ? 1 : MERGE_THREADS / (2 * len);
-  const int ctas = (pairs + ppc - 1) / ppc;
-  const size_t smem = (size_t)ppc * 2 * len * sizeof(int32_t);
-  vocab_merge_level_kernel<DT><<<ctas, MERGE_THREADS, smem, s>>>(
-      ikey, iidx, okey, (B*)oval, oidx, pairs, len, keep, ppc, decode);
+  static bool opted_in = false;  // shared memory past 48 KB, asked once
+  if (!opted_in) {
+    const int rc = (int)cudaFuncSetAttribute(vocab_merge_tree_kernel<DT>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             TREE_MAX_SMEM);
+    if (rc) return rc;
+    opted_in = true;
+  }
+  // the group's pairs and, for the tail, the row's lists, each twice
+  int ln = len;
+  for (int l = 0; l < levels; ++l) ln = min(k, 2 * ln);
+  const size_t pairs = max((size_t)len << levels, (size_t)ln << tail_levels);
+  const size_t smem = 2 * pairs * sizeof(long long);
+  if (smem > (size_t)TREE_MAX_SMEM || threads < 32 || threads > TREE_MAX_THREADS || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  vocab_merge_tree_kernel<DT><<<groups, threads, smem, s>>>(
+      ikey, iidx, okey, (B*)oval, oidx, skey, sidx, tickets, len, k, levels, tail_levels,
+      decode);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -284,21 +469,36 @@ int repro_vocab_phase1(const void* x, void* okey, void* oval, void* oidx,
   return (int)cudaGetLastError();
 }
 
-int repro_vocab_merge_level(const void* ikey, const void* iidx, void* okey,
-                            void* oval, void* oidx, int pairs, int len,
-                            int keep, int decode, int dtype, void* stream) {
+// One launch of the merge tree: int32 keys and indices (groups, 2^levels,
+// len) -> (groups >> tail_levels, len'), len' = len after levels +
+// tail_levels levels of min(k, 2 len); decoded to `dtype` when decode is
+// set (the tree's last launch). With tail_levels > 0, skey and sidx are
+// (groups, len after `levels`) int32 of scratch and tickets (groups >>
+// tail_levels) int32 that are 0 (the launch leaves them 0). threads: a
+// CTA's, a multiple of 32 up to 1024.
+int repro_vocab_merge_tree(const void* ikey, const void* iidx, void* okey, void* oval,
+                           void* oidx, void* skey, void* sidx, void* tickets, int groups,
+                           int len, int k, int levels, int tail_levels, int decode,
+                           int threads, int dtype, void* stream) {
+  if (groups <= 0 || len <= 0 || levels <= 0 || k <= 0 || tail_levels < 0
+      || groups % (1 << tail_levels))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int32_t* ik = (const int32_t*)ikey;
   const int32_t* ii = (const int32_t*)iidx;
   int32_t* ok = (int32_t*)okey;
   int32_t* oi = (int32_t*)oidx;
+  int32_t* sk = (int32_t*)skey;
+  int32_t* si = (int32_t*)sidx;
+  int* t = (int*)tickets;
   if (dtype == F32)
-    launch_merge<F32>(ik, ii, ok, oval, oi, pairs, len, keep, decode, s);
-  else if (dtype == BF16)
-    launch_merge<BF16>(ik, ii, ok, oval, oi, pairs, len, keep, decode, s);
-  else
-    launch_merge<F16>(ik, ii, ok, oval, oi, pairs, len, keep, decode, s);
-  return (int)cudaGetLastError();
+    return launch_tree<F32>(ik, ii, ok, oval, oi, sk, si, t, groups, len, k, levels,
+                            tail_levels, decode, threads, s);
+  if (dtype == BF16)
+    return launch_tree<BF16>(ik, ii, ok, oval, oi, sk, si, t, groups, len, k, levels,
+                             tail_levels, decode, threads, s);
+  return launch_tree<F16>(ik, ii, ok, oval, oi, sk, si, t, groups, len, k, levels,
+                          tail_levels, decode, threads, s);
 }
 
 }  // extern "C"

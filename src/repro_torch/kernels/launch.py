@@ -22,13 +22,13 @@ MAX_PAYLOADS = 8
 KEY_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
             torch.int32: 3}
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: each library's entry points and their argument types (all return an int)
 _SIGNATURES = {
     "topk": {
         "repro_router_topk": [P, P, P, I, I, I, I, I, P],
         "repro_vocab_phase1": [P, P, P, P, I, I, I, I, I, I, I, P],
-        "repro_vocab_merge_level": [P, P, P, P, P, I, I, I, I, I, P],
+        "repro_vocab_merge_tree": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     },
     "segmented": {
         "repro_seg_sort": [P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P],
@@ -37,7 +37,8 @@ _SIGNATURES = {
     "merge": {"repro_loms_merge2": [P, P, P, P, P, I, P, P, P, P, I, I, I, I, I, I, I, P],
               "repro_merge_tiles": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P]},
     "sort": {"repro_loms_sort": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, P]},
-    "grid_merge": {"repro_grid_merge2": [P, P, P, I, I, I, I, P]},
+    "grid_merge": {"repro_grid_merge2": [P, P, P, P, I, I, I, I, L, L, L, L, L, L, I, I, I,
+                                         P]},
     "kway": {"repro_kway_merge": [P, P, I, I, P, P, I, P, P, P, I, I, I, I, I, I, P]},
 }
 
@@ -49,6 +50,15 @@ SORT_LANES = 0
 #: only the rows past a CTA's shared memory; > 0 forces that many rows a
 #: tile on every row the tiled kernel takes
 MERGE_TILE = 0
+#: outputs a thread of the grid merge (``csrc/grid_merge.cu``), its tile
+#: being that many times 256; 0: the wrapper's choice for the shape
+#: (``streaming/grid_merge.py`` ``_items``); 1..16 forces that tile
+GRID_ITEMS = 0
+#: lists a CTA of the vocab merge tree merges (``csrc/topk.cu``
+#: ``vocab_merge_tree_kernel``), a power of two >= 2; 0: the plan's
+#: (``kernels/topk.py`` ``vocab_merge_plan``); > 0 forces that subtree size
+#: on every launch but the last, which takes the rest
+VOCAB_GROUP = 0
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

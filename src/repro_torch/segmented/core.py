@@ -17,7 +17,8 @@ merge spills that carry a permutation take a stable argsort of the keys,
 as the reference's XLA path does. Values-only spills run on the keys as
 the reference's do: a sort spill chunk-sorts every tile of every row in
 one class-sort launch (kernel row 6), then merges the sorted runs
-pairwise with the grid merge (row 9); a merge spill is one grid merge.
+pairwise with the grid merge (row 9), one launch a level of pairs (two
+where an odd run meets the rest); a merge spill is one grid merge.
 
 A card tensor runs the CUDA class kernels; a CPU tensor their plain
 versions, so the CPU tests exercise what the card runs. Only
@@ -37,7 +38,7 @@ from repro_torch.kernels.common import (decode_key_values, encode_key_values,
                                         flip_keys, key_transformable, sentinel_max,
                                         sentinel_min, take_along)
 from repro_torch.kernels.segmented import segment_class_merge, segment_class_sort
-from repro_torch.streaming.grid_merge import grid_chunked_merge2
+from repro_torch.streaming.grid_merge import grid_chunked_merge2, grid_merge2_rows
 from repro_torch.streaming.planner import plan_chunked, sort_fits_vmem
 
 from .bucketing import (SizeClass, bucket_merge_pairs, bucket_segments,
@@ -136,10 +137,33 @@ def _undo_keys(keys: torch.Tensor, dtype: torch.dtype, descending: bool) -> torc
     return decode_key_values(v, dtype) if key_transformable(dtype) else v
 
 
+def spill_merge_level(cur: torch.Tensor, m: int, ln: int, rest: int, tile: int):
+    """One level of the values-only sort spill: each (rows, W) row of
+    ``cur`` holds ``m`` sorted runs of ``ln``, then one run of ``rest``
+    (0: none). Runs pair up in order, as the reference's list of runs
+    does, the last run carried when the count is odd: the equal pairs of
+    every row merge in one grid launch, the pair of a run of ``ln`` with
+    the one of ``rest`` in a second. Returns ``(next, m', ln', rest')``."""
+    s, width = cur.shape
+    nxt = torch.empty_like(cur)
+    p = m // 2
+    if p:
+        pairs = cur[:, :2 * p * ln].unflatten(1, (p, 2 * ln))
+        grid_merge2_rows(pairs[..., :ln], pairs[..., ln:],
+                         nxt[:, :2 * p * ln].unflatten(1, (p, 2 * ln)), tile=tile)
+    tail = 2 * p * ln
+    if m % 2 and rest:  # the odd run of ln merges with the rest
+        grid_merge2_rows(cur[:, None, tail:tail + ln], cur[:, None, tail + ln:width],
+                         nxt[:, None, tail:width], tile=tile)
+        return nxt, p, 2 * ln, ln + rest
+    nxt[:, tail:] = cur[:, tail:]  # the odd run, or the rest, carried
+    return nxt, p, 2 * ln, (ln if m % 2 else rest)
+
+
 def _spill_sort_values(dense: torch.Tensor, descending: bool, tile: int) -> torch.Tensor:
     """Values-only sort of equal-length long rows: every tile of every row
     sorted in one class launch, then the sorted runs of each row merged
-    pairwise by the grid merge."""
+    pairwise by the grid merge, one launch a level."""
     s, ln = dense.shape
     keys = _keys_for(dense, descending)
     c = -(-ln // tile)
@@ -147,14 +171,12 @@ def _spill_sort_values(dense: torch.Tensor, descending: bool, tile: int) -> torc
         keys = torch.cat([keys, keys.new_full((s, c * tile - ln),
                                               sentinel_max(keys.dtype))], dim=1)
     lens = torch.full((s * c, 1), tile, dtype=torch.int32, device=dense.device)
-    chunks = segment_class_sort(keys.reshape(s * c, tile).contiguous(), lens,
-                                network=NETWORK)[0]
-    runs = list(chunks.reshape(s, c, tile).unbind(1))
-    while len(runs) > 1:
-        nxt = [grid_chunked_merge2(runs[i].contiguous(), runs[i + 1].contiguous(),
-                                   tile=tile) for i in range(0, len(runs) - 1, 2)]
-        runs = nxt + runs[len(nxt) * 2:]
-    return _undo_keys(runs[0][:, :ln], dense.dtype, descending)
+    cur = segment_class_sort(keys.reshape(s * c, tile).contiguous(), lens,
+                             network=NETWORK)[0].reshape(s, c * tile)
+    m, run, rest = c, tile, 0
+    while m + (rest > 0) > 1:
+        cur, m, run, rest = spill_merge_level(cur, m, run, rest, tile)
+    return _undo_keys(cur[:, :ln], dense.dtype, descending)
 
 
 def _spill_sort_perm(dense: torch.Tensor, descending: bool):

@@ -35,7 +35,8 @@ def _logits(rows, n, dtype, seed=0):
     rng = np.random.default_rng(seed)
     x = (rng.integers(-8, 9, (rows, n)) * 0.25).astype(np.float32)
     x[0, :6] = [np.nan, np.inf, -np.inf, 0.0, -0.0, -np.nan]
-    x[1, -4:] = [-0.0, 0.0, np.inf, np.nan]
+    if rows > 1:
+        x[1, -4:] = [-0.0, 0.0, np.inf, np.nan]
     return torch.from_numpy(x).to(dtype)
 
 
@@ -72,9 +73,31 @@ def test_launch_counts(cuda):
     topk(x, 64)
     topk(x[:, :256].contiguous(), 16)
     assert K.LAUNCHES == {"router_topk": 1, "vocab_phase1": 1,
-                          "vocab_merge_level": K.vocab_levels(151_936, 64),
+                          "vocab_merge_level": K.vocab_merge_launches(151_936, 64, 64),
                           "seg_sort": 0, "seg_merge": 0, "loms_merge2": 0,
                           "loms_sort": 0, "grid_merge2": 0, "kway_merge": 0}
+
+
+@pytest.mark.parametrize("threads", [512, 128])
+@pytest.mark.parametrize("group", [0, 2, 4, 32])
+@pytest.mark.parametrize("rows,v,k,block", [(1, 151_936, 64, 64), (8, 151_936, 64, 64),
+                                            (4, 151_936, 64, 16), (3, 3000, 200, 128),
+                                            (2, 151_936, 256, 128), (4, 151_936, 16, 16)])
+def test_vocab_merge_tree_matches_plain(cuda, monkeypatch, threads, group, rows, v, k,
+                                        block):
+    """The tree in its plan's launches and at forced subtrees of 2, 4 and
+    32 lists, in CTAs of 512 and 128 threads (other runs a thread),
+    against the chained plain levels: values and indices."""
+    from repro_torch.kernels import launch
+
+    monkeypatch.setattr(launch, "VOCAB_GROUP", group)
+    monkeypatch.setattr(K, "TREE_THREADS", threads)
+    x = _logits(rows, v, torch.bfloat16, seed=rows).to(cuda)
+    keys, idx = K.vocab_phase1(x, k, block)
+    K.reset_launch_counts()
+    got = K.vocab_merge_tree(keys, idx, k, torch.bfloat16)
+    assert K.LAUNCHES["vocab_merge_level"] == K.vocab_merge_launches(v, block, k)
+    _same(got, K.vocab_merge_tree_plain(keys, idx, k, torch.bfloat16))
 
 
 def test_wrapper_rejects_bad_input(cuda):
@@ -231,6 +254,40 @@ def test_grid_merge_kernel_matches_plain(cuda, na, nb):
         got = grid_chunked_merge2(a.to(cuda), b.to(cuda), tile=64)
         assert torch.equal(_bits(got.cpu()) if dtype.is_floating_point else got.cpu(),
                            _bits(want) if dtype.is_floating_point else want)
+
+
+@pytest.mark.parametrize("items", [0, 1, 3])
+def test_grid_merge_row_views_and_tiles(cuda, monkeypatch, items):
+    """Rows read in place from one buffer, merged into a view of another,
+    at the kernel's tile and at forced tiles of 256 and 768 outputs."""
+    from repro_torch.kernels import launch
+    from repro_torch.streaming.grid_merge import (grid_chunked_merge2, grid_chunked_merge2_plain,
+                                                  grid_merge2_rows)
+
+    monkeypatch.setattr(launch, "GRID_ITEMS", items)
+    buf = torch.cat([_sorted_rows(4, n, torch.int32, n) for n in (1701, 1299, 5000, 3)], 1)
+    a, b = buf[:, :1701], buf[:, 1701:3000]
+    want = grid_chunked_merge2_plain(a.contiguous(), b.contiguous(), tile=512)
+    out = torch.full((4, 2, 3000), 7, dtype=torch.int32, device=cuda)
+    gb = buf.to(cuda)
+    grid_merge2_rows(gb[:, None, :1701], gb[:, None, 1701:3000], out[:, 1:])
+    assert torch.equal(out[:, 1].cpu(), want) and bool((out[:, 0] == 7).all())
+    c, d = buf[:, 3000:8000], buf[:, 8000:]
+    assert torch.equal(grid_chunked_merge2_plain(c.contiguous(), d.contiguous(), tile=512),
+                       grid_chunked_merge2(gb[:, 3000:8000], gb[:, 8000:]).cpu())
+
+
+@pytest.mark.parametrize("ln,merges", [(1100, 2), (2500, 3), (65_536, 7)])
+def test_sort_spill_one_launch_a_level(cuda, ln, merges):
+    """The values-only sort spill of c runs of 512 merges one level a
+    launch (3 runs: 2 launches, 5: 3, 128: 7), bit-equal to the CPU's."""
+    x = _class_tile(2, ln, torch.float32, seed=ln).reshape(-1)
+    offs = (0, ln, 2 * ln)
+    K.reset_launch_counts()
+    got = repro_torch.segment_sort(x.to(cuda), offs)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["seg_sort"], K.LAUNCHES["grid_merge2"]) == (1, merges)
+    assert torch.equal(_bits(got.cpu()), _bits(repro_torch.segment_sort(x, offs)))
 
 
 def test_merge_and_sort_launch_their_kernels(cuda):
