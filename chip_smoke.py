@@ -16,7 +16,11 @@ script with a non-zero exit code when it fails:
    ±0.0 and many ties; the sort executor of the fused sort and the class
    sort at every lanes-a-thread layout at the shapes of phases 3d and 3e;
    the tiled 2-way merge forced onto short rows at tiles of 1, 5 and 64
-   rows (several CTAs a row); the vocab merge tree (row 5) at B = 1, 4
+   rows (several CTAs a row); the router top-k (row 3) at T = 1, 4, 8 and
+   4096 in bf16, f32 and f16, at list counts that are not powers of two
+   (5, 6, 20) and a block of 15, and vocab phase 1 (row 4) called
+   directly at blocks of 256, 1024 and 100, each call one launch; the
+   vocab merge tree (row 5) at B = 1, 4
    and 8, k 16, 64 and 256, block 16 with k 64, in its plan's one launch
    and at forced subtrees of 2, 4 and 32 lists; the grid merge (row 9) at
    its own tiles and forced tiles of 256 and 768 outputs, on strided row
@@ -72,7 +76,9 @@ script with a non-zero exit code when it fails:
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
    row 8 also at 8 x 128 int32 and at the chunked_merge_k segments, row
-   9 also the whole values-only sort spill of phase 3e.
+   9 also the whole values-only sort spill of phase 3e; rows 3-5 also as
+   a graph of 20 calls over the calls, beside the floor (one one-element
+   ``torch.add``) timed both ways.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Needs one card.
@@ -194,10 +200,16 @@ def cuda_ms(fn, iters: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int) -> float:
-    """Device time of one call: ``fn`` captured once in a CUDA graph and
-    replayed ``iters`` times between two events, so the host's launch
-    cost (Python, ctypes, allocation) stays out of the window."""
+#: calls captured in one CUDA graph for an amortised time
+AMORTISED_CALLS = 20
+
+
+def graph_ms(fn, iters: int, calls: int = 1) -> float:
+    """Device time of one call: ``calls`` calls of ``fn`` captured in one
+    CUDA graph, replayed ``iters`` times between two events, over the
+    calls; so the host's launch cost (Python, ctypes, allocation) stays
+    out of the window, and with ``calls`` > 1 the cost of starting a
+    graph replay is shared by the calls."""
     import torch
 
     side = torch.cuda.Stream()
@@ -208,8 +220,19 @@ def graph_ms(fn, iters: int) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return cuda_ms(graph.replay, iters)
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, iters) / calls
+
+
+def topk_comparisons(n: int, k: int) -> int:
+    """The least comparisons any method needs to find the top k of n and
+    put them in order: log2 of the n! / (n - k)! ordered choices, rounded
+    up (a full sort at k = n)."""
+    import math
+
+    k = min(k, n)
+    return math.ceil((math.lgamma(n + 1) - math.lgamma(n - k + 1)) / math.log(2))
 
 
 def bound_ms(nbytes: float, comparisons: float, ops_per_s: float):
@@ -309,15 +332,38 @@ def phase_kernels(dev, K, topk_block) -> dict:
     import torch
 
     err = {"router_topk": 0.0, "vocab_phase1": 0.0, "vocab_merge_level": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
-        # the MoE-router shapes, and the smoke-width serve's (4, 256) k=64
-        for t, e, k in ((4096, 256, 16), (4096, 128, 8), (4, 256, 64)):
+
+    def one_launch(name, fn):
+        K.reset_launch_counts()
+        out = fn()
+        if K.LAUNCHES[name] != 1:
+            raise AssertionError(f"{name}: {K.LAUNCHES[name]} launches in one call, not 1")
+        return out
+
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        # the MoE-router shapes, the smoke-width serve's (4, 256) k=64 and
+        # one row of it, (8, 512); list counts that are not powers of two
+        # (5, 6 at block 64, 20 at block 15), k not a power of two
+        for t, e, k, blk in ((4096, 256, 16, None), (4096, 128, 8, None), (4, 256, 64, None),
+                             (1, 256, 64, None), (8, 512, 64, None), (5, 320, 40, 64),
+                             (6, 384, 5, 64), (7, 300, 8, 15)):
             x = special_logits(t, e, dtype, dev, seed=e + k)
-            blk = topk_block(e, k)
-            got = K.router_topk(x, k, block=blk)
+            blk = blk or topk_block(e, k)
+            got = one_launch("router_topk", lambda: K.router_topk(x, k, block=blk))
             err["router_topk"] = max(err["router_topk"], require_equal(
                 f"router T={t} E={e} k={k} {dtype}", got, K.router_topk_plain(x, k, blk)))
-            log(f"  router_topk T={t} E={e} k={k} block={blk} {dtype}: bit-equal")
+            log(f"  router_topk T={t} E={e} k={k} block={blk} {dtype}: bit-equal, one launch")
+        # phase 1 called directly at the shared-memory widths (256, 1024), a
+        # block that is not a power of two and k not a power of two
+        for b, v, k, blk in ((2, 20_000, 64, 256), (2, 20_000, 64, 1024), (3, 3000, 8, 100),
+                             (2, 5000, 40, 64)):
+            x = special_logits(b, v, dtype, dev, seed=v + blk)
+            got = one_launch("vocab_phase1", lambda: K.vocab_phase1(x, k, blk))
+            err["vocab_phase1"] = max(err["vocab_phase1"], require_equal(
+                f"phase1 B={b} V={v} k={k} block={blk} {dtype}", got,
+                K.vocab_phase1_plain(x, k, blk)))
+            log(f"  vocab_phase1 B={b} V={v} k={k} block={blk} {dtype}: bit-equal, one launch")
+    for dtype in (torch.bfloat16, torch.float32):
         # the serving shapes (k 64, 16, 256 at their planner's block), B = 1, 4
         # and 8, k 64 at block 16 (lists that grow 16 -> 32 -> 64), and a
         # vocab of 3000 (one launch); the tree at its plan and at forced
@@ -328,7 +374,7 @@ def phase_kernels(dev, K, topk_block) -> dict:
                              (3, 3000, 64, 16)):
             x = special_logits(b, v, dtype, dev, seed=k + b)
             blk = blk or topk_block(v, k)
-            keys, idx = K.vocab_phase1(x, k, blk)
+            keys, idx = one_launch("vocab_phase1", lambda: K.vocab_phase1(x, k, blk))
             pk, pi = K.vocab_phase1_plain(x, k, blk)
             err["vocab_phase1"] = max(err["vocab_phase1"], require_equal(
                 f"phase1 B={b} k={k} {dtype}", (keys, idx), (pk, pi)))
@@ -1019,15 +1065,14 @@ def phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s) ->
     rb = topk_block(e, k)
     eager = {"router_topk": cuda_ms(lambda: K.router_topk(xr, k, block=rb), 200)}
     ms = graph_ms(lambda: K.router_topk(xr, k, block=rb), 200)
+    amortised = {"router_topk": graph_ms(lambda: K.router_topk(xr, k, block=rb), 20,
+                                         AMORTISED_CALLS)}
     plain = graph_ms(lambda: K.router_topk_plain(xr, k, rb), 20)
     lib = graph_ms(lambda: torch.topk(xr, k, dim=-1), 200)
-    g, ln, comps = e // rb, min(k, rb), bsz * e * rb
-    while g > 1:
-        gp = (g + 1) // 2
-        comps += bsz * gp * 2 * ln * search_steps(ln)
-        g, ln = gp, min(k, 2 * ln)
+    # the input read once and the (T, k) values and indices written once,
+    # or the least comparisons that find and order a row's top k
     b_ms, b_by = bound_ms(bsz * e * xr.element_size() + bsz * k * (xr.element_size() + 4),
-                          comps, ops_per_s)
+                          bsz * topk_comparisons(e, k), ops_per_s)
     rows.append(dict(name="router_topk", route="cuda", source=SOURCE,
                      replaces="src/repro/kernels/topk.py:60",
                      launches=launches["router_topk"], max_abs_err=err["router_topk"],
@@ -1037,13 +1082,18 @@ def phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s) ->
     nblk, kk = K.vocab_blocks(vocab, vb), min(k, vb)
     eager["vocab_phase1"] = cuda_ms(lambda: K.vocab_phase1(logits, k, vb), 100)
     ms = graph_ms(lambda: K.vocab_phase1(logits, k, vb), 100)
+    amortised["vocab_phase1"] = graph_ms(lambda: K.vocab_phase1(logits, k, vb), 20,
+                                         AMORTISED_CALLS)
     plain = graph_ms(lambda: K.vocab_phase1_plain(logits, k, vb), 5)
     padded = torch.cat([logits, logits.new_full((bsz, nblk * vb - vocab), float("-inf"))], 1)
     per_block = padded.view(bsz, nblk, vb)
     lib = graph_ms(lambda: torch.topk(per_block, kk, dim=-1), 100)
+    # the input read once, the (B, nblk, kk) int32 keys and indices written
+    # once; or the least comparisons that find and order each real
+    # block's top kk
     real_blocks = -(-vocab // vb)
     b_ms, b_by = bound_ms(bsz * vocab * logits.element_size() + bsz * nblk * kk * 8,
-                          bsz * real_blocks * vb * vb, ops_per_s)
+                          bsz * real_blocks * topk_comparisons(vb, kk), ops_per_s)
     rows.append(dict(name="vocab_phase1", route="cuda", source=SOURCE,
                      replaces="src/repro/kernels/topk.py:122",
                      launches=launches["vocab_phase1"], max_abs_err=err["vocab_phase1"],
@@ -1053,6 +1103,8 @@ def phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s) ->
     eager["vocab_merge_level"] = cuda_ms(
         lambda: K.vocab_merge_tree(keys, idx, k, logits.dtype), 100)
     ms = graph_ms(lambda: K.vocab_merge_tree(keys, idx, k, logits.dtype), 100)
+    amortised["vocab_merge_level"] = graph_ms(
+        lambda: K.vocab_merge_tree(keys, idx, k, logits.dtype), 20, AMORTISED_CALLS)
     plain = graph_ms(lambda: K.vocab_merge_tree_plain(keys, idx, k, logits.dtype), 5)
     flat = keys.view(bsz, nblk * kk)
     lib = graph_ms(lambda: torch.topk(flat, k, dim=-1), 100)
@@ -1067,12 +1119,17 @@ def phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s) ->
                      launches=launches["vocab_merge_level"],
                      max_abs_err=err["vocab_merge_level"],
                      ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
-    log("  device time per call (CUDA graph replay); eager = the same call "
-        "launched from Python, host launch cost included")
+    log("  device time per call (a CUDA graph of one call, replayed; amortised: a graph "
+        f"of {AMORTISED_CALLS} calls, over the calls); eager = the same call launched from "
+        "Python, host launch cost included")
+    y = torch.zeros(1, device=dev)
+    log(f"  the floor, one one-element torch.add: {graph_ms(lambda: torch.add(y, 1), 200):.5f} "
+        f"ms (amortised {graph_ms(lambda: torch.add(y, 1), 20, AMORTISED_CALLS):.5f} ms); "
+        f"{card}")
     for r in rows:
-        log(f"  {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}; eager {eager[r['name']]:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-            f"torch.topk {r['library_ms']:.4f} ms; {card}")
+        log(f"  {r['name']}: {r['ms']:.5f} ms (amortised {amortised[r['name']]:.5f} ms; bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']}; eager {eager[r['name']]:.4f} ms), "
+            f"plain {r['plain_ms']:.4f} ms, torch.topk {r['library_ms']:.5f} ms; {card}")
     # the whole vocab top-k of one sampled token against one torch.topk call
     from repro_torch import topk
 
@@ -1084,8 +1141,9 @@ def phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s) ->
     xm = special_logits(4096, 256, torch.bfloat16, dev, seed=8)
     rb16 = topk_block(256, 16)
     log(f"  router_topk T=4096 E=256 k=16 bf16: "
-        f"{graph_ms(lambda: K.router_topk(xm, 16, block=rb16), 100):.4f} ms, torch.topk "
-        f"{graph_ms(lambda: torch.topk(xm, 16, dim=-1), 100):.4f} ms; {card}")
+        f"{graph_ms(lambda: K.router_topk(xm, 16, block=rb16), 100):.5f} ms (amortised "
+        f"{graph_ms(lambda: K.router_topk(xm, 16, block=rb16), 20, AMORTISED_CALLS):.5f} ms), "
+        f"torch.topk {graph_ms(lambda: torch.topk(xm, 16, dim=-1), 100):.5f} ms; {card}")
     return rows
 
 

@@ -3,7 +3,7 @@
 of their main paths, for one copy of the port's package:
 
   python3 scripts/time_sort_kernels.py [--src DIR] [--label NAME] [--lanes N]
-                                       [--kernels 2,6,8,1,9,5] [--breakdown]
+                                       [--kernels 2,6,8,1,9,5,4,3] [--breakdown]
 
 ``--kernels`` names the kernel rows to time (default ``2,6``): row 2 the
 fused sort and row 6 the class sort at their five shapes; row 8 the k-way
@@ -49,7 +49,18 @@ spill alone, with the grid-merge launches of each; the yardstick is
 tree after phase 1 at (1, 4, 8) x 151,936 bf16, k 64 (block 64, 12
 levels) and at (4, 151,936) k 64 with block 16 (lists of 16 that grow to
 64), with its launches; the yardstick is ``torch.topk`` of the phase-1
-lists. Needs a card; exits 2 without one.
+lists. Row 4 (``--kernels 4``): phase 1 of the vocab top-k at (4, 151,936)
+bf16 k 64 block 64, B = 1 and 8, k 16 block 16, k 256 block 128 and f32
+k 64, and the whole ``repro_torch.topk`` of (4, 151,936) k 64 (rows 4 and
+5); the yardsticks are ``torch.topk`` of each block of the padded row and
+``torch.topk`` of the row. Row 3 (``--kernels 3``): the router top-k at
+(4, 256) k 64, (4096, 256) k 16, (4096, 128) k 8 and (8, 512) k 64 bf16,
+beside ``torch.topk``. ``--breakdown`` with row 4 times its padding-block
+fill alone and its real blocks alone (a package with
+``repro_vocab_phase1_parts``). Every line also carries the time of a
+graph of ``CALLS`` (20) calls over the calls, which shares the cost of
+starting a graph replay; the first line is the floor, one one-element
+``torch.add`` timed both ways. Needs a card; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -63,6 +74,8 @@ import sys
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+#: calls captured in one CUDA graph for the amortised times
+CALLS = 20
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -302,6 +315,99 @@ def vocab_cases(ops_per_s):
     return cases
 
 
+def topk_comparisons(n: int, k: int) -> int:
+    """The least comparisons any method needs to find the top k of n and
+    put them in order (chip_smoke.py's count): log2 of n! / (n - k)!,
+    rounded up."""
+    import math
+
+    k = min(k, n)
+    return math.ceil((math.lgamma(n + 1) - math.lgamma(n - k + 1)) / math.log(2))
+
+
+def logits(rows, n, dtype, seed):
+    """Logits as a model gives them: normal, scale 3 (few ties)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32) * 3).to(
+        device="cuda", dtype=dtype)
+
+
+def topk_cases(ops_per_s):
+    """Rows 4 and 3 at their main paths' shapes, and the whole vocab top-k
+    (rows 4 and 5): (name, kernel call, (PyTorch call's name, call),
+    bound ms). Row 4's bound: the input read once and the (B, nblk, kk)
+    int32 keys and indices written once, or the least comparisons that
+    order each real block's top kk; row 3's: the input and the (T, k)
+    outputs, or the least comparisons that order each row's top k."""
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import topk as K
+
+    def bound(nbytes, comparisons):
+        return max(nbytes / HBM_BYTES_PER_S, comparisons * 2 / ops_per_s) * 1e3
+
+    v = 151_936
+    cases = []
+    for bsz, k, blk, dt in ((4, 64, 64, torch.bfloat16), (1, 64, 64, torch.bfloat16),
+                            (8, 64, 64, torch.bfloat16), (4, 16, 16, torch.bfloat16),
+                            (4, 256, 128, torch.bfloat16), (4, 64, 64, torch.float32)):
+        x = logits(bsz, v, dt, bsz + k)
+        nblk, kk, real = K.vocab_blocks(v, blk), min(k, blk), -(-v // blk)
+        per_block = torch.cat([x, x.new_full((bsz, nblk * blk - v), float("-inf"))],
+                              1).view(bsz, nblk, blk)
+        cases.append((f"row 4 phase 1 ({bsz}, {v}) {str(dt)[6:]} k {k}, block {blk}",
+                      lambda x=x, k=k, blk=blk: K.vocab_phase1(x, k, blk),
+                      ("torch.topk a block", lambda p=per_block, kk=kk: torch.topk(p, kk, dim=-1)),
+                      bound(bsz * v * x.element_size() + bsz * nblk * kk * 8,
+                            bsz * real * topk_comparisons(blk, kk))))
+    x = logits(4, v, torch.bfloat16, 1)
+    cases.append((f"rows 4 + 5 repro_torch.topk (4, {v}) bfloat16 k 64",
+                  lambda x=x: repro_torch.topk(x, 64),
+                  ("torch.topk", lambda x=x: torch.topk(x, 64, dim=-1)),
+                  bound(4 * v * 2 + 4 * 64 * 6, 0)))
+    for t, e, k, blk in ((4, 256, 64, 64), (4096, 256, 16, 16), (4096, 128, 8, 16),
+                         (8, 512, 64, 64)):
+        x = logits(t, e, torch.bfloat16, e + k)
+        cases.append((f"row 3 router ({t}, {e}) bfloat16 k {k}, block {blk}",
+                      lambda x=x, k=k, blk=blk: K.router_topk(x, k, block=blk),
+                      ("torch.topk", lambda x=x, k=k: torch.topk(x, k, dim=-1)),
+                      bound(t * e * 2 + t * k * 6, t * topk_comparisons(e, k))))
+    return cases
+
+
+def topk_breakdown_cases():
+    """Row 4 cut into its two parts (a package with
+    ``repro_vocab_phase1_parts``): the padding blocks' fill alone and the
+    real blocks alone, at (B, 151,936) bf16 k 64, block 64."""
+    import torch
+
+    from repro_torch.kernels import topk as K
+    from repro_torch.kernels.launch import library, stream
+
+    lib = library("topk")
+    if not hasattr(lib, "repro_vocab_phase1_parts"):
+        return [("row 4 (4, 151936) k 64: one kernel (no parts)", 100,
+                 lambda: K.vocab_phase1(logits(4, 151_936, torch.bfloat16, 1), 64, 64))]
+    cases = []
+    v, k, blk = 151_936, 64, 64
+    for bsz in (4, 8):
+        x = logits(bsz, v, torch.bfloat16, bsz)
+        nblk = K.vocab_blocks(v, blk)
+        keys = torch.empty((bsz, nblk, k), dtype=torch.int32, device="cuda")
+        idx = torch.empty_like(keys)
+        for what, which in (("the real blocks alone", 1), ("the padding blocks alone", 2),
+                            ("both (a call)", 3)):
+            cases.append((f"row 4 ({bsz}, {v}) bf16 k {k}, block {blk}: {what}", 100,
+                          lambda x=x, keys=keys, idx=idx, nblk=nblk, which=which:
+                          lib.repro_vocab_phase1_parts(
+                              x.data_ptr(), keys.data_ptr(), keys.data_ptr(), idx.data_ptr(),
+                              x.shape[0], v, nblk, blk, k, 0, which, 1, stream(x))))
+    return cases
+
+
 def grid_breakdown_cases():
     """Row 9 cut into its split pass and its merge at (8, 2^22 + 2^22) (a
     package whose grid merge has the split pass), and the spill's levels."""
@@ -415,7 +521,10 @@ def events_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int) -> float:
+def graph_ms(fn, iters: int, calls: int = 1) -> float:
+    """Device time of one call: ``calls`` calls of ``fn`` captured in one
+    CUDA graph, replayed ``iters`` times between two CUDA events, over the
+    calls (with ``calls`` > 1 the cost of starting a replay is shared)."""
     import torch
 
     side = torch.cuda.Stream()
@@ -426,7 +535,8 @@ def graph_ms(fn, iters: int) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     for _ in range(3):
         graph.replay()
     torch.cuda.synchronize()
@@ -436,7 +546,7 @@ def graph_ms(fn, iters: int) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters / calls
 
 
 def main() -> int:
@@ -448,7 +558,7 @@ def main() -> int:
     ap.add_argument("--grid-items", type=int, default=0,
                     help="outputs a thread of the grid merge (a package that sizes them)")
     ap.add_argument("--kernels", default="2,6",
-                    help="comma-separated kernel rows among 2, 6, 8, 1, 9, 5")
+                    help="comma-separated kernel rows among 2, 6, 8, 1, 9, 5, 4, 3")
     args = ap.parse_args()
     rows_asked = {int(r) for r in args.kernels.split(",")}
     sys.path.insert(0, os.path.abspath(args.src))
@@ -524,21 +634,42 @@ def main() -> int:
         cases += grid_breakdown_cases()
     if args.breakdown and 5 in rows_asked:
         cases += vocab_breakdown_cases()
+    if args.breakdown and 4 in rows_asked:
+        cases += topk_breakdown_cases()
+    y = torch.zeros(1, device="cuda")
+    print(json.dumps({"label": args.label, "shape": "the floor: one one-element torch.add",
+                      "ms": graph_ms(lambda: torch.add(y, 1), 200),
+                      f"ms_{CALLS}_calls": graph_ms(lambda: torch.add(y, 1), 20, CALLS),
+                      "card": card}), flush=True)
     for name, iters, fn in cases:
         print(json.dumps({"label": args.label, "lanes": args.lanes, "shape": name,
-                          "ms": graph_ms(fn, iters), "card": card}), flush=True)
+                          "ms": graph_ms(fn, iters),
+                          f"ms_{CALLS}_calls": graph_ms(fn, max(iters // CALLS, 2), CALLS),
+                          "card": card}), flush=True)
     yard = []
     for r in (8, 1):
         if r in rows_asked and not args.breakdown:
             yard += kway_cases(ops_per_s) if r == 8 else merge_cases(ops_per_s)
     for name, iters, fn, (lib_name, lib), bound in yard:
         print(json.dumps({"label": args.label, "shape": name, "ms": graph_ms(fn, iters),
+                          f"ms_{CALLS}_calls": graph_ms(fn, 5, CALLS),
                           "torch": lib_name, "torch_ms": graph_ms(lib, iters),
                           "bound_ms": bound, "card": card}), flush=True)
     timed = []
     for r in (9, 5):
         if r in rows_asked and not args.breakdown:
             timed += grid_cases(ops_per_s) if r == 9 else vocab_cases(ops_per_s)
+    topk_asked = not args.breakdown and rows_asked & {4, 3}
+    for name, fn, (lib_name, lib), bound in topk_cases(ops_per_s) if topk_asked else ():
+        if not name.startswith(tuple(f"row {r} " for r in rows_asked)) and \
+                not (name.startswith("rows 4 + 5") and 4 in rows_asked):
+            continue
+        print(json.dumps({"label": args.label, "shape": name, "ms": graph_ms(fn, 100),
+                          f"ms_{CALLS}_calls": graph_ms(fn, 20, CALLS),
+                          "launches": launches_of(fn), "torch": lib_name,
+                          "torch_ms": graph_ms(lib, 100),
+                          f"torch_ms_{CALLS}_calls": graph_ms(lib, 20, CALLS),
+                          "bound_ms": bound, "card": card}), flush=True)
     for name, iters, fn, (lib_name, lib), bound, how in timed:
         try:
             ms = graph_ms(fn, iters) if how == "graph" else events_ms(fn, iters)
@@ -546,7 +677,9 @@ def main() -> int:
             print(f"time_sort_kernels: {name}: no graph ({err}); timed eagerly",
                   file=sys.stderr)
             how, ms = "eager", events_ms(fn, iters)
+        amortised = graph_ms(fn, 5, CALLS) if how == "graph" else None
         print(json.dumps({"label": args.label, "shape": name, "ms": ms, "timing": how,
+                          f"ms_{CALLS}_calls": amortised,
                           "launches": launches_of(fn), "torch": lib_name,
                           "torch_ms": graph_ms(lib, iters), "bound_ms": bound,
                           "card": card}), flush=True)

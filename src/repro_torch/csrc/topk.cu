@@ -17,29 +17,58 @@
 // read backwards, so among equal keys the higher position comes first; its
 // descending merge reverses both lists and merges them with the first list
 // winning ties, so among equal keys the second (higher-index) list comes
-// first. Written in descending positions:
-//   element a[p] of list a lands at  p + #{b >= a[p]}
-//   element b[q] of list b lands at  q + #{a >  b[q]}
-// Both lists are sorted descending, so each count is a binary search. That
-// gives the same ranks as the reference's m x n comparator cloud.
+// first. So every list the reference makes is in the descending order of
+// (key, index) words, key high; the pads are all one word, the smallest.
+// The words are unique but for the pads, so any correct sort or merge of
+// them gives the reference's lists bit for bit.
 //
 // What bounds them on the H100. At the serving shapes (B = 4..8 rows,
-// V = 151,936 bf16 logits) the input is 1.2-2.4 MB: 0.4-0.7 us of HBM
-// time at 3.35 TB/s. The rank-by-counting cloud is block^2 comparisons
-// per vocab block (19 M per row at block 128), so phase 1 is bound by
-// integer operations, and the merge tree by launch latency and by the
-// dependent loads of its binary searches. The design answers are simple:
-// phase 1 keeps its block in shared memory and each thread counts its own
-// rank (no scatter through global memory); the merge tree (12 levels at
-// V = 151,936, k 64) runs in one launch at the serving shapes, so launch
-// latency is paid once and not once a level: a CTA merges a subtree of up
-// to 8192 (key, index) pairs in shared memory (vocab_merge_tree_kernel),
-// its searches never leaving the SM, and the last CTA of each row merges
-// the subtrees' lists. No wgmma, no TMA: none of this is a matrix product,
-// and the loads are one coalesced pass.
+// V = 151,936 bf16 logits, k 64, block 64) phase 1 reads 1.2-2.4 MB and
+// writes (B, 4096, 64) int32 keys and indices, 8.4-16.8 MB: 2.9-5.7 us
+// of HBM time at 3.35 TB/s, of which 42 % is the padding blocks (the
+// block count is rounded up to a power of two for the tree). Sorting a
+// block of 64 takes 672 compare-exchanges, far below the int32 peak. So
+// phase 1 is bound by its bytes and, at these sizes (one wave of the
+// card), by the latency of each warp's chain of loads, exchange stages
+// and stores: what pays is more independent warps in flight. The design:
+// the padding blocks are filled by 16-byte stores and never sorted; each
+// real block is sorted in registers by a bitonic network over unique
+// packed words (16-bit keys: one 32-bit word, key << 16 | position in the
+// block; f32: one 64-bit word), 4 consecutive words a lane, so a block of
+// 64 is 16 lanes and a warp sorts 2 blocks at once (8 of 16, 1 of 128);
+// the strides below 4 are a lane's own registers (11 of the 21 stages at
+// 64), the larger ones __shfl_xor_sync; a lane loads its 4 slots with one
+// 8-byte load (16 for f32) and stores its 4 sorted slots of the key and
+// the index lists as one 16-byte store each; the grid is one wave of CTAs
+// that walk over the blocks (with 8 words a lane the warps were half as
+// many and phase 1 took 1.4x as long; PERF.md). Blocks of 256-1024
+// (direct calls only) sort in shared memory by the whole CTA. A block that
+// is not a power of two is padded to one (at least 16) with pad words,
+// below every real word.
+//
+// The router top-k (rows of E <= 512) sorts its blocks with the same
+// network, then runs its tree on (key, index) words in shared memory with
+// merge_levels: a warp's bitonic merge where a level keeps 32-256 words
+// and the lengths are powers of two, merge paths otherwise. A CTA takes up
+// to 8 rows (more at large T), so 4096 rows fill the card and 4 rows are
+// one short chain each. Its list count is padded up front to a power of
+// two with pad lists, so pairs never cross rows; that gives the
+// reference's result, which pads one list at each odd level, because
+// every level keeps min(k, 2 len) and the top k of the row's words is
+// unique.
+//
+// The merge tree (12 levels at V = 151,936, k 64) runs in one launch at
+// the serving shapes, so launch latency is paid once and not once a
+// level: a CTA merges a subtree of up to 8192 (key, index) pairs in shared
+// memory (vocab_merge_tree_kernel), its searches never leaving the SM,
+// and the last CTA of each row merges the subtrees' lists. No wgmma, no
+// TMA: none of this is a matrix product, and the loads are one coalesced
+// pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "keys.cuh"
 
@@ -47,8 +76,13 @@ namespace {
 
 constexpr int32_t KEY_PAD = INT32_MIN;  // pad slots: below every real key
 constexpr int ROUTER_MAX_E = 512;       // kernels/topk.py ROUTER_TOPK_MAX
-constexpr int ROUTER_CAP = 2 * ROUTER_MAX_E;  // lists of one tree level
 constexpr int ROUTER_THREADS = 256;
+constexpr int ROUTER_MAX_ROWS = 8;      // rows a router CTA takes, at most
+constexpr int ROUTER_SMEM = 48 * 1024;  // a router CTA's shared memory, at most
+constexpr int P1_THREADS = 128;         // a phase-1 CTA: 4 warps
+constexpr int WARP_SORT_MAX = 128;      // wider blocks sort in shared memory
+constexpr int SORT_WORDS = 4;           // words a lane of the register block sort
+static_assert(SORT_WORDS == 4, "a lane stores its slots of a list as one int4");
 constexpr int TREE_MAX_THREADS = 1024;
 constexpr int TREE_IPT = 4;            // outputs a thread merges at a time, at most
 constexpr int TREE_MAX_SMEM = 2 * 8192 * 8;  // two buffers of 8192 words (TREE_MAX_PAIRS)
@@ -60,134 +94,149 @@ using repro_keys::F32;
 using repro_keys::decode_key;
 using repro_keys::encode_key;
 
-// #{a[i] >= key} (strict = false) or #{a[i] > key} (strict = true) for a
-// list a[0..n) sorted descending
-__device__ __forceinline__ int count_desc(const int32_t* a, int n, int32_t key,
-                                          bool strict) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const int32_t v = a[mid];
-    if (strict ? (v > key) : (v >= key)) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// ---------------------------------------------------------------------------
+// The block sort of rows 3 and 4
+// ---------------------------------------------------------------------------
+
+// A block slot as one word, key high, so that the words' order is the
+// block's order (ties: the higher position first): 16-bit keys (sign-
+// extended int16, keys.cuh) as key << 16 | position, a 32-bit word; f32
+// keys as key << 32 | position, a 64-bit word. Pad slots are the word
+// below every real one (16-bit: 0x80000000, while the smallest real key is
+// -32641; f32: key INT32_MIN, which no float encodes to).
+template <int DT> struct Word { using T = int32_t; };
+template <> struct Word<F32> { using T = long long; };
+
+template <int DT>
+__device__ __forceinline__ typename Word<DT>::T word_pad() {
+  if constexpr (DT == F32) return (long long)(1ULL << 63);
+  else return INT32_MIN;
 }
 
-// One CTA per row of (T, E), E <= 512. Encode on load, rank each
-// block-wide group by counting (the N-sorter's comparator cloud), keep its
-// top min(k, block), then merge the lists pairwise in shared memory, each
-// level keeping min(k, 2 * len); an odd list out merges with a list of
-// pads. Decode on store.
 template <int DT>
-__global__ void router_topk_kernel(const typename Bits<DT>::T* __restrict__ x,
-                                   typename Bits<DT>::T* __restrict__ vout,
-                                   int32_t* __restrict__ iout,
-                                   int E, int k, int block) {
-  __shared__ int32_t raw[ROUTER_MAX_E];
-  __shared__ int32_t key_a[ROUTER_CAP], idx_a[ROUTER_CAP];
-  __shared__ int32_t key_b[ROUTER_CAP], idx_b[ROUTER_CAP];
-  const size_t row = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
+__device__ __forceinline__ typename Word<DT>::T make_word(int32_t key, int pos) {
+  if constexpr (DT == F32)
+    return (long long)(((unsigned long long)(uint32_t)key << 32) | (uint32_t)pos);
+  else
+    return (int32_t)(((uint32_t)key << 16) | (uint32_t)pos);
+}
 
-  for (int t = tid; t < E; t += nt) raw[t] = encode_key<DT>(x[row * E + t]);
-  __syncthreads();
+// the key of a word, INT32_MIN for a pad
+template <int DT>
+__device__ __forceinline__ int32_t word_key(typename Word<DT>::T w) {
+  if (w == word_pad<DT>()) return KEY_PAD;
+  if constexpr (DT == F32) return (int32_t)(w >> 32);
+  else return w >> 16;
+}
 
-  const int kk = min(k, block);
-  for (int t = tid; t < E; t += nt) {
-    const int g = t / block, base = g * block;
-    const int32_t kt = raw[t];
-    int r = 0;
-    for (int j = base; j < base + block; ++j) {
-      const int32_t kj = raw[j];
-      r += (kj < kt) | ((kj == kt) & (j < t));
-    }
-    const int d = block - 1 - r;  // descending position in the group
-    if (d < kk) {
-      key_a[g * kk + d] = kt;
-      idx_a[g * kk + d] = t;
-    }
-  }
-  __syncthreads();
+// base + the word's position, -1 for a pad
+template <int DT>
+__device__ __forceinline__ int32_t word_index(typename Word<DT>::T w, int base) {
+  if (w == word_pad<DT>()) return -1;
+  if constexpr (DT == F32) return base + (int32_t)(uint32_t)w;
+  else return base + (w & 0xffff);
+}
 
-  int32_t *ck = key_a, *ci = idx_a, *nk = key_b, *ni = idx_b;
-  int G = E / block, len = kk;
-  while (G > 1) {
-    const int Gp = (G + 1) / 2, keep = min(k, 2 * len);
-    for (int t = tid; t < Gp * 2 * len; t += nt) {
-      const int pair = t / (2 * len), e = t % (2 * len);
-      const int side = e / len, p = e % len;
-      const int32_t* a = ck + (2 * pair) * len;
-      const int32_t* b = a + len;
-      const bool b_pad = 2 * pair + 1 >= G;
-      int32_t key, id;
-      int pos;
-      if (side == 0) {
-        key = a[p];
-        id = ci[2 * pair * len + p];
-        pos = p + (b_pad ? (key == KEY_PAD ? len : 0)
-                         : count_desc(b, len, key, false));
+// Network width of a block: the next power of two, at least 16
+// (kernels/topk.py sort_slots).
+__host__ __device__ inline int net_width(int block) {
+  int n = 16;
+  while (n < block) n <<= 1;
+  return n;
+}
+
+// Sort descending, in registers, blocks of BP words (16 <= BP <= 128): a
+// block is LPB = BP / SORT_WORDS consecutive lanes, each holding
+// SORT_WORDS consecutive words (word i = li x SORT_WORDS + j in slot j of
+// the lane li of its group), so a warp sorts 32 / LPB blocks at once. The
+// bitonic network in its mirror form, every exchange in one direction:
+// merge `size` compares word i first with its mirror i ^ (size - 1), then
+// with i ^ s for s = size / 4 .. 1; of each pair the lower word (bit s of
+// i clear) keeps the larger. Partners inside a lane (xor masks below
+// SORT_WORDS) are a lane's own registers, a max and a min; the others come
+// by __shfl_xor_sync (the mirror also reverses the slots). Every lane of
+// the warp takes part.
+template <int BP, typename W>
+__device__ __forceinline__ void block_sort(W (&v)[SORT_WORDS]) {
+  constexpr int E = SORT_WORDS, LPB = BP / E;
+  const int li = threadIdx.x & (LPB - 1);
+#pragma unroll
+  for (int size = 2; size <= BP; size <<= 1) {
+#pragma unroll
+    for (int s = size >> 1; s >= 1; s >>= 1) {
+      const int m = s == size >> 1 ? size - 1 : s;  // the partner's xor mask
+      if (m < E) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          if ((j & s) == 0) {
+            const W a = v[j], b = v[j ^ m];
+            v[j] = a > b ? a : b;
+            v[j ^ m] = a > b ? b : a;
+          }
+        }
       } else {
-        key = b_pad ? KEY_PAD : b[p];
-        id = b_pad ? -1 : ci[(2 * pair + 1) * len + p];
-        pos = p + count_desc(a, len, key, true);
-      }
-      if (pos < keep) {
-        nk[pair * keep + pos] = key;
-        ni[pair * keep + pos] = id;
+        const bool up = (li * E) & s;  // the upper word of its pair
+        W o[E];
+#pragma unroll
+        for (int j = 0; j < E; ++j)
+          o[j] = __shfl_xor_sync(0xffffffffu, v[j ^ (m & (E - 1))], m / E);
+#pragma unroll
+        for (int j = 0; j < E; ++j)
+          v[j] = up ? (o[j] < v[j] ? o[j] : v[j]) : (o[j] > v[j] ? o[j] : v[j]);
       }
     }
-    __syncthreads();
-    int32_t* s = ck; ck = nk; nk = s;
-    s = ci; ci = ni; ni = s;
-    G = Gp;
-    len = keep;
-  }
-  for (int t = tid; t < k; t += nt) {
-    vout[row * k + t] = decode_key<DT>(ck[t]);
-    iout[row * k + t] = ci[t];
   }
 }
 
-// One CTA per (row, group of bpc vocab blocks): each thread loads one slot,
-// counts its rank inside its block in shared memory and writes its slot of
-// the block's descending top-kk list directly. Slots at or past V (and
-// whole pad blocks up to the power-of-two block count) are key INT32_MIN,
-// index -1. With decode set (a single-block vocab) the values are decoded.
+// A lane's SORT_WORDS slots of a block: words of the block's slots p = li
+// x SORT_WORDS + j that are < n (the block's real slots), position pos0 +
+// p; pads past them. src is the block's first slot; one vector load (8 or
+// 16 bytes) where the lane's slots are whole and aligned.
 template <int DT>
-__global__ void vocab_phase1_kernel(const typename Bits<DT>::T* __restrict__ x,
-                                    int32_t* __restrict__ okey,
-                                    typename Bits<DT>::T* __restrict__ oval,
-                                    int32_t* __restrict__ oidx,
-                                    int V, int nblk, int block, int kk, int bpc,
-                                    int decode) {
-  extern __shared__ int32_t sk[];
-  const int chunks = (nblk + bpc - 1) / bpc;
-  const size_t row = blockIdx.x / chunks;
-  const int chunk = blockIdx.x % chunks;
-  const int t = threadIdx.x;
-  const int lb = t / block, p = t % block;
-  const int gb = chunk * bpc + lb;
-  const long long pos = (long long)gb * block + p;
-  int32_t key = KEY_PAD;
-  int32_t id = -1;
-  if (gb < nblk && pos < V) {
-    key = encode_key<DT>(x[row * V + pos]);
-    id = (int32_t)pos;
+__device__ __forceinline__ void load_block(const typename Bits<DT>::T* src, int n, int li,
+                                           int pos0,
+                                           typename Word<DT>::T (&v)[SORT_WORDS]) {
+  using B = typename Bits<DT>::T;
+  constexpr int E = SORT_WORDS, BYTES = E * sizeof(B);  // a lane's slots
+  using Vec = typename std::conditional<BYTES >= 16, uint4, uint2>::type;
+  constexpr int PER = sizeof(Vec) / sizeof(B);  // values a vector load
+  const int p0 = li * E;
+  const B* q = src + p0;
+  if (p0 + E <= n && (reinterpret_cast<uintptr_t>(q) & (sizeof(Vec) - 1)) == 0) {
+    Vec raw[E / PER];
+#pragma unroll
+    for (int c = 0; c < E / PER; ++c) raw[c] = __ldg(reinterpret_cast<const Vec*>(q) + c);
+    const B* b = reinterpret_cast<const B*>(raw);
+#pragma unroll
+    for (int j = 0; j < E; ++j) v[j] = make_word<DT>(encode_key<DT>(b[j]), pos0 + p0 + j);
+  } else {
+#pragma unroll
+    for (int j = 0; j < E; ++j)
+      v[j] = p0 + j < n ? make_word<DT>(encode_key<DT>(q[j]), pos0 + p0 + j) : word_pad<DT>();
   }
-  sk[t] = key;
-  __syncthreads();
-  if (gb >= nblk) return;
-  const int32_t* s = sk + lb * block;
-  int r = 0;
-  for (int j = 0; j < block; ++j) {
-    const int32_t kj = s[j];
-    r += (kj < key) | ((kj == key) & (j < p));
-  }
-  const int d = block - 1 - r;
-  if (d < kk) {
-    const size_t o = (row * nblk + gb) * kk + d;
-    if (decode) oval[o] = decode_key<DT>(key); else okey[o] = key;
-    oidx[o] = id;
+}
+
+// The same network on `segs` segments of BP words in shared memory, by
+// the whole CTA, a barrier a stage. The caller has synchronised after
+// writing s; the sorted words are visible to all on return.
+template <typename W>
+__device__ void cta_sort(W* s, int segs, int BP) {
+  const int half = BP >> 1;
+  for (int size = 2; size <= BP; size <<= 1) {
+    for (int st = size >> 1; st >= 1; st >>= 1) {
+      const int m = st == size >> 1 ? size - 1 : st;
+      for (int t = threadIdx.x; t < segs * half; t += blockDim.x) {
+        const int seg = t / half, c = t - seg * half;
+        const int i = ((c & ~(st - 1)) << 1) | (c & (st - 1));  // bit st clear
+        W* a = s + seg * BP;
+        const W x = a[i], y = a[i ^ m];
+        if (x < y) {
+          a[i] = y;
+          a[i ^ m] = x;
+        }
+      }
+      __syncthreads();
+    }
   }
 }
 
@@ -290,15 +339,16 @@ __device__ void warp_level(const long long* cur, long long* nxt, int pairs, int 
   }
 }
 
-// Merge `levels` levels of the lists in cur (2^levels lists of ln, one
-// after the other) in shared memory, ping-ponging with nxt; each level
-// keeps min(k, 2 ln): in registers where the lengths allow (warp_level:
-// keep of 32 to 256, ln = keep or keep / 2, powers of two), else by merge
-// paths. Returns the buffer that holds the one list left; ln becomes its
-// length.
+// Merge `levels` levels of the lists in cur (groups x 2^levels lists of
+// ln, one after the other) in shared memory, ping-ponging with nxt; each
+// level keeps min(k, 2 ln): in registers where the lengths allow
+// (warp_level: keep of 32 to 256, ln = keep or keep / 2, powers of two),
+// else by merge paths. Pairs never cross a group, so each group ends as
+// one list. Returns the buffer that holds the groups' lists (the list of
+// group g at g x ln); ln becomes their length.
 __device__ long long* merge_levels(long long* cur, long long* nxt, int& ln, int k,
-                                   int levels) {
-  int cnt = 1 << levels;
+                                   int levels, int groups = 1) {
+  int cnt = groups << levels;
   for (int l = 0; l < levels; ++l) {
     const int keep = min(k, 2 * ln), pairs = cnt >> 1;
     const bool regs = (ln & (ln - 1)) == 0 && (keep == ln || keep == 2 * ln);
@@ -313,6 +363,192 @@ __device__ long long* merge_levels(long long* cur, long long* nxt, int& ln, int 
     ln = keep;
   }
   return cur;
+}
+
+// levels of a tree over n lists: the least L with 2^L >= n
+__host__ __device__ inline int ceil_log2(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
+// The router top-k: a CTA takes R consecutive rows of (T, E), E <= 512.
+// Each row's G = E / block blocks are sorted by the block sort of row 4
+// (words key | index in the row) and keep their top kk = min(k, block);
+// the lists, padded up front to Gp = 2^ceil(log2 G) with lists of pads,
+// go to shared memory as (key, index) words, and merge_levels merges the
+// R trees at once (a group a row). Decoded on store.
+template <int DT, int BP>
+__global__ void __launch_bounds__(ROUTER_THREADS)
+router_topk_kernel(const typename Bits<DT>::T* __restrict__ x,
+                   typename Bits<DT>::T* __restrict__ vout, int32_t* __restrict__ iout,
+                   int T, int E, int k, int block, int R) {
+  using W = typename Word<DT>::T;
+  extern __shared__ long long router_smem[];
+  const int G = E / block, levels = ceil_log2(G), Gp = 1 << levels, kk = min(k, block);
+  const int row0 = blockIdx.x * R;
+  long long* cur = router_smem;
+  long long* nxt = router_smem + R * Gp * kk;
+  const long long pad = pack(KEY_PAD, -1);
+  const int per = (Gp - G) * kk;  // pad words a row
+  for (int t = threadIdx.x; t < R * per; t += blockDim.x) {
+    const int r = t / per;
+    cur[(r * Gp + G) * kk + (t - r * per)] = pad;
+  }
+  if constexpr (BP <= WARP_SORT_MAX) {
+    constexpr int LPB = BP / SORT_WORDS, BPW = 32 / LPB;  // lanes a block, blocks a warp
+    const int lane = threadIdx.x & 31, li = lane & (LPB - 1);
+    const int units = (R * G + BPW - 1) / BPW, warps = blockDim.x >> 5;
+    for (int u = threadIdx.x >> 5; u < units; u += warps) {
+      const int f = u * BPW + lane / LPB;
+      const int r = f / G, g = f - r * G, row = row0 + r;
+      W v[SORT_WORDS];
+      load_block<DT>(x + (size_t)row * E + g * block, f < R * G && row < T ? block : 0, li,
+                     g * block, v);
+      block_sort<BP>(v);
+#pragma unroll
+      for (int j = 0; j < SORT_WORDS; ++j) {
+        const int i = li * SORT_WORDS + j;
+        if (f < R * G && i < kk)
+          cur[(r * Gp + g) * kk + i] = pack(word_key<DT>(v[j]), word_index<DT>(v[j], 0));
+      }
+    }
+  } else {
+    W* st = reinterpret_cast<W*>(router_smem + 2 * R * Gp * kk);  // R x G blocks of BP
+    for (int t = threadIdx.x; t < R * G * BP; t += blockDim.x) {
+      const int b = t / BP, p = t - b * BP, r = b / G, g = b - r * G, row = row0 + r;
+      st[t] = row < T && p < block
+          ? make_word<DT>(encode_key<DT>(x[(size_t)row * E + g * block + p]), g * block + p)
+          : word_pad<DT>();
+    }
+    __syncthreads();
+    cta_sort(st, R * G, BP);
+    for (int t = threadIdx.x; t < R * G * kk; t += blockDim.x) {
+      const int b = t / kk, i = t - b * kk, r = b / G, g = b - r * G;
+      const W w = st[b * BP + i];
+      cur[(r * Gp + g) * kk + i] = pack(word_key<DT>(w), word_index<DT>(w, 0));
+    }
+  }
+  __syncthreads();
+  int ln = kk;
+  cur = merge_levels(cur, nxt, ln, k, levels, R);
+  for (int t = threadIdx.x; t < R * k; t += blockDim.x) {
+    const int r = t / k, i = t - r * k, row = row0 + r;
+    if (row < T) {
+      const long long w = cur[r * ln + i];
+      vout[(size_t)row * k + i] = decode_key<DT>((int32_t)(w >> 32));
+      iout[(size_t)row * k + i] = (int32_t)w;
+    }
+  }
+}
+
+// Phase 1's padding blocks: for each row, the lists of blocks real ..
+// nblk - 1 become (INT32_MIN, -1), by 16-byte stores where kk % 4 == 0.
+// Grid-strided over the whole grid.
+__device__ void fill_pad_blocks(int32_t* okey, int32_t* oidx, int rows, int nblk, int real,
+                                int kk) {
+  const int per_row = (nblk - real) * kk;  // int32 slots a row
+  if (per_row <= 0) return;
+  const int t0 = blockIdx.x * blockDim.x + threadIdx.x, nt = gridDim.x * blockDim.x;
+  if ((kk & 3) == 0) {
+    const int q_row = per_row >> 2;
+    const int4 kp = make_int4(KEY_PAD, KEY_PAD, KEY_PAD, KEY_PAD);
+    const int4 ip = make_int4(-1, -1, -1, -1);
+    for (int t = t0; t < rows * q_row; t += nt) {
+      const int r = t / q_row, q = t - r * q_row;
+      const size_t o = ((size_t)r * nblk + real) * kk + 4 * (size_t)q;
+      *reinterpret_cast<int4*>(okey + o) = kp;
+      *reinterpret_cast<int4*>(oidx + o) = ip;
+    }
+  } else {
+    for (int t = t0; t < rows * per_row; t += nt) {
+      const int r = t / per_row, q = t - r * per_row;
+      const size_t o = ((size_t)r * nblk + real) * kk + q;
+      okey[o] = KEY_PAD;
+      oidx[o] = -1;
+    }
+  }
+}
+
+// Phase 1 of the vocab top-k: (rows, V) -> (rows, nblk) sorted lists of
+// the top kk of each vocab block, nblk a power of two, the first `real` =
+// ceil(V / block) blocks of a row real. `which`: 1 sorts the real blocks,
+// 2 fills the padding blocks, 3 both (a call). With decode set (a single
+// block) the values are decoded. Register path (BP <= 128): the grid's
+// warps walk over units of 32 x SORT_WORDS / BP consecutive real blocks
+// (flat over the rows; each warp's first unit is loaded before the
+// padding fill, so that its loads are in flight meanwhile), sort them by
+// block_sort, and each lane stores its sorted slots of the key list and of
+// the index list as 16-byte chunks (kk % 4 == 0; 4-byte stores
+// otherwise). Shared-memory path (BP >= 256): a CTA a block.
+template <int DT, int BP>
+__global__ void __launch_bounds__(P1_THREADS)
+vocab_phase1_kernel(const typename Bits<DT>::T* __restrict__ x, int32_t* __restrict__ okey,
+                    typename Bits<DT>::T* __restrict__ oval, int32_t* __restrict__ oidx,
+                    int rows, int V, int nblk, int real, int block, int kk, int decode,
+                    int which) {
+  using W = typename Word<DT>::T;
+  const int nreal = (which & 1) ? rows * real : 0;
+  if constexpr (BP <= WARP_SORT_MAX) {
+    constexpr int LPB = BP / SORT_WORDS, BPW = 32 / LPB;  // lanes a block, blocks a warp
+    const int lane = threadIdx.x & 31, li = lane & (LPB - 1), p0 = li * SORT_WORDS;
+    const int units = (nreal + BPW - 1) / BPW, nw = gridDim.x * (blockDim.x >> 5);
+    const int u0 = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    const bool vec = !decode && (kk & 3) == 0;
+    W v[SORT_WORDS];
+    auto load = [&](int u) {
+      const int f = u * BPW + lane / LPB, row = f / real, base = (f - row * real) * block;
+      load_block<DT>(x + (size_t)row * V + base, f < nreal ? min(block, V - base) : 0, li, 0,
+                     v);
+    };
+    if (u0 < units) load(u0);  // in flight while the padding blocks are filled
+    if (which & 2) fill_pad_blocks(okey, oidx, rows, nblk, real, kk);
+    for (int u = u0; u < units; u += nw) {
+      if (u != u0) load(u);
+      const int f = u * BPW + lane / LPB;
+      const bool live = f < nreal;
+      const int row = live ? f / real : 0, gb = live ? f - row * real : 0;
+      const int base = gb * block;
+      block_sort<BP>(v);
+      if (!live || p0 >= kk) continue;
+      const size_t o = ((size_t)row * nblk + gb) * kk + p0;
+      if (vec) {  // p0 + 4 <= kk: one 16-byte chunk of each list
+        *reinterpret_cast<int4*>(okey + o) = make_int4(
+            word_key<DT>(v[0]), word_key<DT>(v[1]), word_key<DT>(v[2]), word_key<DT>(v[3]));
+        *reinterpret_cast<int4*>(oidx + o) = make_int4(
+            word_index<DT>(v[0], base), word_index<DT>(v[1], base),
+            word_index<DT>(v[2], base), word_index<DT>(v[3], base));
+      } else {
+#pragma unroll
+        for (int j = 0; j < SORT_WORDS; ++j) {
+          if (p0 + j < kk) {
+            if (decode) oval[o + j] = decode_key<DT>(word_key<DT>(v[j]));
+            else okey[o + j] = word_key<DT>(v[j]);
+            oidx[o + j] = word_index<DT>(v[j], base);
+          }
+        }
+      }
+    }
+  } else {
+    __shared__ W s[BP];
+    if (which & 2) fill_pad_blocks(okey, oidx, rows, nblk, real, kk);
+    for (int f = blockIdx.x; f < nreal; f += gridDim.x) {
+      const int row = f / real, gb = f - row * real, base = gb * block;
+      const typename Bits<DT>::T* xr = x + (size_t)row * V;
+      for (int p = threadIdx.x; p < BP; p += blockDim.x)
+        s[p] = p < block && base + p < V ? make_word<DT>(encode_key<DT>(xr[base + p]), p)
+                                         : word_pad<DT>();
+      __syncthreads();
+      cta_sort(s, 1, BP);
+      const size_t o = ((size_t)row * nblk + gb) * kk;
+      for (int i = threadIdx.x; i < kk; i += blockDim.x) {
+        if (decode) oval[o + i] = decode_key<DT>(word_key<DT>(s[i]));
+        else okey[o + i] = word_key<DT>(s[i]);
+        oidx[o + i] = word_index<DT>(s[i], base);
+      }
+      __syncthreads();  // the next block reuses s
+    }
+  }
 }
 
 // The merge tree, one launch per call at the serving shapes. A CTA takes
@@ -390,24 +626,88 @@ vocab_merge_tree_kernel(const int32_t* __restrict__ ikey, const int32_t* __restr
   }
 }
 
-template <int DT>
-void launch_router(const void* x, void* vout, int32_t* iout, int T, int E,
-                   int k, int block, cudaStream_t s) {
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+template <int DT, int BP>
+int launch_router_bp(const void* x, void* vout, int32_t* iout, int T, int E, int k,
+                     int block, cudaStream_t s) {
   using B = typename Bits<DT>::T;
-  router_topk_kernel<DT><<<T, ROUTER_THREADS, 0, s>>>(
-      (const B*)x, (B*)vout, iout, E, k, block);
+  const int G = E / block, Gp = 1 << ceil_log2(G), kk = min(k, block);
+  // a row's words: two list buffers, and the blocks to sort in shared memory
+  const size_t per_row = sizeof(long long) * (2 * (size_t)Gp * kk
+                                              + (BP > WARP_SORT_MAX ? (size_t)G * BP : 0));
+  int R = T / (2 * sm_count());  // rows a CTA: about two CTAs an SM at large T
+  R = max(1, min(R, min(ROUTER_MAX_ROWS, (int)(ROUTER_SMEM / per_row))));
+  router_topk_kernel<DT, BP><<<(T + R - 1) / R, ROUTER_THREADS, R * per_row, s>>>(
+      (const B*)x, (B*)vout, iout, T, E, k, block, R);
+  return (int)cudaGetLastError();
 }
 
 template <int DT>
-void launch_phase1(const void* x, int32_t* okey, void* oval, int32_t* oidx,
-                   int rows, int V, int nblk, int block, int kk, int decode,
-                   cudaStream_t s) {
+int launch_router(const void* x, void* vout, int32_t* iout, int T, int E, int k, int block,
+                  cudaStream_t s) {
+  switch (net_width(block)) {
+    case 16: return launch_router_bp<DT, 16>(x, vout, iout, T, E, k, block, s);
+    case 32: return launch_router_bp<DT, 32>(x, vout, iout, T, E, k, block, s);
+    case 64: return launch_router_bp<DT, 64>(x, vout, iout, T, E, k, block, s);
+    case 128: return launch_router_bp<DT, 128>(x, vout, iout, T, E, k, block, s);
+    case 256: return launch_router_bp<DT, 256>(x, vout, iout, T, E, k, block, s);
+    case 512: return launch_router_bp<DT, 512>(x, vout, iout, T, E, k, block, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int DT, int BP>
+int launch_phase1_bp(const void* x, int32_t* okey, void* oval, int32_t* oidx, int rows,
+                     int V, int nblk, int real, int block, int kk, int decode, int which,
+                     cudaStream_t s) {
   using B = typename Bits<DT>::T;
-  const int bpc = block >= 128 ? 1 : 128 / block;
-  const int chunks = (nblk + bpc - 1) / bpc;
-  const int threads = bpc * block;
-  vocab_phase1_kernel<DT><<<rows * chunks, threads, threads * sizeof(int32_t), s>>>(
-      (const B*)x, okey, (B*)oval, oidx, V, nblk, block, kk, bpc, decode);
+  static int per_sm = 0;  // CTAs an SM holds, per DT and BP
+  if (!per_sm) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, vocab_phase1_kernel<DT, BP>, P1_THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    per_sm = max(per_sm, 1);
+  }
+  const long long nreal = (long long)rows * real;
+  const int bpw = BP <= WARP_SORT_MAX ? 32 * SORT_WORDS / BP : 1;  // blocks a warp
+  long long ctas = 0;
+  if (which & 1)
+    ctas = BP <= WARP_SORT_MAX ? ((nreal + bpw - 1) / bpw + P1_THREADS / 32 - 1) / (P1_THREADS / 32)
+                               : nreal;
+  if (which & 2) {
+    const long long fill = ((long long)rows * (nblk - real) * kk / 4 + P1_THREADS - 1)
+                           / P1_THREADS;
+    if (fill > ctas) ctas = fill;
+  }
+  const long long wave = (long long)sm_count() * per_sm;  // one wave at most
+  ctas = ctas < 1 ? 1 : ctas > wave ? wave : ctas;
+  vocab_phase1_kernel<DT, BP><<<(int)ctas, P1_THREADS, 0, s>>>(
+      (const B*)x, okey, (B*)oval, oidx, rows, V, nblk, real, block, kk, decode, which);
+  return (int)cudaGetLastError();
+}
+
+template <int DT>
+int launch_phase1(const void* x, int32_t* okey, void* oval, int32_t* oidx, int rows, int V,
+                  int nblk, int block, int kk, int decode, int which, cudaStream_t s) {
+  const int real = min(nblk, (V + block - 1) / block);
+  switch (net_width(block)) {
+#define REPRO_P1(bp) \
+    case bp: return launch_phase1_bp<DT, bp>(x, okey, oval, oidx, rows, V, nblk, real, block, \
+                                             kk, decode, which, s);
+    REPRO_P1(16) REPRO_P1(32) REPRO_P1(64) REPRO_P1(128) REPRO_P1(256) REPRO_P1(512)
+    REPRO_P1(1024)
+#undef REPRO_P1
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int DT>
@@ -446,27 +746,38 @@ extern "C" {
 
 int repro_router_topk(const void* x, void* vout, void* iout, int T, int E,
                       int k, int block, int dtype, void* stream) {
+  if (T <= 0 || block <= 0 || E <= 0 || E > ROUTER_MAX_E || E % block || k < 1 || k > E)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int32_t* io = (int32_t*)iout;
-  if (dtype == F32) launch_router<F32>(x, vout, io, T, E, k, block, s);
-  else if (dtype == BF16) launch_router<BF16>(x, vout, io, T, E, k, block, s);
-  else launch_router<F16>(x, vout, io, T, E, k, block, s);
-  return (int)cudaGetLastError();
+  if (dtype == F32) return launch_router<F32>(x, vout, io, T, E, k, block, s);
+  if (dtype == BF16) return launch_router<BF16>(x, vout, io, T, E, k, block, s);
+  return launch_router<F16>(x, vout, io, T, E, k, block, s);
+}
+
+// Phase 1 with `which` = 1 (the real blocks alone), 2 (the padding blocks
+// alone) or 3 (both: repro_vocab_phase1), for timing its two parts.
+int repro_vocab_phase1_parts(const void* x, void* okey, void* oval, void* oidx,
+                             int rows, int V, int nblk, int block, int kk,
+                             int decode, int which, int dtype, void* stream) {
+  if (rows <= 0 || V < 0 || block <= 0 || block > 1024 || kk <= 0 || kk > block
+      || nblk <= 0 || (long long)rows * nblk * kk >= (1LL << 31) || which < 1 || which > 3)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int32_t* ok = (int32_t*)okey;
+  int32_t* oi = (int32_t*)oidx;
+  if (dtype == F32)
+    return launch_phase1<F32>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, which, s);
+  if (dtype == BF16)
+    return launch_phase1<BF16>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, which, s);
+  return launch_phase1<F16>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, which, s);
 }
 
 int repro_vocab_phase1(const void* x, void* okey, void* oval, void* oidx,
                        int rows, int V, int nblk, int block, int kk,
                        int decode, int dtype, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int32_t* ok = (int32_t*)okey;
-  int32_t* oi = (int32_t*)oidx;
-  if (dtype == F32)
-    launch_phase1<F32>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, s);
-  else if (dtype == BF16)
-    launch_phase1<BF16>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, s);
-  else
-    launch_phase1<F16>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, s);
-  return (int)cudaGetLastError();
+  return repro_vocab_phase1_parts(x, okey, oval, oidx, rows, V, nblk, block, kk, decode, 3,
+                                  dtype, stream);
 }
 
 // One launch of the merge tree: int32 keys and indices (groups, 2^levels,

@@ -28,6 +28,7 @@ _SIGNATURES = {
     "topk": {
         "repro_router_topk": [P, P, P, I, I, I, I, I, P],
         "repro_vocab_phase1": [P, P, P, P, I, I, I, I, I, I, I, P],
+        "repro_vocab_phase1_parts": [P, P, P, P, I, I, I, I, I, I, I, I, P],
         "repro_vocab_merge_tree": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     },
     "segmented": {

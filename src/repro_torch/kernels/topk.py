@@ -2,9 +2,9 @@
 
 Counterpart of ``repro.kernels.topk``. Two paths, as in the reference:
 
-* ``router_topk`` — last axis E <= ``ROUTER_TOPK_MAX``: one kernel ranks
-  each ``block``-wide group (the N-sorter) and runs the whole tree of
-  truncated descending merges.
+* ``router_topk`` — last axis E <= ``ROUTER_TOPK_MAX``: one kernel sorts
+  each ``block``-wide group and runs the whole tree of truncated
+  descending merges, several rows a CTA.
 * ``vocab_topk`` — a large axis (the 151,936-wide vocabulary): the phase-1
   kernel writes a sorted top-min(k, block) list per (row, vocab block);
   then the merge tree merges pairs of lists level by level. The block
@@ -13,8 +13,13 @@ Counterpart of ``repro.kernels.topk``. Two paths, as in the reference:
   merges groups of levels (:func:`vocab_merge_plan`), each CTA an aligned
   subtree of lists in shared memory, and the last CTA of each row the
   rest: one launch at the serving shapes (:func:`tree_launches`).
-  :func:`vocab_merge_tree_emulated` runs that decomposition on the CPU for
-  the tests.
+
+Both kernels sort a block as one bitonic network over unique packed
+words (key high, the slot's position low; :func:`_block_words`), padded
+to a power of two; phase 1 fills its padding blocks without sorting them.
+:func:`vocab_phase1_emulated`, :func:`router_topk_emulated` and
+:func:`vocab_merge_tree_emulated` run the kernels' decompositions on the
+CPU for the tests.
 
 Both take float32, bfloat16 or float16 and fuse the total-order key
 transform (encode on load, decode on store), which is what the reference's
@@ -51,8 +56,11 @@ TREE_MAX_PAIRS = 8192
 TREE_IPT = 4
 #: threads of a CTA of the merge tree (a multiple of 32, at most 1024)
 TREE_THREADS = 512
-#: widest phase-1 block (one thread per slot)
+#: widest phase-1 block (``csrc/topk.cu`` sorts blocks of 256 and more in
+#: shared memory, narrower ones in a warp's registers)
 PHASE1_MAX_BLOCK = 1024
+#: threads of a CTA of the router kernel (``ROUTER_THREADS``)
+ROUTER_THREADS = 256
 
 _KEY_PAD = torch.iinfo(torch.int32).min
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -284,35 +292,168 @@ def _warp_level(a: torch.Tensor, b: torch.Tensor, keep: int) -> torch.Tensor:
     return v
 
 
+def _tree_level(words: torch.Tensor, ln: int, k: int, pairs_cta: int,
+                threads: int) -> torch.Tensor:
+    """One level of ``merge_levels`` on (..., lists, ln) words: each pair of
+    lists merged into min(k, 2 ln), in registers where the lengths allow
+    (the bitonic network of ``warp_level``: keep of 32 to 256, ln = keep or
+    keep / 2, powers of two), else by runs of ``ipt`` outputs (sized, as the
+    kernel does, so that a CTA of ``threads`` covers its ``pairs_cta``
+    pairs in about one pass), each a merge path along its diagonal and
+    serial steps."""
+    keep = min(k, 2 * ln)
+    a, b = words[..., 0::2, :], words[..., 1::2, :]
+    if ln & (ln - 1) == 0 and keep in (ln, 2 * ln) and keep in (32, 64, 128, 256):
+        return _warp_level(a, b, keep)
+    ipt = 1
+    while ipt < TREE_IPT and pairs_cta * keep > ipt * threads:
+        ipt *= 2
+    return _path_level(a, b, keep, ipt)
+
+
+def _unpack(words: torch.Tensor, decode_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(key, index) words back to int32 keys (decoded to ``decode_dtype``
+    when it is given) and int32 indices."""
+    keys, idx = (words >> 32).to(torch.int32), (words & 0xFFFFFFFF).to(torch.int32)
+    if decode_dtype is not None:
+        keys = decode_key_values(keys, decode_dtype)
+    return keys, idx
+
+
 def vocab_merge_tree_emulated(keys: torch.Tensor, idx: torch.Tensor, k: int,
                               decode_dtype=None, *, group: int = 0,
                               threads: int = TREE_THREADS) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA merge tree's decomposition on the CPU: each pass of the plan
     takes aligned subtrees of lists, and each level merges pairs of the
-    packed (key, index) words: in registers where the lengths allow (the
-    bitonic network of ``warp_level``: keep of 32 to 256, ln = keep or
-    keep / 2, powers of two), else by runs of ``ipt`` outputs (sized, as
-    the kernel does, so that a CTA of ``threads`` covers its pairs in about
-    one pass), each a merge path along its diagonal and serial steps. For
-    the tests; equals :func:`vocab_merge_tree_plain`."""
+    packed (key, index) words as ``merge_levels`` does
+    (:func:`_tree_level`). For the tests; equals
+    :func:`vocab_merge_tree_plain`."""
     bsz, lists, ln = keys.shape
     words = _pack(keys, idx)
     for g in vocab_merge_plan(lists, ln, k, group):
         for lvl in range(g):  # a pass's subtrees are the tree's aligned pairs
-            keep = min(k, 2 * ln)
-            a, b = words[:, 0::2], words[:, 1::2]
-            if ln & (ln - 1) == 0 and keep in (ln, 2 * ln) and keep in (32, 64, 128, 256):
-                words = _warp_level(a, b, keep)
-            else:
-                pairs_cta = 1 << (g - lvl - 1)
-                ipt = 1
-                while ipt < TREE_IPT and pairs_cta * keep > ipt * threads:
-                    ipt *= 2
-                words = _path_level(a, b, keep, ipt)
-            ln = keep
-    keys, idx = (words >> 32).to(torch.int32), (words & 0xFFFFFFFF).to(torch.int32)
-    if decode_dtype is not None:
-        keys = decode_key_values(keys, decode_dtype)
+            words = _tree_level(words, ln, k, 1 << (g - lvl - 1), threads)
+            ln = words.shape[-1]
+    return _unpack(words, decode_dtype)
+
+
+def sort_slots(block: int) -> int:
+    """Width of the network that sorts a block (``csrc/topk.cu``
+    ``net_width``): the next power of two, at least 16."""
+    return max(16, 1 << max(block - 1, 0).bit_length())
+
+
+def _block_words(keys: torch.Tensor, pos: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
+    """The block sort's words (``make_word``): int32 keys and positions ->
+    for 16-bit keys (sign-extended int16) the int32 word key << 16 |
+    position, for f32 keys (int64 ``keys``) the int64 word key << 32 |
+    position; slots not ``real`` become the pad word, below every real one."""
+    if keys.dtype == torch.int64:
+        words = (keys << 32) | pos.long()
+        pad = torch.iinfo(torch.int64).min
+    else:  # the 16-bit key's bits, shifted into the high half, wrap into int32
+        words = (((keys.long() & 0xFFFF) << 16) | pos.long()).to(torch.int32)
+        pad = _KEY_PAD
+    return torch.where(real, words, torch.full_like(words, pad))
+
+
+def _word_fields(words: torch.Tensor, base) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``word_key`` / ``word_index``: (int32 key, int32 base + position);
+    (INT32_MIN, -1) for the pad word."""
+    wide = words.dtype == torch.int64
+    pad = words == (torch.iinfo(torch.int64).min if wide else _KEY_PAD)
+    key = (words >> 32) if wide else (words >> 16)
+    pos = (words & 0xFFFFFFFF) if wide else (words & 0xFFFF)
+    key = torch.where(pad, torch.full_like(key, _KEY_PAD), key).to(torch.int32)
+    idx = torch.where(pad, torch.full_like(pos, -1), pos + base).to(torch.int32)
+    return key, idx
+
+
+def _bitonic_desc(words: torch.Tensor) -> torch.Tensor:
+    """``block_sort`` / ``cta_sort`` on (..., n) words, n a power of two:
+    the bitonic network in its mirror form, stage by stage in the kernels'
+    order. Merge ``size`` compares word i first with its mirror i ^ (size -
+    1), then with i ^ s for s = size / 4 .. 1; the lower word of each pair
+    (bit s of i clear) keeps the larger. In the kernel word i is slot i % 4
+    of the lane i // 4 of its block's lanes: partners within 4 are a lane's
+    own slots, the others shuffles across lanes; the same exchanges."""
+    n = words.shape[-1]
+    i = torch.arange(n)
+    size = 2
+    while size <= n:
+        s = size // 2
+        while s:
+            other = words[..., i ^ (size - 1 if s == size // 2 else s)]
+            words = torch.where((i & s) == 0, torch.maximum(words, other),
+                                torch.minimum(words, other))
+            s //= 2
+        size *= 2
+    return words
+
+
+def _sorted_blocks(keys: torch.Tensor, v: int, block: int, blocks: int, kk: int,
+                   global_pos: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``blocks`` blocks of each row of ``keys`` (rows, >= v;
+    int32 keys of 16-bit floats, or f32 keys widened to int64), each
+    padded to :func:`sort_slots` words (slots past ``block`` and past
+    ``v``: pads), sorted by :func:`_bitonic_desc`, cut to ``kk``: int32
+    keys and indices (rows, blocks, kk). The words' positions are the
+    slot's in its block (phase 1) or in the row (``global_pos``: the
+    router)."""
+    bp = sort_slots(block)
+    p = torch.arange(bp)
+    base = torch.arange(blocks)[:, None] * block
+    pos = base + p
+    real = (p < block) & (pos < v)
+    kx = keys[:, torch.clamp(pos, max=max(v - 1, 0))]
+    words = _block_words(kx, pos if global_pos else p.expand_as(pos), real)
+    words = _bitonic_desc(words)[..., :kk]
+    return _word_fields(words, 0 if global_pos else base)
+
+
+def vocab_phase1_emulated(x: torch.Tensor, k: int, block: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``vocab_phase1_kernel``'s decomposition on the CPU: the real blocks
+    (ceil(V / block) a row) sorted as packed words by the kernel's network,
+    the padding blocks up to the power-of-two count filled with (INT32_MIN,
+    -1). For the tests; equals :func:`vocab_phase1_plain`."""
+    bsz, v = x.shape
+    nblk, kk = vocab_blocks(v, block), min(k, block)
+    real = min(nblk, -(-v // block))
+    out = torch.full((bsz, nblk, kk), _KEY_PAD, dtype=torch.int32)
+    idx = torch.full((bsz, nblk, kk), -1, dtype=torch.int32)
+    if real:
+        keys = encode_key_values(x)
+        if x.dtype == torch.float32:
+            keys = keys.long()  # the 64-bit words of f32 keys
+        out[:, :real], idx[:, :real] = _sorted_blocks(keys, v, block, real, kk, False)
+    if nblk == 1:
+        out = decode_key_values(out, x.dtype)
+    return out, idx
+
+
+def router_topk_emulated(x: torch.Tensor, k: int, block: int, *, rows_per_cta: int = 1,
+                         threads: int = ROUTER_THREADS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``router_topk_kernel``'s decomposition on the CPU: each block sorted
+    as packed words (positions in the row) by the kernel's network and cut
+    to min(k, block); the list count padded up front to a power of two
+    with lists of pads; the levels of ``merge_levels`` on (key, index)
+    words, ``rows_per_cta`` trees a CTA of ``threads``. For the tests;
+    equals :func:`router_topk_plain`."""
+    t, e = x.shape
+    g, kk = e // block, min(k, block)
+    levels = (g - 1).bit_length()
+    keys = encode_key_values(x)
+    if x.dtype == torch.float32:
+        keys = keys.long()
+    words = _pack(*_sorted_blocks(keys, e, block, g, kk, True))
+    pad = _pack(torch.tensor(_KEY_PAD), torch.tensor(-1))
+    words = torch.cat([words, pad.expand(t, (1 << levels) - g, kk)], dim=1)
+    ln = kk
+    for lvl in range(levels):
+        words = _tree_level(words, ln, k, rows_per_cta << (levels - lvl - 1), threads)
+        ln = words.shape[-1]
+    keys, idx = _unpack(words[:, 0], x.dtype)
     return keys, idx
 
 
@@ -384,6 +525,8 @@ def vocab_phase1(x: torch.Tensor, k: int, block: int
         raise ValueError(f"vocab top-k needs block <= {PHASE1_MAX_BLOCK}, not {block}")
     bsz, v = x.shape
     nblk, kk = vocab_blocks(v, block), min(k, block)
+    if bsz * nblk * kk >= 2 ** 31:
+        raise ValueError(f"phase-1 lists of shape {(bsz, nblk, kk)} are too large")
     single = nblk == 1
     idx = torch.empty((bsz, nblk, kk), dtype=torch.int32, device=x.device)
     out = torch.empty((bsz, nblk, kk), dtype=x.dtype if single else torch.int32,

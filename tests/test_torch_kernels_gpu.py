@@ -53,10 +53,37 @@ def _same(a, b):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("rows,e,k,block", [(64, 256, 16, 16), (64, 128, 8, 16),
                                             (33, 96, 40, 16), (8, 512, 64, 64),
-                                            (4, 256, 64, 64)])
+                                            (4, 256, 64, 64), (1, 256, 64, 64),
+                                            (4096, 256, 16, 16), (4096, 128, 8, 16),
+                                            (5, 320, 40, 64), (6, 384, 5, 64),
+                                            (7, 300, 8, 15), (3, 512, 100, 512),
+                                            (3, 384, 30, 192), (2, 512, 512, 1)])
 def test_router_kernel_matches_plain(cuda, dtype, rows, e, k, block):
+    """List counts that are not powers of two (5, 6, 20, 2 at block 192),
+    blocks that are not (15, 192), the shared-memory widths (192, 512):
+    one launch a call."""
     x = _logits(rows, e, dtype).to(cuda)
-    _same(K.router_topk(x, k, block=block), K.router_topk_plain(x, k, block))
+    K.reset_launch_counts()
+    got = K.router_topk(x, k, block=block)
+    assert K.LAUNCHES["router_topk"] == 1
+    _same(got, K.router_topk_plain(x, k, block))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("rows,v,k,block", [(4, 151_936, 64, 64), (8, 151_936, 16, 16),
+                                            (4, 151_936, 256, 128), (2, 20_000, 64, 256),
+                                            (2, 20_000, 64, 1024), (3, 3000, 8, 100),
+                                            (2, 5000, 40, 64), (1, 50, 8, 64),
+                                            (2, 1000, 5, 3)])
+def test_phase1_kernel_matches_plain(cuda, dtype, rows, v, k, block):
+    """Phase 1 alone, lists and padding blocks: the serving shapes, the
+    shared-memory widths (256, 1024), blocks that are not powers of two,
+    one block (decoded values); one launch a call."""
+    x = _logits(rows, v, dtype, seed=v + block).to(cuda)
+    K.reset_launch_counts()
+    got = K.vocab_phase1(x, k, block)
+    assert K.LAUNCHES["vocab_phase1"] == 1
+    _same(got, K.vocab_phase1_plain(x, k, block))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
