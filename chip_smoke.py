@@ -16,9 +16,15 @@ script with a non-zero exit code when it fails:
    ±0.0 and many ties; the sort executor of the fused sort and the class
    sort at every lanes-a-thread layout at the shapes of phases 3d and 3e;
    the tiled 2-way merge forced onto short rows at tiles of 1, 5 and 64
-   rows (several CTAs a row); the router top-k (row 3) at T = 1, 4, 8 and
-   4096 in bf16, f32 and f16, at list counts that are not powers of two
-   (5, 6, 20) and a block of 15, and vocab phase 1 (row 4) called
+   rows (several CTAs a row); the row-merge executor of the 2-way merge's
+   shared-memory rows and of the class merge (loms, s2ms) at the plan's
+   threads a row and at 4, 8, 32, 64 and 256 (128 too for the 2-way
+   merge), at C = 1, 2, 3, 4, 8 and 16, at phase 3d's classes, the 3e
+   spill's, (256, 512 + 512) and (64, 1024 + 1024), with int32 keys that
+   tie the class merge's sentinel, full and ragged rows, each call one
+   launch; the router top-k (row 3) at T = 1, 4, 8 and 4096 in bf16, f32
+   and f16, at list counts that are not powers of two (5, 6, 20) and a
+   block of 15, and vocab phase 1 (row 4) called
    directly at blocks of 256, 1024 and 100, each call one launch; the
    vocab merge tree (row 5) at B = 1, 4
    and 8, k 16, 64 and 256, block 16 with k 64, in its plan's one launch
@@ -76,9 +82,11 @@ script with a non-zero exit code when it fails:
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
    row 8 also at 8 x 128 int32 and at the chunked_merge_k segments, row
-   9 also the whole values-only sort spill of phase 3e; rows 3-5 also as
-   a graph of 20 calls over the calls, beside the floor (one one-element
-   ``torch.add``) timed both ways.
+   9 also the whole values-only sort spill of phase 3e, row 1 also in
+   bf16, int32 and at 64 + 8, row 7 also at phase 3d's seven classes, the
+   3e spill's and the widest; rows 1 and 3-7 also as a graph of 20 calls
+   over the calls (``amortised_ms`` in the kernels line), beside the
+   floor (one one-element ``torch.add``) timed both ways.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Needs one card.
@@ -269,6 +277,39 @@ class merge_tile:
         from repro_torch.kernels import launch
 
         launch.MERGE_TILE = self.old
+
+
+class row_threads:
+    """Force the threads a row of the row-merge executor (rows 1 and 7)."""
+
+    def __init__(self, threads: int):
+        self.threads = threads
+
+    def __enter__(self):
+        from repro_torch.kernels import launch
+
+        self.old, launch.MERGE_ROW_THREADS = launch.MERGE_ROW_THREADS, self.threads
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import launch
+
+        launch.MERGE_ROW_THREADS = self.old
+
+
+#: threads a row of the row-merge executor in phase 2 (0: the plan's)
+ROW_THREADS = (0, 4, 8, 32, 64, 256)
+
+
+def one_launch(name, fn):
+    """fn() with the launch counts zeroed before it: exactly one launch,
+    of kernel ``name``."""
+    from repro_torch.kernels import topk as K
+
+    K.reset_launch_counts()
+    got = fn()
+    if K.LAUNCHES[name] != 1 or sum(K.LAUNCHES.values()) != 1:
+        raise AssertionError(f"{name}: launches {dict(K.LAUNCHES)} in one call, not one")
+    return got
 
 
 class vocab_group:
@@ -522,6 +563,40 @@ def phase_seg_kernels(dev, SK, capable_families) -> dict:
                         f"class merge ({wa}, {wb}) {dt} {fam} flip={flip}", got, want))
         log(f"  seg_merge ({wa}, {wb}): {', '.join(capable_families('merge2', (wa, wb)))}"
             f" x bf16/f32/int32 x both orders, lens below the widths, payload: bit-equal")
+    # the row-merge executor (loms, s2ms) at phase 3d's classes, the 3e
+    # spill's, the table's and the widest, at every threads a row, one launch
+    # a call: int32 rows whose keys tie the sentinel (INT32_MAX ascending,
+    # INT32_MIN descending), all rows full and lengths 0..W, k_out below
+    # and at the width, two payload lanes
+    for s_, wa, wb, dt in ((13, 64, 1, torch.float32), (15, 64, 2, torch.int32),
+                           (25, 64, 4, torch.float16), (75, 64, 8, torch.bfloat16),
+                           (136, 64, 16, torch.float32), (292, 64, 32, torch.int32),
+                           (500, 64, 64, torch.float32), (256, 512, 512, torch.int32),
+                           (64, 1024, 1024, torch.bfloat16)):
+        for full in (False, True):
+            la = seg_lens(s_, wa, dev, seed=wa + s_, full=full)
+            lb = seg_lens(s_, wb, dev, seed=wb + s_, full=full)
+            pay = (torch.arange(s_ * (wa + wb) * 2, dtype=torch.int32, device=dev)
+                   .reshape(s_, wa + wb, 2), seg_tile(s_, wa + wb, torch.bfloat16, dev, seed=3))
+            for flip in (False, True):
+                a = SK.segment_class_sort_plain(seg_tile(s_, wa, dt, dev, seed=5), la,
+                                                flip=flip)[0]
+                b = SK.segment_class_sort_plain(seg_tile(s_, wb, dt, dev, seed=6), lb,
+                                                flip=flip)[0]
+                for fam in ("loms", "s2ms"):
+                    for k_out in (wa + wb, max(1, (wa + wb) // 3)):
+                        kw = dict(k_out=k_out, network=fam, flip=flip, want_perm=True)
+                        want = SK.segment_class_merge_plain(a, b, la, lb, pay, **kw)
+                        for threads in ROW_THREADS:
+                            with row_threads(threads):
+                                got = one_launch("seg_merge", lambda: SK.segment_class_merge(
+                                    a, b, la, lb, pay, **kw))
+                            err["seg_merge"] = max(err["seg_merge"], require_same_class(
+                                f"class merge rows ({s_}, {wa} + {wb}) {dt} {fam} flip={flip} "
+                                f"full={full} k_out={k_out} threads={threads}", got, want))
+        log(f"  seg_merge rows ({s_}, {wa} + {wb}) {dt}: loms/s2ms x both orders x full and "
+            f"ragged x k_out {wa + wb}, {max(1, (wa + wb) // 3)} x threads a row {ROW_THREADS}: "
+            "bit-equal, one launch a call")
     torch.cuda.synchronize()
     return err
 
@@ -1127,6 +1202,7 @@ def phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s) ->
         f"ms (amortised {graph_ms(lambda: torch.add(y, 1), 20, AMORTISED_CALLS):.5f} ms); "
         f"{card}")
     for r in rows:
+        r["amortised_ms"] = amortised[r["name"]]
         log(f"  {r['name']}: {r['ms']:.5f} ms (amortised {amortised[r['name']]:.5f} ms; bound "
             f"{r['bound_ms']:.5f} ms by {r['bound_by']}; eager {eager[r['name']]:.4f} ms), "
             f"plain {r['plain_ms']:.4f} ms, torch.topk {r['library_ms']:.5f} ms; {card}")
@@ -1149,8 +1225,9 @@ def phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s) ->
 
 def phase_seg_times(dev, SK, rows, k_out, launches, err, card, ops_per_s) -> list:
     """Phase 4, segmented: the class sort at the engine's decode tile (the
-    first tick's logits at smoke width), the class merge at (512, 512),
-    each beside its bound, its plain version and one torch.sort call."""
+    first tick's logits at smoke width), the class merge at
+    ``SEG_MERGE_SHAPES``, each beside its bound and one torch.sort call;
+    the plain version at the first shape of each."""
     import torch
 
     out = []
@@ -1194,28 +1271,67 @@ def phase_seg_times(dev, SK, rows, k_out, launches, err, card, ops_per_s) -> lis
                 t = graph_ms(lambda: SK.segment_class_sort(x, lens, pl, k_out=k, flip=flip,
                                                            want_perm=True), 200)
             log(f"  seg_sort {name} at {er} lanes a thread: {t:.4f} ms; {card}")
-    # class merge: 256 rows of (512, 512) f32, lengths below the widths, a payload
-    s_, wa, wb = 256, 512, 512
-    la, lb = seg_lens(s_, wa, dev, seed=1), seg_lens(s_, wb, dev, seed=2)
-    a = SK.segment_class_sort_plain(seg_tile(s_, wa, torch.float32, dev, seed=3), la)[0]
-    b = SK.segment_class_sort_plain(seg_tile(s_, wb, torch.float32, dev, seed=4), lb)[0]
-    pay = (torch.arange(s_ * (wa + wb), dtype=torch.int32, device=dev).reshape(s_, wa + wb),)
-    call = lambda: SK.segment_class_merge(a, b, la, lb, pay, want_perm=True)  # noqa: E731
-    ms, eager = graph_ms(call, 200), cuda_ms(call, 200)
-    pl_ms = graph_ms(lambda: SK.segment_class_merge_plain(a, b, la, lb, pay, want_perm=True), 5)
-    cat = torch.cat([a, b], dim=1)
-    lib = graph_ms(lambda: torch.sort(cat, dim=-1, stable=True), 200)
-    nbytes = s_ * (wa + wb) * (4 + 4) + s_ * 8 + s_ * (wa + wb) * (4 + 4 + 4)
-    # a merge needs one comparison per valid output lane
-    b_ms, b_by = bound_ms(nbytes, float((la + lb).sum()), ops_per_s)
-    out.append(dict(name="seg_merge", route="cuda", source=SEG_SOURCE,
-                    replaces="src/repro/kernels/segmented.py:115",
-                    launches=launches["seg_merge"], max_abs_err=err["seg_merge"],
-                    ms=ms, plain_ms=pl_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
-    log(f"  seg_merge ({s_}, {wa}+{wb}) f32 + payload: {ms:.4f} ms (bound {b_ms:.6f} ms by "
-        f"{b_by}; eager {eager:.4f} ms), plain {pl_ms:.4f} ms, torch.sort of the pair "
-        f"{lib:.4f} ms; {card}")
+    # the class merge at the table's shape (the kernels line's), phase 3d's
+    # classes, the 3e spill's class and the widest class
+    for i, (name, s_, wa, wb, dt, flip, n_pay, full_a) in enumerate(SEG_MERGE_SHAPES):
+        dt = getattr(torch, dt)
+        la = (torch.full((s_, 1), wa, dtype=torch.int32, device=dev) if full_a
+              else seg_lens(s_, wa, dev, seed=1))
+        lb = seg_lens(s_, wb, dev, seed=2)
+        a = SK.segment_class_sort_plain(seg_tile(s_, wa, dt, dev, seed=3), la, flip=flip)[0]
+        b = SK.segment_class_sort_plain(seg_tile(s_, wb, dt, dev, seed=4), lb, flip=flip)[0]
+        ids = torch.arange(s_ * (wa + wb), dtype=torch.int32, device=dev).reshape(s_, wa + wb)
+        pay = (ids, ids.long())[:n_pay]
+        call = lambda: SK.segment_class_merge(a, b, la, lb, pay, flip=flip,  # noqa: E731
+                                              want_perm=True)
+        ms, eager = graph_ms(call, 200), cuda_ms(call, 200)
+        amortised = graph_ms(call, 20, AMORTISED_CALLS)
+        cat = torch.cat([a, b], dim=1)
+
+        def lib_call():
+            v, order = torch.sort(cat, dim=-1, descending=flip, stable=True)
+            return (v,) + tuple(torch.gather(p, 1, order) for p in pay)
+
+        lib = graph_ms(lib_call, 200)
+        isz = a.element_size()
+        pay_bytes = sum(p.element_size() for p in pay)
+        nbytes = (s_ * (wa + wb) * (isz + pay_bytes) + s_ * 8
+                  + s_ * (wa + wb) * (isz + 4 + pay_bytes))
+        # a merge needs one comparison per valid output lane
+        b_ms, b_by = bound_ms(nbytes, float((la + lb).sum()), ops_per_s)
+        pl_txt = ""
+        if i == 0:
+            pl_ms = graph_ms(lambda: SK.segment_class_merge_plain(a, b, la, lb, pay,
+                                                                  want_perm=True), 5)
+            out.append(dict(name="seg_merge", route="cuda", source=SEG_SOURCE,
+                            replaces="src/repro/kernels/segmented.py:115",
+                            launches=launches["seg_merge"], max_abs_err=err["seg_merge"],
+                            ms=ms, amortised_ms=amortised, plain_ms=pl_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib))
+            pl_txt = f", plain {pl_ms:.4f} ms"
+        log(f"  seg_merge {name}: {ms:.5f} ms (amortised {amortised:.5f} ms; bound "
+            f"{b_ms:.6f} ms by {b_by}; eager {eager:.4f} ms){pl_txt}, torch.sort of the pair"
+            f"{' + gather' if pay else ''} {lib:.5f} ms; {card}")
     return out
+
+
+#: row 7's shapes in phase 4: the table's (the kernels line's), phase 3d's
+#: classes (1,024 kept lists of 64 merged descending with 1..64 new ones,
+#: as its bucketer groups them), the 3e spill's class and the widest
+#: (name, rows, wa, wb, dtype, descending, payload lanes, a full)
+SEG_MERGE_SHAPES = (
+    ("(256, 512 + 512) f32 + int32 payload", 256, 512, 512, "float32", False, 1, False),
+    ("3d (13, 64 + 1) f32 desc, 2 payload lanes", 13, 64, 1, "float32", True, 2, True),
+    ("3d (15, 64 + 2) f32 desc, 2 payload lanes", 15, 64, 2, "float32", True, 2, True),
+    ("3d (25, 64 + 4) f32 desc, 2 payload lanes", 25, 64, 4, "float32", True, 2, True),
+    ("3d (75, 64 + 8) f32 desc, 2 payload lanes", 75, 64, 8, "float32", True, 2, True),
+    ("3d (136, 64 + 16) f32 desc, 2 payload lanes", 136, 64, 16, "float32", True, 2, True),
+    ("3d (260, 64 + 32) f32 desc, 2 payload lanes", 260, 64, 32, "float32", True, 2, True),
+    ("3d (500, 64 + 64) f32 desc, 2 payload lanes", 500, 64, 64, "float32", True, 2, True),
+    ("3e spill (32, 64 + 32) f32, values only", 32, 64, 32, "float32", False, 0, False),
+    ("(4096, 1024 + 1024) bf16 + int32 payload", 4096, 1024, 1024, "bfloat16", False, 1,
+     False),
+)
 
 
 # ---------------------------------------------------------------------------
@@ -1258,6 +1374,19 @@ def sorted_keys_decoded(x):
     return decode_key_values(torch.sort(encode_key_values(x), dim=-1)[0], x.dtype)
 
 
+#: row 1's shapes in phases 2 and 4: the three merges of phase 3e (the
+#: first is the kernels line's), the other dtypes of the first, and a
+#: merge of C = 2 (name, rows, m, n, dtype, descending, int32 ids)
+MERGE_SHAPES = (
+    ("(65536, 32 + 32) f32", 65_536, 32, 32, "float32", False, False),
+    ("(4096, 512 + 512) f32 desc + int32 ids", 4096, 512, 512, "float32", True, True),
+    ("(64, 65536 + 32) f32 (tiled)", 64, 65_536, 32, "float32", False, False),
+    ("(65536, 32 + 32) bf16", 65_536, 32, 32, "bfloat16", False, False),
+    ("(65536, 32 + 32) int32", 65_536, 32, 32, "int32", False, False),
+    ("(16384, 64 + 8) f32", 16_384, 64, 8, "float32", False, False),
+)
+
+
 def phase_merge_sort_kernels(dev, capable_families) -> dict:
     """Phase 2, rows 1, 2 and 9: the 2-way merge, the fused sort and the
     grid merge bit-equal to their plain versions (values, perm, payload
@@ -1284,13 +1413,16 @@ def phase_merge_sort_kernels(dev, capable_families) -> dict:
                              device=dev).reshape(rows, width, feat),
                 seg_tile(rows, width, torch.bfloat16, dev, seed=seed))
 
-    def merge_case(name, a, b, pay, fam, desc, chunk=512):
+    def merge_case(name, a, b, pay, fam, desc, chunk=512, threads=(0,)):
         kw = dict(network=fam, n_cols=pick_merge_cols(a.shape[1], b.shape[1]),
                   key_dtype=key(a.dtype), descending=desc, want_perm=True)
-        got = loms_merge2(a, b, pay, **kw)
         want = plain_in_chunks(lambda r: loms_merge2_plain(
             a[r], b[r], tuple(p[r] for p in pay), **kw), a.shape[0], chunk)
-        err["loms_merge2"] = max(err["loms_merge2"], require_same_class(name, got, want))
+        for t in threads:
+            with row_threads(t):
+                got = one_launch("loms_merge2", lambda: loms_merge2(a, b, pay, **kw))
+            err["loms_merge2"] = max(err["loms_merge2"], require_same_class(
+                f"{name} threads={t}", got, want))
 
     def sort_case(name, x, pay, fam, desc, chunk=512, layouts=(0,)):
         kw = dict(network=fam, key_dtype=key(x.dtype), descending=desc, want_perm=True)
@@ -1340,18 +1472,39 @@ def phase_merge_sort_kernels(dev, capable_families) -> dict:
                                        desc)
         log(f"  loms_merge2 tiled ({m}, {n}): tiles of 1, 5, 64 rows x loms/s2ms x "
             f"bf16/f32/int32 x both orders, {rows} rows, payload lanes: bit-equal")
-    # the shapes of phase 3e
+    # the row-merge executor of row 1's shared-memory rows at every threads a
+    # row: C = 1, 2, 3, 4, 16, every dtype, both orders, one launch a call
+    for m, n, fam, cols in ((32, 32, "loms", 4), (64, 8, "loms", 2), (5, 3, "s2ms", 1),
+                            (64, 64, "loms", 16), (48, 24, "loms", 3), (512, 512, "loms", 16),
+                            (1000, 24, "loms", 8), (64, 1, "loms", 1)):
+        for dt in dtypes + (torch.float16,):
+            for desc in (False, True):
+                a = total_order_sorted(seg_tile(40, m, dt, dev, seed=m + 9), desc)
+                b = total_order_sorted(seg_tile(40, n, dt, dev, seed=n + 10), desc)
+                pay = lanes(40, m + n, m + 11)
+                kw = dict(network=fam, n_cols=cols, key_dtype=key(dt), descending=desc,
+                          want_perm=True)
+                want = loms_merge2_plain(a, b, pay, **kw)
+                for threads in ROW_THREADS + (128,):
+                    with row_threads(threads):
+                        got = one_launch("loms_merge2", lambda: loms_merge2(a, b, pay, **kw))
+                    err["loms_merge2"] = max(err["loms_merge2"], require_same_class(
+                        f"merge rows ({m}, {n}) C={cols} {dt} desc={desc} threads={threads}",
+                        got, want))
+        log(f"  loms_merge2 rows ({m}, {n}) {fam} C={cols}: bf16/f32/int32/f16 x both "
+            f"orders x threads a row {ROW_THREADS + (128,)}, payload lanes: bit-equal, one "
+            "launch a call")
+    # the shapes of phase 3e and of the timing table
     ids = lambda rows, w: (torch.arange(rows * w, dtype=torch.int32,  # noqa: E731
                                         device=dev).reshape(rows, w),)
-    for name, rows, m, n, desc, pay in (
-            ("(65536, 32 + 32) f32", 65_536, 32, 32, False, False),
-            ("(4096, 512 + 512) f32 desc + int32 ids", 4096, 512, 512, True, True),
-            ("(64, 65536 + 32) f32 (tiled)", 64, 65_536, 32, False, False)):
-        a = total_order_sorted(seg_tile(rows, m, torch.float32, dev, seed=rows + m), desc)
-        b = total_order_sorted(seg_tile(rows, n, torch.float32, dev, seed=rows + n + 1), desc)
+    for name, rows, m, n, dt, desc, pay in MERGE_SHAPES:
+        dt = getattr(torch, dt)
+        a = total_order_sorted(seg_tile(rows, m, dt, dev, seed=rows + m), desc)
+        b = total_order_sorted(seg_tile(rows, n, dt, dev, seed=rows + n + 1), desc)
+        threads = (0,) if m + n > 2048 else ROW_THREADS  # the tiled route has none
         merge_case(f"merge {name}", a, b, ids(rows, m + n) if pay else (), "loms", desc,
-                   chunk=8192 if m + n <= 64 else 512)
-        log(f"  loms_merge2 {name}: bit-equal")
+                   chunk=8192 if m + n <= 96 else 512, threads=threads)
+        log(f"  loms_merge2 {name}: bit-equal at threads a row {threads}, one launch a call")
     for name, rows, n, dt, desc, pay in (
             ("(16384, 1024) bf16 + int32 payload", 16_384, 1024, torch.bfloat16, False, True),
             ("(16, 1007) f32 desc", 16, 1007, torch.float32, True, False)):
@@ -1572,19 +1725,20 @@ def phase_merge_sort_times(dev, launches, err, card, ops_per_s) -> list:
                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
         return b_ms, b_by
 
-    # row 1 at the three merges of 3e; the first is the kernels line's
+    # row 1 at the three merges of 3e and the other shapes of phase 2; the
+    # first is the kernels line's
     merges = []
-    for name, bsz, m, n, desc, pay in (
-            ("(65536, 32 + 32) f32", 65_536, 32, 32, False, False),
-            ("(4096, 512 + 512) f32 desc + int32 ids", 4096, 512, 512, True, True),
-            ("(64, 65536 + 32) f32 (tiled)", 64, 65_536, 32, False, False)):
-        a = total_order_sorted(seg_tile(bsz, m, torch.float32, dev, seed=m), desc)
-        b = total_order_sorted(seg_tile(bsz, n, torch.float32, dev, seed=n), desc)
+    for name, bsz, m, n, dt, desc, pay in MERGE_SHAPES:
+        dt = getattr(torch, dt)
+        a = total_order_sorted(seg_tile(bsz, m, dt, dev, seed=m), desc)
+        b = total_order_sorted(seg_tile(bsz, n, dt, dev, seed=n), desc)
         lanes = ((torch.arange(bsz * (m + n), dtype=torch.int32, device=dev)
                   .reshape(bsz, m + n),) if pay else ())
-        kw = dict(n_cols=pick_merge_cols(m, n), key_dtype=torch.float32, descending=desc)
+        kw = dict(n_cols=pick_merge_cols(m, n), key_dtype=dt if dt.is_floating_point else None,
+                  descending=desc)
         ms = graph_ms(lambda: loms_merge2(a, b, lanes, **kw), 50)
-        plain = graph_ms(lambda: loms_merge2_plain(a, b, lanes, **kw), 3)
+        amortised = graph_ms(lambda: loms_merge2(a, b, lanes, **kw), 5, AMORTISED_CALLS)
+        plain = graph_ms(lambda: loms_merge2_plain(a, b, lanes, **kw), 3) if not merges else None
         cat = torch.cat([a, b], dim=1)
         if pay:
             def lib_call():
@@ -1594,15 +1748,18 @@ def phase_merge_sort_times(dev, launches, err, card, ops_per_s) -> list:
             def lib_call():
                 return torch.sort(cat, dim=-1, descending=desc)
         lib = graph_ms(lib_call, 50)
-        nbytes = bsz * (m + n) * (4 + 4) * (2 if pay else 1)
-        merges.append((name, ms, plain, lib, nbytes, bsz * (m + n)))
-    name, ms, plain, lib, nbytes, comps = merges[0]
+        nbytes = bsz * (m + n) * (a.element_size() + (4 if pay else 0)) * 2
+        merges.append((name, ms, amortised, plain, lib, nbytes, bsz * (m + n), pay))
+    name, ms, amortised, plain, lib, nbytes, comps, _ = merges[0]
     row("loms_merge2", MERGE_SOURCE, "src/repro/kernels/loms_merge.py:49", ms, plain,
         nbytes, comps, lib)
-    for name, ms, plain, lib, nbytes, comps in merges:
+    rows[-1]["amortised_ms"] = amortised
+    for name, ms, amortised, plain, lib, nbytes, comps, pay in merges:
         b_ms, b_by = bound_ms(nbytes, comps, ops_per_s)
-        log(f"  loms_merge2 {name}: {ms:.4f} ms (bound {b_ms:.6f} ms by {b_by}), plain "
-            f"{plain:.4f} ms, torch.sort {lib:.4f} ms; {card}")
+        pl_txt = "" if plain is None else f", plain {plain:.4f} ms"
+        log(f"  loms_merge2 {name}: {ms:.5f} ms (amortised {amortised:.5f} ms; bound "
+            f"{b_ms:.6f} ms by {b_by}){pl_txt}, torch.sort{' + gather' if pay else ''} "
+            f"{lib:.5f} ms; {card}")
     # row 2 at the two sorts of 3e; the first is the kernels line's
     sorts = []
     for name, bsz, n, dt, desc, pay in (

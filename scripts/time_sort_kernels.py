@@ -3,7 +3,7 @@
 of their main paths, for one copy of the port's package:
 
   python3 scripts/time_sort_kernels.py [--src DIR] [--label NAME] [--lanes N]
-                                       [--kernels 2,6,8,1,9,5,4,3] [--breakdown]
+                                       [--kernels 2,6,8,1,7,9,5,4,3] [--breakdown]
 
 ``--kernels`` names the kernel rows to time (default ``2,6``): row 2 the
 fused sort and row 6 the class sort at their five shapes; row 8 the k-way
@@ -11,8 +11,12 @@ merge (3 x 7 f32 over 1,048,576 rows and its median, the 5 x 7 median,
 4 x 64 bf16 descending with int32 ids over 65,536 rows, 8 x 128 int32 over
 16,384 rows, the 65,536 segment rows of ``chunked_merge_k`` of 8 x 2^20,
 (100, 50, 25) f32 over 65,536 rows); row 1 the 2-way merge ((65,536,
-32 + 32) f32, (4,096, 512 + 512) f32 descending with ids, (64, 65,536 +
-32) f32). Rows 8 and 1 also print, per shape, one PyTorch call on the
+32 + 32) f32, bf16 and int32, (4,096, 512 + 512) f32 descending with ids,
+(64, 65,536 + 32) f32, (16,384, 64 + 8) f32); row 7 the class merge
+(``SEG_MERGE_SHAPES``: (256, 512 + 512) f32 with a payload lane, phase
+3d's seven classes (64 + 2^j, f32 descending, two payload lanes, perm),
+the 3e spill's (32, 64 + 32) and (4,096, 1024 + 1024) bf16 with a
+payload lane). Rows 8, 1 and 7 also print, per shape, one PyTorch call on the
 same input (``torch.sort`` (+ a gather of the ids) or ``torch.kthvalue``:
 a yardstick, never the port's path) and the bound: the larger of the
 bytes over 3.35 TB/s and two int32 instructions a comparison over the
@@ -57,7 +61,10 @@ k 64, and the whole ``repro_torch.topk`` of (4, 151,936) k 64 (rows 4 and
 (4, 256) k 64, (4096, 256) k 16, (4096, 128) k 8 and (8, 512) k 64 bf16,
 beside ``torch.topk``. ``--breakdown`` with row 4 times its padding-block
 fill alone and its real blocks alone (a package with
-``repro_vocab_phase1_parts``). Every line also carries the time of a
+``repro_vocab_phase1_parts``). ``--breakdown`` with row 1 or 7 times
+their widest shapes, 32 + 32 and phase 3d's widest class at 4 to 256
+threads a row of the row-merge executor (a package with
+``MERGE_ROW_THREADS``). Every line also carries the time of a
 graph of ``CALLS`` (20) calls over the calls, which shares the cost of
 starting a graph replay; the first line is the floor, one one-element
 ``torch.add`` timed both ways. Needs a card; exits 2 without one.
@@ -188,15 +195,20 @@ def merge_cases(ops_per_s):
     from repro_torch.networks import pick_merge_cols
 
     cases = []
-    for name, rows, m, n, desc, ids in (
-            ("row 1 (65536, 32 + 32) f32", 65_536, 32, 32, False, False),
-            ("row 1 (4096, 512 + 512) f32 desc + int32 ids", 4096, 512, 512, True, True),
-            ("row 1 (64, 65536 + 32) f32", 64, 65_536, 32, False, False)):
-        a = sorted_lists(rows, (m,), torch.float32, m, desc)
-        b = sorted_lists(rows, (n,), torch.float32, n + 1, desc)
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+    for name, rows, m, n, dt, desc, ids in (
+            ("row 1 (65536, 32 + 32) f32", 65_536, 32, 32, f32, False, False),
+            ("row 1 (4096, 512 + 512) f32 desc + int32 ids", 4096, 512, 512, f32, True, True),
+            ("row 1 (64, 65536 + 32) f32", 64, 65_536, 32, f32, False, False),
+            ("row 1 (65536, 32 + 32) bf16", 65_536, 32, 32, bf16, False, False),
+            ("row 1 (65536, 32 + 32) int32", 65_536, 32, 32, i32, False, False),
+            ("row 1 (16384, 64 + 8) f32", 16_384, 64, 8, f32, False, False)):
+        a = sorted_lists(rows, (m,), dt, m, desc)
+        b = sorted_lists(rows, (n,), dt, n + 1, desc)
         lanes = ((torch.arange(rows * (m + n), dtype=torch.int32, device="cuda")
                   .reshape(rows, m + n),) if ids else ())
-        kw = dict(n_cols=pick_merge_cols(m, n), key_dtype=torch.float32, descending=desc)
+        kw = dict(n_cols=pick_merge_cols(m, n), key_dtype=dt if dt.is_floating_point else None,
+                  descending=desc)
         cat = torch.cat([a, b], dim=1)
         if ids:
             def lib_call(cat=cat, lanes=lanes, desc=desc):
@@ -206,13 +218,129 @@ def merge_cases(ops_per_s):
         else:
             lib = ("torch.sort", lambda cat=cat, desc=desc: torch.sort(cat, dim=-1,
                                                                      descending=desc))
-        nbytes = rows * (m + n) * 8 * (2 if ids else 1)
+        nbytes = rows * (m + n) * (a.element_size() + (4 if ids else 0)) * 2
         bound = max(nbytes / HBM_BYTES_PER_S, rows * (m + n) * 2 / ops_per_s) * 1e3
         cases.append((name, 50, lambda a=a, b=b, lanes=lanes, kw=kw:
                       loms_merge2(a, b, lanes, **kw), lib, bound))
     return cases
 
 
+#: row 7's shapes: (name, rows, wa, wb, dtype, descending, payload lanes,
+#: a full); phase 3d's classes merge 1,024 kept lists of 64 with 1..64 new
+#: ones (descending, as its bucketer groups them)
+SEG_MERGE_SHAPES = (
+    ("(256, 512 + 512) f32 + int32 payload", 256, 512, 512, "float32", False, 1, False),
+    ("3d (13, 64 + 1) f32 desc, 2 payload lanes", 13, 64, 1, "float32", True, 2, True),
+    ("3d (15, 64 + 2) f32 desc, 2 payload lanes", 15, 64, 2, "float32", True, 2, True),
+    ("3d (25, 64 + 4) f32 desc, 2 payload lanes", 25, 64, 4, "float32", True, 2, True),
+    ("3d (75, 64 + 8) f32 desc, 2 payload lanes", 75, 64, 8, "float32", True, 2, True),
+    ("3d (136, 64 + 16) f32 desc, 2 payload lanes", 136, 64, 16, "float32", True, 2, True),
+    ("3d (260, 64 + 32) f32 desc, 2 payload lanes", 260, 64, 32, "float32", True, 2, True),
+    ("3d (500, 64 + 64) f32 desc, 2 payload lanes", 500, 64, 64, "float32", True, 2, True),
+    ("3e spill (32, 64 + 32) f32, values only", 32, 64, 32, "float32", False, 0, False),
+    ("(4096, 1024 + 1024) bf16 + int32 payload", 4096, 1024, 1024, "bfloat16", False, 1,
+     False),
+)
+
+
+def seg_merge_cases(ops_per_s):
+    """Row 7, the class merge, at its shapes, as :func:`kway_cases`: valid
+    lengths from 0 to the width (a full where the shape says so), the
+    yardstick ``torch.sort`` of the pair (+ a gather of each payload lane),
+    the bound the bytes (each input read once, each output written once)
+    or one comparison a valid output lane, as chip_smoke.py counts it."""
+    import torch
+
+    from repro_torch.kernels import segmented as SK
+
+    cases = []
+    for name, rows, wa, wb, dt, desc, n_pay, full_a in SEG_MERGE_SHAPES:
+        dt = getattr(torch, dt)
+        rng = np.random.default_rng(wa + wb + rows)
+        la = torch.from_numpy(rng.integers(0, wa + 1, (rows, 1)).astype(np.int32)).cuda()
+        lb = torch.from_numpy(rng.integers(0, wb + 1, (rows, 1)).astype(np.int32)).cuda()
+        if full_a:
+            la.fill_(wa)
+        a = SK.segment_class_sort_plain(tile(rows, wa, dt, 3), la, flip=desc)[0]
+        b = SK.segment_class_sort_plain(tile(rows, wb, dt, 4), lb, flip=desc)[0]
+        ids = torch.arange(rows * (wa + wb), dtype=torch.int32, device="cuda").reshape(
+            rows, wa + wb)
+        pay = (ids, ids.long())[:n_pay]
+        cat = torch.cat([a, b], dim=1)
+
+        def lib_call(cat=cat, pay=pay, desc=desc):
+            v, order = torch.sort(cat, dim=-1, descending=desc, stable=True)
+            return (v,) + tuple(torch.gather(p, 1, order) for p in pay)
+
+        isz, psz = a.element_size(), sum(p.element_size() for p in pay)
+        nbytes = rows * (wa + wb) * (2 * isz + 4 + 2 * psz) + rows * 8
+        bound = max(nbytes / HBM_BYTES_PER_S, float((la + lb).sum()) * 2 / ops_per_s) * 1e3
+        cases.append((f"row 7 {name}", 200,
+                      lambda a=a, b=b, la=la, lb=lb, pay=pay, desc=desc:
+                      SK.segment_class_merge(a, b, la, lb, pay, flip=desc, want_perm=True),
+                      ("torch.sort" + (" + gather" if pay else ""), lib_call), bound))
+    return cases
+
+
+def row_threads_cases():
+    """Rows 1 and 7 at their widest shapes and at 32 + 32 at 4 to 256
+    threads a row of the row-merge executor (a package with
+    ``MERGE_ROW_THREADS``)."""
+    import torch
+
+    from repro_torch.kernels import launch
+    from repro_torch.kernels import segmented as SK
+    from repro_torch.kernels.loms_merge import loms_merge2
+
+    if not hasattr(launch, "MERGE_ROW_THREADS"):
+        return []
+
+    def forced(fn, threads):
+        def call():
+            old, launch.MERGE_ROW_THREADS = launch.MERGE_ROW_THREADS, threads
+            try:
+                return fn()
+            finally:
+                launch.MERGE_ROW_THREADS = old
+        return call
+
+    cases = []
+    a = sorted_lists(4096, (512,), torch.float32, 512, True)
+    b = sorted_lists(4096, (512,), torch.float32, 513, True)
+    ids = (torch.arange(4096 * 1024, dtype=torch.int32, device="cuda").reshape(4096, 1024),)
+    a2, b2 = sorted_lists(65_536, (32,), torch.float32, 32), sorted_lists(65_536, (32,),
+                                                                           torch.float32, 33)
+    rng = np.random.default_rng(7)
+    la = torch.from_numpy(rng.integers(0, 513, (256, 1)).astype(np.int32)).cuda()
+    lb = torch.from_numpy(rng.integers(0, 513, (256, 1)).astype(np.int32)).cuda()
+    sa = SK.segment_class_sort_plain(tile(256, 512, torch.float32, 3), la)[0]
+    sb = SK.segment_class_sort_plain(tile(256, 512, torch.float32, 4), lb)[0]
+    sid = (torch.arange(256 * 1024, dtype=torch.int32, device="cuda").reshape(256, 1024),)
+    la3 = torch.full((500, 1), 64, dtype=torch.int32, device="cuda")
+    lb3 = torch.from_numpy(rng.integers(33, 65, (500, 1)).astype(np.int32)).cuda()
+    a3 = SK.segment_class_sort_plain(tile(500, 64, torch.float32, 5), la3, flip=True)[0]
+    b3 = SK.segment_class_sort_plain(tile(500, 64, torch.float32, 6), lb3, flip=True)[0]
+    ids3 = torch.arange(500 * 128, dtype=torch.int32, device="cuda").reshape(500, 128)
+    for threads in (4, 8, 16, 32, 64, 128, 256):
+        cases.append((f"row 1 (65536, 32 + 32) f32, {threads} threads a row", 50,
+                      forced(lambda: loms_merge2(a2, b2, n_cols=4, key_dtype=torch.float32),
+                             threads)))
+        cases.append((f"row 7 3d (500, 64 + 64) f32 desc, 2 payload lanes, {threads} threads "
+                      "a row", 200,
+                      forced(lambda: SK.segment_class_merge(a3, b3, la3, lb3,
+                                                            (ids3, ids3.long()), flip=True,
+                                                            want_perm=True), threads)))
+        if threads >= 16:
+            cases.append((f"row 1 (4096, 512 + 512) f32 desc + int32 ids, {threads} threads "
+                          "a row", 50,
+                          forced(lambda: loms_merge2(a, b, ids, n_cols=16,
+                                                     key_dtype=torch.float32, descending=True),
+                                 threads)))
+            cases.append((f"row 7 (256, 512 + 512) f32 + int32 payload, {threads} threads a "
+                           "row", 200,
+                          forced(lambda: SK.segment_class_merge(sa, sb, la, lb, sid,
+                                                                want_perm=True), threads)))
+    return cases
 def grid_cases(ops_per_s):
     """Row 9 at its main paths' shapes, as :func:`kway_cases`; each case
     also says whether it is timed as a CUDA graph or eagerly."""
@@ -558,7 +686,7 @@ def main() -> int:
     ap.add_argument("--grid-items", type=int, default=0,
                     help="outputs a thread of the grid merge (a package that sizes them)")
     ap.add_argument("--kernels", default="2,6",
-                    help="comma-separated kernel rows among 2, 6, 8, 1, 9, 5, 4, 3")
+                    help="comma-separated kernel rows among 2, 6, 8, 1, 7, 9, 5, 4, 3")
     args = ap.parse_args()
     rows_asked = {int(r) for r in args.kernels.split(",")}
     sys.path.insert(0, os.path.abspath(args.src))
@@ -636,6 +764,8 @@ def main() -> int:
         cases += vocab_breakdown_cases()
     if args.breakdown and 4 in rows_asked:
         cases += topk_breakdown_cases()
+    if args.breakdown and rows_asked & {1, 7}:
+        cases += row_threads_cases()
     y = torch.zeros(1, device="cuda")
     print(json.dumps({"label": args.label, "shape": "the floor: one one-element torch.add",
                       "ms": graph_ms(lambda: torch.add(y, 1), 200),
@@ -647,12 +777,13 @@ def main() -> int:
                           f"ms_{CALLS}_calls": graph_ms(fn, max(iters // CALLS, 2), CALLS),
                           "card": card}), flush=True)
     yard = []
-    for r in (8, 1):
+    for r, make in ((8, kway_cases), (1, merge_cases), (7, seg_merge_cases)):
         if r in rows_asked and not args.breakdown:
-            yard += kway_cases(ops_per_s) if r == 8 else merge_cases(ops_per_s)
+            yard += make(ops_per_s)
     for name, iters, fn, (lib_name, lib), bound in yard:
         print(json.dumps({"label": args.label, "shape": name, "ms": graph_ms(fn, iters),
-                          f"ms_{CALLS}_calls": graph_ms(fn, 5, CALLS),
+                          f"ms_{CALLS}_calls": graph_ms(fn, max(iters // CALLS, 5), CALLS),
+                          "launches": launches_of(fn),
                           "torch": lib_name, "torch_ms": graph_ms(lib, iters),
                           "bound_ms": bound, "card": card}), flush=True)
     timed = []

@@ -1,7 +1,24 @@
 // The 2-way List Offset merge for Hopper (sm_90a), plain C interface for
 // ctypes.
 //
-//   loms_merge2_kernel  <- _loms2_kernel  (src/repro/kernels/loms_merge.py:49)
+//   merge_rows_kernel   <- _loms2_kernel  (src/repro/kernels/loms_merge.py:49)
+//   loms_merge2_kernel  <- the same kernel, the routes merge_rows_kernel
+//                          does not take
+//   merge_tile_kernel   <- the same kernel, rows past a CTA's shared memory
+//
+// The route is chosen by program and shape (kernels/loms_merge.py
+// loms_merge2), never as a fallback, each held against the plain version:
+//   * a single-level program of columns in the key mode (s2ms: C = 1; loms,
+//     the column device: C <= 16) on a row that fits the shared memory of
+//     a CTA with its raw runs and payload lanes (12 B a lane, the values
+//     and the payload elements besides; kernels/loms_merge.py rows_fit):
+//     merge_rows_kernel, the row-merge executor of merge_rows.cuh;
+//   * the same program on a longer row: merge_tile_kernel, several CTAs a
+//     row (or any row, with tiles forced);
+//   * the pair-stage families (bitonic, oems, periodic3), the raw-float
+//     mode, and loms with more than 16 columns: loms_merge2_kernel on
+//     run_program / run_program_raw, in shared memory or, past it, in a
+//     global scratch buffer.
 //
 // Merges the sorted rows a (B, m) and b (B, n) into (B, m + n) by the
 // family's merge program (the paper's column device for loms), bit for
@@ -29,9 +46,16 @@
 // lanes.
 //
 // What bounds it on the H100: bytes (each input read once, each output
-// written once) for the shared-memory rows; the column device's binary
-// searches are log-depth and the rank stage is C compares a lane. Simple
-// first: one lane per thread at a time, a barrier between steps.
+// written once). loms_merge2_kernel is the simple executor: one lane per
+// thread at a time, a barrier between steps; on the main paths' shapes it
+// reached 10-15 % of the bound. merge_rows_kernel gives a row a few
+// threads (32 + 32: four, eight rows a warp, no CTA-wide barrier), a warp,
+// or on wide rows a few warps (512 + 512: two, a CTA a row), loads the
+// runs and the payload lanes by cp.async in one round trip, merges each
+// column by merge paths and register steps, sorts each stack row of C in
+// registers and stores C consecutive outputs a thread, 16 bytes at a time
+// (merge_rows.cuh). The threads a row are the plan's (rows_plan), found by
+// timing 4 to 256 of them (PERF.md, PR 20).
 //
 // The raw-float mode (the reference's use_mxu=True, which its values-only
 // merge2 takes for float rows) loads the raw floats and runs the program
@@ -61,7 +85,7 @@
 // rows on load and the output on store, so the tiles are cut in the
 // ascending problem's coordinates.
 
-#include "program.cuh"
+#include "merge_rows.cuh"
 
 namespace {
 
@@ -284,6 +308,128 @@ int launch_tiles(const void* a, const void* b, void* out, int32_t* perm, const L
   return (int)cudaGetLastError();
 }
 
+// The shared-memory rows of a single-level program in the key mode on the
+// row-merge executor (merge_rows.cuh); then a thread a row of the stack
+// stores its C consecutive outputs: decoded keys and positions, 16 bytes
+// at a time where C and the dtype allow (vec_out), and the payload rows
+// gathered at the positions. Descending reverses both runs on load and the
+// output on store, so a thread's C outputs stay consecutive, reversed.
+template <int KT, int S>
+__device__ __forceinline__ void store_row_keys(void* out, size_t at, const int32_t (&key)[S],
+                                               int C, bool rev, bool vec) {
+  if (vec && C == S) {
+    if constexpr (value_bytes<KT>() == 2) {
+      uint16_t v[S];
+#pragma unroll
+      for (int q = 0; q < S; ++q)
+        v[q] = KT == K_BF16 ? repro_keys::decode_key<BF16>(key[rev ? S - 1 - q : q])
+                            : repro_keys::decode_key<F16>(key[rev ? S - 1 - q : q]);
+      store_vec<2 * S>(static_cast<uint16_t*>(out) + at, v);
+    } else {
+      uint32_t v[S];
+#pragma unroll
+      for (int q = 0; q < S; ++q) {
+        const int32_t k = key[rev ? S - 1 - q : q];
+        v[q] = KT == K_F32 ? repro_keys::decode_key<F32>(k) : (uint32_t)k;
+      }
+      store_vec<4 * S>(static_cast<uint32_t*>(out) + at, v);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < S; ++q)
+      if (q < C) store_key<KT>(out, at + (rev ? C - 1 - q : q), key[q]);
+  }
+}
+
+template <int KT, int S>
+__global__ void __launch_bounds__(ROWS_THREADS)
+merge_rows_kernel(const void* __restrict__ a, const void* __restrict__ b,
+                  void* __restrict__ out, int32_t* __restrict__ perm, Lanes pl, int B, int m,
+                  int n, int C, int lc, int E, int T, int desc, int vec_out) {
+  constexpr bool NARROW = KT == K_BF16 || KT == K_F16;
+  constexpr int VB = value_bytes<KT>();
+  extern __shared__ __align__(16) int32_t sm[];
+  const RowThread g = row_thread(T);
+  const int L = m + n, Ls = row_stride(L), R = lc >= 0 ? L >> lc : L / C;
+  const int row0 = blockIdx.x * (blockDim.x / g.nt);
+  if (warp_past(row0, T, B)) return;
+  const int row = row0 + g.slot;
+  const bool live = row < B;  // a row past B in a live warp: its syncs only
+  int32_t* s = reinterpret_cast<int32_t*>(
+      reinterpret_cast<uint8_t*>(sm) +
+      (size_t)g.slot * (ROW_WORDS * Ls * sizeof(int32_t) + rows_extra<KT>(pl, m, n)));
+  int32_t *sk = s + Ls, *se = s + 2 * Ls;
+  uint8_t* raw_a = reinterpret_cast<uint8_t*>(s + ROW_WORDS * Ls);
+  uint8_t* raw_b = raw_a + pad16((size_t)m * VB);
+  uint8_t* pay = raw_b + pad16((size_t)n * VB);
+  if (live) {
+    copy_async(raw_a, static_cast<const uint8_t*>(a) + (size_t)row * m * VB, (size_t)m * VB, g);
+    copy_async(raw_b, static_cast<const uint8_t*>(b) + (size_t)row * n * VB, (size_t)n * VB, g);
+    load_payloads(pl, row, L, pay, g);
+  }
+  async_wait();
+  row_sync(T);
+  const auto same = [](int, int32_t k) { return k; };
+  encode_run<KT>(raw_a, m, desc, s, g, same);
+  encode_run<KT>(raw_b, n, desc, s + m, g, same);
+  row_sync(T);
+  column_merges(s, sk, se, m, n, C, lc, E, g);
+  row_sync(T);
+  const size_t base = (size_t)row * L;
+  for (int r = g.t; live && r < R; r += g.nt) {
+    int32_t key[S], pos[S];
+    sort_stack_row<S, NARROW>(sk, se, r, C, key, pos);
+#pragma unroll
+    for (int q = 0; q < S; ++q) {  // the lane's position in the original concat(a, b)
+      const int e = pos[q];
+      pos[q] = e < m ? (desc ? m - 1 - e : e) : m + (desc ? L - 1 - e : e - m);
+    }
+    const size_t at = base + (desc ? L - (r + 1) * C : r * C);
+    store_row_keys<KT, S>(out, at, key, C, desc, vec_out);
+    if (perm) {
+      if (vec_out && C == S) {
+        int32_t v[S];
+#pragma unroll
+        for (int q = 0; q < S; ++q) v[q] = pos[desc ? S - 1 - q : q];
+        store_vec<4 * S>(perm + at, v);
+      } else {
+#pragma unroll
+        for (int q = 0; q < S; ++q)
+          if (q < C) perm[at + (desc ? C - 1 - q : q)] = pos[q];
+      }
+    }
+    if (pl.n) {
+      const int rev = desc ? C - 1 : 0, sgn = desc ? -1 : 1;  // output q at at + rev + sgn q
+      copy_payloads<S>(pl, pay, L, at, pos, [rev, sgn](int q) { return rev + sgn * q; }, C);
+    }
+  }
+}
+
+template <int KT, int S>
+int launch_rows(const void* a, const void* b, void* out, int32_t* perm, const Lanes& pl,
+                int B, int m, int n, int C, int T, int desc, cudaStream_t s) {
+  const RowsLaunch c = rows_plan(B, m + n, T, rows_extra<KT>(pl, m, n));
+  static size_t granted = 0;  // shared memory asked for (per KT, S)
+  const cudaError_t err = allow_smem(merge_rows_kernel<KT, S>, c.smem, granted);
+  if (err != cudaSuccess) return (int)err;
+  const int vec_out = aligned16(out) && (!perm || aligned16(perm));
+  merge_rows_kernel<KT, S><<<c.ctas, c.threads, c.smem, s>>>(
+      a, b, out, perm, pl, B, m, n, C, log2_exact(C), c.E, c.T, desc, vec_out);
+  return (int)cudaGetLastError();
+}
+
+template <int KT>
+int launch_rows_kt(const void* a, const void* b, void* out, int32_t* perm, const Lanes& pl,
+                   int B, int m, int n, int C, int T, int desc, cudaStream_t s) {
+  switch (pad_cols(C)) {
+    case 1: return launch_rows<KT, 1>(a, b, out, perm, pl, B, m, n, C, T, desc, s);
+    case 2: return launch_rows<KT, 2>(a, b, out, perm, pl, B, m, n, C, T, desc, s);
+    case 4: return launch_rows<KT, 4>(a, b, out, perm, pl, B, m, n, C, T, desc, s);
+    case 8: return launch_rows<KT, 8>(a, b, out, perm, pl, B, m, n, C, T, desc, s);
+    default: return launch_rows<KT, 16>(a, b, out, perm, pl, B, m, n, C, T, desc, s);
+  }
+}
+
 }  // namespace
 
 // The tiled key-mode merge of a single-level program of C columns (C = 1:
@@ -306,6 +452,34 @@ extern "C" int repro_merge_tiles(const void* a, const void* b, void* out, void* 
     case K_BF16: return launch_tiles<K_BF16>(a, b, out, pm, pl, B, m, n, C, T, desc, s);
     case K_F16: return launch_tiles<K_F16>(a, b, out, pm, pl, B, m, n, C, T, desc, s);
     case K_I32: return launch_tiles<K_I32>(a, b, out, pm, pl, B, m, n, C, T, desc, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The shared-memory rows of a single-level program of C columns in the key
+// mode (C = 1: s2ms; 2..16: the loms column device, C dividing m and n) on
+// the row-merge executor: T threads a row (0: the plan's, merge_rows.cuh
+// rows_plan; else a power of two from 4 to 256). Launches on the caller's
+// stream and returns cudaGetLastError(); key_code as below, no raw-float
+// mode.
+extern "C" int repro_merge_rows(const void* a, const void* b, void* out, void* perm,
+                                int n_payload, void** p_in, void** p_out, const int* p_bytes,
+                                int B, int m, int n, int C, int T, int key_code, int desc,
+                                void* stream) {
+  if (n_payload < 0 || n_payload > MAXP || m <= 0 || n <= 0 || C < 1 || C > 16 ||
+      m % C || n % C || !rows_threads_ok(T))
+    return (int)cudaErrorInvalidValue;
+  const Lanes pl = make_lanes(n_payload, p_in, p_out, p_bytes);
+  const size_t extra = key_code == K_BF16 || key_code == K_F16
+                           ? rows_extra<K_BF16>(pl, m, n) : rows_extra<K_F32>(pl, m, n);
+  if (rows_plan(B, m + n, T, extra).smem > 232448) return (int)cudaErrorInvalidValue;
+  int32_t* pm = static_cast<int32_t*>(perm);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (key_code) {
+    case K_F32: return launch_rows_kt<K_F32>(a, b, out, pm, pl, B, m, n, C, T, desc, s);
+    case K_BF16: return launch_rows_kt<K_BF16>(a, b, out, pm, pl, B, m, n, C, T, desc, s);
+    case K_F16: return launch_rows_kt<K_F16>(a, b, out, pm, pl, B, m, n, C, T, desc, s);
+    case K_I32: return launch_rows_kt<K_I32>(a, b, out, pm, pl, B, m, n, C, T, desc, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

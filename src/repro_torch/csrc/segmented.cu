@@ -3,8 +3,11 @@
 // Two kernels replace the two Pallas class kernels of the JAX package
 // (src/repro/kernels/segmented.py):
 //
-//   seg_sort_kernel   <- _seg_sort_kernel   (segmented.py:97)
-//   seg_merge_kernel  <- _seg_merge_kernel  (segmented.py:115)
+//   seg_sort_kernel        <- _seg_sort_kernel   (segmented.py:97)
+//   seg_merge_rows_kernel  <- _seg_merge_kernel  (segmented.py:115): the
+//                             single-level programs (loms with C <= 16, s2ms)
+//   seg_merge_kernel       <- the same kernel: the pair-stage families and
+//                             loms with more than 16 columns
 //
 // A class tile is (S, W): one segment per row, its valid length beside it.
 // Per row both kernels compute, bit for bit, what the TPU kernel computes:
@@ -36,10 +39,21 @@
 // INT32_MAX pads keep the pairs unique), the column-device levels as merge
 // paths and register row sorts, a barrier a stage. Where every row of a
 // CTA is full, the compaction is skipped and the last column level makes
-// only the rows of its stack that hold the k_out prefix. The class merge
-// keeps the simple executor: one lane per thread at a time.
+// only the rows of its stack that hold the k_out prefix.
+//
+// The class merge of a single-level program (loms with C <= 16, s2ms) whose
+// row fits a CTA's shared memory (the route kernels/segmented.py
+// segment_class_merge takes by program and shape, never as a fallback)
+// runs the row-merge executor of merge_rows.cuh: phase 3d's classes (64 +
+// 1 .. 64 + 64, a few hundred rows) are latency-bound chains, so their
+// rows take 32 to 128 threads (one to three outputs a thread); the wide
+// classes a few warps a row. Loads by cp.async, merge paths, register row
+// sorts or counted ranks; only a row where a valid key ties the sentinel
+// is compacted (seg_merge_rows_kernel). The pair-stage families keep
+// seg_merge_kernel on run_program: one lane per thread at a time, a
+// barrier between steps.
 
-#include "program.cuh"
+#include "merge_rows.cuh"
 
 namespace {
 
@@ -144,6 +158,175 @@ __global__ void seg_merge_kernel(const void* __restrict__ a, const void* __restr
   }
 }
 
+// A class-merge row's k_out prefix from its lanes in network order (src):
+// K outputs a thread at a time, g.nt apart (each store coalesced), their
+// shared-memory reads issued before their stores; the raw values (raw[0]:
+// a's, raw[1]: b's) and the payload rows from shared memory, the positions
+// in segment coordinates. K = 4 where the prefix is long enough to give
+// each thread four, else 1: a short chain a thread.
+template <int K, typename V>
+__device__ __forceinline__ void store_prefix(const int32_t* src, const V* const (&raw)[2],
+                                             const uint8_t* pay, const Lanes& pl, V* out,
+                                             int32_t* perm, size_t ob, int k_out, int wa, int la,
+                                             int L, const RowThread& g) {
+  const int nt = g.nt;
+  for (int j0 = g.t; j0 < k_out; j0 += K * nt) {
+    const int cnt = K == 1 ? 1 : min(K, (k_out - j0 + nt - 1) / nt);
+    int e[K];
+    V v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) e[k] = k < cnt ? src[j0 + k * nt] : 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = e[k] < wa ? raw[0][e[k]] : raw[1][e[k] - wa];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (k < cnt) {
+        out[j0 + k * nt] = v[k];
+        perm[j0 + k * nt] = e[k] < wa ? e[k] : la + (e[k] - wa);
+      }
+    }
+    copy_payloads<K>(pl, pay, L, ob + j0, e, [nt](int k) { return k * nt; }, cnt);
+  }
+}
+
+// The class merge of a single-level program (loms, C <= 16; s2ms) on the
+// row-merge executor (merge_rows.cuh): lanes past a run's length hold
+// KEY_SENT; the stack rows are sorted (in registers, or by counted ranks
+// where the row has more threads than stack rows), their lanes in network
+// order; a row where a valid key ties the sentinel is compacted
+// valid-first, stably, by a prefix over the row's threads (each thread a
+// contiguous span of lanes: a shuffle scan, and a word a warp across the
+// warps of a wide row); then the row stores its k_out prefix
+// (store_prefix). A small class is one chain of dependent steps a row: cut
+// after each step, the loads, the merges and the stores each took a
+// microsecond or less at phase 3d's classes (PERF.md, PR 20), so the plan
+// gives its rows many threads and each step is kept short.
+template <int KT, int S>
+__global__ void __launch_bounds__(ROWS_THREADS)
+seg_merge_rows_kernel(const void* __restrict__ a, const void* __restrict__ b,
+                      const int32_t* __restrict__ lens_a, const int32_t* __restrict__ lens_b,
+                      void* __restrict__ out, int32_t* __restrict__ perm, Lanes pl, int S_,
+                      int wa, int wb, int C, int lc, int E, int T, int k_out, int flip) {
+  constexpr bool NARROW = KT == K_BF16 || KT == K_F16;
+  constexpr int VB = value_bytes<KT>();
+  using V = typename std::conditional<VB == 2, uint16_t, uint32_t>::type;
+  extern __shared__ __align__(16) int32_t sm[];
+  const RowThread g = row_thread(T);
+  const int L = wa + wb, Ls = row_stride(L), R = lc >= 0 ? L >> lc : L / C;
+  const int G = blockDim.x / g.nt;
+  const int row0 = blockIdx.x * G;
+  if (warp_past(row0, T, S_)) return;
+  const int row = row0 + g.slot;
+  const bool live = row < S_;  // a row past S_ in a live warp: its syncs only
+  const size_t row_bytes = ROW_WORDS * Ls * sizeof(int32_t) + rows_extra<KT>(pl, wa, wb);
+  int32_t* s = reinterpret_cast<int32_t*>(reinterpret_cast<uint8_t*>(sm) + g.slot * row_bytes);
+  int32_t *sk = s + Ls, *se = s + 2 * Ls;
+  V* raw_a = reinterpret_cast<V*>(s + ROW_WORDS * Ls);  // the raw values of a, then of b
+  V* raw_b = reinterpret_cast<V*>(reinterpret_cast<uint8_t*>(raw_a) + pad16((size_t)wa * VB));
+  uint8_t* pay = reinterpret_cast<uint8_t*>(raw_b) + pad16((size_t)wb * VB);
+  int* ws = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(sm) + G * row_bytes);
+  const int la = live ? __ldg(lens_a + row) : wa, lb = live ? __ldg(lens_b + row) : wb;
+  if (live) {
+    copy_async(reinterpret_cast<uint8_t*>(raw_a),
+               static_cast<const uint8_t*>(a) + (size_t)row * wa * VB, (size_t)wa * VB, g);
+    copy_async(reinterpret_cast<uint8_t*>(raw_b),
+               static_cast<const uint8_t*>(b) + (size_t)row * wb * VB, (size_t)wb * VB, g);
+    load_payloads(pl, row, L, pay, g);
+  }
+  async_wait();
+  row_sync(T);
+  bool tie = false;  // a valid key ties the sentinel (int32 keys only)
+  const auto masked = [&](int len) {
+    return [&, len](int i, int32_t k) {
+      if (i >= len) return KEY_SENT;
+      k = flip ? ~k : k;
+      if (KT == K_I32) tie |= k == KEY_SENT;
+      return k;
+    };
+  };
+  encode_run<KT>(raw_a, wa, false, s, g, masked(la));
+  encode_run<KT>(raw_b, wb, false, s + wa, g, masked(lb));
+  tie = row_sync_or(T, tie);
+  column_merges(s, sk, se, wa, wb, C, lc, E, g);
+  row_sync(T);
+  int32_t* lanes = se;  // the row's lanes in network order
+  if (C > 1 && g.nt > R) {  // more threads than stack rows: ranks, into s
+    rank_rows<S>(sk, se, s, L, C, lc, g);
+    lanes = s;
+    row_sync(T);
+  } else if (C > 1) {  // a thread a stack row: sorted in registers, in place
+    for (int r = g.t; r < R; r += g.nt) {
+      int32_t key[S], lane[S];
+      sort_stack_row<S, NARROW>(sk, se, r, C, key, lane);
+      if (C == S) {
+        store_words<S>(se, r * S, lane);
+      } else {
+#pragma unroll
+        for (int q = 0; q < S; ++q)
+          if (q < C) se[r * C + q] = lane[q];
+      }
+    }
+    row_sync(T);
+  }
+  // valid lanes first, stably. The merged row is sorted by key, and the
+  // lanes past a run's length hold KEY_SENT, above every valid key but one
+  // that ties it (int32 only: INT32_MAX ascending, INT32_MIN descending);
+  // so only a row with such a key needs the compaction. The rows of a warp
+  // (T < 32) compact together: the scan's shuffles take the whole warp.
+  const int32_t* src = lanes;
+  if (KT == K_I32 && tie) {
+    const auto valid = [&](int32_t e) { return e < wa ? e < la : e - wa < lb; };
+    const int per = (L + g.nt - 1) / g.nt, j0 = min(L, g.t * per), j1 = min(L, j0 + per);
+    int cnt = 0;
+    for (int j = j0; j < j1; ++j) cnt += valid(lanes[j]);
+    int total;
+    int before = row_scan(cnt, total, T, ws);  // valid lanes before lane j
+    for (int j = j0; j < j1; ++j) {
+      const int32_t e = lanes[j];
+      const bool v = valid(e);
+      sk[v ? before : total + j - before] = e;
+      before += v;
+    }
+    row_sync(T);
+    src = sk;
+  }
+  if (!live) return;  // no sync follows
+  const size_t ob = (size_t)row * k_out;
+  const V* raw[2] = {raw_a, raw_b};
+  if (k_out >= 4 * g.nt)
+    store_prefix<4>(src, raw, pay, pl, static_cast<V*>(out) + ob, perm + ob, ob, k_out, wa, la, L,
+                    g);
+  else
+    store_prefix<1>(src, raw, pay, pl, static_cast<V*>(out) + ob, perm + ob, ob, k_out, wa, la, L,
+                    g);
+}
+
+template <int KT, int S>
+int launch_merge_rows(const void* a, const void* b, const int32_t* la, const int32_t* lb,
+                      void* out, int32_t* perm, const Lanes& pl, int S_, int wa, int wb, int C,
+                      int T, int k_out, int flip, cudaStream_t s) {
+  const RowsLaunch c = rows_plan(S_, wa + wb, T, rows_extra<KT>(pl, wa, wb));
+  static size_t granted = 0;  // shared memory asked for (per KT, S)
+  const cudaError_t err = allow_smem(seg_merge_rows_kernel<KT, S>, c.smem, granted);
+  if (err != cudaSuccess) return (int)err;
+  seg_merge_rows_kernel<KT, S><<<c.ctas, c.threads, c.smem, s>>>(
+      a, b, la, lb, out, perm, pl, S_, wa, wb, C, log2_exact(C), c.E, c.T, k_out, flip);
+  return (int)cudaGetLastError();
+}
+
+template <int KT>
+int launch_merge_rows_kt(const void* a, const void* b, const int32_t* la, const int32_t* lb,
+                         void* out, int32_t* perm, const Lanes& pl, int S_, int wa, int wb,
+                         int C, int T, int k_out, int flip, cudaStream_t s) {
+  switch (pad_cols(C)) {
+    case 1: return launch_merge_rows<KT, 1>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, flip, s);
+    case 2: return launch_merge_rows<KT, 2>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, flip, s);
+    case 4: return launch_merge_rows<KT, 4>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, flip, s);
+    case 8: return launch_merge_rows<KT, 8>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, flip, s);
+    default: return launch_merge_rows<KT, 16>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, flip, s);
+  }
+}
+
 template <int KT, int ER>
 int launch_sort(const void* x, const int32_t* lens, const int* prog, void* out,
                 int32_t* perm, const Lanes& pl, int S, int W, int k_out, int flip,
@@ -231,6 +414,36 @@ int repro_seg_merge(const void* a, const void* b, const void* lens_a,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The class merge of a single-level program of C columns (C = 1: s2ms;
+// 2..16: the loms column device, C dividing wa and wb) on the row-merge
+// executor: T threads a row (0: the plan's, merge_rows.cuh rows_plan;
+// else a power of two from 4 to 256).
+int repro_seg_merge_rows(const void* a, const void* b, const void* lens_a,
+                         const void* lens_b, void* out, void* perm, int n_payload,
+                         void** p_in, void** p_out, const int* p_bytes, int S, int wa,
+                         int wb, int C, int T, int k_out, int key_code, int flip,
+                         void* stream) {
+  if (n_payload < 0 || n_payload > MAXP || wa <= 0 || wb <= 0 || C < 1 || C > 16 ||
+      wa % C || wb % C || !rows_threads_ok(T) || k_out < 1 || k_out > wa + wb ||
+      key_code < K_F32 || key_code > K_I32)
+    return (int)cudaErrorInvalidValue;
+  const Lanes pl = make_lanes(n_payload, p_in, p_out, p_bytes);
+  const size_t extra = key_code == K_BF16 || key_code == K_F16
+                           ? rows_extra<K_BF16>(pl, wa, wb) : rows_extra<K_F32>(pl, wa, wb);
+  if (rows_plan(S, wa + wb, T, extra).smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* la = static_cast<const int32_t*>(lens_a);
+  const int32_t* lb = static_cast<const int32_t*>(lens_b);
+  int32_t* pm = static_cast<int32_t*>(perm);
+  switch (key_code) {
+    case K_F32: return launch_merge_rows_kt<K_F32>(a, b, la, lb, out, pm, pl, S, wa, wb, C, T, k_out, flip, s);
+    case K_BF16: return launch_merge_rows_kt<K_BF16>(a, b, la, lb, out, pm, pl, S, wa, wb, C, T, k_out, flip, s);
+    case K_F16: return launch_merge_rows_kt<K_F16>(a, b, la, lb, out, pm, pl, S, wa, wb, C, T, k_out, flip, s);
+    case K_I32: return launch_merge_rows_kt<K_I32>(a, b, la, lb, out, pm, pl, S, wa, wb, C, T, k_out, flip, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -34,9 +34,11 @@ _SIGNATURES = {
     "segmented": {
         "repro_seg_sort": [P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P],
         "repro_seg_merge": [P, P, P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, P],
+        "repro_seg_merge_rows": [P, P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, P],
     },
     "merge": {"repro_loms_merge2": [P, P, P, P, P, I, P, P, P, P, I, I, I, I, I, I, I, P],
-              "repro_merge_tiles": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P]},
+              "repro_merge_tiles": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P],
+              "repro_merge_rows": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P]},
     "sort": {"repro_loms_sort": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, P]},
     "grid_merge": {"repro_grid_merge2": [P, P, P, P, I, I, I, I, L, L, L, L, L, L, I, I, I,
                                          P]},
@@ -51,6 +53,11 @@ SORT_LANES = 0
 #: only the rows past a CTA's shared memory; > 0 forces that many rows a
 #: tile on every row the tiled kernel takes
 MERGE_TILE = 0
+#: threads a row of the row-merge executor takes (``csrc/merge_rows.cuh``:
+#: the 2-way merge's shared-memory rows and the class merge of the
+#: single-level programs); 0: the plan's (``rows_plan``); a power of two
+#: from 4 to 256 forces that many
+MERGE_ROW_THREADS = 0
 #: outputs a thread of the grid merge (``csrc/grid_merge.cu``), its tile
 #: being that many times 256; 0: the wrapper's choice for the shape
 #: (``streaming/grid_merge.py`` ``_items``); 1..16 forces that tile

@@ -21,7 +21,14 @@ launch as the class sort.
 ``segment_class_merge`` replaces ``segment_class_merge_pallas``
 (``_seg_merge_kernel``, ``:115``). A CUDA tensor goes to the kernels of
 ``csrc/segmented.cu`` or raises; a CPU tensor runs the plain versions
-below, which are the reference's kernel bodies in torch ops. The
+below, which are the reference's kernel bodies in torch ops. The class
+merge takes its kernel by program and shape, never as a fallback: a
+single-level program (loms with at most 16 columns, s2ms) whose row, raw
+values and payload lanes fit a CTA's shared memory runs
+``seg_merge_rows_kernel`` on the row-merge executor of
+``csrc/merge_rows.cuh`` (its decomposition on the CPU:
+:func:`seg_merge_rows_emulated`), the pair-stage families and the rest
+``seg_merge_kernel``. The
 reference's ``use_mxu`` is False on every path the port serves (encoded
 keys and int keys take the exact permute), so it has no counterpart.
 """
@@ -38,6 +45,8 @@ from .common import (encode_key_values, flip_keys, gather_lanes, sentinel_max,
 from . import launch
 from .launch import (KEY_CODE, check_rc, cuda_checks, empty_payloads, library,
                      payload_args, program_tensor, sort_prefix, stream)
+from .loms_merge import (column_merges_emulated, lane_bytes, row_ranks_emulated,
+                         row_sorts_emulated, rows_fit, tile_cols)
 from .topk import LAUNCHES
 
 #: widest class a sort launch takes (the reference's cutover, see
@@ -108,6 +117,69 @@ def segment_class_merge_plain(dense_a, dense_b, lens_a, lens_b, payloads=(), *,
     seg_pos = torch.where(pos < wa, pos, lens_a + (pos - wa))
     return _store_prefix(pos, torch.cat([dense_a, dense_b], dim=1), payloads,
                          k_out, want_perm, seg_pos=seg_pos)
+
+
+def seg_merge_rows_emulated(dense_a, dense_b, lens_a, lens_b, payloads=(), *,
+                            k_out=None, network="loms", flip=False,
+                            n_cols: Optional[int] = None, threads: int = 32) -> Result:
+    """``seg_merge_rows_kernel``'s decomposition on the CPU at ``threads``
+    threads a row: keys with the sentinel INT32_MAX past each run's length,
+    each thread's diagonal search and merge steps and the row sorts of the
+    single-level program (``loms_merge`` :func:`column_merges_emulated`,
+    and :func:`row_sorts_emulated`, or :func:`row_ranks_emulated` where the
+    row has more threads than stack rows); then the valid-first compaction as the
+    kernel computes it, only in the rows where a valid key ties the
+    sentinel (int32 keys; with fewer than 32 threads a row, in every row of
+    such a row's warp): thread t of the row counts the valid lanes of its
+    span [t * per, (t + 1) * per) and an exclusive scan over the threads
+    places them; elsewhere the merged order, sorted by key with the
+    sentinel lanes last, is valid-first already. Then the ``k_out`` prefix:
+    raw values and payload rows gathered at the lanes, positions in segment
+    coordinates. For the tests; equals :func:`segment_class_merge_plain`
+    (``perm`` always returned)."""
+    s_, wa = dense_a.shape
+    wb = dense_b.shape[1]
+    L = wa + wb
+    k_out = L if k_out is None else int(k_out)
+    cols = tile_cols(network, wa, wb, pick_merge_cols(wa, wb) if n_cols is None
+                     else int(n_cols), False)
+    if not cols:
+        raise ValueError(f"{network} is not a single-level program of at most 16 columns")
+    lens_a, lens_b = lens_a.to(torch.int64), lens_b.to(torch.int64)
+    ka, lane_a = _prep_keys(dense_a, lens_a, flip=flip)
+    kb, lane_b = _prep_keys(dense_b, lens_b, flip=flip)
+    sent = torch.iinfo(torch.int32).max
+    tie = torch.zeros((s_,), dtype=torch.bool)
+    if dense_a.dtype == torch.int32:  # float keys never encode to the sentinel
+        tie = (((ka == sent) & (lane_a < lens_a)).any(-1)
+               | ((kb == sent) & (lane_b < lens_b)).any(-1))
+        if threads < 32:  # a warp's rows compact together
+            per_warp = 32 // threads
+            pad = torch.cat([tie, torch.zeros((-s_) % per_warp, dtype=torch.bool)])
+            tie = pad.view(-1, per_warp).any(-1).repeat_interleave(per_warp)[:s_]
+    nt = threads
+    stack_k, stack_e = column_merges_emulated(torch.cat([ka, kb], -1).to(torch.int64), wa,
+                                              cols, -(-L // nt))
+    if cols > 1 and nt > L // cols:  # more threads than stack rows: counted ranks
+        lane = row_ranks_emulated(stack_k, stack_e)
+    else:
+        _, lane = row_sorts_emulated(stack_k, stack_e,
+                                     dense_a.dtype in (torch.bfloat16, torch.float16))
+    valid = torch.where(lane < wa, lane < lens_a, lane - wa < lens_b).to(torch.int64)
+    per = -(-L // nt)
+    owner = torch.arange(L) // per
+    count = torch.zeros((s_, nt), dtype=torch.int64).index_add_(1, owner, valid)
+    total = count.sum(-1, keepdim=True)
+    start = torch.cumsum(count, -1) - count  # the scan: valid lanes before each thread
+    run = torch.cumsum(valid, -1) - valid
+    before = start[:, owner] + run - run[:, owner * per]  # ... and before each lane
+    j = torch.arange(L)
+    dest = torch.where(valid.bool(), before, total + j - before)
+    dest = torch.where(tie[:, None], dest, j)
+    lane = torch.zeros_like(lane).scatter_(1, dest, lane)[:, :k_out]
+    out = gather_lanes(lane, torch.cat([dense_a, dense_b], dim=1))
+    perm = torch.where(lane < wa, lane, lens_a + (lane - wa)).to(torch.int32)
+    return out, perm, tuple(gather_lanes(lane, p) for p in payloads)
 
 
 def _alloc_outputs(dense, payloads, s, k_out):
@@ -193,15 +265,26 @@ def segment_class_merge(dense_a: torch.Tensor, dense_b: torch.Tensor,
     lens_b = lens_b.to(torch.int32).contiguous()
     cuda_checks("class kernels", (dense_a, dense_b, lens_a, lens_b) + payloads,
                 dense_a.dtype, len(payloads))
-    prog = program_tensor(dense_a.device, "merge", network, wa, wb,
-                          n_cols if network == "loms" else None)
     out, perm, pouts = _alloc_outputs(dense_a, payloads, s, k_out)
+    cols = tile_cols(network, wa, wb, n_cols, False)
+    if not rows_fit(wa, wb, dense_a.element_size(), lane_bytes(payloads),
+                    launch.MERGE_ROW_THREADS):
+        cols = 0  # the row and its payload lanes pass a CTA's shared memory
     if s:
         n, ins, po, rb = payload_args(payloads, pouts)
-        check_rc(library("segmented").repro_seg_merge(
-            dense_a.data_ptr(), dense_b.data_ptr(), lens_a.data_ptr(),
-            lens_b.data_ptr(), prog.data_ptr(), out.data_ptr(), perm.data_ptr(),
-            n, ins, po, rb, s, wa, wb, k_out, KEY_CODE[dense_a.dtype],
-            int(flip), stream(dense_a)), "seg_merge")
+        if cols:  # a single-level program: the row-merge executor
+            check_rc(library("segmented").repro_seg_merge_rows(
+                dense_a.data_ptr(), dense_b.data_ptr(), lens_a.data_ptr(),
+                lens_b.data_ptr(), out.data_ptr(), perm.data_ptr(), n, ins, po, rb, s, wa,
+                wb, cols, launch.MERGE_ROW_THREADS, k_out, KEY_CODE[dense_a.dtype], int(flip),
+                stream(dense_a)), "seg_merge_rows")
+        else:
+            prog = program_tensor(dense_a.device, "merge", network, wa, wb,
+                                  n_cols if network == "loms" else None)
+            check_rc(library("segmented").repro_seg_merge(
+                dense_a.data_ptr(), dense_b.data_ptr(), lens_a.data_ptr(),
+                lens_b.data_ptr(), prog.data_ptr(), out.data_ptr(), perm.data_ptr(),
+                n, ins, po, rb, s, wa, wb, k_out, KEY_CODE[dense_a.dtype],
+                int(flip), stream(dense_a)), "seg_merge")
         LAUNCHES["seg_merge"] += 1
     return out, (perm if want_perm else None), pouts

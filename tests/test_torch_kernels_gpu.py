@@ -1,8 +1,9 @@
 """On-card tests of the port's CUDA kernels (top-k, segmented class sort
 and merge, the 2-way merge, the fused sort, the grid merge, the k-way
 merge) against their plain versions, in the key mode and in the
-reference's raw-float mode (``use_mxu=True``: rows 1, 2 and 8), and the
-sort executor of rows 2 and 6 at every lanes-a-thread layout.
+reference's raw-float mode (``use_mxu=True``: rows 1, 2 and 8), the
+sort executor of rows 2 and 6 at every lanes-a-thread layout, and the
+row-merge executor of rows 1 and 7 at every threads a row.
 
 Marked ``gpu``: each test skips without a CUDA card. This file imports
 neither JAX nor the JAX package, so it also runs where only PyTorch is
@@ -659,3 +660,101 @@ def test_kway_executors_on_unsorted_lists_match_the_emulation(cuda, lens):
         want = kway_emulated(x, sched, n_stages=n_stages)
         got = kway_merge(x.to(cuda), sched, n_stages=n_stages, want_perm=True)
         assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.fixture
+def row_threads():
+    """Force the threads a row of the row-merge executor (rows 1 and 7)."""
+    from repro_torch.kernels import launch
+
+    old = launch.MERGE_ROW_THREADS
+    yield lambda t: setattr(launch, "MERGE_ROW_THREADS", t)
+    launch.MERGE_ROW_THREADS = old
+
+
+def _extreme_tile(rows, w, dtype, seed):
+    """``_class_tile`` whose int32 rows also hold INT32_MIN: a descending
+    key ``~INT32_MIN`` ties the class merge's sentinel as INT32_MAX does an
+    ascending one."""
+    x = _class_tile(rows, w, dtype, seed)
+    if dtype == torch.int32:
+        x[torch.from_numpy(np.random.default_rng(seed + 1).random((rows, w)) < 0.05)] = \
+            np.iinfo(np.int32).min
+    return x
+
+
+@pytest.mark.parametrize("threads", [0, 4, 8, 32, 64, 256])
+@pytest.mark.parametrize("m,n,fam,n_cols", [(32, 32, "loms", None), (64, 8, "loms", None),
+                                            (5, 3, "s2ms", None), (64, 64, "loms", 16),
+                                            (48, 24, "loms", 3), (512, 512, "loms", None),
+                                            (1000, 24, "loms", None), (64, 1, "loms", None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.int32])
+def test_merge_rows_kernel_matches_plain(cuda, row_threads, threads, m, n, fam, n_cols,
+                                         dtype):
+    """Row 1's shared-memory rows on the row-merge executor at the plan's
+    threads a row and at 4, 8, 32, 64 and 256: C = 1, 2, 3 (not a power of
+    two), 4, 16, both orders, a 3-D and a bf16 payload lane; one launch a
+    call."""
+    from repro_torch.kernels.loms_merge import loms_merge2, loms_merge2_plain
+
+    row_threads(threads)
+    rows = 11
+    n_cols = pick_merge_cols(m, n) if n_cols is None else n_cols
+    pay = (torch.arange(rows * (m + n) * 3, dtype=torch.int32).reshape(rows, m + n, 3),
+           _class_tile(rows, m + n, torch.bfloat16, seed=4))
+    key = dtype if dtype.is_floating_point else None
+    for desc in (False, True):
+        a = _sorted_rows(rows, m, dtype, 21, desc)
+        b = _sorted_rows(rows, n, dtype, 22, desc)
+        kw = dict(network=fam, n_cols=n_cols, key_dtype=key, descending=desc, want_perm=True)
+        want = loms_merge2_plain(a, b, pay, **kw)
+        got = _one_launch("loms_merge2", lambda: loms_merge2(
+            a.to(cuda), b.to(cuda), [p.to(cuda) for p in pay], **kw))
+        _same_all(want, got)
+        values_only = loms_merge2(a.to(cuda), b.to(cuda), network=fam, n_cols=n_cols,
+                                  key_dtype=key, descending=desc)
+        assert values_only[1] is None
+        assert torch.equal(_bits(values_only[0].cpu()), _bits(want[0]))
+
+
+@pytest.mark.parametrize("threads", [0, 4, 16, 32, 256])
+@pytest.mark.parametrize("wa,wb", [(64, 1), (64, 2), (64, 4), (64, 8), (64, 16), (64, 32),
+                                   (64, 64), (1024, 1024), (4, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.int32])
+def test_seg_merge_rows_kernel_matches_plain(cuda, row_threads, threads, wa, wb, dtype):
+    """The class merge of the single-level programs (loms, s2ms) on the
+    row-merge executor: phase 3d's classes and the widest, lengths from 0
+    to full (and all rows full), k_out below and at the width, both
+    orders, two payload lanes, int32 keys that tie the sentinel; one launch
+    a call."""
+    row_threads(threads)
+    rows = 13
+    pay = (torch.arange(rows * (wa + wb) * 2, dtype=torch.int32).reshape(rows, wa + wb, 2),
+           _class_tile(rows, wa + wb, torch.bfloat16, seed=6))
+    for full in (False, True):
+        la = torch.full((rows, 1), wa, dtype=torch.int32) if full else _lens(rows, wa, wa)
+        lb = torch.full((rows, 1), wb, dtype=torch.int32) if full else _lens(rows, wb, wb + 1)
+        for flip in (False, True):
+            a = SK.segment_class_sort_plain(_extreme_tile(rows, wa, dtype, 1), la, flip=flip)[0]
+            b = SK.segment_class_sort_plain(_extreme_tile(rows, wb, dtype, 2), lb, flip=flip)[0]
+            for fam in ("loms", "s2ms"):
+                for k_out in (wa + wb, max(1, (wa + wb) // 3)):
+                    kw = dict(k_out=k_out, network=fam, flip=flip, want_perm=True)
+                    want = SK.segment_class_merge_plain(a, b, la, lb, pay, **kw)
+                    got = _one_launch("seg_merge", lambda: SK.segment_class_merge(
+                        a.to(cuda), b.to(cuda), la.to(cuda), lb.to(cuda),
+                        [p.to(cuda) for p in pay], **kw))
+                    _same_all(want, got)
+
+
+def test_seg_merge_pair_families_keep_their_kernel(cuda):
+    """The pair-stage families take seg_merge_kernel (run_program), one
+    launch a call, bit-equal to the plain version."""
+    la, lb = _lens(9, 32, 3), _lens(9, 32, 4)
+    a = SK.segment_class_sort_plain(_extreme_tile(9, 32, torch.int32, 1), la)[0]
+    b = SK.segment_class_sort_plain(_extreme_tile(9, 32, torch.int32, 2), lb)[0]
+    for fam in capable_families("merge2", (32, 32)):
+        want = SK.segment_class_merge_plain(a, b, la, lb, network=fam, want_perm=True)
+        got = _one_launch("seg_merge", lambda: SK.segment_class_merge(
+            a.to(cuda), b.to(cuda), la.to(cuda), lb.to(cuda), network=fam, want_perm=True))
+        _same_all(want, got)
