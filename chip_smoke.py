@@ -78,6 +78,28 @@ script with a non-zero exit code when it fails:
       ``chunked_merge_k`` of 8 runs of 2^20 (an external sort's merge
       phase: 65,536 segment rows in one launch); each checked bit-equal
       to the plain version run in chunks, or to torch.sort of the keys;
+   g. the schedule executor and the backends (routes with no kernel of
+      their own, and the backends' explicit asks): qwen3-moe-30b-a3b's
+      router, ``topk(backend="schedule", block=32)`` of (4096, 128) f32
+      logits, indices bit-equal to the CPU's and values to torch.topk;
+      its expert grouping, the schedule sort of 32,768 unique keys
+      ``expert * n + arrival`` with an iota payload, bit-equal to a
+      stable torch.sort; ``sort(stable=True)`` of (16,384, 1024) bf16
+      with an int32 payload (auto: the executor), bit-equal to a stable
+      torch.sort of the keys; the exact nucleus ``sample_topp(k_max=None)``
+      on phase 3a's (4, 151,936) logits (its ranking equal to torch.sort
+      of the keys and a permutation, each token inside its nucleus, the
+      peak memory logged); ``merge`` of 32 + 32 over 65,536 rows with
+      ``backend="cuda" / "schedule" / "streaming" / "lax"`` (values
+      bit-equal; cuda and schedule also one permutation, the keys being
+      distinct); the ragged 7 + 5 merge, bit-equal to the CPU; ``topk``
+      at the vocab width with ``axis=0``, ``payload=``,
+      ``with_indices=False``, int32 and uint32 keys (bit-equal to the
+      CPU) and ``descending=False``; ``autotune_merge2`` /
+      ``autotune_sort`` / ``autotune_topk`` at phase 3e's shapes into a
+      temporary cache, then the auto call at each shape bit-equal to the
+      winner's plain version; the calls without a kernel timed beside one
+      torch.sort / torch.topk (the "routes without a kernel" line);
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
@@ -2113,6 +2135,252 @@ def phase_library_kway(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the schedule executor and the backends (no kernel of their own)
+# ---------------------------------------------------------------------------
+
+
+def distinct_sorted_pair(rows, m, n, device, seed):
+    """Two ascending f32 runs a row whose m + n values are all distinct,
+    so that any merge network gives one permutation."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = np.argsort(rng.random((rows, m + n)), axis=1).astype(np.float32) - (m + n) / 2
+    a = torch.sort(torch.from_numpy(x[:, :m]))[0]
+    b = torch.sort(torch.from_numpy(x[:, m:]))[0]
+    return a.to(device), b.to(device)
+
+
+def phase_schedule_backends(dev, logits, card) -> tuple:
+    """Phase 3g: the schedule executor and the backends at their users'
+    sizes, each call with its launch counts zeroed before and read after.
+    Returns the launch totals and the timing rows of the calls that run
+    no kernel (device ms beside one torch.sort / torch.topk)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import topk as K
+    from repro_torch.kernels.common import decode_key_values, encode_key_values, take_along
+    from repro_torch.kernels.loms_merge import loms_merge2
+    from repro_torch.kernels.sort import loms_sort
+    from repro_torch.serving import sample as S
+    from repro_torch.streaming import cache as C
+    from repro_torch.streaming import planner as P
+
+    total = {n: 0 for n in K.LAUNCHES}
+    rows = []
+
+    def as_bits(t):
+        t = t.cpu()
+        if t.dtype == torch.uint32:
+            return t.view(torch.int32)
+        return bits(t) if t.dtype.is_floating_point else t
+
+    def eq(name, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {len(got)} outputs, not {len(want)}")
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(as_bits(g),
+                                                                           as_bits(w)):
+                raise AssertionError(f"{name}: differs")
+
+    def run(name, call, kernels=None):
+        """One call with its launch counts; ``kernels``: the kernels it
+        must launch (None: none at all, the executor's calls)."""
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = {n: c for n, c in K.LAUNCHES.items() if c}
+        for n, c in K.LAUNCHES.items():
+            total[n] += c
+        if kernels is None and counts:
+            raise AssertionError(f"{name}: launched {counts}, the executor launches none")
+        if kernels is not None and set(counts) != set(kernels):
+            raise AssertionError(f"{name}: launched {counts}, not {kernels}")
+        log(f"  {name}: {wall:.1f} ms eager (first call); launches {counts}")
+        return got
+
+    def timed(name, call, yardstick, iters=3):
+        ms = cuda_ms(call, iters, warm=1)
+        ref_ms = cuda_ms(yardstick, iters, warm=1)
+        rows.append({"name": name, "ms": round(ms, 4), "torch_ms": round(ref_ms, 4)})
+        log(f"  time {name}: {ms:.4f} ms; one torch call {ref_ms:.4f} ms ({card})")
+
+    rng = np.random.default_rng(21)
+    # qwen3-moe-30b-a3b's router: 128 experts, top 8, a 4096-token prefill chunk
+    lr = torch.from_numpy(rng.standard_normal((4096, 128)).astype(np.float32)).to(dev)
+    rv, ri = run("router topk (4096, 128) k 8 block 32, backend=schedule",
+                 lambda: repro_torch.topk(lr, 8, block=32, backend="schedule"))
+    cv, ci = repro_torch.topk(lr.cpu(), 8, block=32, backend="schedule")
+    eq("router indices vs the CPU", ri, ci)
+    eq("router values vs torch.topk", rv, torch.topk(lr, 8)[0])
+    timed("router topk (4096, 128) k 8, schedule",
+          lambda: repro_torch.topk(lr, 8, block=32, backend="schedule"),
+          lambda: torch.topk(lr, 8))
+    # its expert grouping: 4096 tokens x 8 unique keys expert * n + arrival
+    n = ri.numel()
+    keys = (ri.reshape(1, -1) * n + torch.arange(n, device=dev, dtype=torch.int32))
+    iota = torch.arange(n, device=dev, dtype=torch.int32).reshape(1, -1)
+    gv, gp = run("expert grouping sort (1, 32768) int32 + iota, backend=schedule",
+                 lambda: repro_torch.sort(keys, payload=iota, backend="schedule"))
+    wv, wp = torch.sort(keys, stable=True)
+    eq("grouping vs torch.sort(stable)", (gv, gp), (wv, wp.to(torch.int32)))
+    timed("expert grouping sort (1, 32768) int32 + payload, schedule",
+          lambda: repro_torch.sort(keys, payload=iota, backend="schedule"),
+          lambda: torch.sort(keys, stable=True))
+    # a stable sort on the auto route: the executor
+    x4 = seg_tile(16_384, 1024, torch.bfloat16, dev, seed=7)
+    p4 = torch.arange(16_384 * 1024, dtype=torch.int32, device=dev).reshape(16_384, 1024)
+    sv, sp = run("sort (16384, 1024) bf16 stable + int32 payload (auto: schedule)",
+                 lambda: repro_torch.sort(x4, stable=True, payload=p4))
+    order = torch.sort(encode_key_values(x4), dim=-1, stable=True)[1]
+    eq("stable sort vs torch.sort(stable) of the keys",
+       (sv, sp), (take_along(x4, 1, order), take_along(p4, 1, order)))
+    timed("sort (16384, 1024) bf16 stable + payload, schedule",
+          lambda: repro_torch.sort(x4, stable=True, payload=p4),
+          lambda: (torch.sort(encode_key_values(x4), dim=-1, stable=True)))
+    # the exact nucleus on phase 3a's logits
+    v = logits.shape[-1]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tok = run(f"sample_topp(k_max=None) {tuple(logits.shape)} {logits.dtype}",
+              lambda: S.sample_topp(logits, p=0.9, k_max=None, temperature=0.8,
+                                    generator=gen))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    iota_v = torch.arange(v, dtype=torch.int32, device=dev).expand(logits.shape)
+    nv, ni = run("sort(descending, payload=iota) of the logits (the nucleus's ranking)",
+                 lambda: repro_torch.sort(logits, descending=True, payload=iota_v))
+    want = decode_key_values(torch.sort(encode_key_values(logits), dim=-1,
+                                        descending=True)[0], logits.dtype)
+    eq("nucleus values vs torch.sort of the keys", nv, want)
+    if not torch.equal(torch.sort(ni, dim=-1)[0], iota_v):
+        raise AssertionError("the nucleus's ranking is not a permutation")
+    eq("the ranking gathers the values", take_along(logits, 1, ni), nv)
+    probs = torch.softmax(nv.float() / 0.8, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = torch.cat([torch.ones_like(cum[:, :1], dtype=torch.bool), cum[:, :-1] < 0.9], -1)
+    where = (ni == tok[:, None].to(ni.dtype)).int().argmax(dim=-1)
+    if not bool(keep.gather(1, where[:, None]).all()):
+        raise AssertionError("a sampled token lies outside its nucleus")
+    log(f"  exact nucleus: tokens {tok.tolist()}, nucleus sizes {keep.sum(-1).tolist()}; "
+        f"peak memory above the logits {peak:.3f} GiB")
+    timed(f"sort desc + payload {tuple(logits.shape)} bf16 (exact nucleus), schedule",
+          lambda: repro_torch.sort(logits, descending=True, payload=iota_v),
+          lambda: torch.sort(logits, dim=-1, descending=True))
+    # explicit asks at phase 3e's 32 + 32 over 65,536 rows
+    a1, b1 = distinct_sorted_pair(65_536, 32, 32, dev, seed=1)
+    ids = torch.arange(65_536 * 64, dtype=torch.int32, device=dev).reshape(65_536, 64)
+    pay = (ids[:, :32], ids[:, 32:])
+    kern = {"cuda": {"loms_merge2"}, "schedule": None, "streaming": {"grid_merge2"},
+            "lax": None}
+    outs = {}
+    for be, kn in kern.items():
+        outs[be] = run(f"merge (65536, 32 + 32) f32, backend={be}",
+                       lambda: repro_torch.merge(a1, b1, backend=be), kn)
+    for be in ("schedule", "streaming", "lax"):
+        eq(f"merge backend={be} vs cuda", outs[be], outs["cuda"])
+    pc = run("merge + ids, backend=cuda", lambda: repro_torch.merge(
+        a1, b1, payload=pay, backend="cuda"), {"loms_merge2"})
+    ps = run("merge + ids, backend=schedule", lambda: repro_torch.merge(
+        a1, b1, payload=pay, backend="schedule"))
+    eq("merge + ids: cuda vs schedule (one permutation)", pc, ps)
+    timed("merge (65536, 32 + 32) f32 + ids, schedule",
+          lambda: repro_torch.merge(a1, b1, payload=pay, backend="schedule"),
+          lambda: torch.sort(torch.cat([a1, b1], 1), dim=-1, stable=True))
+    # the ragged merge 7 + 5
+    a7 = total_order_sorted(seg_tile(65_536, 7, torch.float32, dev, seed=2))
+    b5 = total_order_sorted(seg_tile(65_536, 5, torch.float32, dev, seed=3))
+    rg = run("merge (65536, 7 + 5) f32 + ids (ragged: schedule)",
+             lambda: repro_torch.merge(a7, b5, payload=(ids[:, :7], ids[:, 7:12])))
+    eq("ragged merge vs the CPU", rg, repro_torch.merge(
+        a7.cpu(), b5.cpu(), payload=(ids[:, :7].cpu(), ids[:, 7:12].cpu())))
+    timed("merge (65536, 7 + 5) f32 + ids, schedule",
+          lambda: repro_torch.merge(a7, b5, payload=(ids[:, :7], ids[:, 7:12])),
+          lambda: torch.sort(torch.cat([a7, b5], 1), dim=-1, stable=True))
+    # topk's new arguments at the vocab width
+    vocab = {"vocab_phase1", "vocab_merge_level"}
+    k = 64
+    t0v, t0i = run("topk axis=0 of the transposed logits",
+                   lambda: repro_torch.topk(logits.T, k, axis=0), vocab)
+    eq("topk axis=0 vs the CPU", (t0v, t0i), repro_torch.topk(logits.T.cpu(), k, axis=0))
+    tv, ti, tp = run("topk with payload=iota",
+                     lambda: repro_torch.topk(logits, k, payload=iota_v), vocab)
+    eq("topk payload is the indices", tp, ti)
+    eq("topk axis=0 is the transpose", (t0v.T, t0i.T), (tv, ti))
+    eq("with_indices=False", run("topk with_indices=False", lambda: repro_torch.topk(
+        logits, k, with_indices=False), vocab), tv)
+    xi = torch.from_numpy(rng.integers(-50, 50, logits.shape).astype(np.int32)).to(dev)
+    iv, ii = run("topk int32 keys (auto: schedule)", lambda: repro_torch.topk(xi, k))
+    eq("int32 topk vs the CPU", (iv, ii), repro_torch.topk(xi.cpu(), k))
+    xu = rng.integers(0, 2 ** 32, logits.shape, dtype=np.uint64).astype(np.uint32)
+    xu[:, :2] = (0, 2 ** 32 - 1)
+    xu = torch.from_numpy(xu).to(dev)
+    uv, ui = run("topk uint32 keys (auto: schedule)", lambda: repro_torch.topk(xu, k))
+    eq("uint32 topk vs the CPU", (uv, ui), repro_torch.topk(xu.cpu(), k))
+    timed(f"topk int32 {tuple(xi.shape)} k {k}, schedule",
+          lambda: repro_torch.topk(xi, k), lambda: torch.topk(xi, k))
+    av, ai = run("topk descending=False stable=True (schedule)",
+                 lambda: repro_torch.topk(logits, k, descending=False, stable=True))
+    order = torch.sort(encode_key_values(logits), dim=-1, stable=True)[1][:, :k]
+    eq("ascending topk values vs torch.sort of the keys", av, take_along(logits, 1, order))
+    eq("ascending topk indices gather its values", take_along(logits, 1, ai), av)
+    tie = encode_key_values(av[:, 1:]) == encode_key_values(av[:, :-1])
+    if bool((tie & (ai[:, 1:] <= ai[:, :-1])).any()) or any(
+            len(set(r)) != k for r in ai.tolist()):
+        raise AssertionError("ascending stable topk: indices repeat or ties out of order")
+    # the autotune tournament, into a cache in a temporary directory
+    tmp = tempfile.TemporaryDirectory(prefix="autotune_")
+    prev = C.set_default_cache(C.AutotuneCache(os.path.join(tmp.name, "autotune.json")))
+    try:
+        w1 = run("autotune_merge2(32, 32) at 65,536 rows", lambda: P.autotune_merge2(
+            32, 32, device=dev, batch=65_536), {"loms_merge2"})
+        w2 = run("autotune_sort(1024) bf16 at 16,384 rows", lambda: P.autotune_sort(
+            1024, device=dev, batch=16_384, dtype=torch.bfloat16), {"loms_sort"})
+        w3 = run("autotune_topk(256, 16) at 4096 rows", lambda: P.autotune_topk(
+            256, 16, device=dev, batch=4096), {"router_topk"})
+        for name, w in (("merge2", w1), ("sort", w2), ("topk", w3)):
+            log(f"  autotune {name}: winner {w.network} n_cols {w.n_cols} block {w.block} "
+                f"at {w.us:.2f} us ({card})")
+        s1 = total_order_sorted(seg_tile(65_536, 32, torch.float32, dev, 4))
+        s2 = total_order_sorted(seg_tile(65_536, 32, torch.float32, dev, 5))
+        spec = repro_torch.SortSpec(op="merge", lengths=(32, 32), batch=65_536,
+                                    has_payload=True)
+        if repro_torch.plan(spec).network != w1.network:
+            raise AssertionError("the auto merge does not plan the tuned family")
+        got = run("merge + ids at the tuned shape", lambda: repro_torch.merge(
+            s1, s2, payload=pay), {"loms_merge2"})
+        want = loms_merge2(s1[:2048].cpu(), s2[:2048].cpu(), (ids[:2048].cpu(),),
+                           network=w1.network, n_cols=w1.n_cols, key_dtype=torch.float32)
+        eq("tuned merge vs its plain version", (got[0][:2048], got[1][:2048]),
+           (want[0], want[2][0]))
+        got = run("sort + payload at the tuned shape", lambda: repro_torch.sort(
+            x4, payload=p4), {"loms_sort"})
+        want = loms_sort(x4[:256].cpu(), (p4[:256].cpu(),), network=w2.network,
+                         key_dtype=torch.bfloat16)
+        eq("tuned sort vs its plain version", (got[0][:256], got[1][:256]),
+           (want[0], want[2][0]))
+        xr = seg_tile(4096, 256, torch.float32, dev, 6)
+        got = run("topk k 16 at the tuned shape", lambda: repro_torch.topk(xr, 16),
+                  {"router_topk"})
+        eq("tuned topk vs its plain version", got,
+           K.router_topk(xr.cpu(), 16, block=K.topk_tiles(4096, 256, block=w3.block)[0]))
+    finally:
+        C.set_default_cache(prev)
+        tmp.cleanup()
+    return total, rows
+
+
 def zero_one_faults(lens, median=False) -> str:
     """How many of the prod(len + 1) per-list-sorted 0-1 inputs the LOMS
     device gets wrong (the 0-1 principle: none, for a merge network)."""
@@ -2324,6 +2592,9 @@ def main() -> int:
     runs.append(phase_library_merge_sort(dev))
     log("phase 3f: the k-way merge and the median")
     runs.append(phase_library_kway(dev))
+    log("phase 3g: the schedule executor and the backends")
+    got, no_kernel_rows = phase_schedule_backends(dev, logits, card)
+    runs.append(got)
     launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}
     log(f"  launches over all the main paths: {launches}")
     idle = [n for n, c in launches.items() if c == 0]
@@ -2338,6 +2609,7 @@ def main() -> int:
     profile_serve(dev, params, get_config("qwen3-8b"), card)
     decode_tile_cost(dev, params, get_config("qwen3-8b"), card)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
+    log("  routes without a kernel (phase 3g): " + json.dumps(no_kernel_rows))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

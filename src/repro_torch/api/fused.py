@@ -23,7 +23,8 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels.common import encode_key_values, key_transformable, take_along
+from repro_torch.kernels.common import (encode_key_values, gather_lanes, key_transformable,
+                                        take_along)
 
 from .spec import SortSpec
 
@@ -57,8 +58,8 @@ def fused_eligible(spec: SortSpec) -> bool:
 @dataclasses.dataclass(frozen=True)
 class FusedCfg:
     """The static knobs of one fused call (the reference's ``FusedCfg``
-    without ``block_batch``, ``use_mxu``, ``block`` and ``k``, which no
-    fused merge or sort of the port reads)."""
+    without ``block_batch``, ``block`` and ``k``, which no fused merge or
+    sort of the port reads)."""
 
     op: str
     lens: Tuple[int, ...]
@@ -66,6 +67,9 @@ class FusedCfg:
     descending: bool = False
     n_cols: int = 2
     network: str = "loms"
+    #: raw float rows (``nan_policy="unsafe"``): the kernels' raw-float
+    #: mode, the reference's one-hot permute
+    use_mxu: bool = False
 
 
 def fused_cfg_for(spec: SortSpec, batch: int, dtype: torch.dtype) -> Optional[FusedCfg]:
@@ -81,7 +85,18 @@ def fused_cfg_for(spec: SortSpec, batch: int, dtype: torch.dtype) -> Optional[Fu
     loms = plan.kind == "loms"
     return FusedCfg(op=spec.op, lens=tuple(spec.lengths), key_dtype=key_dtype,
                     descending=spec.descending, n_cols=plan.n_cols if loms else 2,
-                    network=plan.network if loms else "loms")
+                    network=plan.network if loms else "loms",
+                    use_mxu=key_dtype is None and dtype.is_floating_point)
+
+
+def _lanes_apart(run, leaves, want_perm: bool):
+    """``run`` with payload lanes. The raw-float mode carries positions but
+    no lanes, so there the lanes are gathered at its permutation (exact:
+    ``unsafe`` rows are finite, their ranks a permutation)."""
+    if not leaves:
+        return run((), want_perm)
+    out, perm, _ = run((), True)
+    return out, perm, tuple(gather_lanes(perm, leaf) for leaf in leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -142,9 +157,14 @@ class _FusedSort(torch.autograd.Function):
 
         # with payload lanes under autograd, backward needs the kernel's own
         # permutation; otherwise the kernel writes none
-        out, perm, pouts = loms_sort(x, leaves, network=cfg.network,
-                                     key_dtype=cfg.key_dtype, descending=cfg.descending,
-                                     want_perm=bool(leaves) and any(ctx.needs_input_grad))
+        def run(lv, want_perm):
+            return loms_sort(x, lv, network=cfg.network, key_dtype=cfg.key_dtype,
+                             descending=cfg.descending, want_perm=want_perm,
+                             use_mxu=cfg.use_mxu)
+
+        want = bool(leaves) and any(ctx.needs_input_grad)
+        out, perm, pouts = (_lanes_apart(run, leaves, want) if cfg.use_mxu
+                            else run(leaves, want))
         ctx.cfg = cfg
         ctx.save_for_backward(x, perm, *leaves)
         return (out,) + tuple(pouts)
@@ -175,8 +195,12 @@ class _Merge(torch.autograd.Function):
     def forward(ctx, cfg: FusedCfg, run: Run, *tensors: torch.Tensor):
         k = len(cfg.lens)
         lists, leaves = tensors[:k], tensors[k:]
-        out, perm, pouts = run(lists, leaves,
-                               want_perm=bool(leaves) and any(ctx.needs_input_grad))
+        want = bool(leaves) and any(ctx.needs_input_grad)
+        if cfg.use_mxu:
+            out, perm, pouts = _lanes_apart(
+                lambda lv, wp: run(lists, lv, want_perm=wp), leaves, want)
+        else:
+            out, perm, pouts = run(lists, leaves, want_perm=want)
         ctx.cfg = cfg
         ctx.save_for_backward(perm, *tensors)
         return (out,) + tuple(pouts)
@@ -207,7 +231,7 @@ def fused_merge_k(cfg: FusedCfg, lists: Sequence[torch.Tensor],
         def run(ls, lv, want_perm):
             return loms_merge2(ls[0], ls[1], lv, network=cfg.network, n_cols=cfg.n_cols,
                                key_dtype=cfg.key_dtype, descending=cfg.descending,
-                               want_perm=want_perm)
+                               want_perm=want_perm, use_mxu=cfg.use_mxu)
     else:
         from repro_torch.kernels.kway import kway_merge
         from repro_torch.networks import kway_schedule
@@ -215,7 +239,8 @@ def fused_merge_k(cfg: FusedCfg, lists: Sequence[torch.Tensor],
         def run(ls, lv, want_perm):
             return kway_merge(torch.cat(list(ls), dim=-1), kway_schedule(cfg.lens), lv,
                               lens=cfg.lens, key_dtype=cfg.key_dtype,
-                              descending=cfg.descending, want_perm=want_perm)
+                              descending=cfg.descending, want_perm=want_perm,
+                              use_mxu=cfg.use_mxu)
 
     res = _Merge.apply(cfg, run, *lists, *leaves)
     return res[0], tuple(res[1:])

@@ -1,91 +1,219 @@
-"""Public sorting-library entry points of the port.
+"""Public sorting-library entry points of the port (counterpart of
+``repro.api.ops``).
 
-Counterpart of ``repro.api.ops``:
+One entry point per op, with the reference's semantics on every backend:
 
-* ``topk`` as the reference's TPU route runs it: last axis of a 2-D
-  tensor, descending, ``nan_policy="last"``, the router kernel for an
-  axis of at most 512 and the vocab kernels above, int32 indices with -1
-  on pad slots, the planner's block. ``stable=True`` is the reference's
-  pallas rung (``api/ops.py:498``): the same kernels on the keys, then
-  ``stabilize_ties``, values gathered from the input.
-* ``segment_sort / segment_merge / segment_topk / segment_argmax`` over
-  static CSR offsets (:mod:`repro_torch.segmented`): the class kernels for
-  a card tensor, their plain versions for a CPU tensor.
-* ``merge``, ``merge_k``, ``sort`` and ``median_of_lists`` along any
-  axis, routed by ``plan`` as the reference routes them on its
-  accelerator: one rung, the planned one, and no degradation ladder (a
-  failure raises). A fused rung is one launch of kernel row 1 (merge),
-  row 2 (sort) or row 8 (k-way merge); the median is one launch of row 8
-  on the two-stage device; a merge past the routing budget streams
-  through row 9 (two lists) or row 8's tiles (more). The schedule
-  executor runs ``merge_k`` and ``median`` where the reference sends
-  them there (payloads past the budget, ``stable=True``, another
-  network, unequal median lists). Routes the port lacks raise
-  ``NotImplementedError`` naming their ROADMAP item.
+* ``axis=``: sort along any axis;
+* ``descending=``: inputs and outputs descending (merges take inputs
+  sorted that way);
+* ``stable=``: equal values keep ascending input position (an earlier
+  list first);
+* ``payload=``: a tree of tensors riding the permutation (leaves may carry
+  trailing feature dims);
+* ``backend=``: ``"auto"`` routes through ``plan`` (:mod:`.dispatch`),
+  an explicit name forces a registered backend (:mod:`.registry`);
+* ``nan_policy=``: ``"last"`` sorts floats as total-order keys (NaNs
+  last, -0.0 below +0.0); ``"unsafe"`` sends raw floats through the
+  networks (finite, NaN-free inputs only).
+
+A call runs its planned backend and only that (a ``LadderSkip``-style
+fall-through from the fused rung to the unfused one, as in the reference
+with its ladder off): no failure is caught, nothing drops to another
+route (the degradation ladder is ROADMAP Queue 1, item 8). The cuda
+backend's fused rung is one launch of kernel row 1 (merge), row 2 (sort)
+or row 8 (k-way merge); its top-k the router kernel (row 3) or the vocab
+kernels (rows 4 and 5); its median one launch of row 8. A CPU tensor
+takes the same route through the kernels' plain versions. uint32 values
+run as order-preserving int32 keys (``x ^ 0x80000000``) and come back
+mapped.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.common import (decode_key_values, encode_key_values,
-                                        key_transformable, take_along)
-from repro_torch.kernels.topk import (
-    ROUTER_TOPK_MAX,
-    plan_block,
-    router_topk,
-    topk_tiles,
-    vocab_topk,
-)
+from repro_torch.kernels.common import decode_key_values, encode_key_values
+from repro_torch.kernels.topk import topk_tiles
 
+from .keys import decode_keys, encode_keys, has_key_transform
 from .payload import stabilize_ties, take_rows
 
 __all__ = ["topk", "topk_block", "merge", "merge_k", "sort", "median_of_lists",
            "segment_sort", "segment_merge", "segment_topk", "segment_argmax"]
 
 _KEY_PAD = torch.iinfo(torch.int32).min
+#: uint32 <-> int32 key: flipping the sign bit preserves the order
+_U32_FLIP = torch.iinfo(torch.int32).min
 
 
-def topk_block(n: int, k: int) -> int:
-    """The block the fused rung uses for a top-k over an axis of ``n``."""
-    return topk_tiles(1, n, block=plan_block(n, k))[0]
+def topk_block(n: int, k: int, *, batch: int = 1, dtype: torch.dtype = torch.float32) -> int:
+    """The block the fused rung uses for a top-k over an axis of ``n``
+    (the planner's, cache-aware)."""
+    from repro_torch.streaming.planner import plan_op
+
+    return topk_tiles(batch, n, block=plan_op("topk", (n,), batch=batch, dtype=dtype,
+                                              k=k).block)[0]
 
 
-def topk(x: torch.Tensor, k: int, *, descending: bool = True,
-         stable: bool = False, nan_policy: str = "last"
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Largest ``k`` along the last axis of a (rows, n) float tensor,
-    descending: ``(values, int32 indices)``.
+def _to_keys_u32(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) ^ _U32_FLIP
 
-    NaNs rank above +inf and -0.0 below +0.0. Among equal values the
-    higher index comes first, as the reference's kernels order them; with
-    ``stable=True`` the lower index comes first and the values are the
-    input's own bits. Runs on the tensor's device: the CUDA kernels for a
-    card tensor, their plain versions for a CPU tensor."""
-    if not descending:
-        raise NotImplementedError("this slice ports the descending top-k only")
-    if nan_policy != "last":
-        raise NotImplementedError("this slice ports nan_policy='last' only")
-    if x.ndim != 2:
-        raise ValueError(f"topk takes a 2-D tensor, got shape {tuple(x.shape)}")
-    n = x.shape[1]
+
+def _from_keys_u32(k: torch.Tensor) -> torch.Tensor:
+    return (k ^ _U32_FLIP).view(torch.uint32)
+
+
+def _unkey(t, u32: bool):
+    return _from_keys_u32(t) if u32 else t
+
+
+def _iota_rows(length: int, batch: int, reverse: bool, device, offset: int = 0):
+    pos = torch.arange(length, dtype=torch.int32, device=device) + offset
+    return (pos.flip(0) if reverse else pos).expand(batch, length)
+
+
+def _encode_lists(flats, nan_policy: str):
+    """The key pre-pass: floats become total-order int32 keys under
+    ``"last"``. Returns ``(keys, decode)``; ``decode`` is None where no
+    transform ran."""
+    if nan_policy == "unsafe" or not has_key_transform(flats[0].dtype):
+        return list(flats), None
+    dtype = flats[0].dtype
+    return [encode_keys(f) for f in flats], (lambda out: decode_keys(out, dtype))
+
+
+def _restore_values(out2, perm2, raw, decode, descending: bool = False):
+    """Sorted keys back to values: gathered from the raw input where the
+    permutation is known (bit-exact, differentiable), else the decode
+    with the gradient of a value sort. Negative positions (top-k pads)
+    keep the decoded pad."""
+    if decode is None:
+        return out2
+    if perm2 is None:
+        return _DecodeSorted.apply(raw, out2, descending)
+    got = take_rows(raw, -1, torch.where(perm2 < 0, 0, perm2))
+    return torch.where(perm2 < 0, decode(out2), got)
+
+
+def _rungs(spec, dec) -> List[str]:
+    """The rungs one call tries, in order (the reference's ``rungs_for``
+    with its ladder off): the planned backend, the cuda backend's fused
+    rung first. An auto median ends in the lax rung, which answers where
+    the LOMS device cannot take the lists (as the reference's ladder)."""
+    from .spec import BACKEND_AUTO
+
+    if spec.op == "median" and spec.backend == BACKEND_AUTO:
+        return list(dict.fromkeys([dec.backend, "schedule", "lax"]))
+    if dec.backend != "cuda":
+        return [dec.backend]
+    if spec.needs_perm and spec.op != "topk":
+        # the unfused cuda adapters are values-only
+        return ["fused"] if spec.backend == BACKEND_AUTO else ["fused", "schedule"]
+    return ["fused", "cuda"]
+
+
+class _Skip(Exception):
+    """A rung declines a call (the fused config resolved to None)."""
+
+
+def _run_rungs(rungs, attempt):
+    """The first rung that does not decline; all declining raises."""
+    for rung in rungs:
+        try:
+            return attempt(rung)
+        except _Skip:
+            continue
+    raise ValueError(f"no rung of {rungs} can run this call")
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = False,
+         payload=None, backend: str = "auto", block: Optional[int] = None,
+         with_indices: bool = True, nan_policy: str = "last", device: DeviceLike = None):
+    """Top-k along ``axis``: the largest ``k`` descending (default), or the
+    smallest ``k`` ascending with ``descending=False``.
+
+    Returns ``(values, indices)``: int32 positions along ``axis``, -1 on
+    pad slots (a pad ties a genuine dtype minimum, or k exceeds the real
+    candidates). With ``payload`` (a tree shaped like ``x``) returns
+    ``(values, indices, payload_tree)`` gathered at the winners; without
+    ``with_indices``, the values alone. NaNs rank above +inf and -0.0
+    below +0.0 (``nan_policy="last"``). Among equal values the kernels'
+    order holds (the higher index first on the card's route), the lower
+    index first with ``stable=True``. Float keys on the card run the
+    router kernel (axis <= 512) or the vocab kernels; integer keys and
+    ``descending=False`` the schedule executor. ``block`` sets the
+    executor's and the unfused kernels' block."""
+    from .dispatch import plan
+    from .payload import canonical_axis, from_batched_last, to_batched_last
+    from .registry import get_backend
+    from .spec import SortSpec
+
+    x = _as_tensor(x, device)
+    u32 = x.dtype == torch.uint32
+    if u32:
+        x = _to_keys_u32(x)
+    _check_dtype(x.dtype, nan_policy)
+    ndim = x.ndim
+    ax = canonical_axis(axis, ndim)
+    x2, lead = to_batched_last(x, ax)
+    batch, n = x2.shape
     if not 1 <= k <= n:
         raise ValueError(f"k={k} out of range for an axis of {n}")
-    block = topk_block(n, k)
-    x = x.contiguous()
-    if n <= ROUTER_TOPK_MAX:
-        vals, idx = router_topk(x, k, block=block)
-    else:
-        vals, idx = vocab_topk(x, k, block=block)
-    if not stable:
-        return vals, idx
-    keys = torch.where(idx < 0, _KEY_PAD, encode_key_values(vals))
-    keys, idx = stabilize_ties(keys, idx, descending=True)
-    got = take_along(x, 1, torch.where(idx < 0, 0, idx))
-    return torch.where(idx < 0, decode_key_values(keys, x.dtype), got), idx
+    spec = SortSpec(op="topk", lengths=(n,), batch=batch, dtype=_dtype_name(x2.dtype), k=k,
+                    axis=axis, descending=descending, stable=stable,
+                    has_payload=payload is not None, backend=backend,
+                    nan_policy=nan_policy)
+
+    def finish(vals2, idx2, decode):
+        if stable:
+            vals2, idx2 = stabilize_ties(vals2, idx2, descending=descending)
+        vals = _unkey(from_batched_last(_restore_values(vals2, idx2, x2, decode),
+                                        lead, ax, ndim), u32)
+        idx = from_batched_last(idx2, lead, ax, ndim)
+        if payload is not None:
+            from .payload import take_payload_tree
+
+            # a pad's -1 wraps to the last position, as the reference's gather
+            return vals, idx, take_payload_tree(payload, torch.where(idx < 0, idx + n, idx),
+                                                ax, ndim)
+        return (vals, idx) if with_indices else vals
+
+    if not descending:  # the smallest k: the ascending sort's prefix
+        if backend not in ("auto", "schedule", "lax"):
+            raise ValueError("descending=False takes backend auto, schedule or lax")
+        be = get_backend("schedule" if backend == "auto" else backend)
+        (enc,), decode = _encode_lists([x2], nan_policy)
+        out2, perm2 = be.run["sort"](enc, spec=spec,
+                                     pos=_iota_rows(n, batch, False, x2.device))
+        return finish(out2[:, :k], perm2[:, :k], decode)
+
+    dec = plan(spec)
+
+    def attempt(rung: str):
+        if rung in ("fused", "cuda"):
+            if rung == "fused" and stable:
+                raise _Skip
+            from repro_torch.kernels.ops import topk as kernel_topk
+
+            blk = (topk_block(n, k, batch=batch, dtype=x2.dtype) if rung == "fused"
+                   else block)
+            vals2, idx2 = kernel_topk(x2, k, block=blk)
+            if rung == "fused":  # values decoded by the kernels
+                return finish(vals2, idx2, None)
+            keys = torch.where(idx2 < 0, _KEY_PAD, encode_key_values(vals2))
+            return finish(keys, idx2, lambda out: decode_key_values(out, x2.dtype))
+        (enc,), decode = _encode_lists([x2], nan_policy)
+        vals2, idx2 = get_backend(rung).run["topk"](enc, k, spec=spec, block=block)
+        return finish(vals2, idx2.to(torch.int32), decode)
+
+    return _run_rungs(_rungs(spec, dec), attempt)
 
 
 def _as_tensor(x, device: DeviceLike) -> torch.Tensor:
@@ -96,8 +224,26 @@ def _as_tensor(x, device: DeviceLike) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x)).to(resolve_device(device))
 
 
+def _segmented(op: str, offsets, values: torch.Tensor, *, k=None, descending: bool,
+               has_payload: bool, backend: str, nan_policy: str):
+    """Plan one segment op: its registered backend's adapter and spec."""
+    from repro_torch.segmented.bucketing import normalize_offsets
+
+    from .dispatch import plan
+    from .registry import get_backend
+    from .spec import SortSpec
+
+    offs = tuple(normalize_offsets(o) for o in offsets)
+    spec = SortSpec(op=op if op != "argmax" else "topk",
+                    lengths=tuple(o[-1] for o in offs), batch=max(len(offs[0]) - 1, 1),
+                    dtype=_dtype_name(values.dtype), k=k, descending=descending,
+                    has_payload=has_payload, backend=backend, nan_policy=nan_policy,
+                    segment_offsets=offs)
+    return get_backend(plan(spec).backend).run[op], spec
+
+
 def segment_sort(values, segment_offsets, *, descending: bool = False,
-                 payload=None, nan_policy: str = "last",
+                 payload=None, backend: str = "auto", nan_policy: str = "last",
                  device: DeviceLike = None):
     """Sort each CSR segment of the flat ``values`` on its own.
 
@@ -105,81 +251,75 @@ def segment_sort(values, segment_offsets, *, descending: bool = False,
     tensor or a tree of tensors whose leaves lead with the N axis; they
     ride each segment's permutation. Returns the sorted values, or
     ``(values, payload_tree)``."""
-    from repro_torch.segmented import segment_sort_impl
-
-    out, _, ptree = segment_sort_impl(
-        _as_tensor(values, device), segment_offsets, descending=descending,
-        payload=payload, nan_policy=nan_policy)
+    values = _as_tensor(values, device)
+    run, spec = _segmented("sort", (segment_offsets,), values, descending=descending,
+                           has_payload=payload is not None, backend=backend,
+                           nan_policy=nan_policy)
+    out, _, ptree = run(values, spec=spec, descending=descending, payload=payload,
+                        nan_policy=nan_policy)
     return out if payload is None else (out, ptree)
 
 
 def segment_merge(a, b, offsets_a, offsets_b, *, descending: bool = False,
-                  payload=None, nan_policy: str = "last",
+                  payload=None, backend: str = "auto", nan_policy: str = "last",
                   device: DeviceLike = None):
     """Merge per-segment sorted runs: output segment ``s`` is the sorted
     union of ``a``'s and ``b``'s segment ``s``. ``payload`` is a pair
     ``(tree_a, tree_b)``. Returns ``(values, out_offsets)`` or
     ``(values, payload_tree, out_offsets)``."""
-    from repro_torch.segmented import segment_merge_impl
-
-    out, _, ptree, out_offs = segment_merge_impl(
-        _as_tensor(a, device), _as_tensor(b, device), offsets_a, offsets_b,
-        descending=descending, payload=payload, nan_policy=nan_policy)
+    a, b = _as_tensor(a, device), _as_tensor(b, device)
+    run, spec = _segmented("merge", (offsets_a, offsets_b), a, descending=descending,
+                           has_payload=payload is not None, backend=backend,
+                           nan_policy=nan_policy)
+    out, _, ptree, out_offs = run(a, b, spec=spec, descending=descending, payload=payload,
+                                  nan_policy=nan_policy)
     return (out, out_offs) if payload is None else (out, ptree, out_offs)
 
 
 def segment_topk(values, segment_offsets, k, *, descending: bool = True,
-                 payload=None, nan_policy: str = "last",
+                 payload=None, backend: str = "auto", nan_policy: str = "last",
                  device: DeviceLike = None):
     """Per-segment top-k: the ``min(k_s, len_s)`` largest entries of each
     segment, descending (``descending=False``: the smallest, ascending).
     ``k`` is one int or one per segment. Returns ``(values, idx,
     out_offsets)`` (a ``payload_tree`` before the offsets with a payload):
     CSR layout, ``idx`` int32 positions within the segment."""
-    from repro_torch.segmented import segment_topk_impl
-
-    out, idx, ptree, out_offs = segment_topk_impl(
-        _as_tensor(values, device), segment_offsets, k, descending=descending,
-        payload=payload, nan_policy=nan_policy)
+    values = _as_tensor(values, device)
+    ks = list(k) if isinstance(k, (list, tuple)) else [int(k)]
+    run, spec = _segmented("topk", (segment_offsets,), values, k=max(ks) if ks else 1,
+                           descending=descending, has_payload=payload is not None,
+                           backend=backend, nan_policy=nan_policy)
+    out, idx, ptree, out_offs = run(values, k, spec=spec, descending=descending,
+                                    payload=payload, nan_policy=nan_policy)
     return (out, idx, out_offs) if payload is None else (out, idx, ptree, out_offs)
 
 
-def segment_argmax(values, segment_offsets, *, nan_policy: str = "last",
-                   device: DeviceLike = None):
+def segment_argmax(values, segment_offsets, *, backend: str = "auto",
+                   nan_policy: str = "last", device: DeviceLike = None):
     """Per-segment argmax ``(vals (S,), idx (S,))``; empty segments give
     the dtype minimum and index -1."""
-    from repro_torch.segmented import segment_argmax_impl
-
-    return segment_argmax_impl(_as_tensor(values, device), segment_offsets,
-                               nan_policy=nan_policy)
+    values = _as_tensor(values, device)
+    run, spec = _segmented("argmax", (segment_offsets,), values, k=1, descending=True,
+                           has_payload=False, backend=backend, nan_policy=nan_policy)
+    return run(values, spec=spec, nan_policy=nan_policy)
 
 
 # ---------------------------------------------------------------------------
-# merge / sort
+# merge / merge_k / median / sort
 # ---------------------------------------------------------------------------
 
-#: the dtypes the kernels take (floats as total-order keys, int32 raw)
+#: the dtypes the routes take (floats as total-order keys or raw, int32
+#: raw; uint32 arrives here as int32 keys)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
-
-#: what each route the port lacks waits for
-_MISSING = {
-    "schedule": "the schedule executor (ROADMAP Queue 1, item 4)",
-}
-#: the ops whose schedule route is ported
-_SCHEDULE_OPS = ("merge_k", "median")
 
 
 def _check_dtype(dtype: torch.dtype, nan_policy: str) -> None:
-    if nan_policy == "unsafe":
-        raise NotImplementedError(
-            "nan_policy='unsafe' (raw floats through the networks) is not ported "
-            "(ROADMAP Queue 1, item 4)")
-    if nan_policy != "last":
+    if nan_policy not in ("last", "unsafe"):
         raise ValueError(f"nan_policy must be 'last' or 'unsafe', got {nan_policy!r}")
     if dtype not in _KERNEL_DTYPES:
         raise NotImplementedError(
-            f"{dtype}: the port's kernels take float32, bfloat16, float16 and int32 "
-            "(uint32 and the other integer types: ROADMAP Queue 3)")
+            f"{dtype}: the port takes float32, bfloat16, float16, int32 and uint32 "
+            "(the other integer types: ROADMAP Queue 3)")
 
 
 def _fused_leaves(payload, ax: int, ndim: int):
@@ -208,21 +348,9 @@ def _fused_leaves(payload, ax: int, ndim: int):
     return tuple(lanes), rebuild
 
 
-def _route(spec) -> str:
-    from .dispatch import plan
-
-    dec = plan(spec)
-    if dec.backend in _MISSING and not (dec.backend == "schedule"
-                                        and spec.op in _SCHEDULE_OPS):
-        raise NotImplementedError(
-            f"{spec.describe()} routes to {dec.backend}/{dec.detail} ({dec.reason}): "
-            f"{_MISSING[dec.backend]} is not ported")
-    return dec.backend
-
-
 def merge(a, b, *, axis: int = -1, descending: bool = False, stable: bool = False,
-          payload=None, nan_policy: str = "last", network: str = "loms",
-          device: DeviceLike = None):
+          payload=None, backend: str = "auto", network: str = "loms",
+          nan_policy: str = "last", device: DeviceLike = None):
     """Merge two lists sorted along ``axis`` (both descending with
     ``descending=True``) into one sorted list.
 
@@ -230,11 +358,12 @@ def merge(a, b, *, axis: int = -1, descending: bool = False, stable: bool = Fals
     structure whose leaves ride the merge permutation (trailing feature
     dims allowed). Returns the merged values, or ``(values,
     payload_tree)``. NaNs order last and -0.0 below +0.0 (the total-order
-    key); the values are the keys decoded, so a NaN comes out canonical.
-    Tensors stay on their device; anything else goes to ``device``."""
+    key); values-only routes decode the keys, so a NaN comes out
+    canonical. Tensors stay on their device; anything else goes to
+    ``device``."""
     return merge_k([a, b], axis=axis, descending=descending, stable=stable,
-                   payload=payload, nan_policy=nan_policy, network=network,
-                   device=device)
+                   payload=payload, backend=backend, network=network,
+                   nan_policy=nan_policy, device=device)
 
 
 class _DecodeSorted(torch.autograd.Function):
@@ -302,173 +431,176 @@ def _lists_batched(lists, axis: int, device: DeviceLike):
     return [f.to(dt) for f in flats], lead, ax, ndim
 
 
-def _streaming_merge(cfg, flats):
-    """The streaming rung: the lists as ascending keys through
-    ``chunked_merge`` (row 9) or ``chunked_merge_k`` (row 8's tiles),
-    decoded with the gradient of a value sort."""
-    from repro_torch.streaming import chunked_merge_k
-
-    keys = [encode_key_values(f) for f in flats] if cfg.key_dtype else list(flats)
-    if cfg.descending:  # descending lists merge as their reversals
-        keys = [k.flip(-1) for k in keys]
-    out = chunked_merge_k(keys)
-    if cfg.descending:
-        out = out.flip(-1)
-    if cfg.key_dtype is None:
-        return out
-    return _DecodeSorted.apply(torch.cat(flats, dim=-1), out, cfg.descending)
-
-
-def _schedule_merge_k(spec, flats):
-    """The schedule rung of a k-way merge (the reference's executor rung):
-    keys, reversed when descending, through ``schedules.merge_k`` with the
-    position lane where the spec needs the permutation; ``stable=True``
-    then orders ties by position. Returns ``(values, perm | None)``."""
-    from . import schedules
-
-    key_dtype = flats[0].dtype if key_transformable(flats[0].dtype) else None
-    keys = [encode_key_values(f) for f in flats] if key_dtype else list(flats)
-    if spec.descending:
-        keys = [k.flip(-1) for k in keys]
-    raw = torch.cat(flats, dim=-1)
-    if not spec.needs_perm:
-        out = schedules.merge_k(keys, kind=spec.network)
-        if spec.descending:
-            out = out.flip(-1)
-        return (out if key_dtype is None
-                else _DecodeSorted.apply(raw, out, spec.descending)), None
-    pos, off = [], 0
-    for k in keys:
-        p = torch.arange(k.shape[1], dtype=torch.int32, device=k.device) + off
-        pos.append((p.flip(0) if spec.descending else p).expand(k.shape))
-        off += k.shape[1]
-    out, perm = schedules.merge_k(keys, kind=spec.network, payload=pos)
-    if spec.descending:
-        out, perm = out.flip(-1), perm.flip(-1)
-    if spec.stable:
-        out, perm = stabilize_ties(out, perm, descending=spec.descending)
-    if key_dtype is not None:  # the values are the raw input's at the positions
-        out = take_rows(raw, 1, perm)
-    return out, perm
-
-
 def merge_k(lists, *, axis: int = -1, descending: bool = False, stable: bool = False,
-            payload=None, nan_policy: str = "last", network: str = "loms",
-            device: DeviceLike = None):
+            payload=None, backend: str = "auto", network: str = "loms",
+            nan_policy: str = "last", device: DeviceLike = None):
     """k-way merge of lists sorted along ``axis`` (all descending with
     ``descending=True``). ``payload`` is a sequence of tensor trees, one a
     list, of one structure; their leaves ride the merge permutation.
     Returns the merged values, or ``(values, payload_tree)``.
-    ``network``: ``"loms"`` (the kernels), or ``"mwms"`` / ``"tree"`` (the
-    schedule executor, three lists or more). NaNs order last and
-    -0.0 below +0.0; the kernel routes' values are the keys decoded, so a
-    NaN comes out canonical. Tensors stay on their device; anything else
-    goes to ``device``."""
-    from .fused import FusedCfg, fused_cfg_for, fused_merge_k
-    from .payload import concat_payload_trees, from_batched_last
+    ``network``: ``"loms"`` (the kernels), or another family of the
+    schedule executor (``"mwms"`` / ``"tree"`` for three lists or more,
+    ``"s2ms"`` / ``"batcher-oe"`` / ``"batcher-bitonic"`` for two). Two
+    lists run the 2-way device (``merge_schedule``), as the reference's.
+    Tensors stay on their device; anything else goes to ``device``."""
+    from .dispatch import plan
+    from .fused import fused_cfg_for, fused_merge_k
+    from .payload import concat_payload_trees, from_batched_last, take_payload_tree
+    from .registry import get_backend
     from .spec import SortSpec
 
     lists = list(lists)
     if len(lists) < 2:
         raise ValueError("merge_k needs at least two lists")
     flats, lead, ax, ndim = _lists_batched(lists, axis, device)
+    u32 = flats[0].dtype == torch.uint32
+    if u32:
+        flats = [_to_keys_u32(f) for f in flats]
     _check_dtype(flats[0].dtype, nan_policy)
     lens = tuple(f.shape[1] for f in flats)
     batch = flats[0].shape[0]
     spec = SortSpec(op="merge" if len(lists) == 2 else "merge_k", lengths=lens, batch=batch,
-                    dtype=str(flats[0].dtype).split(".")[-1], axis=axis,
-                    descending=descending, stable=stable,
-                    has_payload=payload is not None, network=network,
-                    nan_policy=nan_policy)
-    route = _route(spec)
-    ptree = None if payload is None else concat_payload_trees(list(payload), ax, ndim)
-    if route == "schedule":
-        from .payload import take_payload_tree
+                    dtype=_dtype_name(flats[0].dtype), axis=axis, descending=descending,
+                    stable=stable, has_payload=payload is not None, network=network,
+                    backend=backend, nan_policy=nan_policy)
+    dec = plan(spec)
 
-        out2, perm2 = _schedule_merge_k(spec, flats)
-        out = from_batched_last(out2, lead, ax, ndim)
+    def attempt(rung: str):
+        if rung == "fused":
+            cfg = fused_cfg_for(spec, batch, flats[0].dtype)
+            if cfg is None:
+                raise _Skip
+            if payload is None:
+                out2, _ = fused_merge_k(cfg, flats)
+                return _unkey(from_batched_last(out2, lead, ax, ndim), u32)
+            lanes, rebuild = _fused_leaves(
+                concat_payload_trees(list(payload), ax, ndim), ax, ndim)
+            out2, pouts = fused_merge_k(cfg, flats, lanes)
+            return (_unkey(from_batched_last(out2, lead, ax, ndim), u32),
+                    rebuild(pouts, sum(lens)))
+        be = get_backend(rung)
+        enc, decode = _encode_lists(flats, nan_policy)
+        if descending:  # descending lists merge as their reversals
+            enc = [f.flip(-1) for f in enc]
+        pos = None
+        if spec.needs_perm:
+            offs = np.cumsum((0,) + lens)
+            pos = [_iota_rows(ln, batch, descending, f.device, int(off))
+                   for ln, off, f in zip(lens, offs, flats)]
+        if spec.op == "merge":
+            out2, perm2 = be.run["merge"](enc[0], enc[1], spec=spec,
+                                          pos=None if pos is None else (pos[0], pos[1]))
+        else:
+            out2, perm2 = be.run["merge_k"](enc, spec=spec, pos=pos)
+        if descending:
+            out2 = out2.flip(-1)
+            perm2 = None if perm2 is None else perm2.flip(-1)
+        if stable:
+            out2, perm2 = stabilize_ties(out2, perm2, descending=descending)
+        raw = None if decode is None else torch.cat(flats, dim=-1)
+        out = _unkey(from_batched_last(_restore_values(out2, perm2, raw, decode, descending),
+                                       lead, ax, ndim), u32)
         if payload is None:
             return out
+        ptree = concat_payload_trees(list(payload), ax, ndim)
         return out, take_payload_tree(ptree, from_batched_last(perm2, lead, ax, ndim),
                                       ax, ndim)
-    if route == "streaming":
-        key_dtype = flats[0].dtype if key_transformable(flats[0].dtype) else None
-        cfg = FusedCfg(op=spec.op, lens=lens, key_dtype=key_dtype, descending=descending)
-        return from_batched_last(_streaming_merge(cfg, flats), lead, ax, ndim)
-    cfg = fused_cfg_for(spec, batch, flats[0].dtype)
-    if payload is None:
-        out2, _ = fused_merge_k(cfg, flats)
-        return from_batched_last(out2, lead, ax, ndim)
-    lanes, rebuild = _fused_leaves(ptree, ax, ndim)
-    out2, pouts = fused_merge_k(cfg, flats, lanes)
-    return from_batched_last(out2, lead, ax, ndim), rebuild(pouts, sum(lens))
+
+    return _run_rungs(_rungs(spec, dec), attempt)
 
 
-def median_of_lists(lists, *, axis: int = -1, nan_policy: str = "last",
-                    network: str = "loms", device: DeviceLike = None):
-    """Median of k equal odd-length lists sorted along ``axis`` (the
-    paper's early exit after two LOMS stages), shaped like the lists
-    without that axis. ``network="mwms"``: the MWMS baseline's device on
-    the schedule executor. Floats are medians of their total-order keys,
-    decoded. Tensors stay on their device; anything else goes to
-    ``device``."""
-    from repro_torch.kernels.ops import median_k
-
-    from . import schedules
+def median_of_lists(lists, *, axis: int = -1, backend: str = "auto",
+                    network: str = "loms", nan_policy: str = "last",
+                    device: DeviceLike = None):
+    """Median of lists sorted along ``axis``, shaped like the lists
+    without that axis: the paper's early exit after two LOMS stages for
+    an odd count of equal odd-length lists (``network="mwms"``: the MWMS
+    baseline's device), else the middle element ``n // 2`` of a sort (the
+    ``lax`` rung). Floats are medians of their total-order keys, decoded.
+    Tensors stay on their device; anything else goes to ``device``."""
+    from .dispatch import plan
+    from .registry import get_backend, median_device_fits
     from .spec import SortSpec
 
     flats, lead, _, _ = _lists_batched(lists, axis, device)
+    u32 = flats[0].dtype == torch.uint32
+    if u32:
+        flats = [_to_keys_u32(f) for f in flats]
     _check_dtype(flats[0].dtype, nan_policy)
     lens = tuple(f.shape[1] for f in flats)
-    if network != "mwms" and not (len(lens) % 2 and len(set(lens)) == 1 and lens[0] % 2):
-        raise NotImplementedError(
-            f"the LOMS median device takes an odd number of equal odd-length lists, got "
-            f"{lens}; the reference falls to its lax rung (a sort) here, and the "
-            "degradation ladder is not ported (ROADMAP Queue 1, item 8)")
-    key_dtype = flats[0].dtype if key_transformable(flats[0].dtype) else None
-    keys = [encode_key_values(f) for f in flats] if key_dtype else flats
-    spec = SortSpec(op="median", lengths=lens,
-                    batch=flats[0].shape[0], dtype=str(keys[0].dtype).split(".")[-1],
-                    axis=axis, network=network, nan_policy=nan_policy)
-    if _route(spec) == "cuda":
-        out = median_k(keys)
-    else:
-        out = schedules.median_of_lists(keys, kind="mwms" if network == "mwms" else "loms")
-    if key_dtype is not None:
-        out = _DecodeMedian.apply(torch.cat(flats, dim=-1), out)
-    return out.reshape(lead)
+    keys, decode = _encode_lists(flats, nan_policy)
+    spec = SortSpec(op="median", lengths=lens, batch=flats[0].shape[0],
+                    dtype=_dtype_name(keys[0].dtype), axis=axis, network=network,
+                    backend=backend, nan_policy=nan_policy)
+    dec = plan(spec)
+
+    def attempt(rung: str):
+        if rung in ("cuda", "schedule") and network != "mwms" and not median_device_fits(spec):
+            raise _Skip  # no LOMS median device for these lists
+        out = get_backend(rung).run["median"](keys, spec=spec)
+        if decode is not None:
+            out = _DecodeMedian.apply(torch.cat(flats, dim=-1), out)
+        return _unkey(out.reshape(lead), u32)
+
+    return _run_rungs(_rungs(spec, dec), attempt)
 
 
 def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,
-         payload=None, nan_policy: str = "last", network: str = "loms",
-         device: DeviceLike = None):
+         payload=None, backend: str = "auto", network: str = "loms",
+         nan_policy: str = "last", device: DeviceLike = None):
     """Sort along ``axis``. ``payload`` is a tensor tree whose leaves
     match ``x`` on its dims (trailing feature dims allowed) and ride the
     sort permutation. Returns the sorted values, or ``(values,
     payload_tree)``. NaNs order last and -0.0 below +0.0; descending is
     the ascending result reversed, so tied values come out in descending
-    position. Tensors stay on their device; anything else goes to
-    ``device``."""
+    position (ascending with ``stable=True``). ``network``: ``"loms"``,
+    or the executor's ``"bitonic"`` / ``"oems"`` / ``"rank"``. Tensors
+    stay on their device; anything else goes to ``device``."""
+    from .dispatch import plan
     from .fused import fused_cfg_for, fused_sort
-    from .payload import canonical_axis, from_batched_last, to_batched_last
+    from .payload import canonical_axis, from_batched_last, take_payload_tree, to_batched_last
+    from .registry import get_backend
     from .spec import SortSpec
 
     x = _as_tensor(x, device)
+    u32 = x.dtype == torch.uint32
+    if u32:
+        x = _to_keys_u32(x)
     _check_dtype(x.dtype, nan_policy)
     ndim = x.ndim
     ax = canonical_axis(axis, ndim)
     x2, lead = to_batched_last(x, ax)
     batch, n = x2.shape
-    spec = SortSpec(op="sort", lengths=(n,), batch=batch,
-                    dtype=str(x2.dtype).split(".")[-1], axis=axis,
-                    descending=descending, stable=stable,
-                    has_payload=payload is not None, network=network,
+    spec = SortSpec(op="sort", lengths=(n,), batch=batch, dtype=_dtype_name(x2.dtype),
+                    axis=axis, descending=descending, stable=stable,
+                    has_payload=payload is not None, network=network, backend=backend,
                     nan_policy=nan_policy)
-    _route(spec)
-    cfg = fused_cfg_for(spec, batch, x2.dtype)
-    if payload is None:
-        out2, _ = fused_sort(cfg, x2)
-        return from_batched_last(out2, lead, ax, ndim)
-    lanes, rebuild = _fused_leaves(payload, ax, ndim)
-    out2, pouts = fused_sort(cfg, x2, lanes)
-    return from_batched_last(out2, lead, ax, ndim), rebuild(pouts, n)
+    dec = plan(spec)
+
+    def attempt(rung: str):
+        if rung == "fused":
+            cfg = fused_cfg_for(spec, batch, x2.dtype)
+            if cfg is None:
+                raise _Skip
+            if payload is None:
+                out2, _ = fused_sort(cfg, x2)
+                return _unkey(from_batched_last(out2, lead, ax, ndim), u32)
+            lanes, rebuild = _fused_leaves(payload, ax, ndim)
+            out2, pouts = fused_sort(cfg, x2, lanes)
+            return _unkey(from_batched_last(out2, lead, ax, ndim), u32), rebuild(pouts, n)
+        (enc,), decode = _encode_lists([x2], nan_policy)
+        pos = _iota_rows(n, batch, False, x2.device) if spec.needs_perm else None
+        out2, perm2 = get_backend(rung).run["sort"](enc, spec=spec, pos=pos)
+        if descending:  # the ascending sort, read out reversed
+            out2 = out2.flip(-1)
+            perm2 = None if perm2 is None else perm2.flip(-1)
+        if stable:
+            out2, perm2 = stabilize_ties(out2, perm2, descending=descending)
+        out = _unkey(from_batched_last(_restore_values(out2, perm2, x2, decode, descending),
+                                       lead, ax, ndim), u32)
+        if payload is None:
+            return out
+        return out, take_payload_tree(payload, from_batched_last(perm2, lead, ax, ndim),
+                                      ax, ndim)
+
+    return _run_rungs(_rungs(spec, dec), attempt)

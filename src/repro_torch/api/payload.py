@@ -108,8 +108,16 @@ def stabilize_ties(vals: torch.Tensor, perm: torch.Tensor,
         order = torch.gather(order, -1, torch.argsort(
             torch.gather(run, -1, order), dim=-1, stable=True))
         return take_along(vals, -1, order), torch.gather(perm, -1, order)
-    v_i, v_j = vals[..., :, None], vals[..., None, :]
-    p_i, p_j = pos[..., :, None], pos[..., None, :]
-    ahead = (v_j > v_i) if descending else (v_j < v_i)
-    rank = (ahead | ((v_j == v_i) & (p_j < p_i))).sum(dim=-1)
+    from repro_torch.core.networks import _rows, _slabs
+
+    v_j, p_j = vals[..., None, :], pos[..., None, :]
+    parts = []
+    for i0, i1 in _slabs(_rows(vals), vals.shape[-1], vals.shape[-1]):  # the cloud in slabs
+        v_i, p_i = vals[..., i0:i1, None], pos[..., i0:i1, None]
+        ahead = (v_j > v_i) if descending else (v_j < v_i)
+        tie = v_j == v_i
+        tie &= p_j < p_i
+        ahead |= tie
+        parts.append(ahead.sum(dim=-1, dtype=torch.int32))
+    rank = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     return scatter_along(vals, -1, rank), scatter_along(perm, -1, rank)

@@ -22,8 +22,8 @@ a stable rank sort (the single-stage N-sorter).
 The dataclasses, the numpy executor and the 0-1 validators are copies of
 the reference's; :func:`rank_sort`, :func:`rank_merge_runs`,
 :func:`apply_schedule` and :func:`apply_schedule_with_payload` are the
-same executor in torch ops (the ``schedule`` route of ``merge_k`` and
-``median_of_lists``), bit-equal to the reference's on the same inputs.
+same executor in torch ops (the ``schedule`` backend of every op),
+bit-equal to the reference's on the same inputs.
 """
 from __future__ import annotations
 
@@ -121,18 +121,57 @@ class Schedule:
 # ---------------------------------------------------------------------------
 
 
+#: the most lanes (bytes of bool) a comparison cloud of the executor may
+#: hold at once: a stage class's clouds are computed in slabs along the
+#: query axis, so that the widest (the top levels of a sort of 262,144
+#: lanes) stays small on the card; each slab is counted into int32 (4x
+#: its bytes at most, 1 GiB); the counts of the slabs add, so the ranks
+#: are the whole cloud's for any input
+CLOUD_BUDGET = 1 << 28
+
+
+def _slabs(rows: int, n_query: int, n_key: int):
+    """Query slices ``(i0, i1)`` whose (rows, i1 - i0, n_key) bool cloud
+    stays within :data:`CLOUD_BUDGET`."""
+    step = max(1, min(n_query, CLOUD_BUDGET // max(rows * n_key, 1)))
+    return [(i0, min(n_query, i0 + step)) for i0 in range(0, n_query, step)]
+
+
+def _rows(x: torch.Tensor) -> int:
+    return x.numel() // max(x.shape[-1], 1)
+
+
 def rank_sort(x: torch.Tensor, payload: Optional[torch.Tensor] = None):
-    """Stable single-stage N-sorter along the last axis: the full pairwise
-    comparison cloud gives each element its rank, then a scatter."""
+    """Stable single-stage N-sorter along the last axis: the pairwise
+    comparison cloud gives each element its rank (slab by slab), then a
+    scatter."""
     n = x.shape[-1]
     if n == 1:
         return (x, payload) if payload is not None else x
     pos = torch.arange(n, device=x.device)
-    j_lt_i = pos[None, :] < pos[:, None]
-    v, w = x[..., :, None], x[..., None, :]
-    rank = ((w < v) | ((w == v) & j_lt_i)).sum(dim=-1)
+    w = x[..., None, :]
+    parts = []
+    for i0, i1 in _slabs(_rows(x), n, n):
+        v = x[..., i0:i1, None]
+        before = w < v
+        tie = w == v
+        tie &= pos[None, :] < pos[i0:i1, None]
+        before |= tie
+        parts.append(before.sum(dim=-1, dtype=torch.int32))
+    rank = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     out = scatter_along(x, -1, rank)
     return out if payload is None else (out, scatter_along(payload, -1, rank))
+
+
+def _count_before(vt: torch.Tensor, vs: torch.Tensor, inclusive: bool) -> torch.Tensor:
+    """For each of ``vs``'s values, how many of ``vt``'s go first
+    (``vt <= vs`` when ``inclusive``, else ``vt < vs``), slab by slab."""
+    parts = []
+    for i0, i1 in _slabs(_rows(vs), vs.shape[-1], vt.shape[-1]):
+        q = vs[..., i0:i1, None]
+        c = (vt[..., None, :] <= q) if inclusive else (vt[..., None, :] < q)
+        parts.append(c.sum(dim=-1, dtype=torch.int32))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
 def _run_ranks(x: torch.Tensor, runs: Sequence[int]) -> torch.Tensor:
@@ -145,13 +184,8 @@ def _run_ranks(x: torch.Tensor, runs: Sequence[int]) -> torch.Tensor:
     for s, vs in enumerate(pieces):
         r = torch.arange(runs[s], device=x.device).expand(vs.shape)
         for t, vt in enumerate(pieces):
-            if t == s:
-                continue
-            if t < s:
-                cnt = (vt[..., None, :] <= vs[..., :, None]).sum(dim=-1)
-            else:
-                cnt = (vt[..., None, :] < vs[..., :, None]).sum(dim=-1)
-            r = r + cnt
+            if t != s:
+                r = r + _count_before(vt, vs, inclusive=t < s)
         ranks.append(r)
     return torch.cat(ranks, dim=-1)
 
@@ -197,10 +231,27 @@ def _stage_classes(stage: Stage):
                  for (n, runs), idx_lists in classes.items())
 
 
+#: per (wiring array, device): the index tensor uploaded once; the key
+#: object is kept beside it so that its id stays its own
+_DEVICE_INDEX: dict = {}
+
+
+def _device_index(owner, key: str, values, device: torch.device) -> torch.Tensor:
+    """``values`` as a long tensor on ``device``, uploaded once per
+    (owner, key, device): a schedule's wiring is fixed, and the top levels
+    of a sort of 262,144 lanes would upload megabytes a stage."""
+    slot = (id(owner), key, str(device))
+    hit = _DEVICE_INDEX.get(slot)
+    if hit is None:
+        t = torch.as_tensor(np.asarray(values, dtype=np.int64).reshape(-1), device=device)
+        hit = _DEVICE_INDEX[slot] = (owner, t)
+    return hit[1]
+
+
 def _apply_stage(stage: Stage, w: torch.Tensor, pw: Optional[torch.Tensor]):
     """One stage, in place on the executor's own working vectors."""
     for n, runs, idx in _stage_classes(stage):
-        flat = torch.from_numpy(idx.reshape(-1)).to(device=w.device, dtype=torch.long)
+        flat = _device_index(idx, "flat", idx, w.device)
         vals = w[..., flat].reshape(w.shape[:-1] + idx.shape)
         pv = None if pw is None else pw[..., flat].reshape(pw.shape[:-1] + idx.shape)
         if n == 2 and runs in (None, (1, 1)):
@@ -219,14 +270,14 @@ def _apply_stage(stage: Stage, w: torch.Tensor, pw: Optional[torch.Tensor]):
 
 
 def _scatter_setup(sched: Schedule, x: torch.Tensor) -> torch.Tensor:
-    setup = torch.tensor(sched.setup_scatter, dtype=torch.long, device=x.device)
+    setup = _device_index(sched, "setup", sched.setup_scatter, x.device)
     w = torch.zeros(x.shape[:-1] + (sched.size,), dtype=x.dtype, device=x.device)
     w[..., setup] = x
     return w
 
 
 def _gather_out(sched: Schedule, w: torch.Tensor) -> torch.Tensor:
-    return w[..., torch.tensor(sched.output_gather, dtype=torch.long, device=w.device)]
+    return w[..., _device_index(sched, "gather", sched.output_gather, w.device)]
 
 
 def apply_schedule(sched: Schedule, x: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Values-only wrappers over the merge, sort and k-way kernels
-(counterpart of ``repro.kernels.ops`` ``merge2``, ``sort``, ``merge_k`` and
-``median_k``).
+"""Values-only wrappers over the merge, sort and k-way kernels and the
+top-k kernels (counterpart of ``repro.kernels.ops`` ``merge2``, ``sort``,
+``merge_k``, ``median_k`` and ``topk``).
 
 The planner picks the family, the column count and ``use_mxu``. As in
 the reference, float rows go through the kernels raw, in the raw-float
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -25,6 +25,7 @@ from repro_torch.streaming.planner import plan_op
 from .kway import kway_merge
 from .loms_merge import loms_merge2
 from .sort import loms_sort
+from .topk import ROUTER_TOPK_MAX, router_topk, topk_tiles, vocab_topk
 
 
 def _use_mxu(plan, x: torch.Tensor) -> bool:
@@ -44,11 +45,10 @@ def merge2(a: torch.Tensor, b: torch.Tensor, *, n_cols: int = 2,
         # the exact permute (the reference's float32 matrix permute of
         # integers is exact only below 2**24)
         return loms_merge2(a, b, network=kind, use_mxu=a.dtype.is_floating_point)[0]
-    if m % n_cols or n % n_cols:
-        raise NotImplementedError(
-            f"n_cols={n_cols} does not divide ({m}, {n}): the reference runs the "
-            "schedule executor here, which is not ported (ROADMAP Queue 1, items 3 "
-            "and 4)")
+    if m % n_cols or n % n_cols:  # no kernel layout: the schedule executor
+        from repro_torch.api import schedules
+
+        return schedules.merge(a, b, n_cols=n_cols)
     plan = plan_op("merge2", (m, n), batch=a.shape[0], dtype=a.dtype)
     return loms_merge2(a, b, network=plan.network, n_cols=n_cols,
                        use_mxu=_use_mxu(plan, a))[0]
@@ -88,3 +88,19 @@ def median_k(lists: Sequence[torch.Tensor]) -> torch.Tensor:
     x = torch.cat(list(lists), dim=-1).contiguous()
     plan = plan_op("kway", lens, batch=x.shape[0], dtype=x.dtype)
     return kway_merge(x, median_readout(sched, pos), use_mxu=_use_mxu(plan, x))[0][:, 0]
+
+
+def topk(x: torch.Tensor, k: int, *, block: Optional[int] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Descending top-k with int32 indices over the last axis of (B, E)
+    float rows: the router kernel (row 3) for E <= 512, the vocab kernels
+    (rows 4 and 5) above; ``block`` defaults to the planner's."""
+    if x.ndim != 2:
+        raise ValueError("topk takes (B, E) rows")
+    bsz, e = x.shape
+    plan = plan_op("topk", (e,), batch=bsz, dtype=x.dtype, k=k)
+    blk = topk_tiles(bsz, e, block=block or plan.block)[0]
+    x = x.contiguous()
+    if e <= ROUTER_TOPK_MAX:
+        return router_topk(x, k, block=blk)
+    return vocab_topk(x, k, block=blk)

@@ -7,8 +7,8 @@ programs from their int32 encoding (:func:`encode_program`).
 """
 from .families import PERIODIC3_MAX_WIDTH, divisor_cols, pick_merge_cols  # noqa: F401
 from .program import (MergeProgram, PairStage, SortProgram,  # noqa: F401
-                      encode_program, merge_runs, run_sort_program,
-                      s2ms_prefix)
+                      encode_program, merge_runs, program_to_schedule,
+                      run_sort_program, s2ms_prefix, sort_program_to_schedule)
 from .registry import (NetworkFamily, capable_families, family_names,  # noqa: F401
                        get_family, kway_schedule, median_schedule, merge_program,
                        sort_program)

@@ -234,3 +234,78 @@ def encode_program(levels) -> List[int]:
         for st in mp.stages:
             words += [_PAIR_KINDS[st.kind], st.d]
     return words
+
+
+# ---------------------------------------------------------------------------
+# Lifting back into the validated Schedule IR (for 0-1 checks / metrics)
+# ---------------------------------------------------------------------------
+
+
+def _pair_stage_to_groups(st: PairStage, L: int):
+    from repro_torch.core.networks import Group
+
+    if st.kind == "xor":
+        return tuple(
+            Group(idx=(base + k, base + k + st.d))
+            for base in range(0, L, 2 * st.d) for k in range(st.d))
+    if st.kind == "reflect":
+        return tuple(Group(idx=(i, L - 1 - i)) for i in range(L // 2))
+    return tuple(Group(idx=(i, i + 1)) for i in range(1, L - 2, 2))
+
+
+def program_to_schedule(mp: MergeProgram):
+    """Lift a merge program into a ``core.networks.Schedule`` so the
+    0-1-principle validators and depth/comparator metrics apply."""
+    from repro_torch.core.networks import Group, Schedule, Stage
+
+    m, n, size = mp.m, mp.n, mp.total
+    ident = tuple(range(size))
+    name = f"{mp.family}_merge_{m}x{n}"
+    meta = (("family", mp.family), ("kind", mp.kind))
+    if mp.kind == "columns":
+        if mp.n_cols > 1:
+            from repro_torch.core.loms import loms_2way
+
+            return loms_2way(m, n, n_cols=mp.n_cols)
+        runs = tuple(r for r in (m, n) if r > 0)
+        group = Group(idx=ident, runs=runs if len(runs) > 1 else None)
+        return Schedule(name=name, size=size, setup_scatter=ident,
+                        output_gather=ident,
+                        stages=(Stage(groups=(group,)),), meta=meta)
+    setup = list(ident)
+    if mp.reverse_hi:
+        for j in range(n):
+            setup[m + j] = m + (n - 1 - j)
+    stages = tuple(
+        Stage(groups=groups)
+        for groups in (_pair_stage_to_groups(st, size) for st in mp.stages)
+        if groups)
+    return Schedule(name=name, size=size, setup_scatter=tuple(setup),
+                    output_gather=ident, stages=stages, meta=meta)
+
+
+def sort_program_to_schedule(prog: SortProgram):
+    """Compose a sort program's levels into one merge-tree ``Schedule``.
+
+    Only levels that are depth-1 group merges on the identity layout
+    (``columns`` with ``n_cols == 1``) compose without inter-level
+    permutations; programs with column-device or pair levels raise —
+    validate those per-level via :func:`program_to_schedule` plus an
+    executor-level exhaustive 0-1 sweep instead."""
+    from repro_torch.core.networks import Group, Schedule, Stage
+
+    w = prog.width
+    stages = []
+    for mp in prog.levels:
+        if mp.kind != "columns" or mp.n_cols > 1:
+            raise ValueError(
+                f"level {mp.m}x{mp.n} of {prog.family} is not a "
+                "composable depth-1 merge")
+        run = mp.m
+        stages.append(Stage(groups=tuple(
+            Group(idx=tuple(range(b, b + 2 * run)), runs=(run, run))
+            for b in range(0, w, 2 * run))))
+    ident = tuple(range(w))
+    return Schedule(name=f"{prog.family}_sort_{w}", size=w,
+                    setup_scatter=ident, output_gather=ident,
+                    stages=tuple(stages), meta=(("family", prog.family),))

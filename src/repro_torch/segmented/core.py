@@ -21,8 +21,10 @@ pairwise with the grid merge (row 9), one launch a level of pairs (two
 where an odd run meets the rest); a merge spill is one grid merge.
 
 A card tensor runs the CUDA class kernels; a CPU tensor their plain
-versions, so the CPU tests exercise what the card runs. Only
-``nan_policy="last"`` is ported.
+versions, so the CPU tests exercise what the card runs. Each class
+launch takes the family (and a merge the column count) of
+``plan_op("segmented")``: an autotune winner where the cache holds one.
+``nan_policy="unsafe"`` runs as ``"last"`` (see ``_check_values``).
 """
 from __future__ import annotations
 
@@ -49,7 +51,13 @@ from .bucketing import (SizeClass, bucket_merge_pairs, bucket_segments,
 MAX_CLASS_WIDTH = 2048
 #: the network family the class launches run (the planner's heuristic
 #: default; the reference's autotune cache may pick another)
-NETWORK = "loms"
+def class_plan(widths: Tuple[int, ...], n_segs: int, dtype: torch.dtype):
+    """The plan of one class launch (``plan_op("segmented")``): the
+    family, and for a class merge the column count, that an autotune
+    sweep cached, else the heuristic's (the loms family)."""
+    from repro_torch.streaming.planner import plan_op
+
+    return plan_op("segmented", widths, batch=n_segs, dtype=dtype)
 #: the chunk a values-only sort spill sorts in one class launch, and the
 #: tile of its grid merges (the reference's ``min(512, max_class_width)``)
 SPILL_TILE = 512
@@ -67,8 +75,12 @@ def max_class_width(dtype: torch.dtype) -> int:
 
 
 def _check_values(x: torch.Tensor, nan_policy: str) -> None:
-    if nan_policy != "last":
-        raise NotImplementedError("the port takes nan_policy='last' only")
+    """``nan_policy``: ``"last"``, or ``"unsafe"`` (the caller vouches for
+    finite, NaN-free values). The port runs both on the total-order keys:
+    on such values those order as the reference's raw floats do, except
+    that -0.0 orders below +0.0 where a raw comparison ties them."""
+    if nan_policy not in ("last", "unsafe"):
+        raise ValueError(f"nan_policy must be 'last' or 'unsafe', got {nan_policy!r}")
     if x.dtype.is_floating_point and not key_transformable(x.dtype):
         raise TypeError(f"segmented ops take float32, bfloat16, float16 or "
                         f"integer values, not {x.dtype}")
@@ -172,7 +184,8 @@ def _spill_sort_values(dense: torch.Tensor, descending: bool, tile: int) -> torc
                                               sentinel_max(keys.dtype))], dim=1)
     lens = torch.full((s * c, 1), tile, dtype=torch.int32, device=dense.device)
     cur = segment_class_sort(keys.reshape(s * c, tile).contiguous(), lens,
-                             network=NETWORK)[0].reshape(s, c * tile)
+                             network=class_plan((tile,), s * c, keys.dtype).network
+                             )[0].reshape(s, c * tile)
     m, run, rest = c, tile, 0
     while m + (rest > 0) > 1:
         cur, m, run, rest = spill_merge_level(cur, m, run, rest, tile)
@@ -226,7 +239,8 @@ def segment_sort_impl(values: torch.Tensor, offsets, *, descending: bool = False
                 gmap.shape, dtype=torch.int32, device=dev), p_dense
         else:
             res_v, res_perm, res_l = segment_class_sort(
-                dense, _lens_col(cls, dev), p_dense, network=NETWORK,
+                dense, _lens_col(cls, dev), p_dense,
+                network=class_plan((cls.width,), cls.n, values.dtype).network,
                 flip=descending, want_perm=need_perm)
         smap = scatter_map(offs, cls, cls.width)
         _scatter(out_v, smap, res_v)
@@ -315,9 +329,11 @@ def segment_merge_impl(a: torch.Tensor, b: torch.Tensor, offsets_a, offsets_b, *
         dense_a = _take(aext, gather_map(offs_a, ca, na))
         dense_b = _take(bext, gather_map(offs_b, cb, nb))
         p_dense = [_take(lx, lane_gmap(ca, cb)) for lx in lext]
+        plan = class_plan((ca.width, cb.width), ca.n, a.dtype)
         res_v, res_perm, res_l = segment_class_merge(
             dense_a, dense_b, _lens_col(ca, dev), _lens_col(cb, dev), p_dense,
-            network=NETWORK, flip=descending, want_perm=need_perm)
+            network=plan.network, flip=descending, want_perm=need_perm,
+            n_cols=plan.n_cols if plan.network == "loms" else None)
         out_cls = SizeClass(width=ca.width + cb.width, seg_ids=ca.seg_ids,
                             lens=tuple(x + y for x, y in zip(ca.lens, cb.lens)))
         smap = scatter_map(out_offs, out_cls, out_cls.width)
@@ -408,7 +424,8 @@ def segment_topk_impl(values: torch.Tensor, offsets, k, *, descending: bool = Tr
         else:
             res_v, res_perm, res_l = segment_class_sort(
                 dense, _lens_col(cls, dev), p_dense, k_out=k_out,
-                network=NETWORK, flip=descending, want_perm=True)
+                network=class_plan((cls.width,), cls.n, values.dtype).network,
+                flip=descending, want_perm=True)
         smap = scatter_map(out_offs, cls, k_out, counts=cnts, trash=total)
         _scatter(out_v, smap, res_v)
         _scatter(out_i, smap, res_perm)

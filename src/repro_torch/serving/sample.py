@@ -23,7 +23,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.api import segment_topk, topk
+from repro_torch.api import segment_topk, sort, topk
 
 
 def gumbel_noise(shape, *, generator: Optional[torch.Generator],
@@ -149,10 +149,16 @@ def sample_topp(logits: torch.Tensor, *, p: float = 0.9,
                 generator: Optional[torch.Generator] = None,
                 gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Nucleus sampling on the top-``k_max`` prefix (the kernels hand the
-    candidates back descending, so the nucleus is one cumulative sum)."""
+    candidates back descending, so the nucleus is one cumulative sum).
+    ``k_max=None``: the exact nucleus, the whole row ranked by
+    ``sort(descending=True)`` with the token ids riding the permutation,
+    routed by ``plan`` (at a vocab of 151,936: the schedule executor)."""
     if k_max is None:
-        raise NotImplementedError("k_max=None (the full sort kernel) is not ported yet")
-    vals, idx = topk(logits, k_max)
+        iota = torch.arange(logits.shape[-1], dtype=torch.int32,
+                            device=logits.device).expand(logits.shape)
+        vals, idx = sort(logits, descending=True, payload=iota)
+    else:
+        vals, idx = topk(logits, k_max)
     probs = torch.softmax(vals.float() / temperature, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     keep = torch.cat([torch.ones_like(cum[:, :1], dtype=torch.bool),

@@ -368,17 +368,66 @@ def test_plan_matches_reference_on_the_accelerator(op, lens, kw):
 
 def test_routes_the_port_lacks_raise():
     x = torch.zeros(4, 8)
-    for call, item in (
-            (lambda: repro_torch.merge(torch.zeros(2, 7), torch.zeros(2, 5)), "item"),
-            (lambda: repro_torch.merge(x, x, stable=True), "item"),
-            (lambda: repro_torch.sort(x, stable=True), "item"),
-            (lambda: repro_torch.sort(torch.zeros(1, 2048)), "item"),
-            (lambda: repro_torch.merge(torch.zeros(1, 4096), torch.zeros(1, 4096),
-                                       payload=(torch.zeros(1, 4096),
-                                                torch.zeros(1, 4096))), "item"),
-            (lambda: repro_torch.sort(x, network="bitonic"), "item"),
-            (lambda: repro_torch.sort(x, nan_policy="unsafe"), "item 4"),
-            (lambda: repro_torch.sort(torch.zeros(2, 4, dtype=torch.uint32)), "Queue 3"),
-            (lambda: repro_torch.chunked_merge(x, x, mode="loop"), "item 6")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+        repro_torch.chunked_merge(x, x, mode="loop")
+
+
+def _route_case(name, rng):
+    """The inputs of one route the port used to refuse, and the
+    reference's answer on its accelerator's route for them."""
+    if name == "ragged":  # 7 + 5: no common column count, the executor
+        ja, ta = _sorted(rng, (3, 7), "float32", False)
+        jb, tb = _sorted(rng, (3, 5), "float32", False)
+        pa, pb = (np.arange(3 * n, dtype=np.int32).reshape(3, n) for n in (7, 5))
+        want = repro.merge(ja, jb, payload=(jnp.asarray(pa), jnp.asarray(pb)),
+                           backend="schedule")
+        return want, repro_torch.merge(ta, tb, payload=(torch.from_numpy(pa),
+                                                        torch.from_numpy(pb)))
+    if name == "stable_merge":
+        ja, ta = _sorted(rng, (4, 8), "float32", False)
+        jb, tb = _sorted(rng, (4, 8), "float32", False)
+        return (repro.merge(ja, jb, stable=True, backend="schedule"),
+                repro_torch.merge(ta, tb, stable=True))
+    if name == "stable_sort":
+        jx, tx = _both(_values(rng, (4, 8), "float32"), "float32")
+        pay = np.arange(32, dtype=np.int32).reshape(4, 8)
+        return (repro.sort(jx, stable=True, payload=jnp.asarray(pay), backend="schedule"),
+                repro_torch.sort(tx, stable=True, payload=torch.from_numpy(pay)))
+    if name == "sort_past_budget":  # npad > 2048: the executor's merge tree
+        jx, tx = _both(_values(rng, (1, 2049), "int32"), "int32")
+        return repro.sort(jx, backend="schedule"), repro_torch.sort(tx)
+    if name == "payload_merge_past_budget":
+        ja, ta = _sorted(rng, (1, 4096), "float32", False)
+        jb, tb = _sorted(rng, (1, 4096), "float32", False)
+        pa, pb = (np.arange(4096, dtype=np.int32)[None] + off for off in (0, 4096))
+        want = repro.merge(ja, jb, payload=(jnp.asarray(pa), jnp.asarray(pb)),
+                           backend="schedule")
+        return want, repro_torch.merge(ta, tb, payload=(torch.from_numpy(pa),
+                                                        torch.from_numpy(pb)))
+    if name == "bitonic_sort":
+        jx, tx = _both(_values(rng, (4, 8), "int32"), "int32")
+        return (repro.sort(jx, network="bitonic", backend="schedule"),
+                repro_torch.sort(tx, network="bitonic"))
+    if name == "unsafe_sort":  # finite raw floats: the fused rung's raw-float mode
+        x = (rng.integers(-3, 4, (4, 8)) * 0.5).astype(np.float32)
+        x[rng.random((4, 8)) < 0.2] = -0.0
+        jx, tx = _both(x, "float32")
+        spec = JSpec(op="sort", lengths=(8,), batch=4, nan_policy="unsafe", device="tpu")
+        want, _ = jfused.fused_sort(jfused.fused_cfg_for(spec, 4, jnp.float32), jx, ())
+        return want, repro_torch.sort(tx, nan_policy="unsafe")
+    assert name == "uint32_sort"  # values only: unique, whatever the route
+    u = rng.integers(0, 2 ** 32, (2, 4), dtype=np.uint64).astype(np.uint32)
+    u[0, :2] = (0, 2 ** 32 - 1)
+    return repro.sort(jnp.asarray(u)), repro_torch.sort(torch.from_numpy(u))
+
+
+@pytest.mark.parametrize("name", ["ragged", "stable_merge", "stable_sort",
+                                  "sort_past_budget", "payload_merge_past_budget",
+                                  "bitonic_sort", "unsafe_sort", "uint32_sort"])
+def test_routes_the_port_used_to_refuse_match_reference(name):
+    """Each route ``test_routes_the_port_lacks_raise`` used to pin as a
+    refusal, held against the reference on the same input."""
+    want, got = _route_case(name, np.random.default_rng(len(name)))
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    _assert_same(want, got)
