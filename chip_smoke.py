@@ -38,7 +38,9 @@ script with a non-zero exit code when it fails:
    and the k-way merge in the reference's raw-float mode
    (``use_mxu=True``, the values-only wrappers' mode), NaN bits included,
    on rows with -0.0 / +0.0 mixes, all-negative rows with a -0.0, ±inf
-   and NaN;
+   and NaN; and rows 3-7 under ``nan_policy="unsafe"`` (-0.0 given
+   +0.0's key: ``zero_ties``) on rows that are mostly zeros of both
+   signs;
 3. the main paths, each with its launch counts zeroed just before it and
    read just after it:
    a. ``generate`` on Qwen3-8B at full width (bf16, random weights from
@@ -66,9 +68,11 @@ script with a non-zero exit code when it fails:
       ((8, 2^22) pairs and the stream-merge example's 100,000 + 100,000:
       the grid merge), and the values-only ``segment_sort`` /
       ``segment_merge`` spills (the sort spill of 16 x 65,536: one grid
-      merge a level, 7); each checked bit-equal to the CPU's plain
-      versions, or for the largest values-only rows to torch.sort of the
-      keys, decoded;
+      merge a level, 7), and ``chunked_merge(mode="loop")`` of (8, 2^16 +
+      2^16) f32 at the planner's tile (one 2-way merge a tile, 256); each
+      checked bit-equal to the CPU's plain versions, the loop to
+      ``mode="grid"``, or for the largest values-only rows to torch.sort
+      of the keys, decoded;
    f. the k-way merge and the median at their users' sizes (kernel row
       8): the paper's 3 x 7 device (``merge_k`` and ``median_of_lists``)
       over 1,048,576 rows, four vocab shards' kept top-64 lists merged
@@ -99,7 +103,19 @@ script with a non-zero exit code when it fails:
       ``autotune_sort`` / ``autotune_topk`` at phase 3e's shapes into a
       temporary cache, then the auto call at each shape bit-equal to the
       winner's plain version; the calls without a kernel timed beside one
-      torch.sort / torch.topk (the "routes without a kernel" line);
+      torch.sort / torch.topk (the "routes without a kernel" line); then
+      Qwen3-8B's decode profile (torch.profiler) and the cost of the
+      padded decode rows, the last use of its weights;
+   h. qwen3-moe-30b-a3b at its published width and depth (30.53 B
+      parameters, random bf16 weights from seed 0, 61 GB: the Qwen3-8B
+      weights are freed first) through ``generate`` on 3a's prompts:
+      sampled and ragged (rows 4 and 5 a token), greedy (no launch),
+      greedy with ``dispatch="sorted"`` (row 6 once a MoE layer a decode
+      step; its tokens, prefill and first decode logits bit-equal to the
+      scatter run's), a decode step at B = 3 and B = 4 from one cache
+      (rows 0-2 bit-equal), and the decode profile with the router's
+      executor calls and the expert products as profiler ranges, beside
+      the step's weight-read floor;
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
@@ -116,6 +132,7 @@ and as its last line ``{"ok": true, "device": {...}}``. Needs one card.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -618,6 +635,88 @@ def phase_seg_kernels(dev, SK, capable_families) -> dict:
                                 f"full={full} k_out={k_out} threads={threads}", got, want))
         log(f"  seg_merge rows ({s_}, {wa} + {wb}) {dt}: loms/s2ms x both orders x full and "
             f"ragged x k_out {wa + wb}, {max(1, (wa + wb) // 3)} x threads a row {ROW_THREADS}: "
+            "bit-equal, one launch a call")
+    torch.cuda.synchronize()
+    return err
+
+
+def signed_zero_rows(rows, n, dtype, device, seed, sort=False):
+    """Finite rows that are mostly zeros of both signs (what
+    ``nan_policy="unsafe"`` admits); ``sort``: ascending as raw floats (a
+    stable sort keeps each zero where it was)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.choice(np.array([-1.5, -0.5, -0.0, 0.0, 0.5, 1.5], np.float32), size=(rows, n),
+                   p=[0.1, 0.15, 0.3, 0.3, 0.1, 0.05])
+    if sort:
+        x = np.sort(x, -1, kind="stable")
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+def phase_signed_zero_kernels(dev, K, SK, topk_block, capable_families) -> dict:
+    """Phase 2, ``nan_policy="unsafe"``: rows 3-7 with -0.0 given +0.0's key
+    (``zero_ties``) on rows that are mostly zeros of both signs, bit-equal
+    to their plain versions (values as bits, so every zero's sign),
+    indices, permutations and payload lanes; one launch a call."""
+    import torch
+
+    err = {n: 0.0 for n in ("router_topk", "vocab_phase1", "vocab_merge_level",
+                            "seg_sort", "seg_merge")}
+    for dtype in (torch.bfloat16, torch.float32):
+        for t, e, k, blk in ((4096, 128, 8, 32), (4, 256, 64, None), (7, 300, 8, 15)):
+            x = signed_zero_rows(t, e, dtype, dev, seed=e + k)
+            blk = blk or topk_block(e, k)
+            got = one_launch("router_topk", lambda: K.router_topk(x, k, block=blk,
+                                                                  zero_ties=True))
+            err["router_topk"] = max(err["router_topk"], require_equal(
+                f"signed zeros: router T={t} E={e} k={k} {dtype}", got,
+                K.router_topk_plain(x, k, blk, zero_ties=True)))
+        for b, v, k, blk in ((4, 151_936, 64, None), (2, 20_000, 64, 1024)):
+            x = signed_zero_rows(b, v, dtype, dev, seed=v + k)
+            blk = blk or topk_block(v, k)
+            keys, idx = one_launch("vocab_phase1", lambda: K.vocab_phase1(x, k, blk,
+                                                                          zero_ties=True))
+            pk, pi = K.vocab_phase1_plain(x, k, blk, zero_ties=True)
+            err["vocab_phase1"] = max(err["vocab_phase1"], require_equal(
+                f"signed zeros: phase 1 B={b} V={v} k={k} {dtype}", (keys, idx), (pk, pi)))
+            err["vocab_merge_level"] = max(err["vocab_merge_level"], require_equal(
+                f"signed zeros: merge tree B={b} V={v} k={k} {dtype}",
+                K.vocab_merge_tree(keys, idx, k, dtype),
+                K.vocab_merge_tree_plain(pk, pi, k, dtype)))
+        for w in (64, 1024):
+            x = signed_zero_rows(64, w, dtype, dev, seed=w)
+            lens = seg_lens(64, w, dev, seed=w + 1)
+            pay = torch.arange(64 * w, dtype=torch.int32, device=dev).reshape(64, w)
+            for flip in (False, True):
+                kw = dict(k_out=max(1, w // 3), flip=flip, want_perm=True, zero_ties=True)
+                want = plain_in_chunks(lambda r: SK.segment_class_sort_plain(
+                    x[r], lens[r], (pay[r],), **kw), 64)
+                got = one_launch("seg_sort", lambda: SK.segment_class_sort(x, lens, (pay,),
+                                                                           **kw))
+                err["seg_sort"] = max(err["seg_sort"], require_same_class(
+                    f"signed zeros: class sort W={w} {dtype} flip={flip}", got, want))
+        for s_, wa, wb in ((75, 64, 8), (64, 256, 256)):
+            la, lb = seg_lens(s_, wa, dev, seed=wa), seg_lens(s_, wb, dev, seed=wb + 1)
+            pay = torch.arange(s_ * (wa + wb), dtype=torch.int32,
+                               device=dev).reshape(s_, wa + wb)
+            for flip in (False, True):
+                a = signed_zero_rows(s_, wa, dtype, dev, seed=wa + 2, sort=True)
+                b = signed_zero_rows(s_, wb, dtype, dev, seed=wb + 3, sort=True)
+                if flip:
+                    a, b = a.flip(-1).contiguous(), b.flip(-1).contiguous()
+                for fam in capable_families("merge2", (wa, wb)):
+                    kw = dict(network=fam, flip=flip, want_perm=True, zero_ties=True)
+                    got = one_launch("seg_merge", lambda: SK.segment_class_merge(
+                        a, b, la, lb, (pay,), **kw))
+                    err["seg_merge"] = max(err["seg_merge"], require_same_class(
+                        f"signed zeros: class merge ({s_}, {wa} + {wb}) {dtype} {fam} "
+                        f"flip={flip}", got,
+                        SK.segment_class_merge_plain(a, b, la, lb, (pay,), **kw)))
+        log(f"  signed zeros (nan_policy='unsafe') {dtype}: router T=4096/4/7, phase 1 and "
+            "the merge tree at (4, 151,936) and (2, 20,000), the class sort W=64/1024 and "
+            "the class merge 64 + 8 and 256 + 256 (every capable family), both orders: "
             "bit-equal, one launch a call")
     torch.cuda.synchronize()
     return err
@@ -1614,6 +1713,7 @@ def phase_library_merge_sort(dev):
     import repro_torch
     from repro_torch.kernels import topk as K
     from repro_torch.segmented import bucket_merge_pairs
+    from repro_torch.streaming.planner import plan_chunked
 
     def f32_sorted(rows, n, seed, desc=False):
         return total_order_sorted(seg_tile(rows, n, torch.float32, dev, seed=seed), desc)
@@ -1659,6 +1759,12 @@ def phase_library_merge_sort(dev):
                                   .reshape(-1), ob9)
     spill_groups = len(bucket_merge_pairs(la9, lb9, 1024)[1])
     chunks = seg_len // 512  # the sort spill's runs a segment: one launch a level
+    # the one-launch-a-tile loop: finite rows without -0.0 (its raw-float
+    # merges tie -0.0 and +0.0; the grid merge orders keys)
+    gen10 = torch.Generator(device=dev).manual_seed(10)
+    a10, b10 = (torch.sort(torch.randn((8, 1 << 16), generator=gen10, device=dev))[0]
+                for _ in range(2))
+    tiles10 = -(-(2 << 16) // plan_chunked(1 << 16, 1 << 16, batch=8).tile)
 
     def one(**kw):
         return {**{n: 0 for n in K.LAUNCHES}, **kw}
@@ -1688,6 +1794,10 @@ def phase_library_merge_sort(dev):
         ("merge 100,000 + 100,000 f32 (the stream-merge example)",
          lambda: repro_torch.merge(a7, b7),
          lambda: repro_torch.merge(a7.cpu(), b7.cpu()), one(grid_merge2=1)),
+        ("chunked_merge(mode='loop') (8, 2^16) + (8, 2^16) f32 at the planner's tile, "
+         "against mode='grid'",
+         lambda: repro_torch.chunked_merge(a10, b10, mode="loop"),
+         lambda: repro_torch.chunked_merge(a10, b10), one(loms_merge2=tiles10)),
         ("segment_sort 16 x 65,536 f32, values only: the spill",
          lambda: repro_torch.segment_sort(v8, offs8),
          lambda: sorted_keys_decoded(v8.reshape(n_seg, seg_len)).reshape(-1),
@@ -2476,10 +2586,162 @@ def phase_kway_times(dev, launches, err, card, ops_per_s) -> list:
     return rows
 
 
-def profile_serve(dev, params, cfg, card) -> None:
+def _rows_of(cache, rows):
+    """A copy of a cache's first ``rows`` rows (decode writes in place)."""
+    return {part: [{"k": lc["k"][:rows].clone(), "v": lc["v"][:rows].clone(),
+                    "pos": lc["pos"].clone()} for lc in layers]
+            for part, layers in cache.items()}
+
+
+def phase_moe(dev, K, card) -> dict:
+    """Phase 3h: qwen3-moe-30b-a3b at its published width and depth (48
+    layers, d_model 2048, 128 experts top-8, d_expert 768, vocab 151,936;
+    random bf16 weights from seed 0) through ``generate`` on 3a's prompts,
+    each run with its launch counts zeroed before and read after: sampled
+    and ragged (rows 4 and 5 a token), greedy (nothing), greedy with the
+    sorted dispatch (row 6 once a MoE layer a decode step; tokens,
+    prefill and first decode logits bit-equal to the scatter run's); a
+    decode step at B = 3 and B = 4 from one cache (rows 0-2 bit-equal:
+    the capacity counts the real rows); the decode profile with the
+    router's executor calls and the expert products as ranges, beside the
+    weight-read floor of a step."""
+    import numpy as np
+    import torch
+
+    import repro_torch.models.moe as MOE
+    from repro_torch.api import topk_block
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, model_init, prefill
+    from repro_torch.serving import ServeConfig, generate
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    torch.cuda.synchronize()
+    log(f"  before init: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    t0 = time.perf_counter()
+    params = model_init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    emb = params["embed"]["emb"]
+    expert_bytes = sum(lay["ffn"][w]["w"].numel() * lay["ffn"][w]["w"].element_size()
+                       for lay in params["stack"]["body"] for w in ("wi", "wg", "wo"))
+    step_bytes = nbytes - emb.numel() * emb.element_size()  # the embedding: B rows
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.moe.n_experts} experts "
+        f"top-{cfg.moe.top_k} of d_expert {cfg.moe.d_expert}, vocab {cfg.vocab_size}: "
+        f"{n_params / 1e9:.3f} B parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB, "
+        f"init {time.perf_counter() - t0:.1f} s; {card}")
+    log(f"  weight-read floor of a decode step (every expert's buffer computed): "
+        f"{step_bytes / 1e9:.2f} GB = {step_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, experts {expert_bytes / 1e9:.2f} GB = "
+        f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms")
+
+    rng = np.random.default_rng(0)  # phase 3a's prompts
+    bsz, plen, new, k, temp = 4, 128, 16, 64, 0.8
+    tokens = rng.integers(0, cfg.vocab_size, (bsz, plen)).astype(np.int32)
+    lens = rng.integers(1, plen + 1, bsz).astype(np.int32)
+    ragged = tokens.copy()
+    for r, n in enumerate(lens):
+        ragged[r, n:] = 0
+    sc = ServeConfig(max_new_tokens=new, top_k=k, temperature=temp, seed=0, time_steps=True)
+    greedy = dataclasses.replace(sc, temperature=0.0)
+    srt = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="sorted"))
+    tree = K.vocab_merge_launches(cfg.vocab_size, topk_block(cfg.vocab_size, k), k)
+    sampled = {"vocab_phase1": new, "vocab_merge_level": new * tree}
+    moe_layers = cfg.n_layers - cfg.moe.first_dense_layers
+    runs = (
+        ("sampled", lambda: generate(params, {"tokens": tokens}, cfg, sc, device=dev), sampled),
+        ("greedy", lambda: generate(params, {"tokens": tokens}, cfg, greedy, device=dev), {}),
+        ("ragged", lambda: generate(params, {"tokens": ragged, "lengths": lens}, cfg, sc,
+                                    device=dev), sampled),
+        ("greedy, sorted dispatch",
+         lambda: generate(params, {"tokens": tokens}, srt, greedy, device=dev),
+         {"seg_sort": moe_layers * (new - 1)}),
+    )
+    outs, launches = {}, {n: 0 for n in K.LAUNCHES}
+    for name, run, want in runs:
+        want = {**{n: 0 for n in K.LAUNCHES}, **want}
+        K.reset_launch_counts()
+        outs[name] = run()
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        log(f"  launches, {name} run: { {n: c for n, c in got.items() if c} } "
+            f"(expected { {n: c for n, c in want.items() if c} })")
+        if got != want:
+            raise AssertionError(f"MoE {name} run: launch counts {got} != {want}")
+        for n, c in got.items():
+            launches[n] += c
+        o = outs[name]
+        t = o["tokens"]
+        if t.shape != (bsz, new) or t.min() < 0 or t.max() >= cfg.vocab_size:
+            raise AssertionError(f"MoE {name} run gave tokens {t.shape} outside the vocab")
+        log(f"  {name}: prefill {o['prefill_s'] * 1e3:.2f} ms, decode step p50 "
+            f"{o['decode_step_p50_us'] / 1e3:.3f} ms p99 {o['decode_step_p99_us'] / 1e3:.3f} ms, "
+            f"{o['tok_per_s']:.2f} tok/s; first tokens {t[0, :6].tolist()}; {card}")
+    if not np.array_equal(outs["greedy, sorted dispatch"]["tokens"], outs["greedy"]["tokens"]):
+        raise AssertionError("MoE greedy tokens differ between the sorted and scatter dispatch")
+
+    with torch.inference_mode():
+        toks = torch.from_numpy(tokens).to(dev)
+        pos = torch.full((bsz, 1), plen, dtype=torch.int32, device=dev)
+        first = {}
+        for name, c in (("scatter", cfg), ("sorted", srt)):
+            lg, cache = prefill(params, {"tokens": toks}, init_cache(c, bsz, plen + 1, dev), c)
+            if lg.shape != (bsz, cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"MoE {name}: prefill logits not finite of shape (B, V)")
+            nxt = torch.argmax(lg, -1).to(torch.int32)[:, None]
+            if not np.array_equal(nxt[:, 0].cpu().numpy(), outs["greedy"]["tokens"][:, 0]):
+                raise AssertionError(f"MoE {name}: first token is not the greedy run's")
+            K.reset_launch_counts()
+            dl, _ = decode_step(params, nxt, _rows_of(cache, bsz), c, positions=pos)
+            torch.cuda.synchronize()
+            want_sorts = moe_layers if name == "sorted" else 0
+            if K.LAUNCHES["seg_sort"] != want_sorts:
+                raise AssertionError(f"MoE {name} decode step: {K.LAUNCHES['seg_sort']} class "
+                                     f"sorts, not {want_sorts}")
+            first[name] = (lg, dl, cache, nxt)
+        for i, what in ((0, "prefill"), (1, "first decode")):
+            if not torch.equal(bits(first["scatter"][i]), bits(first["sorted"][i])):
+                raise AssertionError(f"MoE {what} logits differ between the sorted and "
+                                     "scatter dispatch")
+        log(f"  sorted dispatch: tokens, prefill and first decode logits bit-equal to the "
+            f"scatter run's; {moe_layers} class sorts a decode step")
+        lg, dl4, cache, nxt = first["scatter"]
+        dl3, _ = decode_step(params, nxt[:3], _rows_of(cache, 3), cfg, positions=pos[:3])
+        if not torch.equal(bits(dl3), bits(dl4[:3])):
+            raise AssertionError("MoE decode at B = 3 and B = 4: rows 0-2 differ")
+        log("  decode step at B = 3 and B = 4 from one cache: rows 0-2 bit-equal")
+
+    ranges = profile_serve(dev, params, cfg, card, spans=(
+        (MOE, "router_topk", "moe.router_topk"), (MOE, "_expert_ffn", "moe.expert_ffn")))
+    for label, (calls, dev_ms, host_ms) in sorted(ranges.items()):
+        log(f"    {label}: {calls:.0f} calls a step, device {dev_ms:.3f} ms, host "
+            f"{host_ms:.3f} ms a step; {card}")
+    if "moe.expert_ffn" in ranges:
+        log(f"    expert products {ranges['moe.expert_ffn'][1]:.3f} ms a step against their "
+            f"floor {expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms (the step's "
+            f"{step_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms); {card}")
+    return launches
+
+
+def _ranged(fn, label):
+    """fn inside a profiler range named ``label``."""
+    from torch.profiler import record_function
+
+    def wrapped(*args, **kw):
+        with record_function(label):
+            return fn(*args, **kw)
+    return wrapped
+
+
+def profile_serve(dev, params, cfg, card, spans=()) -> dict:
     """Where a decode step's time goes: torch.profiler over four sampled
     decode steps of the main path (B=4 after a 128-token prompt), device
-    time by kernel, against the host's wall time."""
+    time by kernel, against the host's wall time. ``spans``: (module,
+    function name, label) triples run inside a profiler range while
+    profiled; returns label -> (calls, device ms, host ms), each a step
+    (device ms: the kernels launched inside the range)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -2492,6 +2754,8 @@ def profile_serve(dev, params, cfg, card) -> None:
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (bsz, plen)).astype(np.int32)
     step = make_serve_step(cfg, top_k=64, temperature=0.8)
     gen = torch.Generator(device=dev).manual_seed(0)
+    labels = {label for _, _, label in spans}
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in spans]
     with torch.inference_mode():
         cache = init_cache(cfg, bsz, plen + steps + 1, dev)
         logits, cache = prefill(params, {"tokens": torch.from_numpy(toks).to(dev)}, cache, cfg)
@@ -2502,15 +2766,29 @@ def profile_serve(dev, params, cfg, card) -> None:
 
         tok, cache = step(params, tok, cache, pos(0), gen)  # warm
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(1, steps + 1):
-                tok, cache = step(params, tok, cache, pos(i), gen)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        try:
+            for (mod, attr, real), (_, _, label) in zip(saved, spans):
+                setattr(mod, attr, _ranged(real, label))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(1, steps + 1):
+                    tok, cache = step(params, tok, cache, pos(i), gen)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            for mod, attr, real in saved:
+                setattr(mod, attr, real)
     # kernel rows only: an operator's row repeats the time of its kernels
-    dev_us, launches = {}, 0
+    dev_us, launches, ranges = {}, 0, {}
     for ev in prof.key_averages():
+        t_dev = getattr(ev, "device_time_total", None)
+        if t_dev is None:
+            t_dev = getattr(ev, "cuda_time_total", 0)
+        if ev.key in labels:
+            if ev.device_type != DeviceType.CUDA:  # the host range, not its GPU annotation
+                ranges[ev.key] = (ev.count / steps, t_dev / steps / 1e3,
+                                  ev.cpu_time_total / steps / 1e3)
+            continue
         if ev.device_type != DeviceType.CUDA:
             continue
         t = getattr(ev, "self_device_time_total", None)
@@ -2521,14 +2799,15 @@ def profile_serve(dev, params, cfg, card) -> None:
     total = sum(dev_us.values())
     if total <= 0:
         log("  profiler saw no device time")
-        return
+        return ranges
     topk_us = sum(t for n, t in dev_us.items() if "vocab_" in n or "router_topk" in n)
-    log(f"  decode step profile (B={bsz}, {steps} steps, profiler on): per step "
+    log(f"  decode step profile of {cfg.name} (B={bsz}, {steps} steps, profiler on): per step "
         f"{launches / steps:.0f} kernels, device busy {total / steps / 1e3:.3f} ms of "
         f"{wall_us / steps / 1e3:.3f} ms wall (idle share {1 - total / wall_us:.3f}); "
         f"top-k kernels {topk_us / steps / 1e3:.4f} ms per step; {card}")
     for name, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {t / steps / 1e3:8.4f} ms/step  {name[:90]}")
+    return ranges
 
 
 def main() -> int:
@@ -2577,6 +2856,8 @@ def main() -> int:
     err.update(phase_kway_kernels(dev))
     for name, e in phase_rawfloat_kernels(dev).items():
         err[name] = max(err[name], e)
+    for name, e in phase_signed_zero_kernels(dev, K, SK, topk_block, capable_families).items():
+        err[name] = max(err[name], e)
 
     log("phase 3a: serve Qwen3-8B at full width")
     params, logits, smoke_logits, launches = phase_serve(dev, K)
@@ -2595,6 +2876,16 @@ def main() -> int:
     log("phase 3g: the schedule executor and the backends")
     got, no_kernel_rows = phase_schedule_backends(dev, logits, card)
     runs.append(got)
+    log("  Qwen3-8B: the decode profile and the cost of the padded rows")
+    profile_serve(dev, params, get_config("qwen3-8b"), card)
+    decode_tile_cost(dev, params, get_config("qwen3-8b"), card)
+    del params  # the MoE's 61 GB of weights need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 3h: qwen3-moe-30b-a3b at full width")
+    runs.append(phase_moe(dev, K, card))
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}
     log(f"  launches over all the main paths: {launches}")
     idle = [n for n, c in launches.items() if c == 0]
@@ -2606,8 +2897,6 @@ def main() -> int:
     rows += phase_seg_times(dev, SK, tick_rows, tick_k, launches, err, card, ops_per_s)
     rows += phase_merge_sort_times(dev, launches, err, card, ops_per_s)
     rows += phase_kway_times(dev, launches, err, card, ops_per_s)
-    profile_serve(dev, params, get_config("qwen3-8b"), card)
-    decode_tile_cost(dev, params, get_config("qwen3-8b"), card)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log("  routes without a kernel (phase 3g): " + json.dumps(no_kernel_rows))
     print(json.dumps({"kernels": rows}))

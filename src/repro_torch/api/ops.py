@@ -204,8 +204,9 @@ def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = F
 
             blk = (topk_block(n, k, batch=batch, dtype=x2.dtype) if rung == "fused"
                    else block)
-            vals2, idx2 = kernel_topk(x2, k, block=blk)
-            if rung == "fused":  # values decoded by the kernels
+            unsafe = nan_policy == "unsafe"  # -0.0 and +0.0 tie, as raw floats
+            vals2, idx2 = kernel_topk(x2, k, block=blk, zero_ties=unsafe)
+            if rung == "fused" or unsafe:  # values decoded by the kernels
                 return finish(vals2, idx2, None)
             keys = torch.where(idx2 < 0, _KEY_PAD, encode_key_values(vals2))
             return finish(keys, idx2, lambda out: decode_key_values(out, x2.dtype))

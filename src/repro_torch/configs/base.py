@@ -2,7 +2,7 @@
 
 A copy of ``repro.configs.base`` (the JAX package's), kept here so the
 port never imports the JAX package. The fields and their meaning are the
-same; the port's model stack runs the dense family.
+same; the port's model stack runs the dense and MoE families.
 """
 from __future__ import annotations
 

@@ -30,6 +30,13 @@ __device__ __forceinline__ int32_t encode_key(typename Bits<DT>::T bits) {
   }
 }
 
+// tie_signed_zeros (kernels/common.py), where `on` (nan_policy="unsafe"):
+// -0.0's key -1 becomes +0.0's 0, so that the two tie as raw floats do (no
+// other float encodes to -1)
+__device__ __forceinline__ int32_t tie_zero(int32_t k, int on) {
+  return on && k == -1 ? 0 : k;
+}
+
 // decode_key_values: the 16-bit keys narrow with wrap-around first
 template <int DT>
 __device__ __forceinline__ typename Bits<DT>::T decode_key(int32_t k) {

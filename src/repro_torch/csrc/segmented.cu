@@ -13,7 +13,8 @@
 // Per row both kernels compute, bit for bit, what the TPU kernel computes:
 //
 //   load -> key (floats: the total-order int32 key of keys.cuh; int32: the
-//   value) -> descending: ~key -> lanes past the valid length: INT32_MAX ->
+//   value; nan_policy="unsafe": -0.0 takes +0.0's key) -> descending: ~key
+//   -> lanes past the valid length: INT32_MAX ->
 //   run the network program -> stable compaction of the valid lanes ->
 //   gather the raw values and payload rows at the positions -> store the
 //   k_out prefix (and the positions).
@@ -57,12 +58,21 @@
 
 namespace {
 
+// A loaded key as the class kernels order it. mode bit 0: descending
+// (~key); bit 1 (nan_policy="unsafe", float keys): -0.0 takes +0.0's key
+// 0, so that the two tie as raw floats do (no other float encodes to -1).
+template <int KT>
+__device__ __forceinline__ int32_t class_key(int32_t k, int mode) {
+  if (KT != K_I32) k = repro_keys::tie_zero(k, mode & 2);
+  return (mode & 1) ? ~k : k;
+}
+
 template <int KT, int ER>
 __global__ void __launch_bounds__(SORT_THREADS, 4)
 seg_sort_kernel(const void* __restrict__ x, const int32_t* __restrict__ lens,
                 const int* __restrict__ prog, void* __restrict__ out,
                 int32_t* __restrict__ perm, Lanes pl, int S, int W, int G, int k_out,
-                int flip, int prefix) {
+                int mode, int prefix) {
   extern __shared__ __align__(16) int32_t sm[];
   const int N = G * W;
   int32_t *k = sm, *p = sm + N, *k2 = sm + 2 * N, *p2 = sm + 3 * N;
@@ -81,7 +91,7 @@ seg_sort_kernel(const void* __restrict__ x, const int32_t* __restrict__ lens,
     int32_t key = KEY_SENT;
     if (row < S && i < __ldg(lens + row)) {
       key = load_key<KT>(x, (size_t)row * W + i);
-      if (flip) key = ~key;
+      key = class_key<KT>(key, mode);
     }
     return key;
   });
@@ -113,7 +123,7 @@ __global__ void seg_merge_kernel(const void* __restrict__ a, const void* __restr
                                  const int* __restrict__ prog,
                                  void* __restrict__ out, int32_t* __restrict__ perm,
                                  Lanes pl, int S, int wa, int wb, int G, int k_out,
-                                 int flip) {
+                                 int mode) {
   extern __shared__ __align__(16) int32_t sm[];
   const int L = wa + wb, N = G * L;
   int32_t *k = sm, *p = sm + N, *k2 = sm + 2 * N, *p2 = sm + 3 * N;
@@ -134,7 +144,7 @@ __global__ void seg_merge_kernel(const void* __restrict__ a, const void* __restr
       if (t < (is_a ? sla[r] : slb[r])) {
         key = is_a ? load_key<KT>(a, (size_t)row * wa + t)
                    : load_key<KT>(b, (size_t)row * wb + t);
-        if (flip) key = ~key;
+        key = class_key<KT>(key, mode);
       }
     }
     k[e] = key;
@@ -206,7 +216,7 @@ __global__ void __launch_bounds__(ROWS_THREADS)
 seg_merge_rows_kernel(const void* __restrict__ a, const void* __restrict__ b,
                       const int32_t* __restrict__ lens_a, const int32_t* __restrict__ lens_b,
                       void* __restrict__ out, int32_t* __restrict__ perm, Lanes pl, int S_,
-                      int wa, int wb, int C, int lc, int E, int T, int k_out, int flip) {
+                      int wa, int wb, int C, int lc, int E, int T, int k_out, int mode) {
   constexpr bool NARROW = KT == K_BF16 || KT == K_F16;
   constexpr int VB = value_bytes<KT>();
   using V = typename std::conditional<VB == 2, uint16_t, uint32_t>::type;
@@ -239,7 +249,7 @@ seg_merge_rows_kernel(const void* __restrict__ a, const void* __restrict__ b,
   const auto masked = [&](int len) {
     return [&, len](int i, int32_t k) {
       if (i >= len) return KEY_SENT;
-      k = flip ? ~k : k;
+      k = class_key<KT>(k, mode);
       if (KT == K_I32) tie |= k == KEY_SENT;
       return k;
     };
@@ -304,52 +314,52 @@ seg_merge_rows_kernel(const void* __restrict__ a, const void* __restrict__ b,
 template <int KT, int S>
 int launch_merge_rows(const void* a, const void* b, const int32_t* la, const int32_t* lb,
                       void* out, int32_t* perm, const Lanes& pl, int S_, int wa, int wb, int C,
-                      int T, int k_out, int flip, cudaStream_t s) {
+                      int T, int k_out, int mode, cudaStream_t s) {
   const RowsLaunch c = rows_plan(S_, wa + wb, T, rows_extra<KT>(pl, wa, wb));
   static size_t granted = 0;  // shared memory asked for (per KT, S)
   const cudaError_t err = allow_smem(seg_merge_rows_kernel<KT, S>, c.smem, granted);
   if (err != cudaSuccess) return (int)err;
   seg_merge_rows_kernel<KT, S><<<c.ctas, c.threads, c.smem, s>>>(
-      a, b, la, lb, out, perm, pl, S_, wa, wb, C, log2_exact(C), c.E, c.T, k_out, flip);
+      a, b, la, lb, out, perm, pl, S_, wa, wb, C, log2_exact(C), c.E, c.T, k_out, mode);
   return (int)cudaGetLastError();
 }
 
 template <int KT>
 int launch_merge_rows_kt(const void* a, const void* b, const int32_t* la, const int32_t* lb,
                          void* out, int32_t* perm, const Lanes& pl, int S_, int wa, int wb,
-                         int C, int T, int k_out, int flip, cudaStream_t s) {
+                         int C, int T, int k_out, int mode, cudaStream_t s) {
   switch (pad_cols(C)) {
-    case 1: return launch_merge_rows<KT, 1>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, flip, s);
-    case 2: return launch_merge_rows<KT, 2>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, flip, s);
-    case 4: return launch_merge_rows<KT, 4>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, flip, s);
-    case 8: return launch_merge_rows<KT, 8>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, flip, s);
-    default: return launch_merge_rows<KT, 16>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, flip, s);
+    case 1: return launch_merge_rows<KT, 1>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, mode, s);
+    case 2: return launch_merge_rows<KT, 2>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, mode, s);
+    case 4: return launch_merge_rows<KT, 4>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, mode, s);
+    case 8: return launch_merge_rows<KT, 8>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, mode, s);
+    default: return launch_merge_rows<KT, 16>(a, b, la, lb, out, perm, pl, S_, wa, wb, C, T, k_out, mode, s);
   }
 }
 
 template <int KT, int ER>
 int launch_sort(const void* x, const int32_t* lens, const int* prog, void* out,
-                int32_t* perm, const Lanes& pl, int S, int W, int k_out, int flip,
+                int32_t* perm, const Lanes& pl, int S, int W, int k_out, int mode,
                 int prefix, const SortLaunch& c, cudaStream_t s) {
   const size_t smem = (size_t)(4 * c.G * W + c.G) * sizeof(int32_t);
   static size_t granted = 0;  // shared memory asked for (per KT, ER)
   const cudaError_t err = allow_smem(seg_sort_kernel<KT, ER>, smem, granted);
   if (err != cudaSuccess) return (int)err;
   seg_sort_kernel<KT, ER><<<c.ctas, SORT_THREADS, smem, s>>>(x, lens, prog, out, perm, pl,
-                                                            S, W, c.G, k_out, flip, prefix);
+                                                            S, W, c.G, k_out, mode, prefix);
   return (int)cudaGetLastError();
 }
 
 template <int KT>
 int launch_sort_kt(const void* x, const int32_t* lens, const int* prog, void* out,
-                   int32_t* perm, const Lanes& pl, int S, int W, int k_out, int flip,
+                   int32_t* perm, const Lanes& pl, int S, int W, int k_out, int mode,
                    int prefix, int lanes, cudaStream_t s) {
   const SortLaunch c = sort_plan(S, W, lanes);
   switch (c.ER) {
-    case 1: return launch_sort<KT, 1>(x, lens, prog, out, perm, pl, S, W, k_out, flip, prefix, c, s);
-    case 2: return launch_sort<KT, 2>(x, lens, prog, out, perm, pl, S, W, k_out, flip, prefix, c, s);
-    case 4: return launch_sort<KT, 4>(x, lens, prog, out, perm, pl, S, W, k_out, flip, prefix, c, s);
-    default: return launch_sort<KT, 8>(x, lens, prog, out, perm, pl, S, W, k_out, flip, prefix, c, s);
+    case 1: return launch_sort<KT, 1>(x, lens, prog, out, perm, pl, S, W, k_out, mode, prefix, c, s);
+    case 2: return launch_sort<KT, 2>(x, lens, prog, out, perm, pl, S, W, k_out, mode, prefix, c, s);
+    case 4: return launch_sort<KT, 4>(x, lens, prog, out, perm, pl, S, W, k_out, mode, prefix, c, s);
+    default: return launch_sort<KT, 8>(x, lens, prog, out, perm, pl, S, W, k_out, mode, prefix, c, s);
   }
 }
 
@@ -357,7 +367,8 @@ int launch_sort_kt(const void* x, const int32_t* lens, const int* prog, void* ou
 
 // Each entry point launches on the caller's stream, does not synchronise,
 // and returns cudaGetLastError() (0 = the launch was accepted). key_code:
-// 0 float32, 1 bfloat16, 2 float16 (encoded keys), 3 int32 (raw keys).
+// 0 float32, 1 bfloat16, 2 float16 (encoded keys), 3 int32 (raw keys);
+// mode: class_key's bits (1: descending, 2: signed zeros tie).
 // The class sort's prefix is the number of S2MS levels at the bottom of its
 // program; lanes > 0 forces the lanes a thread (0: the launch plan's).
 extern "C" {
@@ -365,7 +376,7 @@ extern "C" {
 int repro_seg_sort(const void* x, const void* lens, const void* prog, void* out,
                    void* perm, int n_payload, void** p_in, void** p_out,
                    const int* p_bytes, int S, int W, int k_out, int key_code,
-                   int flip, int prefix, int lanes, void* stream) {
+                   int mode, int prefix, int lanes, void* stream) {
   if (n_payload < 0 || n_payload > MAXP || W < 1 || (W & (W - 1)) || prefix < 0 ||
       (1 << prefix) > W)
     return (int)cudaErrorInvalidValue;
@@ -375,10 +386,10 @@ int repro_seg_sort(const void* x, const void* lens, const void* prog, void* out,
   const int* pr = static_cast<const int*>(prog);
   int32_t* pm = static_cast<int32_t*>(perm);
   switch (key_code) {
-    case K_F32: return launch_sort_kt<K_F32>(x, ln, pr, out, pm, pl, S, W, k_out, flip, prefix, lanes, s);
-    case K_BF16: return launch_sort_kt<K_BF16>(x, ln, pr, out, pm, pl, S, W, k_out, flip, prefix, lanes, s);
-    case K_F16: return launch_sort_kt<K_F16>(x, ln, pr, out, pm, pl, S, W, k_out, flip, prefix, lanes, s);
-    case K_I32: return launch_sort_kt<K_I32>(x, ln, pr, out, pm, pl, S, W, k_out, flip, prefix, lanes, s);
+    case K_F32: return launch_sort_kt<K_F32>(x, ln, pr, out, pm, pl, S, W, k_out, mode, prefix, lanes, s);
+    case K_BF16: return launch_sort_kt<K_BF16>(x, ln, pr, out, pm, pl, S, W, k_out, mode, prefix, lanes, s);
+    case K_F16: return launch_sort_kt<K_F16>(x, ln, pr, out, pm, pl, S, W, k_out, mode, prefix, lanes, s);
+    case K_I32: return launch_sort_kt<K_I32>(x, ln, pr, out, pm, pl, S, W, k_out, mode, prefix, lanes, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -386,7 +397,7 @@ int repro_seg_sort(const void* x, const void* lens, const void* prog, void* out,
 int repro_seg_merge(const void* a, const void* b, const void* lens_a,
                     const void* lens_b, const void* prog, void* out, void* perm,
                     int n_payload, void** p_in, void** p_out, const int* p_bytes,
-                    int S, int wa, int wb, int k_out, int key_code, int flip,
+                    int S, int wa, int wb, int k_out, int key_code, int mode,
                     void* stream) {
   if (n_payload < 0 || n_payload > MAXP) return (int)cudaErrorInvalidValue;
   const Launch c = plan(wa + wb, 2);
@@ -399,16 +410,16 @@ int repro_seg_merge(const void* a, const void* b, const void* lens_a,
   int32_t* pm = static_cast<int32_t*>(perm);
   switch (key_code) {
     case K_F32:
-      seg_merge_kernel<K_F32><<<ctas, c.threads, c.smem, s>>>(a, b, la, lb, pr, out, pm, pl, S, wa, wb, c.G, k_out, flip);
+      seg_merge_kernel<K_F32><<<ctas, c.threads, c.smem, s>>>(a, b, la, lb, pr, out, pm, pl, S, wa, wb, c.G, k_out, mode);
       break;
     case K_BF16:
-      seg_merge_kernel<K_BF16><<<ctas, c.threads, c.smem, s>>>(a, b, la, lb, pr, out, pm, pl, S, wa, wb, c.G, k_out, flip);
+      seg_merge_kernel<K_BF16><<<ctas, c.threads, c.smem, s>>>(a, b, la, lb, pr, out, pm, pl, S, wa, wb, c.G, k_out, mode);
       break;
     case K_F16:
-      seg_merge_kernel<K_F16><<<ctas, c.threads, c.smem, s>>>(a, b, la, lb, pr, out, pm, pl, S, wa, wb, c.G, k_out, flip);
+      seg_merge_kernel<K_F16><<<ctas, c.threads, c.smem, s>>>(a, b, la, lb, pr, out, pm, pl, S, wa, wb, c.G, k_out, mode);
       break;
     case K_I32:
-      seg_merge_kernel<K_I32><<<ctas, c.threads, c.smem, s>>>(a, b, la, lb, pr, out, pm, pl, S, wa, wb, c.G, k_out, flip);
+      seg_merge_kernel<K_I32><<<ctas, c.threads, c.smem, s>>>(a, b, la, lb, pr, out, pm, pl, S, wa, wb, c.G, k_out, mode);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -423,7 +434,7 @@ int repro_seg_merge(const void* a, const void* b, const void* lens_a,
 int repro_seg_merge_rows(const void* a, const void* b, const void* lens_a,
                          const void* lens_b, void* out, void* perm, int n_payload,
                          void** p_in, void** p_out, const int* p_bytes, int S, int wa,
-                         int wb, int C, int T, int k_out, int key_code, int flip,
+                         int wb, int C, int T, int k_out, int key_code, int mode,
                          void* stream) {
   if (n_payload < 0 || n_payload > MAXP || wa <= 0 || wb <= 0 || C < 1 || C > 16 ||
       wa % C || wb % C || !rows_threads_ok(T) || k_out < 1 || k_out > wa + wb ||
@@ -438,10 +449,10 @@ int repro_seg_merge_rows(const void* a, const void* b, const void* lens_a,
   const int32_t* lb = static_cast<const int32_t*>(lens_b);
   int32_t* pm = static_cast<int32_t*>(perm);
   switch (key_code) {
-    case K_F32: return launch_merge_rows_kt<K_F32>(a, b, la, lb, out, pm, pl, S, wa, wb, C, T, k_out, flip, s);
-    case K_BF16: return launch_merge_rows_kt<K_BF16>(a, b, la, lb, out, pm, pl, S, wa, wb, C, T, k_out, flip, s);
-    case K_F16: return launch_merge_rows_kt<K_F16>(a, b, la, lb, out, pm, pl, S, wa, wb, C, T, k_out, flip, s);
-    case K_I32: return launch_merge_rows_kt<K_I32>(a, b, la, lb, out, pm, pl, S, wa, wb, C, T, k_out, flip, s);
+    case K_F32: return launch_merge_rows_kt<K_F32>(a, b, la, lb, out, pm, pl, S, wa, wb, C, T, k_out, mode, s);
+    case K_BF16: return launch_merge_rows_kt<K_BF16>(a, b, la, lb, out, pm, pl, S, wa, wb, C, T, k_out, mode, s);
+    case K_F16: return launch_merge_rows_kt<K_F16>(a, b, la, lb, out, pm, pl, S, wa, wb, C, T, k_out, mode, s);
+    case K_I32: return launch_merge_rows_kt<K_I32>(a, b, la, lb, out, pm, pl, S, wa, wb, C, T, k_out, mode, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -93,6 +93,7 @@ using repro_keys::F16;
 using repro_keys::F32;
 using repro_keys::decode_key;
 using repro_keys::encode_key;
+using repro_keys::tie_zero;
 
 // ---------------------------------------------------------------------------
 // The block sort of rows 3 and 4
@@ -194,7 +195,7 @@ __device__ __forceinline__ void block_sort(W (&v)[SORT_WORDS]) {
 // 16 bytes) where the lane's slots are whole and aligned.
 template <int DT>
 __device__ __forceinline__ void load_block(const typename Bits<DT>::T* src, int n, int li,
-                                           int pos0,
+                                           int pos0, int zt,
                                            typename Word<DT>::T (&v)[SORT_WORDS]) {
   using B = typename Bits<DT>::T;
   constexpr int E = SORT_WORDS, BYTES = E * sizeof(B);  // a lane's slots
@@ -208,11 +209,13 @@ __device__ __forceinline__ void load_block(const typename Bits<DT>::T* src, int 
     for (int c = 0; c < E / PER; ++c) raw[c] = __ldg(reinterpret_cast<const Vec*>(q) + c);
     const B* b = reinterpret_cast<const B*>(raw);
 #pragma unroll
-    for (int j = 0; j < E; ++j) v[j] = make_word<DT>(encode_key<DT>(b[j]), pos0 + p0 + j);
+    for (int j = 0; j < E; ++j)
+      v[j] = make_word<DT>(tie_zero(encode_key<DT>(b[j]), zt), pos0 + p0 + j);
   } else {
 #pragma unroll
     for (int j = 0; j < E; ++j)
-      v[j] = p0 + j < n ? make_word<DT>(encode_key<DT>(q[j]), pos0 + p0 + j) : word_pad<DT>();
+      v[j] = p0 + j < n ? make_word<DT>(tie_zero(encode_key<DT>(q[j]), zt), pos0 + p0 + j)
+                        : word_pad<DT>();
   }
 }
 
@@ -382,7 +385,7 @@ template <int DT, int BP>
 __global__ void __launch_bounds__(ROUTER_THREADS)
 router_topk_kernel(const typename Bits<DT>::T* __restrict__ x,
                    typename Bits<DT>::T* __restrict__ vout, int32_t* __restrict__ iout,
-                   int T, int E, int k, int block, int R) {
+                   int T, int E, int k, int block, int R, int zt) {
   using W = typename Word<DT>::T;
   extern __shared__ long long router_smem[];
   const int G = E / block, levels = ceil_log2(G), Gp = 1 << levels, kk = min(k, block);
@@ -404,7 +407,7 @@ router_topk_kernel(const typename Bits<DT>::T* __restrict__ x,
       const int r = f / G, g = f - r * G, row = row0 + r;
       W v[SORT_WORDS];
       load_block<DT>(x + (size_t)row * E + g * block, f < R * G && row < T ? block : 0, li,
-                     g * block, v);
+                     g * block, zt, v);
       block_sort<BP>(v);
 #pragma unroll
       for (int j = 0; j < SORT_WORDS; ++j) {
@@ -418,7 +421,8 @@ router_topk_kernel(const typename Bits<DT>::T* __restrict__ x,
     for (int t = threadIdx.x; t < R * G * BP; t += blockDim.x) {
       const int b = t / BP, p = t - b * BP, r = b / G, g = b - r * G, row = row0 + r;
       st[t] = row < T && p < block
-          ? make_word<DT>(encode_key<DT>(x[(size_t)row * E + g * block + p]), g * block + p)
+          ? make_word<DT>(tie_zero(encode_key<DT>(x[(size_t)row * E + g * block + p]), zt),
+                          g * block + p)
           : word_pad<DT>();
     }
     __syncthreads();
@@ -486,7 +490,7 @@ __global__ void __launch_bounds__(P1_THREADS)
 vocab_phase1_kernel(const typename Bits<DT>::T* __restrict__ x, int32_t* __restrict__ okey,
                     typename Bits<DT>::T* __restrict__ oval, int32_t* __restrict__ oidx,
                     int rows, int V, int nblk, int real, int block, int kk, int decode,
-                    int which) {
+                    int which, int zt) {
   using W = typename Word<DT>::T;
   const int nreal = (which & 1) ? rows * real : 0;
   if constexpr (BP <= WARP_SORT_MAX) {
@@ -499,7 +503,7 @@ vocab_phase1_kernel(const typename Bits<DT>::T* __restrict__ x, int32_t* __restr
     auto load = [&](int u) {
       const int f = u * BPW + lane / LPB, row = f / real, base = (f - row * real) * block;
       load_block<DT>(x + (size_t)row * V + base, f < nreal ? min(block, V - base) : 0, li, 0,
-                     v);
+                     zt, v);
     };
     if (u0 < units) load(u0);  // in flight while the padding blocks are filled
     if (which & 2) fill_pad_blocks(okey, oidx, rows, nblk, real, kk);
@@ -536,8 +540,9 @@ vocab_phase1_kernel(const typename Bits<DT>::T* __restrict__ x, int32_t* __restr
       const int row = f / real, gb = f - row * real, base = gb * block;
       const typename Bits<DT>::T* xr = x + (size_t)row * V;
       for (int p = threadIdx.x; p < BP; p += blockDim.x)
-        s[p] = p < block && base + p < V ? make_word<DT>(encode_key<DT>(xr[base + p]), p)
-                                         : word_pad<DT>();
+        s[p] = p < block && base + p < V
+                   ? make_word<DT>(tie_zero(encode_key<DT>(xr[base + p]), zt), p)
+                   : word_pad<DT>();
       __syncthreads();
       cta_sort(s, 1, BP);
       const size_t o = ((size_t)row * nblk + gb) * kk;
@@ -638,7 +643,7 @@ int sm_count() {
 
 template <int DT, int BP>
 int launch_router_bp(const void* x, void* vout, int32_t* iout, int T, int E, int k,
-                     int block, cudaStream_t s) {
+                     int block, int zt, cudaStream_t s) {
   using B = typename Bits<DT>::T;
   const int G = E / block, Gp = 1 << ceil_log2(G), kk = min(k, block);
   // a row's words: two list buffers, and the blocks to sort in shared memory
@@ -647,20 +652,20 @@ int launch_router_bp(const void* x, void* vout, int32_t* iout, int T, int E, int
   int R = T / (2 * sm_count());  // rows a CTA: about two CTAs an SM at large T
   R = max(1, min(R, min(ROUTER_MAX_ROWS, (int)(ROUTER_SMEM / per_row))));
   router_topk_kernel<DT, BP><<<(T + R - 1) / R, ROUTER_THREADS, R * per_row, s>>>(
-      (const B*)x, (B*)vout, iout, T, E, k, block, R);
+      (const B*)x, (B*)vout, iout, T, E, k, block, R, zt);
   return (int)cudaGetLastError();
 }
 
 template <int DT>
 int launch_router(const void* x, void* vout, int32_t* iout, int T, int E, int k, int block,
-                  cudaStream_t s) {
+                  int zt, cudaStream_t s) {
   switch (net_width(block)) {
-    case 16: return launch_router_bp<DT, 16>(x, vout, iout, T, E, k, block, s);
-    case 32: return launch_router_bp<DT, 32>(x, vout, iout, T, E, k, block, s);
-    case 64: return launch_router_bp<DT, 64>(x, vout, iout, T, E, k, block, s);
-    case 128: return launch_router_bp<DT, 128>(x, vout, iout, T, E, k, block, s);
-    case 256: return launch_router_bp<DT, 256>(x, vout, iout, T, E, k, block, s);
-    case 512: return launch_router_bp<DT, 512>(x, vout, iout, T, E, k, block, s);
+    case 16: return launch_router_bp<DT, 16>(x, vout, iout, T, E, k, block, zt, s);
+    case 32: return launch_router_bp<DT, 32>(x, vout, iout, T, E, k, block, zt, s);
+    case 64: return launch_router_bp<DT, 64>(x, vout, iout, T, E, k, block, zt, s);
+    case 128: return launch_router_bp<DT, 128>(x, vout, iout, T, E, k, block, zt, s);
+    case 256: return launch_router_bp<DT, 256>(x, vout, iout, T, E, k, block, zt, s);
+    case 512: return launch_router_bp<DT, 512>(x, vout, iout, T, E, k, block, zt, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -668,7 +673,7 @@ int launch_router(const void* x, void* vout, int32_t* iout, int T, int E, int k,
 template <int DT, int BP>
 int launch_phase1_bp(const void* x, int32_t* okey, void* oval, int32_t* oidx, int rows,
                      int V, int nblk, int real, int block, int kk, int decode, int which,
-                     cudaStream_t s) {
+                     int zt, cudaStream_t s) {
   using B = typename Bits<DT>::T;
   static int per_sm = 0;  // CTAs an SM holds, per DT and BP
   if (!per_sm) {
@@ -691,18 +696,18 @@ int launch_phase1_bp(const void* x, int32_t* okey, void* oval, int32_t* oidx, in
   const long long wave = (long long)sm_count() * per_sm;  // one wave at most
   ctas = ctas < 1 ? 1 : ctas > wave ? wave : ctas;
   vocab_phase1_kernel<DT, BP><<<(int)ctas, P1_THREADS, 0, s>>>(
-      (const B*)x, okey, (B*)oval, oidx, rows, V, nblk, real, block, kk, decode, which);
+      (const B*)x, okey, (B*)oval, oidx, rows, V, nblk, real, block, kk, decode, which, zt);
   return (int)cudaGetLastError();
 }
 
 template <int DT>
 int launch_phase1(const void* x, int32_t* okey, void* oval, int32_t* oidx, int rows, int V,
-                  int nblk, int block, int kk, int decode, int which, cudaStream_t s) {
+                  int nblk, int block, int kk, int decode, int which, int zt, cudaStream_t s) {
   const int real = min(nblk, (V + block - 1) / block);
   switch (net_width(block)) {
 #define REPRO_P1(bp) \
     case bp: return launch_phase1_bp<DT, bp>(x, okey, oval, oidx, rows, V, nblk, real, block, \
-                                             kk, decode, which, s);
+                                             kk, decode, which, zt, s);
     REPRO_P1(16) REPRO_P1(32) REPRO_P1(64) REPRO_P1(128) REPRO_P1(256) REPRO_P1(512)
     REPRO_P1(1024)
 #undef REPRO_P1
@@ -741,25 +746,24 @@ int launch_tree(const int32_t* ikey, const int32_t* iidx, int32_t* okey, void* o
 
 // Each entry point launches on the caller's stream, does not synchronise,
 // and returns cudaGetLastError() (0 = the launch was accepted). dtype:
-// 0 = float32, 1 = bfloat16, 2 = float16.
+// 0 = float32, 1 = bfloat16, 2 = float16. zero_ties (nan_policy="unsafe"):
+// -0.0 takes +0.0's key on load (keys.cuh tie_zero), so the two tie.
 extern "C" {
 
 int repro_router_topk(const void* x, void* vout, void* iout, int T, int E,
-                      int k, int block, int dtype, void* stream) {
+                      int k, int block, int zero_ties, int dtype, void* stream) {
   if (T <= 0 || block <= 0 || E <= 0 || E > ROUTER_MAX_E || E % block || k < 1 || k > E)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int32_t* io = (int32_t*)iout;
-  if (dtype == F32) return launch_router<F32>(x, vout, io, T, E, k, block, s);
-  if (dtype == BF16) return launch_router<BF16>(x, vout, io, T, E, k, block, s);
-  return launch_router<F16>(x, vout, io, T, E, k, block, s);
+  if (dtype == F32) return launch_router<F32>(x, vout, io, T, E, k, block, zero_ties, s);
+  if (dtype == BF16) return launch_router<BF16>(x, vout, io, T, E, k, block, zero_ties, s);
+  return launch_router<F16>(x, vout, io, T, E, k, block, zero_ties, s);
 }
 
-// Phase 1 with `which` = 1 (the real blocks alone), 2 (the padding blocks
-// alone) or 3 (both: repro_vocab_phase1), for timing its two parts.
-int repro_vocab_phase1_parts(const void* x, void* okey, void* oval, void* oidx,
-                             int rows, int V, int nblk, int block, int kk,
-                             int decode, int which, int dtype, void* stream) {
+static int vocab_phase1_launch(const void* x, void* okey, void* oval, void* oidx, int rows,
+                               int V, int nblk, int block, int kk, int decode, int which,
+                               int zt, int dtype, void* stream) {
   if (rows <= 0 || V < 0 || block <= 0 || block > 1024 || kk <= 0 || kk > block
       || nblk <= 0 || (long long)rows * nblk * kk >= (1LL << 31) || which < 1 || which > 3)
     return (int)cudaErrorInvalidValue;
@@ -767,17 +771,26 @@ int repro_vocab_phase1_parts(const void* x, void* okey, void* oval, void* oidx,
   int32_t* ok = (int32_t*)okey;
   int32_t* oi = (int32_t*)oidx;
   if (dtype == F32)
-    return launch_phase1<F32>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, which, s);
+    return launch_phase1<F32>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, which, zt, s);
   if (dtype == BF16)
-    return launch_phase1<BF16>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, which, s);
-  return launch_phase1<F16>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, which, s);
+    return launch_phase1<BF16>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, which, zt, s);
+  return launch_phase1<F16>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, which, zt, s);
+}
+
+// Phase 1 with `which` = 1 (the real blocks alone), 2 (the padding blocks
+// alone) or 3 (both: repro_vocab_phase1), for timing its two parts.
+int repro_vocab_phase1_parts(const void* x, void* okey, void* oval, void* oidx,
+                             int rows, int V, int nblk, int block, int kk,
+                             int decode, int which, int dtype, void* stream) {
+  return vocab_phase1_launch(x, okey, oval, oidx, rows, V, nblk, block, kk, decode, which, 0,
+                             dtype, stream);
 }
 
 int repro_vocab_phase1(const void* x, void* okey, void* oval, void* oidx,
                        int rows, int V, int nblk, int block, int kk,
-                       int decode, int dtype, void* stream) {
-  return repro_vocab_phase1_parts(x, okey, oval, oidx, rows, V, nblk, block, kk, decode, 3,
-                                  dtype, stream);
+                       int decode, int zero_ties, int dtype, void* stream) {
+  return vocab_phase1_launch(x, okey, oval, oidx, rows, V, nblk, block, kk, decode, 3,
+                             zero_ties, dtype, stream);
 }
 
 // One launch of the merge tree: int32 keys and indices (groups, 2^levels,

@@ -61,6 +61,13 @@ def decode_key_values(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return y.view(dtype)
 
 
+def tie_signed_zeros(keys: torch.Tensor) -> torch.Tensor:
+    """Total-order float keys with -0.0's (-1, in every float dtype) made
+    +0.0's (0): under ``nan_policy="unsafe"`` the two tie, as the
+    reference's raw comparison ties them. No other float encodes to -1."""
+    return keys.masked_fill(keys == -1, 0)
+
+
 def check_mode(dtype: torch.dtype, key_dtype: Optional[torch.dtype],
                use_mxu: bool, n_payloads: int = 0) -> None:
     """The value modes of the merge, sort and k-way kernels: float rows

@@ -26,8 +26,8 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: each library's entry points and their argument types (all return an int)
 _SIGNATURES = {
     "topk": {
-        "repro_router_topk": [P, P, P, I, I, I, I, I, P],
-        "repro_vocab_phase1": [P, P, P, P, I, I, I, I, I, I, I, P],
+        "repro_router_topk": [P, P, P, I, I, I, I, I, I, P],
+        "repro_vocab_phase1": [P, P, P, P, I, I, I, I, I, I, I, I, P],
         "repro_vocab_phase1_parts": [P, P, P, P, I, I, I, I, I, I, I, I, P],
         "repro_vocab_merge_tree": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     },

@@ -90,11 +90,12 @@ def median_k(lists: Sequence[torch.Tensor]) -> torch.Tensor:
     return kway_merge(x, median_readout(sched, pos), use_mxu=_use_mxu(plan, x))[0][:, 0]
 
 
-def topk(x: torch.Tensor, k: int, *, block: Optional[int] = None
+def topk(x: torch.Tensor, k: int, *, block: Optional[int] = None, zero_ties: bool = False
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Descending top-k with int32 indices over the last axis of (B, E)
     float rows: the router kernel (row 3) for E <= 512, the vocab kernels
-    (rows 4 and 5) above; ``block`` defaults to the planner's."""
+    (rows 4 and 5) above; ``block`` defaults to the planner's.
+    ``zero_ties`` (``nan_policy="unsafe"``): -0.0 and +0.0 tie."""
     if x.ndim != 2:
         raise ValueError("topk takes (B, E) rows")
     bsz, e = x.shape
@@ -102,5 +103,5 @@ def topk(x: torch.Tensor, k: int, *, block: Optional[int] = None
     blk = topk_tiles(bsz, e, block=block or plan.block)[0]
     x = x.contiguous()
     if e <= ROUTER_TOPK_MAX:
-        return router_topk(x, k, block=blk)
-    return vocab_topk(x, k, block=blk)
+        return router_topk(x, k, block=blk, zero_ties=zero_ties)
+    return vocab_topk(x, k, block=blk, zero_ties=zero_ties)

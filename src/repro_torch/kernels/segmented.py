@@ -5,7 +5,8 @@ Counterpart of ``repro.kernels.segmented``. The bucketer
 to the same power of two ``W`` into the rows of a dense ``(S, W)`` tile,
 with each row's valid length beside it. One launch then, per row:
 
-  encode total-order int32 keys (floats) -> flip the key bits for
+  encode total-order int32 keys (floats; under ``nan_policy="unsafe"``
+  -0.0 takes +0.0's key, ``zero_ties``) -> flip the key bits for
   descending (``~k``) -> put the key-domain +sentinel on the lanes past
   ``lens`` -> run the family's merge tree (sort) or 2-run merge program
   (merge), carrying an int32 position lane -> stable mask compaction of
@@ -41,7 +42,7 @@ import torch
 from repro_torch.networks import (merge_program, merge_runs, pick_merge_cols,
                                   run_sort_program, sort_program)
 from .common import (encode_key_values, flip_keys, gather_lanes, sentinel_max,
-                     stable_compact)
+                     stable_compact, tie_signed_zeros)
 from . import launch
 from .launch import (KEY_CODE, check_rc, cuda_checks, empty_payloads, library,
                      payload_args, program_tensor, sort_prefix, stream)
@@ -56,10 +57,15 @@ MERGE_MAX_WIDTH = 2048
 Result = Tuple[torch.Tensor, Optional[torch.Tensor], Tuple[torch.Tensor, ...]]
 
 
-def _prep_keys(x: torch.Tensor, lens: torch.Tensor, *, flip: bool):
+def _prep_keys(x: torch.Tensor, lens: torch.Tensor, *, flip: bool,
+               zero_ties: bool = False):
     """values -> masked network keys and the lane index of every input:
-    floats are encoded, int32 is taken raw."""
-    keys = encode_key_values(x) if x.dtype.is_floating_point else x
+    floats are encoded (``zero_ties``: -0.0 with +0.0's key), int32 is
+    taken raw."""
+    keys = x
+    if x.dtype.is_floating_point:
+        keys = encode_key_values(x)
+        keys = tie_signed_zeros(keys) if zero_ties else keys
     if flip:
         keys = flip_keys(keys)
     lane = torch.arange(x.shape[1], dtype=torch.int32,
@@ -88,12 +94,12 @@ def _check_class(dense: torch.Tensor, lens: torch.Tensor, payloads, width: int):
 
 def segment_class_sort_plain(dense, lens, payloads=(), *, k_out=None,
                              network="loms", flip=False,
-                             want_perm=False) -> Result:
+                             want_perm=False, zero_ties=False) -> Result:
     """Plain version of ``_seg_sort_kernel`` (``segmented.py:97``)."""
     w = dense.shape[1]
     k_out = w if k_out is None else int(k_out)
     lens = lens.to(torch.int32)
-    keys, lane = _prep_keys(dense, lens, flip=flip)
+    keys, lane = _prep_keys(dense, lens, flip=flip, zero_ties=zero_ties)
     keys, pos = run_sort_program(sort_program(network, w), keys, lane)
     keys, pos = stable_compact(pos < lens, keys, pos)
     return _store_prefix(pos, dense, payloads, k_out, want_perm)
@@ -102,14 +108,14 @@ def segment_class_sort_plain(dense, lens, payloads=(), *, k_out=None,
 def segment_class_merge_plain(dense_a, dense_b, lens_a, lens_b, payloads=(), *,
                               k_out=None, network="loms",
                               flip=False, want_perm=False,
-                              n_cols: Optional[int] = None) -> Result:
+                              n_cols: Optional[int] = None, zero_ties=False) -> Result:
     """Plain version of ``_seg_merge_kernel`` (``segmented.py:115``)."""
     wa, wb = dense_a.shape[1], dense_b.shape[1]
     k_out = wa + wb if k_out is None else int(k_out)
     n_cols = pick_merge_cols(wa, wb) if n_cols is None else int(n_cols)
     lens_a, lens_b = lens_a.to(torch.int32), lens_b.to(torch.int32)
-    ka, lane_a = _prep_keys(dense_a, lens_a, flip=flip)
-    kb, lane_b = _prep_keys(dense_b, lens_b, flip=flip)
+    ka, lane_a = _prep_keys(dense_a, lens_a, flip=flip, zero_ties=zero_ties)
+    kb, lane_b = _prep_keys(dense_b, lens_b, flip=flip, zero_ties=zero_ties)
     prog = merge_program(network, wa, wb, n_cols if network == "loms" else None)
     keys, pos = merge_runs(prog, ka, kb, payload=(lane_a, wa + lane_b))
     valid = torch.where(pos < wa, pos < lens_a, pos - wa < lens_b)
@@ -182,6 +188,11 @@ def seg_merge_rows_emulated(dense_a, dense_b, lens_a, lens_b, payloads=(), *,
     return out, perm, tuple(gather_lanes(lane, p) for p in payloads)
 
 
+def _mode(flip: bool, zero_ties: bool) -> int:
+    """The kernels' key mode (``csrc/segmented.cu`` ``class_key``)."""
+    return int(flip) | 2 * int(zero_ties)
+
+
 def _alloc_outputs(dense, payloads, s, k_out):
     out = torch.empty((s, k_out), dtype=dense.dtype, device=dense.device)
     perm = torch.empty((s, k_out), dtype=torch.int32, device=dense.device)
@@ -191,10 +202,12 @@ def _alloc_outputs(dense, payloads, s, k_out):
 def segment_class_sort(dense: torch.Tensor, lens: torch.Tensor,
                        payloads: Sequence[torch.Tensor] = (), *,
                        k_out: Optional[int] = None, network: str = "loms",
-                       flip: bool = False, want_perm: bool = False) -> Result:
+                       flip: bool = False, want_perm: bool = False,
+                       zero_ties: bool = False) -> Result:
     """One size-class sort launch: every row of ``dense`` (S, W), W a
     power of two, sorted on its own, valid prefix first; ``lens`` (S, 1)
-    int32. Returns ``(out, perm | None, payload_outs)`` of width
+    int32; ``zero_ties`` (float rows, ``nan_policy="unsafe"``): -0.0 and
+    +0.0 tie. Returns ``(out, perm | None, payload_outs)`` of width
     ``k_out``: raw values gathered at the permutation, within-row input
     positions, payload lanes (S, W[, F]) gathered alike. Lanes past a
     row's length are what the network left there (the CSR scatter never
@@ -210,7 +223,7 @@ def segment_class_sort(dense: torch.Tensor, lens: torch.Tensor,
     if dense.device.type == "cpu":
         return segment_class_sort_plain(dense, lens, payloads, k_out=k_out,
                                         network=network, flip=flip,
-                                        want_perm=want_perm)
+                                        want_perm=want_perm, zero_ties=zero_ties)
     lens = lens.to(torch.int32).contiguous()
     cuda_checks("class kernels", (dense, lens) + payloads, dense.dtype, len(payloads))
     prog = program_tensor(dense.device, "sort", network, w)
@@ -220,8 +233,8 @@ def segment_class_sort(dense: torch.Tensor, lens: torch.Tensor,
         check_rc(library("segmented").repro_seg_sort(
             dense.data_ptr(), lens.data_ptr(), prog.data_ptr(), out.data_ptr(),
             perm.data_ptr(), n, ins, po, rb, s, w, k_out,
-            KEY_CODE[dense.dtype], int(flip), sort_prefix(network, w), launch.SORT_LANES,
-            stream(dense)), "seg_sort")
+            KEY_CODE[dense.dtype], _mode(flip, zero_ties), sort_prefix(network, w),
+            launch.SORT_LANES, stream(dense)), "seg_sort")
         LAUNCHES["seg_sort"] += 1
     return out, (perm if want_perm else None), pouts
 
@@ -231,7 +244,7 @@ def segment_class_merge(dense_a: torch.Tensor, dense_b: torch.Tensor,
                         payloads: Sequence[torch.Tensor] = (), *,
                         k_out: Optional[int] = None, network: str = "loms",
                         flip: bool = False, want_perm: bool = False,
-                        n_cols: Optional[int] = None) -> Result:
+                        n_cols: Optional[int] = None, zero_ties: bool = False) -> Result:
     """One size-class 2-way merge launch: row ``s`` merges the sorted runs
     ``a[s, :lens_a[s]]`` and ``b[s, :lens_b[s]]``. ``perm`` is in segment
     coordinates (b's positions continue at the valid ``lens_a``); payload
@@ -260,7 +273,8 @@ def segment_class_merge(dense_a: torch.Tensor, dense_b: torch.Tensor,
     if dense_a.device.type == "cpu":
         return segment_class_merge_plain(
             dense_a, dense_b, lens_a, lens_b, payloads, k_out=k_out,
-            network=network, flip=flip, want_perm=want_perm, n_cols=n_cols)
+            network=network, flip=flip, want_perm=want_perm, n_cols=n_cols,
+            zero_ties=zero_ties)
     lens_a = lens_a.to(torch.int32).contiguous()
     lens_b = lens_b.to(torch.int32).contiguous()
     cuda_checks("class kernels", (dense_a, dense_b, lens_a, lens_b) + payloads,
@@ -276,8 +290,8 @@ def segment_class_merge(dense_a: torch.Tensor, dense_b: torch.Tensor,
             check_rc(library("segmented").repro_seg_merge_rows(
                 dense_a.data_ptr(), dense_b.data_ptr(), lens_a.data_ptr(),
                 lens_b.data_ptr(), out.data_ptr(), perm.data_ptr(), n, ins, po, rb, s, wa,
-                wb, cols, launch.MERGE_ROW_THREADS, k_out, KEY_CODE[dense_a.dtype], int(flip),
-                stream(dense_a)), "seg_merge_rows")
+                wb, cols, launch.MERGE_ROW_THREADS, k_out, KEY_CODE[dense_a.dtype],
+                _mode(flip, zero_ties), stream(dense_a)), "seg_merge_rows")
         else:
             prog = program_tensor(dense_a.device, "merge", network, wa, wb,
                                   n_cols if network == "loms" else None)
@@ -285,6 +299,6 @@ def segment_class_merge(dense_a: torch.Tensor, dense_b: torch.Tensor,
                 dense_a.data_ptr(), dense_b.data_ptr(), lens_a.data_ptr(),
                 lens_b.data_ptr(), prog.data_ptr(), out.data_ptr(), perm.data_ptr(),
                 n, ins, po, rb, s, wa, wb, k_out, KEY_CODE[dense_a.dtype],
-                int(flip), stream(dense_a)), "seg_merge")
+                _mode(flip, zero_ties), stream(dense_a)), "seg_merge")
         LAUNCHES["seg_merge"] += 1
     return out, (perm if want_perm else None), pouts

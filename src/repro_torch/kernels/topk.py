@@ -41,6 +41,7 @@ from .common import (
     key_transformable,
     merge2_sorted,
     sort_nsorter,
+    tie_signed_zeros,
 )
 from . import launch
 from .launch import check_rc, library, stream
@@ -180,10 +181,17 @@ def _merge_desc(av, ai, bv, bi, keep):
     return mv.flip(-1)[..., :keep], mi.flip(-1)[..., :keep]
 
 
-def router_topk_plain(x: torch.Tensor, k: int, block: int
+def _keys(x: torch.Tensor, zero_ties: bool) -> torch.Tensor:
+    """The kernels' keys on load; ``zero_ties`` (``nan_policy="unsafe"``):
+    -0.0 with +0.0's key, so that the two tie as raw floats do."""
+    keys = encode_key_values(x)
+    return tie_signed_zeros(keys) if zero_ties else keys
+
+
+def router_topk_plain(x: torch.Tensor, k: int, block: int, zero_ties: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``router_topk_kernel`` (``topk.py:60``)."""
-    keys = encode_key_values(x)
+    keys = _keys(x, zero_ties)
     t, e = keys.shape
     g = e // block
     idx = torch.arange(e, dtype=torch.int32, device=x.device).expand(t, e)
@@ -200,7 +208,7 @@ def router_topk_plain(x: torch.Tensor, k: int, block: int
     return decode_key_values(vs[..., 0, :k], x.dtype), is_[..., 0, :k]
 
 
-def vocab_phase1_plain(x: torch.Tensor, k: int, block: int
+def vocab_phase1_plain(x: torch.Tensor, k: int, block: int, zero_ties: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``vocab_phase1_kernel`` (``topk.py:122``): (B, V)
     -> int32 keys and indices (B, nblk, min(k, block)); with a single
@@ -208,7 +216,7 @@ def vocab_phase1_plain(x: torch.Tensor, k: int, block: int
     bsz, v = x.shape
     nblk = vocab_blocks(v, block)
     vp = nblk * block
-    keys = encode_key_values(x)
+    keys = _keys(x, zero_ties)
     keys = torch.cat([keys, keys.new_full((bsz, vp - v), _KEY_PAD)], dim=-1)
     idx = torch.arange(vp, dtype=torch.int32, device=x.device)
     idx = torch.where(idx < v, idx, -1).expand(bsz, vp)
@@ -457,10 +465,10 @@ def router_topk_emulated(x: torch.Tensor, k: int, block: int, *, rows_per_cta: i
     return keys, idx
 
 
-def vocab_topk_plain(x: torch.Tensor, k: int, block: int = 128
+def vocab_topk_plain(x: torch.Tensor, k: int, block: int = 128, zero_ties: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the whole vocab path (phase 1 + merge levels)."""
-    vs, is_ = vocab_phase1_plain(x, k, block)
+    vs, is_ = vocab_phase1_plain(x, k, block, zero_ties)
     vs, is_ = vocab_merge_tree_plain(vs, is_, k, x.dtype)
     return vs[:, 0, :k], is_[:, 0, :k]
 
@@ -485,9 +493,10 @@ def _check_cuda(x: torch.Tensor) -> None:
         raise ValueError(f"tensor of shape {tuple(x.shape)} is too large")
 
 
-def router_topk(x: torch.Tensor, k: int, *, block: int = 32
+def router_topk(x: torch.Tensor, k: int, *, block: int = 32, zero_ties: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Descending top-k over the last axis of (T, E), E <= 512, E % block == 0.
+    """Descending top-k over the last axis of (T, E), E <= 512, E % block == 0;
+    ``zero_ties``: -0.0 and +0.0 tie (``nan_policy="unsafe"``).
 
     Replaces ``router_topk_pallas`` (``src/repro/kernels/topk.py:88``)."""
     _check_input(x, k, x.shape[-1])
@@ -496,7 +505,7 @@ def router_topk(x: torch.Tensor, k: int, *, block: int = 32
         raise ValueError(f"router top-k needs E <= {ROUTER_TOPK_MAX} and "
                          f"E % block == 0 (E={e}, block={block})")
     if x.device.type == "cpu":
-        return router_topk_plain(x, k, block)
+        return router_topk_plain(x, k, block, zero_ties)
     if x.device.type != "cuda":
         raise ValueError(f"no top-k kernel for device {x.device}")
     _check_cuda(x)
@@ -504,20 +513,20 @@ def router_topk(x: torch.Tensor, k: int, *, block: int = 32
     i = torch.empty((t, k), dtype=torch.int32, device=x.device)
     if t:
         check_rc(library("topk").repro_router_topk(
-            x.data_ptr(), v.data_ptr(), i.data_ptr(), t, e, k, block,
+            x.data_ptr(), v.data_ptr(), i.data_ptr(), t, e, k, block, int(zero_ties),
             _DTYPE_CODE[x.dtype], stream(x)), "router_topk")
         LAUNCHES["router_topk"] += 1
     return v, i
 
 
-def vocab_phase1(x: torch.Tensor, k: int, block: int
+def vocab_phase1(x: torch.Tensor, k: int, block: int, zero_ties: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase 1 of the vocab top-k (replaces ``_phase1_kernel``): (B, V) ->
     int32 keys and indices (B, nblk, min(k, block)), nblk a power of two;
     with a single block the values come back decoded."""
     _check_input(x, k, MERGE_MAX_LEN)
     if x.device.type == "cpu":
-        return vocab_phase1_plain(x, k, block)
+        return vocab_phase1_plain(x, k, block, zero_ties)
     if x.device.type != "cuda":
         raise ValueError(f"no top-k kernel for device {x.device}")
     _check_cuda(x)
@@ -534,7 +543,7 @@ def vocab_phase1(x: torch.Tensor, k: int, block: int
     if bsz:
         check_rc(library("topk").repro_vocab_phase1(
             x.data_ptr(), out.data_ptr(), out.data_ptr(), idx.data_ptr(), bsz, v,
-            nblk, block, kk, int(single), _DTYPE_CODE[x.dtype], stream(x)),
+            nblk, block, kk, int(single), int(zero_ties), _DTYPE_CODE[x.dtype], stream(x)),
             "vocab_phase1")
         LAUNCHES["vocab_phase1"] += 1
     return out, idx
@@ -618,15 +627,15 @@ def vocab_merge_tree(keys: torch.Tensor, idx: torch.Tensor, k: int,
     return keys, idx
 
 
-def vocab_topk(x: torch.Tensor, k: int, *, block: int = 128
+def vocab_topk(x: torch.Tensor, k: int, *, block: int = 128, zero_ties: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Descending top-k over a large last axis (B, V); V need not be a
     block multiple. Replaces ``vocab_topk_pallas``
     (``src/repro/kernels/topk.py:155``): one phase-1 launch, then the
     merge tree (:func:`vocab_merge_launches` launches). As in the
     reference, k may exceed V: the slots past the real candidates are
-    pads."""
-    vs, is_ = vocab_phase1(x, k, block)
+    pads. ``zero_ties``: -0.0 and +0.0 tie (``nan_policy="unsafe"``)."""
+    vs, is_ = vocab_phase1(x, k, block, zero_ties)
     if vs.shape[1] > 1:
         vs, is_ = vocab_merge_tree(vs, is_, k, x.dtype)
     return vs[:, 0, :k], is_[:, 0, :k]

@@ -2,14 +2,17 @@
 
   python -m repro_torch.launch.serve --arch qwen3-8b \
       --batch 4 --prompt-len 32 --new-tokens 16 --top-k 16
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
 
 (with ``src`` on ``PYTHONPATH``). The flags are those of
 ``repro.launch.serve`` plus ``--device`` (default ``cuda``; ``cpu`` only
-when asked). Weights are random, drawn from seed 0. ``--ragged`` draws a
+when asked). The dense and MoE families serve. Weights are random,
+drawn from seed 0. ``--ragged`` draws a
 length per request in [1, prompt_len] and right-pads the batch.
 ``--engine`` serves the same requests through the request scheduler
-(paged slots, continuous batching; ``--slots``, ``--page-size``): request
-r arrives at tick r with seed r.
+(paged slots, continuous batching; ``--slots``, ``--page-size``; dense
+stacks only, as in the reference launcher): request r arrives at tick r
+with seed r.
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@
 leaf turned into a numpy array (the caller converts; this module imports
 no JAX) and returns the port's parameters, so that both packages compute
 the same function. The stacked ``stack/body`` leaves, with their leading
-layer axis, become one dict per layer.
+layer axis (the MoE router and expert weights too), become one dict per
+layer; the unscanned ``stack/head`` blocks of a MoE stack carry over as
+they are.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from .transformer import check_dense
+from .transformer import check_family
 
 
 def _map(tree: Any, fn) -> Any:
@@ -28,11 +30,9 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
                     device: DeviceLike = None) -> dict:
     """Reference parameter tree (numpy leaves) -> port parameters in
     ``cfg.dtype`` on ``device``."""
-    check_dense(cfg)
+    check_family(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
-    if "head" in tree["stack"] or "shared" in tree["stack"]:
-        raise NotImplementedError("only homogeneous dense stacks carry over")
 
     def leaf(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dt)
@@ -42,4 +42,6 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
     out = {k: _map(v, leaf) for k, v in tree.items() if k != "stack"}
     out["stack"] = {"body": [_map(body, lambda a, i=i: leaf(np.asarray(a)[i]))
                              for i in range(n_layers)]}
+    if "head" in tree["stack"]:
+        out["stack"]["head"] = [_map(h, leaf) for h in tree["stack"]["head"]]
     return out

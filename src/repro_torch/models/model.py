@@ -1,9 +1,11 @@
-"""LM wrapper: init / forward / prefill / decode for the dense family.
+"""LM wrapper: init / forward / prefill / decode for the dense and MoE
+families.
 
 Counterpart of ``repro.models.model``. Parameters are a nested dict with
 the reference's names and layouts; the layer stack is a list of per-layer
-dicts (``params["stack"]["body"][i]``) where the reference stacks them on
-a leading layer axis.
+dicts (``params["stack"]["body"][i]``, and ``["head"][i]`` for the leading
+dense blocks of a MoE stack) where the reference stacks them on a leading
+layer axis.
 """
 from __future__ import annotations
 
@@ -83,7 +85,7 @@ def prefill(p: dict, batch: dict, cache: dict, cfg: ModelConfig, *,
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=x.device)
     rows = torch.arange(x.shape[0], device=x.device)
     last = x[rows, (lengths - 1).long()][:, None]
-    for lc in cache["body"]:
+    for lc in cache.get("head", []) + cache["body"]:
         lc["pos"] = lengths.clone()
     return _logits(p, last, cfg)[:, 0], cache
 
@@ -108,5 +110,5 @@ def decode_step(p: dict, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
         positions = torch.cat([positions, positions.new_zeros((pad, 1))])
     x = embed(p["embed"], tokens, _dtype(cfg))
     x, cache = stack_apply(p["stack"], x, cfg, mode="decode", caches=cache,
-                           positions=positions)
+                           positions=positions, rows=b)
     return _logits(p, x, cfg)[:b, 0], cache

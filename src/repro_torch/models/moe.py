@@ -1,0 +1,202 @@
+"""Mixture-of-Experts with LOMS routing (counterpart of ``repro.models.moe``).
+
+Router: the top-k of the expert logits by the blockwise LOMS network of
+the schedule executor (``repro_torch.topk(backend="schedule")``), as the
+reference routes it; the router kernel (row 3) orders tied logits
+otherwise, so the expert ids would differ. Dispatch: capacity-bounded
+per-expert buffers filled in arrival order, the expert FFNs as batched
+products over all experts, the outputs gathered back and weighted by the
+gates. ``dispatch="sorted"`` takes the positions from a sort of the
+unique keys ``expert * n + arrival`` (the class sort, kernel row 6, on
+the card where ``n`` fits one class; the executor otherwise), bit-equal
+to the cumsum's.
+
+The expert-parallel paths of the reference (``axis_name``, ``ep_psum``,
+``par``: all_to_all and psum under ``shard_map``) come with distribution
+(ROADMAP Queue 1, item 9); asking for them raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from .layers import dense, dense_init
+
+#: the largest key count the sorted dispatch sorts (``moe.py:223``);
+#: above it the cumsum gives the positions
+SORTED_CAP = 4096
+
+
+def _no_expert_parallel(axis_name, ep_size, ep_psum, par) -> None:
+    if axis_name is not None or ep_size != 1 or ep_psum or par is not None:
+        raise NotImplementedError(
+            "expert parallelism (axis_name, ep_psum, par) comes with distribution "
+            "(ROADMAP Queue 1, item 9)")
+
+
+def moe_init(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+             device: torch.device) -> dict:
+    """The router (``dense_init``), the stacked expert weights ``wi`` / ``wg``
+    (E, D, F) ~ normal x 1/sqrt(D) and ``wo`` (E, F, D) ~ normal x
+    1/sqrt(F), each drawn in float32 and stored in ``dtype`` one tensor at a
+    time, and the shared experts (``moe.py:39``)."""
+    mo = cfg.moe
+    d, e, f = cfg.d_model, mo.n_experts, mo.d_expert
+    p = {"router": dense_init(generator, d, e, dtype, device)}
+    for name, shape, fan_in in (("wi", (e, d, f), d), ("wg", (e, d, f), d),
+                                ("wo", (e, f, d), f)):
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        p[name] = {"w": w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)}
+        del w
+    if mo.n_shared_experts:
+        fs = f * mo.n_shared_experts
+        p["shared_wi"] = dense_init(generator, d, fs, dtype, device)
+        p["shared_wg"] = dense_init(generator, d, fs, dtype, device)
+        p["shared_wo"] = dense_init(generator, fs, d, dtype, device)
+    return p
+
+
+def router_topk(logits: torch.Tensor, k: int, block: int):
+    """LOMS blockwise top-k of (T, E) logits in float32 and the softmax of
+    the k values: ``(gates (T, k) float32, expert ids (T, k) int32)``
+    (``moe.py:61``)."""
+    from repro_torch.api.ops import topk
+
+    e = logits.shape[-1]
+    blk = min(block, e)
+    while e % blk:
+        blk -= 1
+    vals, idx = topk(logits.float(), k, block=blk, backend="schedule")
+    return torch.softmax(vals, dim=-1), idx
+
+
+def _positions_cumsum(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Position of each choice within its expert, in arrival order: a
+    one-hot cumsum (``moe.py:77``)."""
+    experts = torch.arange(n_experts, dtype=flat_e.dtype, device=flat_e.device)
+    oh = (flat_e[:, None] == experts).to(torch.int32)
+    pos = torch.cumsum(oh, dim=0, dtype=torch.int32) - 1
+    return (pos * oh).sum(-1).to(torch.int32)
+
+
+def _positions_sorted(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """The same positions from a sort of the unique keys ``expert * n +
+    arrival`` with an iota payload (``moe.py:84``): rank minus the start of
+    the expert. On the card, where ``n`` fits one size class, the class
+    sort (kernel row 6) sorts them, as the reference's TPU does; else, and
+    on the CPU, the schedule executor."""
+    from repro_torch.api.ops import segment_sort, sort
+    from repro_torch.segmented import max_class_width
+
+    n = flat_e.shape[0]
+    dev = flat_e.device
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    keys = flat_e.to(torch.int32) * n + iota
+    if dev.type == "cuda" and n <= max_class_width(torch.int32):
+        sorted_keys, perm = segment_sort(keys, (0, n), payload=iota, backend="segmented")
+    else:
+        sorted_keys, perm = sort(keys, payload=iota, backend="schedule")
+    sorted_e = (sorted_keys // n).long()
+    counts = torch.bincount(flat_e.long(), minlength=n_experts)
+    starts = torch.cumsum(counts, dim=0) - counts
+    pos = torch.zeros(n, dtype=torch.int32, device=dev)
+    pos[perm.long()] = (torch.arange(n, device=dev) - starts[sorted_e]).to(torch.int32)
+    return pos
+
+
+def _expert_ffn(buf: torch.Tensor, p: dict) -> torch.Tensor:
+    """SwiGLU of each expert on its buffer: (E, C, D) -> (E, C, D), three
+    batched products (``moe.py:132``)."""
+    h = torch.bmm(buf, p["wi"]["w"].to(buf.dtype))
+    g = torch.bmm(buf, p["wg"]["w"].to(buf.dtype))
+    return torch.bmm(F.silu(h) * g, p["wo"]["w"].to(buf.dtype))
+
+
+def _expert_ffn_csr(buf: torch.Tensor, p: dict, caps: np.ndarray,
+                    starts: np.ndarray) -> torch.Tensor:
+    """The expert FFN over a CSR buffer (sum(caps), D) in which expert i
+    owns rows ``starts[i]:starts[i] + caps[i]``: the experts of one
+    capacity share one batched product (``moe.py:140``)."""
+    out = torch.zeros_like(buf)
+    classes = {}
+    for i, c in enumerate(np.asarray(caps).tolist()):
+        classes.setdefault(int(c), []).append(i)
+    for c, ids in sorted(classes.items()):
+        if c == 0:
+            continue
+        gmap = torch.as_tensor(np.asarray(starts)[ids][:, None] + np.arange(c)[None, :],
+                               device=buf.device)
+        sel = torch.as_tensor(ids, device=buf.device)
+        res = _expert_ffn(buf[gmap], {nm: {"w": p[nm]["w"][sel]} for nm in ("wi", "wg", "wo")})
+        out[gmap.reshape(-1)] = res.reshape(-1, buf.shape[-1])
+    return out
+
+
+def moe_ffn_local(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                  n_real: Optional[int] = None, axis_name=None, ep_size: int = 1,
+                  ep_psum: bool = False, par=None) -> torch.Tensor:
+    """Routed expert FFN of (T, D) tokens (``moe.py:166``). ``n_real``: the
+    tokens before the padding rows that decode appends (they go last, so
+    they never take a real token's slot); the capacity and the choice of
+    dispatch count the real tokens only, as the reference's unpadded batch
+    does. Each kept slot of the (E, C) buffer receives exactly one token;
+    the choices past their expert's capacity land in a spill row that is
+    dropped."""
+    _no_expert_parallel(axis_name, ep_size, ep_psum, par)
+    mo = cfg.moe
+    t, d = x.shape
+    t_real = t if n_real is None else int(n_real)
+    e, k = mo.n_experts, mo.top_k
+    gates, eids = router_topk(dense(p["router"], x), k, mo.router_block)
+    flat_e = eids.reshape(-1)
+    tok_of = torch.arange(t * k, device=x.device) // k
+    cap = int(np.ceil(t_real * k / e * mo.capacity_factor))
+    cap = max(4, cap + (-cap) % 4)
+    if mo.dispatch == "sorted" and t_real * k <= SORTED_CAP:
+        pos = _positions_sorted(flat_e, e)
+    else:
+        pos = _positions_cumsum(flat_e, e)
+    src = x[tok_of]
+    if mo.expert_capacities is not None:
+        caps = np.asarray(mo.expert_capacities, np.int64)
+        if caps.shape != (e,):
+            raise ValueError(f"expert_capacities of shape {caps.shape}, not ({e},)")
+        starts = np.concatenate([[0], np.cumsum(caps)])
+        total = int(starts[-1])
+        fe = flat_e.long()
+        keep = pos < torch.as_tensor(caps, device=x.device)[fe]
+        dest = torch.where(keep, torch.as_tensor(starts[:-1], device=x.device)[fe] + pos,
+                           total)
+        buf = x.new_zeros((total + 1, d)).index_add_(0, dest, src)
+        flat_out = torch.cat([_expert_ffn_csr(buf[:-1], p, caps, starts),
+                              x.new_zeros((1, d))])
+        y_choice = flat_out[dest]  # the spill row reads the zero pad
+    else:
+        keep = pos < cap
+        dest = torch.where(keep, flat_e.long() * cap + pos, e * cap)
+        buf = x.new_zeros((e * cap + 1, d)).index_add_(0, dest, src)
+        out = _expert_ffn(buf[:-1].reshape(e, cap, d), p)
+        y_choice = out.reshape(e * cap, d)[dest.clamp(max=e * cap - 1)]
+    w = (gates.reshape(-1) * keep).to(x.dtype)
+    y = (y_choice * w[:, None]).reshape(t, k, d).sum(dim=1)
+    if mo.n_shared_experts:
+        h = F.silu(dense(p["shared_wi"], x)) * dense(p["shared_wg"], x)
+        y = y + dense(p["shared_wo"], h)
+    return y
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              rows: Optional[int] = None, par=None) -> torch.Tensor:
+    """x (B, S, D): the tokens flattened B x S in order, as
+    ``moe.py:277`` does (the right pads of a ragged prefill route and
+    take capacity too). ``rows``: the real rows of a padded decode batch."""
+    _no_expert_parallel(None, 1, False, par)
+    b, s, d = x.shape
+    y = moe_ffn_local(p, x.reshape(b * s, d), cfg,
+                      n_real=None if rows is None else rows * s)
+    return y.reshape(b, s, d)

@@ -24,7 +24,8 @@ A card tensor runs the CUDA class kernels; a CPU tensor their plain
 versions, so the CPU tests exercise what the card runs. Each class
 launch takes the family (and a merge the column count) of
 ``plan_op("segmented")``: an autotune winner where the cache holds one.
-``nan_policy="unsafe"`` runs as ``"last"`` (see ``_check_values``).
+``nan_policy="unsafe"`` runs as ``"last"`` with -0.0 and +0.0 tied (see
+``_check_values``).
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.kernels.common import (decode_key_values, encode_key_values,
                                         flip_keys, key_transformable, sentinel_max,
-                                        sentinel_min, take_along)
+                                        sentinel_min, take_along, tie_signed_zeros)
 from repro_torch.kernels.segmented import segment_class_merge, segment_class_sort
 from repro_torch.streaming.grid_merge import grid_chunked_merge2, grid_merge2_rows
 from repro_torch.streaming.planner import plan_chunked, sort_fits_vmem
@@ -76,9 +77,11 @@ def max_class_width(dtype: torch.dtype) -> int:
 
 def _check_values(x: torch.Tensor, nan_policy: str) -> None:
     """``nan_policy``: ``"last"``, or ``"unsafe"`` (the caller vouches for
-    finite, NaN-free values). The port runs both on the total-order keys:
-    on such values those order as the reference's raw floats do, except
-    that -0.0 orders below +0.0 where a raw comparison ties them."""
+    finite, NaN-free values). The port runs both on the total-order keys;
+    under ``"unsafe"`` -0.0 takes +0.0's key (``zero_ties``), so on such
+    values the keys order as the reference's raw floats do, ties included.
+    The spills of ``segment_topk`` and the values-only spills (segments
+    past the class width) keep the ``"last"`` order."""
     if nan_policy not in ("last", "unsafe"):
         raise ValueError(f"nan_policy must be 'last' or 'unsafe', got {nan_policy!r}")
     if x.dtype.is_floating_point and not key_transformable(x.dtype):
@@ -137,8 +140,14 @@ def _lens_col(cls: SizeClass, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(cls.lens, np.int32)[:, None], device=device)
 
 
-def _keys_for(x: torch.Tensor, descending: bool) -> torch.Tensor:
+def _zero_ties(x: torch.Tensor, nan_policy: str) -> bool:
+    return nan_policy == "unsafe" and x.dtype.is_floating_point
+
+
+def _keys_for(x: torch.Tensor, descending: bool, zero_ties: bool = False) -> torch.Tensor:
     keys = encode_key_values(x) if key_transformable(x.dtype) else x
+    if zero_ties:
+        keys = tie_signed_zeros(keys)
     return flip_keys(keys) if descending else keys
 
 
@@ -192,10 +201,10 @@ def _spill_sort_values(dense: torch.Tensor, descending: bool, tile: int) -> torc
     return _undo_keys(cur[:, :ln], dense.dtype, descending)
 
 
-def _spill_sort_perm(dense: torch.Tensor, descending: bool):
+def _spill_sort_perm(dense: torch.Tensor, descending: bool, zero_ties: bool = False):
     """Permutation-carrying spill rows: a stable argsort of the keys, as
     the reference's batched XLA path."""
-    order = torch.argsort(_keys_for(dense, descending), dim=-1, stable=True)
+    order = torch.argsort(_keys_for(dense, descending, zero_ties), dim=-1, stable=True)
     return take_along(dense, 1, order), order.to(torch.int32)
 
 
@@ -225,6 +234,7 @@ def segment_sort_impl(values: torch.Tensor, offsets, *, descending: bool = False
     mw = max_class_width(values.dtype)
     classes, spill = bucket_segments(segment_lengths(offs), mw)
     dev = values.device
+    zt = _zero_ties(values, nan_policy)
     vext, lext = _ext(values), [_ext(l) for l in lanes]
     out_v = _zeros(n + 1, values)
     out_p = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
@@ -241,7 +251,7 @@ def segment_sort_impl(values: torch.Tensor, offsets, *, descending: bool = False
             res_v, res_perm, res_l = segment_class_sort(
                 dense, _lens_col(cls, dev), p_dense,
                 network=class_plan((cls.width,), cls.n, values.dtype).network,
-                flip=descending, want_perm=need_perm)
+                flip=descending, want_perm=need_perm, zero_ties=zt)
         smap = scatter_map(offs, cls, cls.width)
         _scatter(out_v, smap, res_v)
         if need_perm:
@@ -256,7 +266,7 @@ def segment_sort_impl(values: torch.Tensor, offsets, *, descending: bool = False
             _scatter(out_v, smap, _spill_sort_values(_take(vext, gmap), descending,
                                                      min(SPILL_TILE, mw)))
             continue
-        res_v, res_perm = _spill_sort_perm(_take(vext, gmap), descending)
+        res_v, res_perm = _spill_sort_perm(_take(vext, gmap), descending, zt)
         _scatter(out_v, smap, res_v)
         _scatter(out_p, smap, res_perm)
         for o, lx in zip(out_l, lext):
@@ -333,7 +343,8 @@ def segment_merge_impl(a: torch.Tensor, b: torch.Tensor, offsets_a, offsets_b, *
         res_v, res_perm, res_l = segment_class_merge(
             dense_a, dense_b, _lens_col(ca, dev), _lens_col(cb, dev), p_dense,
             network=plan.network, flip=descending, want_perm=need_perm,
-            n_cols=plan.n_cols if plan.network == "loms" else None)
+            n_cols=plan.n_cols if plan.network == "loms" else None,
+            zero_ties=_zero_ties(a, nan_policy))
         out_cls = SizeClass(width=ca.width + cb.width, seg_ids=ca.seg_ids,
                             lens=tuple(x + y for x, y in zip(ca.lens, cb.lens)))
         smap = scatter_map(out_offs, out_cls, out_cls.width)
@@ -356,7 +367,7 @@ def segment_merge_impl(a: torch.Tensor, b: torch.Tensor, offsets_a, offsets_b, *
                                              a.dtype, descending))
             continue
         res_v, res_perm = _spill_sort_perm(torch.cat([dense_a, dense_b], dim=1),
-                                           descending)
+                                           descending, _zero_ties(a, nan_policy))
         _scatter(out_v, smap, res_v)
         _scatter(out_p, smap, res_perm)
         for o, lx in zip(out_l, lext):
@@ -425,7 +436,7 @@ def segment_topk_impl(values: torch.Tensor, offsets, k, *, descending: bool = Tr
             res_v, res_perm, res_l = segment_class_sort(
                 dense, _lens_col(cls, dev), p_dense, k_out=k_out,
                 network=class_plan((cls.width,), cls.n, values.dtype).network,
-                flip=descending, want_perm=True)
+                flip=descending, want_perm=True, zero_ties=_zero_ties(values, nan_policy))
         smap = scatter_map(out_offs, cls, k_out, counts=cnts, trash=total)
         _scatter(out_v, smap, res_v)
         _scatter(out_i, smap, res_perm)

@@ -52,7 +52,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import decode_step, init_cache, prefill
 from repro_torch.models.model import DECODE_TILE
-from repro_torch.models.transformer import check_dense
+from repro_torch.models.transformer import check_family
 
 from ..sample import canonical_token, sample_greedy, sample_topk, scored_draw
 from .paged import PagedKVCache, SlotManager, gather_view, scatter_col, split_pages, take_col
@@ -102,7 +102,13 @@ class ScheduledEngine:
     def __init__(self, params: dict, cfg: ModelConfig,
                  sched: Optional[SchedulerConfig] = None, device: DeviceLike = None):
         sched = sched or SchedulerConfig()
-        check_dense(cfg)
+        check_family(cfg)
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE through the scheduler is not ported: expert capacity "
+                "couples the rows of a decode batch, so a request's tokens would depend on "
+                "the requests beside it (ROADMAP Queue 1, item 7: MoE through "
+                "ScheduledEngine)")
         self.dev = resolve_device(device)
         if params["embed"]["emb"].device.type != self.dev.type:
             raise ValueError(f"params live on {params['embed']['emb'].device}, "

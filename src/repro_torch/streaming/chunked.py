@@ -4,44 +4,46 @@ k-way merge).
 
 :func:`chunked_merge` equals ``sort(concat([a, b], -1))`` on NaN-free
 rows of any length, batched or not, in one launch of the grid merge
-(kernel row 9). :func:`chunked_merge_k` merges k lists the same way: the
-merge-path split points put each output tile's share of every list into
-one segment row, and one launch of the k-way kernel (row 8) merges all
-those rows. The reference makes one kernel call per output tile
-(``jax.lax.map``); the output is values only and the sorted multiset is
-unique, so the bits are the same. The reference's legacy
-one-launch-per-tile loop (``mode="loop"``) is not ported (ROADMAP Queue
-1, item 6).
+(kernel row 9); ``mode="loop"`` is the reference's one-launch-a-tile
+loop, one launch of the 2-way merge (row 1) a tile, its FLiMS refill
+state on the device. :func:`chunked_merge_k` merges k lists the same
+way: the merge-path split points put each output tile's share of every
+list into one segment row, and one launch of the k-way kernel (row 8)
+merges all those rows. The reference makes one kernel call per output
+tile (``jax.lax.map``); the output is values only and the sorted
+multiset is unique, so the bits are the same.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels.common import (decode_key_values, encode_key_values,
-                                        key_transformable, sentinel_max)
+                                        key_transformable, pad_tail_sorted, sentinel_max,
+                                        take_along)
 from .grid_merge import grid_chunked_merge2
-from .planner import plan_chunked, plan_chunked_k
+from .planner import MergePlan, plan_chunked, plan_chunked_k
 
 
 def _as_batched(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
     """Flatten the leading axes into one batch axis."""
     if x.ndim == 1:
         return x[None, :], ()
-    return x.reshape(-1, x.shape[-1]), tuple(x.shape[:-1])
+    lead = tuple(x.shape[:-1])
+    return x.reshape(math.prod(lead), x.shape[-1]), lead
 
 
 def chunked_merge(a: torch.Tensor, b: torch.Tensor, *, tile: Optional[int] = None,
-                  mode: str = "grid") -> torch.Tensor:
+                  plan: Optional[MergePlan] = None, mode: str = "grid") -> torch.Tensor:
     """Streaming 2-way merge of ascending ``a`` (..., Na) and ``b``
-    (..., Nb) into (..., Na + Nb). ``tile`` defaults to the planner's
-    (``plan_chunked``)."""
-    if mode == "loop":
-        raise NotImplementedError(
-            "chunked_merge(mode='loop'), the one-launch-per-tile loop, is not "
-            "ported (ROADMAP Queue 1, item 6); the default mode='grid' is")
-    if mode != "grid":
+    (..., Nb) into (..., Na + Nb). ``tile`` defaults to the plan's, and
+    ``plan`` to the planner's (``plan_chunked``). ``mode="grid"`` is one
+    launch of the grid merge; ``mode="loop"`` one launch of the 2-way merge
+    a tile (the plan's family, columns and raw-float mode, or the schedule
+    merge where the columns do not divide the tile)."""
+    if mode not in ("grid", "loop"):
         raise ValueError(f"mode must be 'grid' or 'loop', got {mode!r}")
     a2, lead = _as_batched(a)
     b2, lead_b = _as_batched(b)
@@ -49,11 +51,69 @@ def chunked_merge(a: torch.Tensor, b: torch.Tensor, *, tile: Optional[int] = Non
         raise ValueError(f"leading shapes differ: {tuple(a.shape)}, {tuple(b.shape)}")
     bsz, na = a2.shape
     nb = b2.shape[-1]
-    t = int(tile if tile is not None else
-            plan_chunked(na, nb, batch=bsz, dtype=a2.dtype).tile)
+    if plan is None:
+        plan = plan_chunked(na, nb, batch=bsz, dtype=a2.dtype, tile=tile)
+    t = int(tile if tile is not None else plan.tile)
     t = max(2, t - (t % 2))
-    out = grid_chunked_merge2(a2.contiguous(), b2.contiguous(), tile=t)
+    if mode == "grid":
+        out = grid_chunked_merge2(a2.contiguous(), b2.contiguous(), tile=t)
+    else:
+        out = _chunked_merge2(a2.contiguous(), b2.contiguous(), t, plan)
     return out.reshape(lead + (na + nb,)) if lead else out[0]
+
+
+def _merge_pair(carry: torch.Tensor, tile: torch.Tensor, plan: MergePlan) -> torch.Tensor:
+    """(B, T) + (B, T) -> (B, 2T) ascending (``chunked.py:69``): one launch
+    of the 2-way merge when the plan's columns divide the tile, else the
+    schedule merge."""
+    from repro_torch.api import schedules
+    from repro_torch.kernels.loms_merge import loms_merge2
+
+    t = carry.shape[-1]
+    if plan.kind == "loms" and t % plan.n_cols == 0:
+        raw = plan.use_mxu and carry.dtype.is_floating_point
+        return loms_merge2(carry.contiguous(), tile.contiguous(), network=plan.network,
+                           n_cols=plan.n_cols, use_mxu=raw)[0]
+    return schedules.merge(carry, tile)
+
+
+def _chunked_merge2(a: torch.Tensor, b: torch.Tensor, t: int,
+                    plan: MergePlan) -> torch.Tensor:
+    """The reference's loop (``_chunked_merge2``, ``chunked.py:122``): the
+    first tile of each stream merged, the lower half out; then a tile at a
+    time from the stream whose last loaded value is the smaller (the FLiMS
+    rule), merged with the carry. Each stream has one all-sentinel drain
+    tile past its tail, where its pointer stops. The pointers and last
+    values stay on the device, each tile a gather at them."""
+    bsz, na = a.shape
+    nb = b.shape[-1]
+    total = na + nb
+    out_tiles = -(-total // t)
+    la, lb = (-(-na // t) + 1) * t, (-(-nb // t) + 1) * t
+    ap, bp = pad_tail_sorted(a, la), pad_tail_sorted(b, lb)
+    lane = torch.arange(t, device=a.device)
+    ta, tb = ap[:, :t], bp[:, :t]
+    merged = _merge_pair(ta, tb, plan)
+    out = torch.empty((bsz, out_tiles * t), dtype=a.dtype, device=a.device)
+    out[:, :t] = merged[:, :t]
+    carry = merged[:, t:]
+    last_a, last_b = ta[:, -1], tb[:, -1]
+    pa = torch.full((bsz,), t, dtype=torch.int64, device=a.device)
+    pb = torch.full_like(pa, t)
+    for i in range(1, out_tiles):
+        sel_a = last_a <= last_b
+        # a load clamps its start into the row, as a dynamic slice does
+        tile_a = take_along(ap, 1, pa.clamp(max=la - t)[:, None] + lane)
+        tile_b = take_along(bp, 1, pb.clamp(max=lb - t)[:, None] + lane)
+        cur = torch.where(sel_a[:, None], tile_a, tile_b)
+        last_a = torch.where(sel_a, cur[:, -1], last_a)
+        last_b = torch.where(sel_a, last_b, cur[:, -1])
+        pa = torch.where(sel_a, (pa + t).clamp(max=la - t), pa)
+        pb = torch.where(sel_a, pb, (pb + t).clamp(max=lb - t))
+        merged = _merge_pair(carry, cur, plan)
+        out[:, i * t:(i + 1) * t] = merged[:, :t]
+        carry = merged[:, t:]
+    return out[:, :total]
 
 
 def _global_positions(lists: Sequence[torch.Tensor]) -> List[torch.Tensor]:

@@ -2,8 +2,10 @@
 and merge, the 2-way merge, the fused sort, the grid merge, the k-way
 merge) against their plain versions, in the key mode and in the
 reference's raw-float mode (``use_mxu=True``: rows 1, 2 and 8), the
-sort executor of rows 2 and 6 at every lanes-a-thread layout, and the
-row-merge executor of rows 1 and 7 at every threads a row.
+sort executor of rows 2 and 6 at every lanes-a-thread layout, the
+row-merge executor of rows 1 and 7 at every threads a row, rows 3-7
+with -0.0 and +0.0 tied (``zero_ties``, ``nan_policy="unsafe"``), and
+``chunked_merge(mode="loop")``, one launch of row 1 a tile.
 
 Marked ``gpu``: each test skips without a CUDA card. This file imports
 neither JAX nor the JAX package, so it also runs where only PyTorch is
@@ -758,3 +760,46 @@ def test_seg_merge_pair_families_keep_their_kernel(cuda):
         got = _one_launch("seg_merge", lambda: SK.segment_class_merge(
             a.to(cuda), b.to(cuda), la.to(cuda), lb.to(cuda), network=fam, want_perm=True))
         _same_all(want, got)
+
+
+def _signed_zeros(rows, n, dtype, seed=0, sort=False):
+    """Finite rows that are mostly zeros of both signs (``nan_policy="unsafe"``)."""
+    rng = np.random.default_rng(seed)
+    x = rng.choice(np.array([-1.5, -0.5, -0.0, 0.0, 0.5, 1.5], np.float32), size=(rows, n),
+                   p=[0.1, 0.15, 0.3, 0.3, 0.1, 0.05])
+    if sort:
+        x = np.sort(x, -1, kind="stable")
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero_ties_kernels_match_plain(cuda, dtype):
+    """Rows 3-7 with -0.0 given +0.0's key: bit-equal to the plain versions."""
+    x = _signed_zeros(64, 256, dtype, seed=1)
+    _same(K.router_topk(x.to(cuda), 16, block=16, zero_ties=True),
+          K.router_topk_plain(x, 16, 16, zero_ties=True))
+    x = _signed_zeros(4, 20_000, dtype, seed=2)
+    _same(K.vocab_topk(x.to(cuda), 64, block=128, zero_ties=True),
+          K.vocab_topk_plain(x, 64, 128, zero_ties=True))
+    x = _signed_zeros(32, 64, dtype, seed=3)
+    lens = torch.from_numpy(np.random.default_rng(4).integers(0, 65, (32, 1)).astype(np.int32))
+    for flip in (False, True):
+        got = SK.segment_class_sort(x.to(cuda), lens.to(cuda), flip=flip, want_perm=True,
+                                    zero_ties=True)
+        want = SK.segment_class_sort_plain(x, lens, flip=flip, want_perm=True, zero_ties=True)
+        _same(got[:2], want[:2])
+    a, b = _signed_zeros(32, 64, dtype, 5, sort=True), _signed_zeros(32, 16, dtype, 6, sort=True)
+    la = torch.full((32, 1), 64, dtype=torch.int32)
+    lb = torch.full((32, 1), 16, dtype=torch.int32)
+    got = SK.segment_class_merge(a.to(cuda), b.to(cuda), la.to(cuda), lb.to(cuda),
+                                 want_perm=True, zero_ties=True)
+    _same(got[:2], SK.segment_class_merge_plain(a, b, la, lb, want_perm=True, zero_ties=True)[:2])
+
+
+def test_chunked_merge_loop_launches_row_1_a_tile(cuda):
+    a = torch.randn(4, 3000, device=cuda).sort(-1)[0]
+    b = torch.randn(4, 1000, device=cuda).sort(-1)[0]
+    K.reset_launch_counts()
+    got = repro_torch.chunked_merge(a, b, tile=512, mode="loop")
+    assert K.LAUNCHES["loms_merge2"] == -(-4000 // 512)
+    assert torch.equal(_bits(got), _bits(repro_torch.chunked_merge(a, b, tile=512)))

@@ -17,7 +17,8 @@ reference.
 * Gradients of the fused sort and merge equal ``jax.grad`` of the same
   reference functions.
 * ``plan()`` decides as ``repro.plan(SortSpec(device="tpu"))`` on the
-  decision table's shapes, and the routes the port lacks raise.
+  decision table's shapes; ``chunked_merge(mode="loop")`` equals the
+  reference's loop.
 
 Tolerance: bit-equal everywhere (values compared as their bits), except
 the gradients: float32, ``rtol=0`` and ``atol=0`` (a scatter of the
@@ -366,10 +367,25 @@ def test_plan_matches_reference_on_the_accelerator(op, lens, kw):
         assert (cpu.backend, cpu.detail) == (want_cpu.backend, want_cpu.detail)
 
 
-def test_routes_the_port_lacks_raise():
-    x = torch.zeros(4, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-        repro_torch.chunked_merge(x, x, mode="loop")
+def test_chunked_merge_loop_matches_reference():
+    """The one-launch-a-tile loop (``mode="loop"``, once refused) on
+    batched rows with leading axes: the reference's loop in interpret
+    mode, bit for bit, and the port's grid mode."""
+    from repro.streaming import chunked_merge as j_chunked_merge
+
+    rng = np.random.default_rng(12)
+    a = np.sort(rng.standard_normal((2, 1, 40)).astype(np.float32), -1)
+    b = np.sort(rng.standard_normal((2, 1, 24)).astype(np.float32), -1)
+    want = j_chunked_merge(jnp.asarray(a), jnp.asarray(b), tile=16, mode="loop")
+    got = repro_torch.chunked_merge(torch.from_numpy(a), torch.from_numpy(b), tile=16,
+                                    mode="loop")
+    assert got.shape == (2, 1, 64)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+    grid = repro_torch.chunked_merge(torch.from_numpy(a), torch.from_numpy(b), tile=16)
+    assert torch.equal(got.view(torch.int32), grid.view(torch.int32))
+    with pytest.raises(ValueError, match="mode"):
+        repro_torch.chunked_merge(torch.from_numpy(a), torch.from_numpy(b), mode="tiles")
 
 
 def _route_case(name, rng):

@@ -9,7 +9,10 @@ values-only segmented spills against the reference.
   which turns -0.0 into +0.0, and the card merges them as keys; so the
   float rows here hold no -0.0 and no NaN.
 * ``repro_torch.chunked_merge`` equals ``repro.streaming.chunked_merge``
-  (grid mode) on batched and unbatched rows.
+  (grid mode) on batched and unbatched rows; ``mode="loop"`` (one 2-way
+  merge a tile, the schedule merge where the plan's columns do not
+  divide the tile) equals the reference's loop, -0.0 / +0.0 mixes in
+  float rows included.
 * The values-only ``segment_sort`` / ``segment_merge`` spills (segments
   past the 1024 class width: rows 6 + 9 on the keys) equal
   ``repro.segment_sort`` / ``segment_merge(backend="segmented")``.
@@ -80,8 +83,51 @@ def test_chunked_merge_matches_reference():
     want1 = j_chunked_merge(jnp.asarray(a[0]), jnp.asarray(b[0]), tile=128)
     got1 = repro_torch.chunked_merge(torch.from_numpy(a[0]), torch.from_numpy(b[0]), tile=128)
     np.testing.assert_array_equal(got1.numpy(), np.asarray(want1))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        repro_torch.chunked_merge(torch.from_numpy(a), torch.from_numpy(b), mode="loop")
+    loop = repro_torch.chunked_merge(torch.from_numpy(a), torch.from_numpy(b), mode="loop")
+    np.testing.assert_array_equal(loop.numpy(), np.asarray(want).reshape(6, 1150))
+
+
+def _loop_rows(rng, rows, n, dtype):
+    """Sorted rows of quarter steps with many ties; the float rows mix -0.0
+    and +0.0 (the reference's raw-float merge ties them, and its one-hot
+    permute decides their sign)."""
+    x = (rng.integers(-12, 12, (rows, n)) * 0.25).astype(np.float32)
+    if dtype == "int32":
+        return np.sort((x * 4).astype(np.int32), -1)
+    x[(x == 0) & (rng.random((rows, n)) < 0.5)] = -0.0
+    return np.sort(x, -1, kind="stable")
+
+
+@pytest.mark.parametrize("dtype,na,nb,tile,n_cols", [
+    ("float32", 64, 48, 16, None), ("bfloat16", 64, 48, 16, None),
+    ("int32", 64, 48, 16, None), ("int32", 37, 0, 16, None), ("int32", 37, 5, 16, None),
+    ("float32", 5, 70, 8, None),
+    ("int32", 40, 30, 6, 4), ("float32", 40, 30, 6, 4)])
+def test_loop_mode_matches_reference(dtype, na, nb, tile, n_cols):
+    """``mode="loop"``: one 2-way merge a tile with the FLiMS refill; ragged
+    and empty rows, and (``n_cols``) a plan whose columns do not divide the
+    tile, where each tile takes the schedule merge. Bit-equal to the
+    reference's loop in interpret mode and to the port's grid mode (on
+    the rows without a -0.0 / +0.0 mix: the grid merge orders keys)."""
+    from repro.streaming.planner import MergePlan as JPlan
+    from repro_torch.streaming import MergePlan
+
+    rng = np.random.default_rng(na * 7 + nb)
+    ja, ta = _pair(_loop_rows(rng, 2, na, dtype), dtype)
+    jb, tb = _pair(_loop_rows(rng, 2, nb, dtype), dtype)
+    kw, tkw = {}, {}
+    if n_cols:
+        kw = dict(plan=JPlan(kind="loms", n_cols=n_cols, use_mxu=dtype != "int32"))
+        tkw = dict(plan=MergePlan(kind="loms", n_cols=n_cols, use_mxu=dtype != "int32"))
+    got = repro_torch.chunked_merge(ta, tb, tile=tile, mode="loop", **tkw)
+    if nb:  # the reference's loop divides by zero on an empty list
+        want = j_chunked_merge(ja, jb, tile=tile, mode="loop", **kw)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    else:
+        np.testing.assert_array_equal(got.numpy(), ta.numpy())
+    if dtype == "int32":
+        grid = repro_torch.chunked_merge(ta, tb, tile=tile)
+        np.testing.assert_array_equal(got.numpy(), grid.numpy())
 
 
 def _special(rng, n, dtype):
