@@ -98,8 +98,9 @@ script with a non-zero exit code when it fails:
       bit-equal; cuda and schedule also one permutation, the keys being
       distinct); the ragged 7 + 5 merge, bit-equal to the CPU; ``topk``
       at the vocab width with ``axis=0``, ``payload=``,
-      ``with_indices=False``, int32 and uint32 keys (bit-equal to the
-      CPU) and ``descending=False``; ``autotune_merge2`` /
+      ``with_indices=False``, int32, uint32 and int16 keys (the vocab
+      kernels, rows 4 and 5: bit-equal to their plain version on the CPU)
+      and ``descending=False``; ``autotune_merge2`` /
       ``autotune_sort`` / ``autotune_topk`` at phase 3e's shapes into a
       temporary cache, then the auto call at each shape bit-equal to the
       winner's plain version; the calls without a kernel timed beside one
@@ -116,6 +117,16 @@ script with a non-zero exit code when it fails:
       (rows 0-2 bit-equal), and the decode profile with the router's
       executor calls and the expert products as profiler ranges, beside
       the step's weight-read floor;
+   i. deepseek-v2-lite-16b (MLA) at its published width and depth (15.71
+      B parameters, 31.4 GB of random bf16 weights from seed 0, after
+      3h's are freed), the runs and checks of 3h (rows 4 and 5 a sampled
+      token, row 6 once a MoE layer a decode step with the sorted
+      dispatch, B = 3 against B = 4), the latent cache (576 elements a
+      token a layer) and its bytes, the absorbed decode against a prefill
+      of prompt + token on the first layer in float32 (within
+      ``MLA_ERR_FACTOR`` times the same comparison on Qwen3-8B's GQA
+      layer, made before its weights are freed), and the decode profile
+      with the attention as a range too;
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
@@ -407,11 +418,19 @@ class sort_lanes:
         launch.SORT_LANES = self.old
 
 
+#: the models phase 3 serves at full width (3a-3b, 3h, 3i)
+SERVED_ARCHS = ("qwen3-8b", "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b")
+
+
 def phase_kernels(dev, K, topk_block) -> dict:
     """Phase 2: every kernel bit-equal to its plain version on the card."""
     import torch
 
+    from repro_torch.configs import get_config
+
     err = {"router_topk": 0.0, "vocab_phase1": 0.0, "vocab_merge_level": 0.0}
+    # the sampler's shape of every model phase 3 serves (rows 4 and 5 at B = 4, k 64)
+    served_vocabs = sorted({get_config(a).vocab_size for a in SERVED_ARCHS})
 
     def one_launch(name, fn):
         K.reset_launch_counts()
@@ -450,8 +469,8 @@ def phase_kernels(dev, K, topk_block) -> dict:
         # subtrees of 2, 4 and 32 lists
         for b, v, k, blk in ((8, 151_936, 64, None), (8, 151_936, 16, None),
                              (8, 151_936, 256, None), (1, 151_936, 64, None),
-                             (4, 151_936, 64, None), (4, 151_936, 64, 16),
-                             (3, 3000, 64, 16)):
+                             *((4, sv, 64, None) for sv in served_vocabs),
+                             (4, 151_936, 64, 16), (3, 3000, 64, 16)):
             x = special_logits(b, v, dtype, dev, seed=k + b)
             blk = blk or topk_block(v, k)
             keys, idx = one_launch("vocab_phase1", lambda: K.vocab_phase1(x, k, blk))
@@ -471,8 +490,43 @@ def phase_kernels(dev, K, topk_block) -> dict:
             log(f"  vocab B={b} V={v} k={k} block={blk} {dtype}: phase 1 and the merge tree "
                 f"({K.vocab_levels(v, blk)} levels in passes of {plan}; forced subtrees "
                 "of 2, 4, 32 lists; CTAs of 128 threads) bit-equal")
+    # raw int32 keys (the reference's integer mode): INT32_MIN ties the pads
+    for t, e, k, blk in ((4096, 128, 8, None), (4, 256, 64, None), (8, 48, 40, 16),
+                         (4, 512, 300, 256)):
+        x = int32_rows(t, e, dev, seed=e + k)
+        blk = blk or topk_block(e, k)
+        got = one_launch("router_topk", lambda: K.router_topk(x, k, block=blk))
+        err["router_topk"] = max(err["router_topk"], require_equal(
+            f"router int32 T={t} E={e} k={k}", got, K.router_topk_plain(x, k, blk)))
+    for b, v, k, blk in (*((4, sv, 64, None) for sv in served_vocabs), (8, 530, 530, 16),
+                         (4, 700, 1000, 128), (2, 20_000, 64, 1024)):
+        x = int32_rows(b, v, dev, seed=v + k)
+        blk = blk or topk_block(v, k)
+        keys, idx = one_launch("vocab_phase1", lambda: K.vocab_phase1(x, k, blk))
+        pk, pi = K.vocab_phase1_plain(x, k, blk)
+        err["vocab_phase1"] = max(err["vocab_phase1"], require_equal(
+            f"phase1 int32 B={b} V={v} k={k}", (keys, idx), (pk, pi)))
+        if keys.shape[1] > 1:
+            err["vocab_merge_level"] = max(err["vocab_merge_level"], require_equal(
+                f"merge tree int32 B={b} V={v} k={k}", K.vocab_merge_tree(keys, idx, k),
+                K.vocab_merge_tree_plain(pk, pi, k)))
+    log("  int32 keys (INT32_MIN tying the pads): router T=4096/4/8/4 (blocks 16-256), "
+        f"phase 1 and the merge tree at (4, {served_vocabs}) k 64, (8, 530) k 530, "
+        "(4, 700) k 1000, "
+        "(2, 20,000) block 1024: bit-equal, one launch a call")
     torch.cuda.synchronize()
     return err
+
+
+def int32_rows(rows, n, device, seed):
+    """int32 rows heavy in INT32_MIN (which ties the top-k pads), with
+    INT32_MAX and ties."""
+    import numpy as np
+    import torch
+
+    vals = np.array([-2 ** 31, -2 ** 31, -2 ** 31 + 1, -5, 0, 3, 3, 2 ** 31 - 1], np.int64)
+    x = np.random.default_rng(seed).choice(vals, (rows, n)).astype(np.int32)
+    return torch.from_numpy(x).to(device)
 
 
 def seg_tile(rows, w, dtype, device, seed):
@@ -718,8 +772,43 @@ def phase_signed_zero_kernels(dev, K, SK, topk_block, capable_families) -> dict:
             "the merge tree at (4, 151,936) and (2, 20,000), the class sort W=64/1024 and "
             "the class merge 64 + 8 and 256 + 256 (every capable family), both orders: "
             "bit-equal, one launch a call")
+        # rows whose values all have the sign bit set, at blocks and k where
+        # the reference's one-hot permute keeps -0.0 (signed_zero_rule)
+        negz = 0
+        for t, e, k, blk in ((9, 6, 3, 6), (4096, 16, 3, 4), (9, 24, 1, 3), (9, 8, 4, 4)):
+            x = negative_rows(t, e, dtype, dev, seed=e * k)
+            got = one_launch("router_topk", lambda: K.router_topk(x, k, block=blk,
+                                                                  zero_ties=True))
+            err["router_topk"] = max(err["router_topk"], require_equal(
+                f"negative zeros: router T={t} E={e} k={k} {dtype}", got,
+                K.router_topk_plain(x, k, blk, zero_ties=True)))
+            negz += int((torch.signbit(got[0]) & (got[0] == 0)).sum())
+        for b, v, k, blk in ((9, 600, 2, 4), (9, 520, 1, 3), (9, 6, 3, 6)):
+            x = negative_rows(b, v, dtype, dev, seed=v + k)
+            got = K.vocab_topk(x, k, block=blk, zero_ties=True)
+            err["vocab_merge_level"] = max(err["vocab_merge_level"], require_equal(
+                f"negative zeros: vocab B={b} V={v} k={k} block={blk} {dtype}", got,
+                K.vocab_topk_plain(x, k, blk, zero_ties=True)))
+            negz += int((torch.signbit(got[0]) & (got[0] == 0)).sum())
+        if not negz:
+            raise AssertionError("negative zeros: no -0.0 came out where the rule keeps it")
+        log(f"  negative zeros {dtype}: router (blocks 6, 4, 3), vocab (blocks 4, 3, one "
+            f"block of 6): bit-equal, {negz} zeros kept as -0.0")
     torch.cuda.synchronize()
     return err
+
+
+def negative_rows(rows, n, dtype, device, seed):
+    """Rows of -1.5, -0.5 and -0.0 (every value's sign bit set), every
+    third row with +0.0 and 0.5 as well."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.choice(np.array([-1.5, -0.5, -0.0], np.float32), size=(rows, n))
+    x[::3] = rng.choice(np.array([-1.5, -0.5, -0.0, 0.0, 0.5], np.float32),
+                        size=x[::3].shape)
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
 
 
 def phase_serve(dev, K):
@@ -2430,16 +2519,26 @@ def phase_schedule_backends(dev, logits, card) -> tuple:
     eq("topk axis=0 is the transpose", (t0v.T, t0i.T), (tv, ti))
     eq("with_indices=False", run("topk with_indices=False", lambda: repro_torch.topk(
         logits, k, with_indices=False), vocab), tv)
+    # integer keys run the vocab kernels on raw int32 (uint32 and int16 as
+    # order-preserving int32 keys), bit-equal to the kernels' plain version
+    from repro_torch.api import topk_block
+
+    blk = topk_block(logits.shape[1], k, batch=logits.shape[0], dtype=torch.int32)
     xi = torch.from_numpy(rng.integers(-50, 50, logits.shape).astype(np.int32)).to(dev)
-    iv, ii = run("topk int32 keys (auto: schedule)", lambda: repro_torch.topk(xi, k))
-    eq("int32 topk vs the CPU", (iv, ii), repro_torch.topk(xi.cpu(), k))
+    iv, ii = run("topk int32 keys (the vocab kernels)", lambda: repro_torch.topk(xi, k), vocab)
+    eq("int32 topk vs the kernels' plain version", (iv, ii),
+       K.vocab_topk_plain(xi.cpu(), k, blk))
     xu = rng.integers(0, 2 ** 32, logits.shape, dtype=np.uint64).astype(np.uint32)
     xu[:, :2] = (0, 2 ** 32 - 1)
     xu = torch.from_numpy(xu).to(dev)
-    uv, ui = run("topk uint32 keys (auto: schedule)", lambda: repro_torch.topk(xu, k))
+    uv, ui = run("topk uint32 keys (the vocab kernels)", lambda: repro_torch.topk(xu, k), vocab)
     eq("uint32 topk vs the CPU", (uv, ui), repro_torch.topk(xu.cpu(), k))
-    timed(f"topk int32 {tuple(xi.shape)} k {k}, schedule",
-          lambda: repro_torch.topk(xi, k), lambda: torch.topk(xi, k))
+    xs = torch.from_numpy(rng.integers(-2 ** 15, 2 ** 15, logits.shape).astype(np.int16)).to(dev)
+    sv, si = run("topk int16 keys (the vocab kernels)", lambda: repro_torch.topk(xs, k), vocab)
+    eq("int16 topk vs the CPU", (sv, si), repro_torch.topk(xs.cpu(), k))
+    ms = cuda_ms(lambda: repro_torch.topk(xi, k), 3, 1)
+    log(f"  topk int32 {tuple(xi.shape)} k {k}: {ms:.4f} ms; one torch.topk "
+        f"{cuda_ms(lambda: torch.topk(xi, k), 3, 1):.4f} ms ({card})")
     av, ai = run("topk descending=False stable=True (schedule)",
                  lambda: repro_torch.topk(logits, k, descending=False, stable=True))
     order = torch.sort(encode_key_values(logits), dim=-1, stable=True)[1][:, :k]
@@ -2587,34 +2686,96 @@ def phase_kway_times(dev, launches, err, card, ops_per_s) -> list:
 
 
 def _rows_of(cache, rows):
-    """A copy of a cache's first ``rows`` rows (decode writes in place)."""
-    return {part: [{"k": lc["k"][:rows].clone(), "v": lc["v"][:rows].clone(),
-                    "pos": lc["pos"].clone()} for lc in layers]
+    """A copy of a cache's first ``rows`` rows (decode writes in place): any
+    layer dict (GQA's ``k`` / ``v``, MLA's ``ckv`` / ``kpe``), its ``pos``
+    a scalar or one a row."""
+    return {part: [{name: t.clone() if t.ndim == 0 else t[:rows].clone()
+                    for name, t in lc.items()} for lc in layers]
             for part, layers in cache.items()}
 
 
-def phase_moe(dev, K, card) -> dict:
-    """Phase 3h: qwen3-moe-30b-a3b at its published width and depth (48
-    layers, d_model 2048, 128 experts top-8, d_expert 768, vocab 151,936;
-    random bf16 weights from seed 0) through ``generate`` on 3a's prompts,
-    each run with its launch counts zeroed before and read after: sampled
-    and ragged (rows 4 and 5 a token), greedy (nothing), greedy with the
-    sorted dispatch (row 6 once a MoE layer a decode step; tokens,
-    prefill and first decode logits bit-equal to the scatter run's); a
-    decode step at B = 3 and B = 4 from one cache (rows 0-2 bit-equal:
-    the capacity counts the real rows); the decode profile with the
-    router's executor calls and the expert products as ranges, beside the
-    weight-read floor of a step."""
+def first_layer_f32(params, cfg):
+    """The model cut to its first layer (the leading dense block of a MoE
+    stack: no router), a float32 copy: (params, cfg)."""
+    import torch
+
+    def f32(t):
+        return t.to(torch.float32)
+
+    part = "head" if "head" in params["stack"] else "body"
+    p = {k: _map(v, f32) for k, v in params.items() if k != "stack"}
+    p["stack"] = {part: [_map(params["stack"][part][0], f32)]}
+    if part == "head":
+        p["stack"]["body"] = []
+    return p, dataclasses.replace(cfg, n_layers=1, dtype="float32")
+
+
+def decode_vs_prefill(dev, params, cfg, card) -> float:
+    """The first decode step's logits against the last-position logits of
+    a prefill of the prompt and that token, on the model's first layer in
+    float32 (no router, so no expert can flip): the largest difference
+    over the largest logit. For GQA the two differ only in the order of
+    their sums; MLA's decode also runs the absorbed form (the query folded
+    through ``wuk``) where the prefill expands the latent."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    p1, c1 = first_layer_f32(params, cfg)
+    bsz, plen = 4, 128
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (bsz, plen)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        lg, cache = prefill(p1, {"tokens": toks}, init_cache(c1, bsz, plen + 1, dev), c1)
+        nxt = torch.argmax(lg, -1).to(torch.int32)[:, None]
+        dl, _ = decode_step(p1, nxt, cache, c1,
+                            positions=torch.full((bsz, 1), plen, dtype=torch.int32, device=dev))
+        full, _ = prefill(p1, {"tokens": torch.cat([toks, nxt], 1)},
+                          init_cache(c1, bsz, plen + 1, dev), c1)
+    err = float((dl - full).abs().max() / full.abs().max())
+    log(f"  {cfg.name} first layer, float32: decode step vs a prefill of prompt + token, "
+        f"largest difference / largest logit {err:.3e}; {card}")
+    del p1
+    return err
+
+
+#: the absorbed MLA decode's error may be this many times the GQA decode's
+#: (the same comparison): two more products (the query's latent, 512 wide,
+#: and the latent context) and the score split into two sums. Measured on
+#: an H100 80GB HBM3 at 700 W: 2.009e-06 against GQA's 2.347e-06 (0.86x),
+#: so 4 leaves more than 4x of headroom
+MLA_ERR_FACTOR = 4
+
+
+def phase_moe(dev, K, card, arch: str = "qwen3-moe-30b-a3b", gqa_err=None) -> dict:
+    """Phases 3h and 3i: a MoE model at its published width and depth
+    (qwen3-moe-30b-a3b: 48 layers, d_model 2048, 128 experts top-8,
+    d_expert 768, vocab 151,936; deepseek-v2-lite-16b: 27 layers, MLA,
+    64 experts top-6 of d_expert 1408, 2 shared experts, one leading dense
+    layer, vocab 102,400; random bf16 weights from seed 0) through
+    ``generate`` on 3a's prompts, each run with its launch counts zeroed
+    before and read after: sampled and ragged (rows 4 and 5 a token),
+    greedy (nothing), greedy with the sorted dispatch (row 6 once a MoE
+    layer a decode step; tokens, prefill and first decode logits
+    bit-equal to the scatter run's); a decode step at B = 3 and B = 4 from
+    one cache (rows 0-2 bit-equal: the capacity counts the real rows); the
+    decode profile with the attention, the router's executor calls and the
+    expert products as ranges, beside the weight-read floor of a step. For
+    MLA also the latent cache's size, and the absorbed decode against the
+    expanded form (:func:`decode_vs_prefill`) within ``MLA_ERR_FACTOR``
+    times the GQA path's ``gqa_err``."""
     import numpy as np
     import torch
 
     import repro_torch.models.moe as MOE
+    import repro_torch.models.transformer as TR
     from repro_torch.api import topk_block
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_cache, model_init, prefill
     from repro_torch.serving import ServeConfig, generate
 
-    cfg = get_config("qwen3-moe-30b-a3b")
+    cfg = get_config(arch)
     torch.cuda.synchronize()
     log(f"  before init: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     t0 = time.perf_counter()
@@ -2627,10 +2788,14 @@ def phase_moe(dev, K, card) -> dict:
     expert_bytes = sum(lay["ffn"][w]["w"].numel() * lay["ffn"][w]["w"].element_size()
                        for lay in params["stack"]["body"] for w in ("wi", "wg", "wo"))
     step_bytes = nbytes - emb.numel() * emb.element_size()  # the embedding: B rows
-    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.moe.n_experts} experts "
-        f"top-{cfg.moe.top_k} of d_expert {cfg.moe.d_expert}, vocab {cfg.vocab_size}: "
-        f"{n_params / 1e9:.3f} B parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB, "
+    attn = (f"MLA of {cfg.n_heads} heads (kv_lora {cfg.mla.kv_lora_rank}, rope "
+            f"{cfg.mla.qk_rope_head_dim})" if cfg.mla is not None else
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}")
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {attn}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_expert {cfg.moe.d_expert} "
+        f"({cfg.moe.n_shared_experts} shared, {cfg.moe.first_dense_layers} dense first), "
+        f"vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B parameters, {nbytes / 1e9:.2f} GB of "
+        f"weights, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
         f"init {time.perf_counter() - t0:.1f} s; {card}")
     log(f"  weight-read floor of a decode step (every expert's buffer computed): "
         f"{step_bytes / 1e9:.2f} GB = {step_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at "
@@ -2712,9 +2877,34 @@ def phase_moe(dev, K, card) -> dict:
         if not torch.equal(bits(dl3), bits(dl4[:3])):
             raise AssertionError("MoE decode at B = 3 and B = 4: rows 0-2 differ")
         log("  decode step at B = 3 and B = 4 from one cache: rows 0-2 bit-equal")
+        if cfg.mla is not None:  # the latent cache: 576 elements a token a layer
+            lc = cache["body"][0]
+            per = lc["ckv"].shape[1] + lc["kpe"].shape[1]
+            if per != cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim or set(lc) != {
+                    "ckv", "kpe", "pos"}:
+                raise AssertionError(f"MLA cache holds {set(lc)}, {per} elements a token")
+            cbytes = sum(t.numel() * t.element_size() for part in cache.values()
+                         for c in part for n, t in c.items() if n != "pos")
+            gqa = 2 * cfg.n_heads * cfg.mla.v_head_dim
+            log(f"  latent cache: {per} elements a token a layer (GQA at {cfg.n_heads} kv-heads "
+                f"of {cfg.mla.v_head_dim}: {gqa}, {gqa / per:.1f}x); {cbytes / 1e6:.2f} MB for "
+                f"B={bsz} x {plen + 1} tokens x {cfg.n_layers} layers "
+                f"({cbytes / (bsz * (plen + 1) * cfg.n_layers):.0f} bytes a token a layer)")
+        del first, lg, dl4, cache, dl3
+    if cfg.mla is not None:
+        err = decode_vs_prefill(dev, params, cfg, card)
+        tol = MLA_ERR_FACTOR * gqa_err
+        log(f"  absorbed MLA decode vs the expanded form: {err:.3e}; tolerance {tol:.3e} = "
+            f"{MLA_ERR_FACTOR} x the GQA path's {gqa_err:.3e} (Qwen3-8B, this run)")
+        if not err <= tol:
+            raise AssertionError(f"absorbed MLA decode differs from the expanded form by "
+                                 f"{err:.3e} > {tol:.3e}")
 
+    attention = (TR, "mla_apply", "mla.attention") if cfg.mla is not None else (
+        TR, "attn_apply", "attention")
     ranges = profile_serve(dev, params, cfg, card, spans=(
-        (MOE, "router_topk", "moe.router_topk"), (MOE, "_expert_ffn", "moe.expert_ffn")))
+        attention, (MOE, "router_topk", "moe.router_topk"),
+        (MOE, "_expert_ffn", "moe.expert_ffn")))
     for label, (calls, dev_ms, host_ms) in sorted(ranges.items()):
         log(f"    {label}: {calls:.0f} calls a step, device {dev_ms:.3f} ms, host "
             f"{host_ms:.3f} ms a step; {card}")
@@ -2879,11 +3069,16 @@ def main() -> int:
     log("  Qwen3-8B: the decode profile and the cost of the padded rows")
     profile_serve(dev, params, get_config("qwen3-8b"), card)
     decode_tile_cost(dev, params, get_config("qwen3-8b"), card)
+    gqa_err = decode_vs_prefill(dev, params, get_config("qwen3-8b"), card)
     del params  # the MoE's 61 GB of weights need the room
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 3h: qwen3-moe-30b-a3b at full width")
     runs.append(phase_moe(dev, K, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 3i: deepseek-v2-lite-16b (MLA) at full width")
+    runs.append(phase_moe(dev, K, card, "deepseek-v2-lite-16b", gqa_err))
     gc.collect()
     torch.cuda.empty_cache()
     launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}

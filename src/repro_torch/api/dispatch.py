@@ -12,8 +12,8 @@ its accelerator rows ("TPU") for ``"cuda"``, and ``pallas`` named
   (any)   CSR segment offsets                        segmented  bucketed_cuda
   (any)   an explicit ``backend=``                   that one   explicit
   topk    TP-sharded vocab                           sharded    tree_topk
-  topk    cuda, float keys, axis > 512               cuda       vocab_topk
-  topk    cuda, float keys, axis <= 512              cuda       router_topk
+  topk    cuda, axis > 512                           cuda       vocab_topk
+  topk    cuda, axis <= 512                          cuda       router_topk
   topk    otherwise                                  schedule   blockwise_topk
   sort    TP-sharded, total >= DIST_MIN_TOTAL        sharded    sample_sort
   sort    cuda, fits the budget, not stable          cuda       loms_sort_fused
@@ -31,9 +31,7 @@ its accelerator rows ("TPU") for ``"cuda"``, and ``pallas`` named
   merge_k the rows of merge, then: total^2 cloud past the budget: streaming,
           cuda: cuda kway_merge, otherwise: schedule loms_kway
 
-One row is the port's own: the top-k kernels take float keys, so an
-integer top-k runs the executor on the card too. A median the LOMS device
-cannot take (unequal or even lists, an even count of them) is planned as
+A median the LOMS device cannot take (unequal or even lists, an even count of them) is planned as
 in the reference and answered by the ``lax`` rung after it (``ops``),
 where the reference's degradation ladder (on by default) lands: the one
 step of that ladder the port takes (ROADMAP Queue 1, item 8). The budget
@@ -135,8 +133,8 @@ def _resolve(spec: SortSpec) -> Decision:
             return Decision("cuda", "router_topk",
                             f"axis {spec.total} <= {ROUTER_TOPK_MAX}: single-kernel "
                             "blockwise top-k")
-        why = "integer keys: the top-k kernels take floats" if on_card else f"{spec.device} host"
-        return Decision("schedule", "blockwise_topk", f"{why}: the truncated-merge tree")
+        return Decision("schedule", "blockwise_topk",
+                        f"{spec.device} host: the truncated-merge tree")
     if spec.op == "sort":
         if _dist_eligible(spec):
             return Decision("sharded", "sample_sort",

@@ -23,9 +23,11 @@ route (the degradation ladder is ROADMAP Queue 1, item 8). The cuda
 backend's fused rung is one launch of kernel row 1 (merge), row 2 (sort)
 or row 8 (k-way merge); its top-k the router kernel (row 3) or the vocab
 kernels (rows 4 and 5); its median one launch of row 8. A CPU tensor
-takes the same route through the kernels' plain versions. uint32 values
-run as order-preserving int32 keys (``x ^ 0x80000000``) and come back
-mapped.
+takes the same route through the kernels' plain versions. The integer
+types other than int32 (int8, int16, uint8, uint16, uint32) run as
+order-preserving int32 keys whose extremes are the type's
+(:func:`~.keys.widen_int_keys`) and come back narrowed; a top-k pad
+comes back as the type's minimum, as the reference's pad in the raw type.
 """
 from __future__ import annotations
 
@@ -38,15 +40,14 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.common import decode_key_values, encode_key_values
 from repro_torch.kernels.topk import topk_tiles
 
-from .keys import decode_keys, encode_keys, has_key_transform
+from .keys import (decode_keys, encode_keys, has_int_widening, has_key_transform,
+                   narrow_int_keys, widen_int_keys)
 from .payload import stabilize_ties, take_rows
 
 __all__ = ["topk", "topk_block", "merge", "merge_k", "sort", "median_of_lists",
            "segment_sort", "segment_merge", "segment_topk", "segment_argmax"]
 
 _KEY_PAD = torch.iinfo(torch.int32).min
-#: uint32 <-> int32 key: flipping the sign bit preserves the order
-_U32_FLIP = torch.iinfo(torch.int32).min
 
 
 def topk_block(n: int, k: int, *, batch: int = 1, dtype: torch.dtype = torch.float32) -> int:
@@ -58,16 +59,18 @@ def topk_block(n: int, k: int, *, batch: int = 1, dtype: torch.dtype = torch.flo
                                               k=k).block)[0]
 
 
-def _to_keys_u32(x: torch.Tensor) -> torch.Tensor:
-    return x.view(torch.int32) ^ _U32_FLIP
+def _int_keys(x: torch.Tensor):
+    """``(x, narrow)``: an integer type other than int32 as its int32 keys
+    (:func:`~.keys.widen_int_keys`) and that type; anything else as it is
+    and None."""
+    if has_int_widening(x.dtype):
+        return widen_int_keys(x), x.dtype
+    return x, None
 
 
-def _from_keys_u32(k: torch.Tensor) -> torch.Tensor:
-    return (k ^ _U32_FLIP).view(torch.uint32)
-
-
-def _unkey(t, u32: bool):
-    return _from_keys_u32(t) if u32 else t
+def _unkey(t, narrow):
+    """Keys back to the caller's integer type (``narrow``, None: none)."""
+    return t if narrow is None else narrow_int_keys(t, narrow)
 
 
 def _iota_rows(length: int, batch: int, reverse: bool, device, offset: int = 0):
@@ -146,19 +149,16 @@ def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = F
     ``with_indices``, the values alone. NaNs rank above +inf and -0.0
     below +0.0 (``nan_policy="last"``). Among equal values the kernels'
     order holds (the higher index first on the card's route), the lower
-    index first with ``stable=True``. Float keys on the card run the
-    router kernel (axis <= 512) or the vocab kernels; integer keys and
-    ``descending=False`` the schedule executor. ``block`` sets the
-    executor's and the unfused kernels' block."""
+    index first with ``stable=True``. On the card the router kernel
+    (axis <= 512) or the vocab kernels run it, integers on their raw
+    int32 keys; ``descending=False`` runs the schedule executor.
+    ``block`` sets the executor's and the unfused kernels' block."""
     from .dispatch import plan
     from .payload import canonical_axis, from_batched_last, to_batched_last
     from .registry import get_backend
     from .spec import SortSpec
 
-    x = _as_tensor(x, device)
-    u32 = x.dtype == torch.uint32
-    if u32:
-        x = _to_keys_u32(x)
+    x, narrow = _int_keys(_as_tensor(x, device))
     _check_dtype(x.dtype, nan_policy)
     ndim = x.ndim
     ax = canonical_axis(axis, ndim)
@@ -175,7 +175,7 @@ def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = F
         if stable:
             vals2, idx2 = stabilize_ties(vals2, idx2, descending=descending)
         vals = _unkey(from_batched_last(_restore_values(vals2, idx2, x2, decode),
-                                        lead, ax, ndim), u32)
+                                        lead, ax, ndim), narrow)
         idx = from_batched_last(idx2, lead, ax, ndim)
         if payload is not None:
             from .payload import take_payload_tree
@@ -206,8 +206,8 @@ def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = F
                    else block)
             unsafe = nan_policy == "unsafe"  # -0.0 and +0.0 tie, as raw floats
             vals2, idx2 = kernel_topk(x2, k, block=blk, zero_ties=unsafe)
-            if rung == "fused" or unsafe:  # values decoded by the kernels
-                return finish(vals2, idx2, None)
+            if rung == "fused" or unsafe or not x2.dtype.is_floating_point:
+                return finish(vals2, idx2, None)  # the kernels' values
             keys = torch.where(idx2 < 0, _KEY_PAD, encode_key_values(vals2))
             return finish(keys, idx2, lambda out: decode_key_values(out, x2.dtype))
         (enc,), decode = _encode_lists([x2], nan_policy)
@@ -252,12 +252,13 @@ def segment_sort(values, segment_offsets, *, descending: bool = False,
     tensor or a tree of tensors whose leaves lead with the N axis; they
     ride each segment's permutation. Returns the sorted values, or
     ``(values, payload_tree)``."""
-    values = _as_tensor(values, device)
+    values, narrow = _int_keys(_as_tensor(values, device))
     run, spec = _segmented("sort", (segment_offsets,), values, descending=descending,
                            has_payload=payload is not None, backend=backend,
                            nan_policy=nan_policy)
     out, _, ptree = run(values, spec=spec, descending=descending, payload=payload,
                         nan_policy=nan_policy)
+    out = _unkey(out, narrow)
     return out if payload is None else (out, ptree)
 
 
@@ -268,12 +269,13 @@ def segment_merge(a, b, offsets_a, offsets_b, *, descending: bool = False,
     union of ``a``'s and ``b``'s segment ``s``. ``payload`` is a pair
     ``(tree_a, tree_b)``. Returns ``(values, out_offsets)`` or
     ``(values, payload_tree, out_offsets)``."""
-    a, b = _as_tensor(a, device), _as_tensor(b, device)
+    (a, narrow), (b, _) = _int_keys(_as_tensor(a, device)), _int_keys(_as_tensor(b, device))
     run, spec = _segmented("merge", (offsets_a, offsets_b), a, descending=descending,
                            has_payload=payload is not None, backend=backend,
                            nan_policy=nan_policy)
     out, _, ptree, out_offs = run(a, b, spec=spec, descending=descending, payload=payload,
                                   nan_policy=nan_policy)
+    out = _unkey(out, narrow)
     return (out, out_offs) if payload is None else (out, ptree, out_offs)
 
 
@@ -285,13 +287,14 @@ def segment_topk(values, segment_offsets, k, *, descending: bool = True,
     ``k`` is one int or one per segment. Returns ``(values, idx,
     out_offsets)`` (a ``payload_tree`` before the offsets with a payload):
     CSR layout, ``idx`` int32 positions within the segment."""
-    values = _as_tensor(values, device)
+    values, narrow = _int_keys(_as_tensor(values, device))
     ks = list(k) if isinstance(k, (list, tuple)) else [int(k)]
     run, spec = _segmented("topk", (segment_offsets,), values, k=max(ks) if ks else 1,
                            descending=descending, has_payload=payload is not None,
                            backend=backend, nan_policy=nan_policy)
     out, idx, ptree, out_offs = run(values, k, spec=spec, descending=descending,
                                     payload=payload, nan_policy=nan_policy)
+    out = _unkey(out, narrow)
     return (out, idx, out_offs) if payload is None else (out, idx, ptree, out_offs)
 
 
@@ -299,10 +302,11 @@ def segment_argmax(values, segment_offsets, *, backend: str = "auto",
                    nan_policy: str = "last", device: DeviceLike = None):
     """Per-segment argmax ``(vals (S,), idx (S,))``; empty segments give
     the dtype minimum and index -1."""
-    values = _as_tensor(values, device)
+    values, narrow = _int_keys(_as_tensor(values, device))
     run, spec = _segmented("argmax", (segment_offsets,), values, k=1, descending=True,
                            has_payload=False, backend=backend, nan_policy=nan_policy)
-    return run(values, spec=spec, nan_policy=nan_policy)
+    vals, idx = run(values, spec=spec, nan_policy=nan_policy)
+    return _unkey(vals, narrow), idx
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +314,7 @@ def segment_argmax(values, segment_offsets, *, backend: str = "auto",
 # ---------------------------------------------------------------------------
 
 #: the dtypes the routes take (floats as total-order keys or raw, int32
-#: raw; uint32 arrives here as int32 keys)
+#: raw; the other integer types arrive here as int32 keys)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 
 
@@ -319,8 +323,8 @@ def _check_dtype(dtype: torch.dtype, nan_policy: str) -> None:
         raise ValueError(f"nan_policy must be 'last' or 'unsafe', got {nan_policy!r}")
     if dtype not in _KERNEL_DTYPES:
         raise NotImplementedError(
-            f"{dtype}: the port takes float32, bfloat16, float16, int32 and uint32 "
-            "(the other integer types: ROADMAP Queue 3)")
+            f"{dtype}: the port takes float32, bfloat16, float16 and the integer types "
+            "of 8 to 32 bits (the reference holds no 64-bit value without jax_enable_x64)")
 
 
 def _fused_leaves(payload, ax: int, ndim: int):
@@ -454,9 +458,8 @@ def merge_k(lists, *, axis: int = -1, descending: bool = False, stable: bool = F
     if len(lists) < 2:
         raise ValueError("merge_k needs at least two lists")
     flats, lead, ax, ndim = _lists_batched(lists, axis, device)
-    u32 = flats[0].dtype == torch.uint32
-    if u32:
-        flats = [_to_keys_u32(f) for f in flats]
+    narrow = _int_keys(flats[0])[1]
+    flats = [_int_keys(f)[0] for f in flats]
     _check_dtype(flats[0].dtype, nan_policy)
     lens = tuple(f.shape[1] for f in flats)
     batch = flats[0].shape[0]
@@ -473,11 +476,11 @@ def merge_k(lists, *, axis: int = -1, descending: bool = False, stable: bool = F
                 raise _Skip
             if payload is None:
                 out2, _ = fused_merge_k(cfg, flats)
-                return _unkey(from_batched_last(out2, lead, ax, ndim), u32)
+                return _unkey(from_batched_last(out2, lead, ax, ndim), narrow)
             lanes, rebuild = _fused_leaves(
                 concat_payload_trees(list(payload), ax, ndim), ax, ndim)
             out2, pouts = fused_merge_k(cfg, flats, lanes)
-            return (_unkey(from_batched_last(out2, lead, ax, ndim), u32),
+            return (_unkey(from_batched_last(out2, lead, ax, ndim), narrow),
                     rebuild(pouts, sum(lens)))
         be = get_backend(rung)
         enc, decode = _encode_lists(flats, nan_policy)
@@ -500,7 +503,7 @@ def merge_k(lists, *, axis: int = -1, descending: bool = False, stable: bool = F
             out2, perm2 = stabilize_ties(out2, perm2, descending=descending)
         raw = None if decode is None else torch.cat(flats, dim=-1)
         out = _unkey(from_batched_last(_restore_values(out2, perm2, raw, decode, descending),
-                                       lead, ax, ndim), u32)
+                                       lead, ax, ndim), narrow)
         if payload is None:
             return out
         ptree = concat_payload_trees(list(payload), ax, ndim)
@@ -524,9 +527,8 @@ def median_of_lists(lists, *, axis: int = -1, backend: str = "auto",
     from .spec import SortSpec
 
     flats, lead, _, _ = _lists_batched(lists, axis, device)
-    u32 = flats[0].dtype == torch.uint32
-    if u32:
-        flats = [_to_keys_u32(f) for f in flats]
+    narrow = _int_keys(flats[0])[1]
+    flats = [_int_keys(f)[0] for f in flats]
     _check_dtype(flats[0].dtype, nan_policy)
     lens = tuple(f.shape[1] for f in flats)
     keys, decode = _encode_lists(flats, nan_policy)
@@ -541,7 +543,7 @@ def median_of_lists(lists, *, axis: int = -1, backend: str = "auto",
         out = get_backend(rung).run["median"](keys, spec=spec)
         if decode is not None:
             out = _DecodeMedian.apply(torch.cat(flats, dim=-1), out)
-        return _unkey(out.reshape(lead), u32)
+        return _unkey(out.reshape(lead), narrow)
 
     return _run_rungs(_rungs(spec, dec), attempt)
 
@@ -563,10 +565,7 @@ def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,
     from .registry import get_backend
     from .spec import SortSpec
 
-    x = _as_tensor(x, device)
-    u32 = x.dtype == torch.uint32
-    if u32:
-        x = _to_keys_u32(x)
+    x, narrow = _int_keys(_as_tensor(x, device))
     _check_dtype(x.dtype, nan_policy)
     ndim = x.ndim
     ax = canonical_axis(axis, ndim)
@@ -585,10 +584,10 @@ def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,
                 raise _Skip
             if payload is None:
                 out2, _ = fused_sort(cfg, x2)
-                return _unkey(from_batched_last(out2, lead, ax, ndim), u32)
+                return _unkey(from_batched_last(out2, lead, ax, ndim), narrow)
             lanes, rebuild = _fused_leaves(payload, ax, ndim)
             out2, pouts = fused_sort(cfg, x2, lanes)
-            return _unkey(from_batched_last(out2, lead, ax, ndim), u32), rebuild(pouts, n)
+            return _unkey(from_batched_last(out2, lead, ax, ndim), narrow), rebuild(pouts, n)
         (enc,), decode = _encode_lists([x2], nan_policy)
         pos = _iota_rows(n, batch, False, x2.device) if spec.needs_perm else None
         out2, perm2 = get_backend(rung).run["sort"](enc, spec=spec, pos=pos)
@@ -598,7 +597,7 @@ def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,
         if stable:
             out2, perm2 = stabilize_ties(out2, perm2, descending=descending)
         out = _unkey(from_batched_last(_restore_values(out2, perm2, x2, decode, descending),
-                                       lead, ax, ndim), u32)
+                                       lead, ax, ndim), narrow)
         if payload is None:
             return out
         return out, take_payload_tree(payload, from_batched_last(perm2, lead, ax, ndim),

@@ -198,7 +198,7 @@ def _cuda_supports(spec: SortSpec) -> bool:
     if spec.network != "loms" or not _dense(spec) or spec.dtype not in _KERNEL_DTYPES:
         return False
     if spec.op == "topk":  # indices are native; payload / stable ride them
-        return spec.dtype != "int32"  # the top-k kernels take float keys
+        return True
     if spec.op == "sort" or spec.needs_perm:
         return _cuda_fused(spec)  # payload lanes ride the fused launch only
     if spec.op == "median":  # the device itself wants an odd count (ops checks)

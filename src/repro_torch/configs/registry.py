@@ -3,8 +3,9 @@
 A copy of ``repro.configs.registry``. Every entry is exact at the listed
 fields; smoke variants keep the family topology at toy width. The port's
 model stack serves the dense family (``qwen3-8b`` is its full-width
-model) and the MoE family without MLA (``qwen3-moe-30b-a3b``); the other
-entries are kept so ``--arch`` names mean the same in both packages.
+model) and the MoE family (``qwen3-moe-30b-a3b``, and
+``deepseek-v2-lite-16b`` with MLA); the other entries are kept so
+``--arch`` names mean the same in both packages.
 """
 from __future__ import annotations
 

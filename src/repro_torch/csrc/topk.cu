@@ -10,8 +10,20 @@
 // Each computes what its TPU kernel computes, bit for bit: values and int32
 // indices, tie order included. Floats become total-order int32 keys on
 // load (NaN -> the canonical quiet NaN, above +inf; -0.0 below +0.0) and
-// are decoded on store. Pad slots carry the key INT32_MIN (below every
-// real key) and the index -1.
+// are decoded on store; int32 values are their own keys (the reference's
+// key_dtype=None). Pad slots carry the key INT32_MIN (below every real
+// float key) and the index -1. An int32 INT32_MIN ties the pads; the
+// reference's pads are slots past the row's end (the vocab's padding, the
+// router's pad lists), which its ties put first, and so do the kernels:
+// in a block the pads past V are words of their own positions, and in
+// the tree the index -1 is the largest low half of a (key, index) word.
+//
+// Signed zeros (zero_ties, nan_policy="unsafe"): -0.0 takes +0.0's key on
+// load, so the two tie, and a zero is stored as +0.0, what the
+// reference's one-hot permute gives, except in the case
+// kernels/topk.py signed_zero_rule names (blocks of at most 7, a last
+// merge of at most 7 lanes, a row whose values all have the sign bit
+// set), where that permute keeps -0.0 and so do the kernels (negz).
 //
 // Tie order. The reference's N-sorter ranks are stable ascending and then
 // read backwards, so among equal keys the higher position comes first; its
@@ -91,8 +103,10 @@ using repro_keys::Bits;
 using repro_keys::BF16;
 using repro_keys::F16;
 using repro_keys::F32;
+using repro_keys::I32;
 using repro_keys::decode_key;
 using repro_keys::encode_key;
+using repro_keys::sign_clear;
 using repro_keys::tie_zero;
 
 // ---------------------------------------------------------------------------
@@ -102,15 +116,18 @@ using repro_keys::tie_zero;
 // A block slot as one word, key high, so that the words' order is the
 // block's order (ties: the higher position first): 16-bit keys (sign-
 // extended int16, keys.cuh) as key << 16 | position, a 32-bit word; f32
-// keys as key << 32 | position, a 64-bit word. Pad slots are the word
-// below every real one (16-bit: 0x80000000, while the smallest real key is
-// -32641; f32: key INT32_MIN, which no float encodes to).
+// keys as key << 32 | position, a 64-bit word; int32 keys as key << 32 |
+// position + 1. Pad slots are the word below every real one (16-bit:
+// 0x80000000, while the smallest real key is -32641; f32: key INT32_MIN,
+// which no float encodes to; int32: key INT32_MIN with a low half of 0,
+// which no position + 1 is).
 template <int DT> struct Word { using T = int32_t; };
 template <> struct Word<F32> { using T = long long; };
+template <> struct Word<I32> { using T = long long; };
 
 template <int DT>
 __device__ __forceinline__ typename Word<DT>::T word_pad() {
-  if constexpr (DT == F32) return (long long)(1ULL << 63);
+  if constexpr (DT == F32 || DT == I32) return (long long)(1ULL << 63);
   else return INT32_MIN;
 }
 
@@ -118,6 +135,8 @@ template <int DT>
 __device__ __forceinline__ typename Word<DT>::T make_word(int32_t key, int pos) {
   if constexpr (DT == F32)
     return (long long)(((unsigned long long)(uint32_t)key << 32) | (uint32_t)pos);
+  else if constexpr (DT == I32)
+    return (long long)(((unsigned long long)(uint32_t)key << 32) | (uint32_t)(pos + 1));
   else
     return (int32_t)(((uint32_t)key << 16) | (uint32_t)pos);
 }
@@ -126,7 +145,7 @@ __device__ __forceinline__ typename Word<DT>::T make_word(int32_t key, int pos) 
 template <int DT>
 __device__ __forceinline__ int32_t word_key(typename Word<DT>::T w) {
   if (w == word_pad<DT>()) return KEY_PAD;
-  if constexpr (DT == F32) return (int32_t)(w >> 32);
+  if constexpr (DT == F32 || DT == I32) return (int32_t)(w >> 32);
   else return w >> 16;
 }
 
@@ -135,7 +154,21 @@ template <int DT>
 __device__ __forceinline__ int32_t word_index(typename Word<DT>::T w, int base) {
   if (w == word_pad<DT>()) return -1;
   if constexpr (DT == F32) return base + (int32_t)(uint32_t)w;
+  else if constexpr (DT == I32) return base + (int32_t)(uint32_t)w - 1;
   else return base + (w & 0xffff);
+}
+
+// A block slot's word: a value's key at slot p < n; past n and before nb
+// (the reference's block: its pads past V, key INT32_MIN) the int32 pad
+// of its own position, whose index is past V; the pad word past that.
+template <int DT>
+__device__ __forceinline__ typename Word<DT>::T slot_word(const typename Bits<DT>::T* q,
+                                                          int p, int n, int nb, int pos,
+                                                          int zt) {
+  if (p < n) return make_word<DT>(tie_zero(encode_key<DT>(q[p]), zt), pos);
+  if constexpr (DT == I32)
+    if (p < nb) return make_word<DT>(KEY_PAD, pos);
+  return word_pad<DT>();
 }
 
 // Network width of a block: the next power of two, at least 16
@@ -190,12 +223,13 @@ __device__ __forceinline__ void block_sort(W (&v)[SORT_WORDS]) {
 }
 
 // A lane's SORT_WORDS slots of a block: words of the block's slots p = li
-// x SORT_WORDS + j that are < n (the block's real slots), position pos0 +
-// p; pads past them. src is the block's first slot; one vector load (8 or
-// 16 bytes) where the lane's slots are whole and aligned.
+// x SORT_WORDS + j (slot_word: the values of the first n, position pos0 +
+// p, then pads; int32 pads past V up to nb). src is the block's first
+// slot; one vector load (8 or 16 bytes) where the lane's slots are whole
+// and aligned.
 template <int DT>
-__device__ __forceinline__ void load_block(const typename Bits<DT>::T* src, int n, int li,
-                                           int pos0, int zt,
+__device__ __forceinline__ void load_block(const typename Bits<DT>::T* src, int n, int nb,
+                                           int li, int pos0, int zt,
                                            typename Word<DT>::T (&v)[SORT_WORDS]) {
   using B = typename Bits<DT>::T;
   constexpr int E = SORT_WORDS, BYTES = E * sizeof(B);  // a lane's slots
@@ -213,10 +247,25 @@ __device__ __forceinline__ void load_block(const typename Bits<DT>::T* src, int 
       v[j] = make_word<DT>(tie_zero(encode_key<DT>(b[j]), zt), pos0 + p0 + j);
   } else {
 #pragma unroll
-    for (int j = 0; j < E; ++j)
-      v[j] = p0 + j < n ? make_word<DT>(tie_zero(encode_key<DT>(q[j]), zt), pos0 + p0 + j)
-                        : word_pad<DT>();
+    for (int j = 0; j < E; ++j) v[j] = slot_word<DT>(src, p0 + j, n, nb, pos0 + p0 + j, zt);
   }
+}
+
+// Whether any of the first n slots of a block (src) has its sign bit
+// clear, over the LPB lanes of the block (the lane li of them takes its
+// SORT_WORDS slots); every lane of the warp takes part.
+template <int DT, int LPB>
+__device__ __forceinline__ int block_sign_clear(const typename Bits<DT>::T* src, int n,
+                                                int li) {
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < SORT_WORDS; ++j) {
+    const int p = li * SORT_WORDS + j;
+    if (p < n && sign_clear<DT>(src[p])) c = 1;
+  }
+#pragma unroll
+  for (int m = 1; m < LPB; m <<= 1) c |= __shfl_xor_sync(0xffffffffu, c, m);
+  return c;
 }
 
 // The same network on `segs` segments of BP words in shared memory, by
@@ -380,15 +429,21 @@ __host__ __device__ inline int ceil_log2(int n) {
 // (words key | index in the row) and keep their top kk = min(k, block);
 // the lists, padded up front to Gp = 2^ceil(log2 G) with lists of pads,
 // go to shared memory as (key, index) words, and merge_levels merges the
-// R trees at once (a group a row). Decoded on store.
+// R trees at once (a group a row). Decoded on store. flags: 1 zero_ties,
+// 2 negz (the zeros of a row whose values all have the sign bit set are
+// stored as -0.0).
 template <int DT, int BP>
 __global__ void __launch_bounds__(ROUTER_THREADS)
 router_topk_kernel(const typename Bits<DT>::T* __restrict__ x,
                    typename Bits<DT>::T* __restrict__ vout, int32_t* __restrict__ iout,
-                   int T, int E, int k, int block, int R, int zt) {
+                   int T, int E, int k, int block, int R, int flags) {
   using W = typename Word<DT>::T;
   extern __shared__ long long router_smem[];
+  const int zt = DT == I32 ? 0 : flags & 1, negz = DT != I32 && (flags & 2);
   const int G = E / block, levels = ceil_log2(G), Gp = 1 << levels, kk = min(k, block);
+  // with negz, R flags after the lists and the blocks (launch_router_bp)
+  int* row_clear = reinterpret_cast<int*>(
+      router_smem + 2 * R * Gp * kk + (BP > WARP_SORT_MAX ? R * G * BP : 0));
   const int row0 = blockIdx.x * R;
   long long* cur = router_smem;
   long long* nxt = router_smem + R * Gp * kk;
@@ -406,8 +461,8 @@ router_topk_kernel(const typename Bits<DT>::T* __restrict__ x,
       const int f = u * BPW + lane / LPB;
       const int r = f / G, g = f - r * G, row = row0 + r;
       W v[SORT_WORDS];
-      load_block<DT>(x + (size_t)row * E + g * block, f < R * G && row < T ? block : 0, li,
-                     g * block, zt, v);
+      load_block<DT>(x + (size_t)row * E + g * block, f < R * G && row < T ? block : 0, block,
+                     li, g * block, zt, v);
       block_sort<BP>(v);
 #pragma unroll
       for (int j = 0; j < SORT_WORDS; ++j) {
@@ -420,10 +475,8 @@ router_topk_kernel(const typename Bits<DT>::T* __restrict__ x,
     W* st = reinterpret_cast<W*>(router_smem + 2 * R * Gp * kk);  // R x G blocks of BP
     for (int t = threadIdx.x; t < R * G * BP; t += blockDim.x) {
       const int b = t / BP, p = t - b * BP, r = b / G, g = b - r * G, row = row0 + r;
-      st[t] = row < T && p < block
-          ? make_word<DT>(tie_zero(encode_key<DT>(x[(size_t)row * E + g * block + p]), zt),
-                          g * block + p)
-          : word_pad<DT>();
+      st[t] = slot_word<DT>(x + (size_t)row * E + g * block, p, row < T ? block : 0, block,
+                            g * block + p, zt);
     }
     __syncthreads();
     cta_sort(st, R * G, BP);
@@ -433,14 +486,25 @@ router_topk_kernel(const typename Bits<DT>::T* __restrict__ x,
       cur[(r * Gp + g) * kk + i] = pack(word_key<DT>(w), word_index<DT>(w, 0));
     }
   }
+  if (negz && threadIdx.x < R) row_clear[threadIdx.x] = 0;
   __syncthreads();
   int ln = kk;
   cur = merge_levels(cur, nxt, ln, k, levels, R);
+  if (negz) {  // which rows hold a value without the sign bit
+    for (int t = threadIdx.x; t < R * E; t += blockDim.x) {
+      const int r = t / E, row = row0 + r;
+      if (row < T && sign_clear<DT>(x[(size_t)row * E + (t - r * E)]))
+        atomicOr(row_clear + r, 1);
+    }
+    __syncthreads();
+  }
   for (int t = threadIdx.x; t < R * k; t += blockDim.x) {
     const int r = t / k, i = t - r * k, row = row0 + r;
     if (row < T) {
       const long long w = cur[r * ln + i];
-      vout[(size_t)row * k + i] = decode_key<DT>((int32_t)(w >> 32));
+      int32_t key = (int32_t)(w >> 32);
+      if (negz && key == 0 && !row_clear[r]) key = -1;  // -0.0's key
+      vout[(size_t)row * k + i] = decode_key<DT>(key);
       iout[(size_t)row * k + i] = (int32_t)w;
     }
   }
@@ -484,15 +548,24 @@ __device__ void fill_pad_blocks(int32_t* okey, int32_t* oidx, int rows, int nblk
 // padding fill, so that its loads are in flight meanwhile), sort them by
 // block_sort, and each lane stores its sorted slots of the key list and of
 // the index list as 16-byte chunks (kk % 4 == 0; 4-byte stores
-// otherwise). Shared-memory path (BP >= 256): a CTA a block.
+// otherwise). Shared-memory path (BP >= 256): a CTA a block. int32 rows:
+// the indices past V are -1. flags: 1 zero_ties, 2 negz (the register
+// path's decode: a row whose values all have the sign bit set stores its
+// zeros as -0.0); signs (the register path): a row's flag is set to 1
+// where the row holds a value without the sign bit, for the merge tree.
 template <int DT, int BP>
 __global__ void __launch_bounds__(P1_THREADS)
 vocab_phase1_kernel(const typename Bits<DT>::T* __restrict__ x, int32_t* __restrict__ okey,
                     typename Bits<DT>::T* __restrict__ oval, int32_t* __restrict__ oidx,
-                    int rows, int V, int nblk, int real, int block, int kk, int decode,
-                    int which, int zt) {
+                    int* __restrict__ signs, int rows, int V, int nblk, int real, int block,
+                    int kk, int decode, int which, int flags) {
   using W = typename Word<DT>::T;
+  const int zt = DT == I32 ? 0 : flags & 1, negz = DT != I32 && (flags & 2);
   const int nreal = (which & 1) ? rows * real : 0;
+  auto index = [&](W w, int base) {  // int32 pads past V: -1
+    const int32_t i = word_index<DT>(w, base);
+    return DT == I32 && i >= V ? -1 : i;
+  };
   if constexpr (BP <= WARP_SORT_MAX) {
     constexpr int LPB = BP / SORT_WORDS, BPW = 32 / LPB;  // lanes a block, blocks a warp
     const int lane = threadIdx.x & 31, li = lane & (LPB - 1), p0 = li * SORT_WORDS;
@@ -502,8 +575,8 @@ vocab_phase1_kernel(const typename Bits<DT>::T* __restrict__ x, int32_t* __restr
     W v[SORT_WORDS];
     auto load = [&](int u) {
       const int f = u * BPW + lane / LPB, row = f / real, base = (f - row * real) * block;
-      load_block<DT>(x + (size_t)row * V + base, f < nreal ? min(block, V - base) : 0, li, 0,
-                     zt, v);
+      load_block<DT>(x + (size_t)row * V + base, f < nreal ? min(block, V - base) : 0, block,
+                     li, 0, zt, v);
     };
     if (u0 < units) load(u0);  // in flight while the padding blocks are filled
     if (which & 2) fill_pad_blocks(okey, oidx, rows, nblk, real, kk);
@@ -513,6 +586,12 @@ vocab_phase1_kernel(const typename Bits<DT>::T* __restrict__ x, int32_t* __restr
       const bool live = f < nreal;
       const int row = live ? f / real : 0, gb = live ? f - row * real : 0;
       const int base = gb * block;
+      int clear = 0;
+      if (signs || negz) {
+        clear = block_sign_clear<DT, LPB>(x + (size_t)row * V + base,
+                                          live ? min(block, V - base) : 0, li);
+        if (signs && live && li == 0 && clear) atomicOr(signs + row, 1);
+      }
       block_sort<BP>(v);
       if (!live || p0 >= kk) continue;
       const size_t o = ((size_t)row * nblk + gb) * kk + p0;
@@ -520,15 +599,15 @@ vocab_phase1_kernel(const typename Bits<DT>::T* __restrict__ x, int32_t* __restr
         *reinterpret_cast<int4*>(okey + o) = make_int4(
             word_key<DT>(v[0]), word_key<DT>(v[1]), word_key<DT>(v[2]), word_key<DT>(v[3]));
         *reinterpret_cast<int4*>(oidx + o) = make_int4(
-            word_index<DT>(v[0], base), word_index<DT>(v[1], base),
-            word_index<DT>(v[2], base), word_index<DT>(v[3], base));
+            index(v[0], base), index(v[1], base), index(v[2], base), index(v[3], base));
       } else {
 #pragma unroll
         for (int j = 0; j < SORT_WORDS; ++j) {
           if (p0 + j < kk) {
-            if (decode) oval[o + j] = decode_key<DT>(word_key<DT>(v[j]));
-            else okey[o + j] = word_key<DT>(v[j]);
-            oidx[o + j] = word_index<DT>(v[j], base);
+            const int32_t key = word_key<DT>(v[j]);
+            if (decode) oval[o + j] = decode_key<DT>(negz && key == 0 && !clear ? -1 : key);
+            else okey[o + j] = key;
+            oidx[o + j] = index(v[j], base);
           }
         }
       }
@@ -540,16 +619,14 @@ vocab_phase1_kernel(const typename Bits<DT>::T* __restrict__ x, int32_t* __restr
       const int row = f / real, gb = f - row * real, base = gb * block;
       const typename Bits<DT>::T* xr = x + (size_t)row * V;
       for (int p = threadIdx.x; p < BP; p += blockDim.x)
-        s[p] = p < block && base + p < V
-                   ? make_word<DT>(tie_zero(encode_key<DT>(xr[base + p]), zt), p)
-                   : word_pad<DT>();
+        s[p] = slot_word<DT>(xr + base, p, min(block, V - base), block, p, zt);
       __syncthreads();
       cta_sort(s, 1, BP);
       const size_t o = ((size_t)row * nblk + gb) * kk;
       for (int i = threadIdx.x; i < kk; i += blockDim.x) {
         if (decode) oval[o + i] = decode_key<DT>(word_key<DT>(s[i]));
         else okey[o + i] = word_key<DT>(s[i]);
-        oidx[o + i] = word_index<DT>(s[i], base);
+        oidx[o + i] = index(s[i], base);
       }
       __syncthreads();  // the next block reuses s
     }
@@ -566,13 +643,15 @@ vocab_phase1_kernel(const typename Bits<DT>::T* __restrict__ x, int32_t* __restr
 // finish (a per-row ticket after a __threadfence, which that CTA resets to
 // 0 for the next launch) reads the row's lists back and merges the
 // remaining tail_levels levels: the rest of the tree, in the same launch.
+// signs (the tree's last launch, with decode): the zeros of a row whose
+// flag is 0 are stored as -0.0 (phase 1's flags, signed_zero_rule).
 template <int DT>
 __global__ void __launch_bounds__(TREE_MAX_THREADS)
 vocab_merge_tree_kernel(const int32_t* __restrict__ ikey, const int32_t* __restrict__ iidx,
                         int32_t* __restrict__ okey, typename Bits<DT>::T* __restrict__ oval,
                         int32_t* __restrict__ oidx, int32_t* skey, int32_t* sidx,
-                        int* tickets, int len, int k, int levels, int tail_levels,
-                        int decode) {
+                        int* tickets, const int* __restrict__ signs, int len, int k,
+                        int levels, int tail_levels, int decode) {
   extern __shared__ long long tree_smem[];
   __shared__ int last;
   const int n = len << levels;
@@ -599,6 +678,7 @@ vocab_merge_tree_kernel(const int32_t* __restrict__ ikey, const int32_t* __restr
   int ln = len;
   cur = merge_levels(cur, tree_smem + n, ln, k, levels);
   size_t ob = (size_t)blockIdx.x * ln;
+  int row = blockIdx.x;  // the output's row, when it is the tree's last
   if (tail_levels) {
     for (int e = threadIdx.x; e < ln; e += blockDim.x) {
       skey[ob + e] = (int32_t)(cur[e] >> 32);
@@ -606,7 +686,7 @@ vocab_merge_tree_kernel(const int32_t* __restrict__ ikey, const int32_t* __restr
     }
     __threadfence();
     __syncthreads();
-    const int row = blockIdx.x / per_row;
+    row = blockIdx.x / per_row;
     if (threadIdx.x == 0) {
       last = atomicAdd(tickets + row, 1) == per_row - 1;
       if (last) tickets[row] = 0;
@@ -623,10 +703,12 @@ vocab_merge_tree_kernel(const int32_t* __restrict__ ikey, const int32_t* __restr
     cur = merge_levels(cur, tree_smem + m, ln, k, tail_levels);
     ob = (size_t)row * ln;
   }
+  const bool negz = signs && !signs[row];
   for (int e = threadIdx.x; e < ln; e += blockDim.x) {
     const long long v = cur[e];
-    if (decode) oval[ob + e] = decode_key<DT>((int32_t)(v >> 32));
-    else okey[ob + e] = (int32_t)(v >> 32);
+    const int32_t key = (int32_t)(v >> 32);
+    if (decode) oval[ob + e] = decode_key<DT>(negz && key == 0 ? -1 : key);
+    else okey[ob + e] = key;
     oidx[ob + e] = (int32_t)v;
   }
 }
@@ -643,37 +725,38 @@ int sm_count() {
 
 template <int DT, int BP>
 int launch_router_bp(const void* x, void* vout, int32_t* iout, int T, int E, int k,
-                     int block, int zt, cudaStream_t s) {
+                     int block, int flags, cudaStream_t s) {
   using B = typename Bits<DT>::T;
   const int G = E / block, Gp = 1 << ceil_log2(G), kk = min(k, block);
   // a row's words: two list buffers, and the blocks to sort in shared memory
   const size_t per_row = sizeof(long long) * (2 * (size_t)Gp * kk
                                               + (BP > WARP_SORT_MAX ? (size_t)G * BP : 0));
+  const size_t flag_bytes = (flags & 2) ? sizeof(int) * ROUTER_MAX_ROWS : 0;  // row_clear
   int R = T / (2 * sm_count());  // rows a CTA: about two CTAs an SM at large T
-  R = max(1, min(R, min(ROUTER_MAX_ROWS, (int)(ROUTER_SMEM / per_row))));
-  router_topk_kernel<DT, BP><<<(T + R - 1) / R, ROUTER_THREADS, R * per_row, s>>>(
-      (const B*)x, (B*)vout, iout, T, E, k, block, R, zt);
+  R = max(1, min(R, min(ROUTER_MAX_ROWS, (int)((ROUTER_SMEM - flag_bytes) / per_row))));
+  router_topk_kernel<DT, BP><<<(T + R - 1) / R, ROUTER_THREADS, R * per_row + flag_bytes, s>>>(
+      (const B*)x, (B*)vout, iout, T, E, k, block, R, flags);
   return (int)cudaGetLastError();
 }
 
 template <int DT>
 int launch_router(const void* x, void* vout, int32_t* iout, int T, int E, int k, int block,
-                  int zt, cudaStream_t s) {
+                  int flags, cudaStream_t s) {
   switch (net_width(block)) {
-    case 16: return launch_router_bp<DT, 16>(x, vout, iout, T, E, k, block, zt, s);
-    case 32: return launch_router_bp<DT, 32>(x, vout, iout, T, E, k, block, zt, s);
-    case 64: return launch_router_bp<DT, 64>(x, vout, iout, T, E, k, block, zt, s);
-    case 128: return launch_router_bp<DT, 128>(x, vout, iout, T, E, k, block, zt, s);
-    case 256: return launch_router_bp<DT, 256>(x, vout, iout, T, E, k, block, zt, s);
-    case 512: return launch_router_bp<DT, 512>(x, vout, iout, T, E, k, block, zt, s);
+    case 16: return launch_router_bp<DT, 16>(x, vout, iout, T, E, k, block, flags, s);
+    case 32: return launch_router_bp<DT, 32>(x, vout, iout, T, E, k, block, flags, s);
+    case 64: return launch_router_bp<DT, 64>(x, vout, iout, T, E, k, block, flags, s);
+    case 128: return launch_router_bp<DT, 128>(x, vout, iout, T, E, k, block, flags, s);
+    case 256: return launch_router_bp<DT, 256>(x, vout, iout, T, E, k, block, flags, s);
+    case 512: return launch_router_bp<DT, 512>(x, vout, iout, T, E, k, block, flags, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <int DT, int BP>
-int launch_phase1_bp(const void* x, int32_t* okey, void* oval, int32_t* oidx, int rows,
-                     int V, int nblk, int real, int block, int kk, int decode, int which,
-                     int zt, cudaStream_t s) {
+int launch_phase1_bp(const void* x, int32_t* okey, void* oval, int32_t* oidx, int* signs,
+                     int rows, int V, int nblk, int real, int block, int kk, int decode,
+                     int which, int flags, cudaStream_t s) {
   using B = typename Bits<DT>::T;
   static int per_sm = 0;  // CTAs an SM holds, per DT and BP
   if (!per_sm) {
@@ -696,18 +779,23 @@ int launch_phase1_bp(const void* x, int32_t* okey, void* oval, int32_t* oidx, in
   const long long wave = (long long)sm_count() * per_sm;  // one wave at most
   ctas = ctas < 1 ? 1 : ctas > wave ? wave : ctas;
   vocab_phase1_kernel<DT, BP><<<(int)ctas, P1_THREADS, 0, s>>>(
-      (const B*)x, okey, (B*)oval, oidx, rows, V, nblk, real, block, kk, decode, which, zt);
+      (const B*)x, okey, (B*)oval, oidx, signs, rows, V, nblk, real, block, kk, decode, which,
+      flags);
   return (int)cudaGetLastError();
 }
 
 template <int DT>
-int launch_phase1(const void* x, int32_t* okey, void* oval, int32_t* oidx, int rows, int V,
-                  int nblk, int block, int kk, int decode, int which, int zt, cudaStream_t s) {
+int launch_phase1(const void* x, int32_t* okey, void* oval, int32_t* oidx, int* signs,
+                  int rows, int V, int nblk, int block, int kk, int decode, int which,
+                  int flags, cudaStream_t s) {
   const int real = min(nblk, (V + block - 1) / block);
+  // the sign flags are the register path's (signed_zero_rule: blocks of at most 7)
+  if ((signs || (flags & 2)) && net_width(block) > WARP_SORT_MAX)
+    return (int)cudaErrorInvalidValue;
   switch (net_width(block)) {
 #define REPRO_P1(bp) \
-    case bp: return launch_phase1_bp<DT, bp>(x, okey, oval, oidx, rows, V, nblk, real, block, \
-                                             kk, decode, which, zt, s);
+    case bp: return launch_phase1_bp<DT, bp>(x, okey, oval, oidx, signs, rows, V, nblk, real, \
+                                             block, kk, decode, which, flags, s);
     REPRO_P1(16) REPRO_P1(32) REPRO_P1(64) REPRO_P1(128) REPRO_P1(256) REPRO_P1(512)
     REPRO_P1(1024)
 #undef REPRO_P1
@@ -717,9 +805,9 @@ int launch_phase1(const void* x, int32_t* okey, void* oval, int32_t* oidx, int r
 
 template <int DT>
 int launch_tree(const int32_t* ikey, const int32_t* iidx, int32_t* okey, void* oval,
-                int32_t* oidx, int32_t* skey, int32_t* sidx, int* tickets, int groups,
-                int len, int k, int levels, int tail_levels, int decode, int threads,
-                cudaStream_t s) {
+                int32_t* oidx, int32_t* skey, int32_t* sidx, int* tickets, const int* signs,
+                int groups, int len, int k, int levels, int tail_levels, int decode,
+                int threads, cudaStream_t s) {
   using B = typename Bits<DT>::T;
   static bool opted_in = false;  // shared memory past 48 KB, asked once
   if (!opted_in) {
@@ -737,8 +825,8 @@ int launch_tree(const int32_t* ikey, const int32_t* iidx, int32_t* okey, void* o
   if (smem > (size_t)TREE_MAX_SMEM || threads < 32 || threads > TREE_MAX_THREADS || threads % 32)
     return (int)cudaErrorInvalidValue;
   vocab_merge_tree_kernel<DT><<<groups, threads, smem, s>>>(
-      ikey, iidx, okey, (B*)oval, oidx, skey, sidx, tickets, len, k, levels, tail_levels,
-      decode);
+      ikey, iidx, okey, (B*)oval, oidx, skey, sidx, tickets, signs, len, k, levels,
+      tail_levels, decode);
   return (int)cudaGetLastError();
 }
 
@@ -746,35 +834,46 @@ int launch_tree(const int32_t* ikey, const int32_t* iidx, int32_t* okey, void* o
 
 // Each entry point launches on the caller's stream, does not synchronise,
 // and returns cudaGetLastError() (0 = the launch was accepted). dtype:
-// 0 = float32, 1 = bfloat16, 2 = float16. zero_ties (nan_policy="unsafe"):
-// -0.0 takes +0.0's key on load (keys.cuh tie_zero), so the two tie.
+// 0 = float32, 1 = bfloat16, 2 = float16, 3 = int32 (the values are the
+// keys). flags: 1 zero_ties (nan_policy="unsafe": -0.0 takes +0.0's key
+// on load, keys.cuh tie_zero, so the two tie), 2 negz (the zeros of a row
+// whose values all have the sign bit set are stored as -0.0: what the
+// reference's one-hot permute gives in the case signed_zero_rule names).
 extern "C" {
 
 int repro_router_topk(const void* x, void* vout, void* iout, int T, int E,
-                      int k, int block, int zero_ties, int dtype, void* stream) {
+                      int k, int block, int flags, int dtype, void* stream) {
   if (T <= 0 || block <= 0 || E <= 0 || E > ROUTER_MAX_E || E % block || k < 1 || k > E)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int32_t* io = (int32_t*)iout;
-  if (dtype == F32) return launch_router<F32>(x, vout, io, T, E, k, block, zero_ties, s);
-  if (dtype == BF16) return launch_router<BF16>(x, vout, io, T, E, k, block, zero_ties, s);
-  return launch_router<F16>(x, vout, io, T, E, k, block, zero_ties, s);
+  if (dtype == F32) return launch_router<F32>(x, vout, io, T, E, k, block, flags, s);
+  if (dtype == BF16) return launch_router<BF16>(x, vout, io, T, E, k, block, flags, s);
+  if (dtype == I32) return launch_router<I32>(x, vout, io, T, E, k, block, flags, s);
+  return launch_router<F16>(x, vout, io, T, E, k, block, flags, s);
 }
 
-static int vocab_phase1_launch(const void* x, void* okey, void* oval, void* oidx, int rows,
-                               int V, int nblk, int block, int kk, int decode, int which,
-                               int zt, int dtype, void* stream) {
+static int vocab_phase1_launch(const void* x, void* okey, void* oval, void* oidx, void* signs,
+                               int rows, int V, int nblk, int block, int kk, int decode,
+                               int which, int flags, int dtype, void* stream) {
   if (rows <= 0 || V < 0 || block <= 0 || block > 1024 || kk <= 0 || kk > block
       || nblk <= 0 || (long long)rows * nblk * kk >= (1LL << 31) || which < 1 || which > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int32_t* ok = (int32_t*)okey;
   int32_t* oi = (int32_t*)oidx;
+  int* sg = (int*)signs;
   if (dtype == F32)
-    return launch_phase1<F32>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, which, zt, s);
+    return launch_phase1<F32>(x, ok, oval, oi, sg, rows, V, nblk, block, kk, decode, which,
+                              flags, s);
   if (dtype == BF16)
-    return launch_phase1<BF16>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, which, zt, s);
-  return launch_phase1<F16>(x, ok, oval, oi, rows, V, nblk, block, kk, decode, which, zt, s);
+    return launch_phase1<BF16>(x, ok, oval, oi, sg, rows, V, nblk, block, kk, decode, which,
+                               flags, s);
+  if (dtype == I32)
+    return launch_phase1<I32>(x, ok, oval, oi, sg, rows, V, nblk, block, kk, decode, which,
+                              flags, s);
+  return launch_phase1<F16>(x, ok, oval, oi, sg, rows, V, nblk, block, kk, decode, which,
+                            flags, s);
 }
 
 // Phase 1 with `which` = 1 (the real blocks alone), 2 (the padding blocks
@@ -782,15 +881,17 @@ static int vocab_phase1_launch(const void* x, void* okey, void* oval, void* oidx
 int repro_vocab_phase1_parts(const void* x, void* okey, void* oval, void* oidx,
                              int rows, int V, int nblk, int block, int kk,
                              int decode, int which, int dtype, void* stream) {
-  return vocab_phase1_launch(x, okey, oval, oidx, rows, V, nblk, block, kk, decode, which, 0,
-                             dtype, stream);
+  return vocab_phase1_launch(x, okey, oval, oidx, nullptr, rows, V, nblk, block, kk, decode,
+                             which, 0, dtype, stream);
 }
 
-int repro_vocab_phase1(const void* x, void* okey, void* oval, void* oidx,
+// signs (null, or int32 (rows,) zeros): set to 1 where a row holds a value
+// without the sign bit, for the merge tree's store (blocks of at most 128).
+int repro_vocab_phase1(const void* x, void* okey, void* oval, void* oidx, void* signs,
                        int rows, int V, int nblk, int block, int kk,
-                       int decode, int zero_ties, int dtype, void* stream) {
-  return vocab_phase1_launch(x, okey, oval, oidx, rows, V, nblk, block, kk, decode, 3,
-                             zero_ties, dtype, stream);
+                       int decode, int flags, int dtype, void* stream) {
+  return vocab_phase1_launch(x, okey, oval, oidx, signs, rows, V, nblk, block, kk, decode, 3,
+                             flags, dtype, stream);
 }
 
 // One launch of the merge tree: int32 keys and indices (groups, 2^levels,
@@ -798,12 +899,14 @@ int repro_vocab_phase1(const void* x, void* okey, void* oval, void* oidx,
 // tail_levels levels of min(k, 2 len); decoded to `dtype` when decode is
 // set (the tree's last launch). With tail_levels > 0, skey and sidx are
 // (groups, len after `levels`) int32 of scratch and tickets (groups >>
-// tail_levels) int32 that are 0 (the launch leaves them 0). threads: a
-// CTA's, a multiple of 32 up to 1024.
+// tail_levels) int32 that are 0 (the launch leaves them 0). signs (null,
+// or phase 1's int32 flags a row, with decode): the zeros of the rows whose
+// flag is 0 are stored as -0.0. threads: a CTA's, a multiple of 32 up to
+// 1024.
 int repro_vocab_merge_tree(const void* ikey, const void* iidx, void* okey, void* oval,
-                           void* oidx, void* skey, void* sidx, void* tickets, int groups,
-                           int len, int k, int levels, int tail_levels, int decode,
-                           int threads, int dtype, void* stream) {
+                           void* oidx, void* skey, void* sidx, void* tickets, void* signs,
+                           int groups, int len, int k, int levels, int tail_levels,
+                           int decode, int threads, int dtype, void* stream) {
   if (groups <= 0 || len <= 0 || levels <= 0 || k <= 0 || tail_levels < 0
       || groups % (1 << tail_levels))
     return (int)cudaErrorInvalidValue;
@@ -815,13 +918,14 @@ int repro_vocab_merge_tree(const void* ikey, const void* iidx, void* okey, void*
   int32_t* sk = (int32_t*)skey;
   int32_t* si = (int32_t*)sidx;
   int* t = (int*)tickets;
+  const int* sg = (const int*)signs;
   if (dtype == F32)
-    return launch_tree<F32>(ik, ii, ok, oval, oi, sk, si, t, groups, len, k, levels,
+    return launch_tree<F32>(ik, ii, ok, oval, oi, sk, si, t, sg, groups, len, k, levels,
                             tail_levels, decode, threads, s);
   if (dtype == BF16)
-    return launch_tree<BF16>(ik, ii, ok, oval, oi, sk, si, t, groups, len, k, levels,
+    return launch_tree<BF16>(ik, ii, ok, oval, oi, sk, si, t, sg, groups, len, k, levels,
                              tail_levels, decode, threads, s);
-  return launch_tree<F16>(ik, ii, ok, oval, oi, sk, si, t, groups, len, k, levels,
+  return launch_tree<F16>(ik, ii, ok, oval, oi, sk, si, t, sg, groups, len, k, levels,
                           tail_levels, decode, threads, s);
 }
 

@@ -27,9 +27,9 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "topk": {
         "repro_router_topk": [P, P, P, I, I, I, I, I, I, P],
-        "repro_vocab_phase1": [P, P, P, P, I, I, I, I, I, I, I, I, P],
+        "repro_vocab_phase1": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
         "repro_vocab_phase1_parts": [P, P, P, P, I, I, I, I, I, I, I, I, P],
-        "repro_vocab_merge_tree": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+        "repro_vocab_merge_tree": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     },
     "segmented": {
         "repro_seg_sort": [P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P],

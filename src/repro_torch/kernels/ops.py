@@ -93,8 +93,8 @@ def median_k(lists: Sequence[torch.Tensor]) -> torch.Tensor:
 def topk(x: torch.Tensor, k: int, *, block: Optional[int] = None, zero_ties: bool = False
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Descending top-k with int32 indices over the last axis of (B, E)
-    float rows: the router kernel (row 3) for E <= 512, the vocab kernels
-    (rows 4 and 5) above; ``block`` defaults to the planner's.
+    float or int32 rows: the router kernel (row 3) for E <= 512, the vocab
+    kernels (rows 4 and 5) above; ``block`` defaults to the planner's.
     ``zero_ties`` (``nan_policy="unsafe"``): -0.0 and +0.0 tie."""
     if x.ndim != 2:
         raise ValueError("topk takes (B, E) rows")

@@ -23,19 +23,28 @@ CPU for the tests.
 
 Both take float32, bfloat16 or float16 and fuse the total-order key
 transform (encode on load, decode on store), which is what the reference's
-fused rung runs (``key_dtype`` set, ``use_mxu=False``). Indices are int32;
-pad slots carry -1.
+fused rung runs (``key_dtype`` set, ``use_mxu=False``); and int32, whose
+values are the keys, as the reference's fused rung runs integers
+(``key_dtype=None``, ``use_mxu=False``): a pad (``INT32_MIN``) then ties
+a genuine ``INT32_MIN``, and comes first among those, as a slot past the
+row's end. Indices are int32; pad slots carry -1.
+
+``zero_ties`` (``nan_policy="unsafe"``, where the reference compares raw
+floats and permutes them by its one-hot matrix product): -0.0 takes
++0.0's key, so the two tie, and a zero comes out as that permute puts it
+out (:func:`signed_zero_rule`).
 
 A CUDA tensor goes to the kernel (``csrc/topk.cu``) or raises; a CPU
 tensor runs the plain version. ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from .common import (
+    SIGNED_ZERO_LANES,
     decode_key_values,
     encode_key_values,
     key_transformable,
@@ -64,7 +73,7 @@ PHASE1_MAX_BLOCK = 1024
 ROUTER_THREADS = 256
 
 _KEY_PAD = torch.iinfo(torch.int32).min
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int32: 3}
 
 #: kernel launches per kernel (the kernels of ``segmented.py``,
 #: ``loms_merge.py``, ``sort.py``, ``kway.py`` and ``streaming/grid_merge.py``
@@ -163,6 +172,41 @@ def tree_launches(plan: Tuple[int, ...]) -> Tuple[Tuple[int, int], ...]:
     return tuple((g, 0) for g in plan[:-2]) + ((plan[-2], plan[-1]),)
 
 
+def signed_zero_rule(block: int, k: int, lists: int) -> bool:
+    """Whether a tree over ``lists`` lists of blocks of ``block`` puts out
+    -0.0 for the zeros of a row whose every value has its sign bit set,
+    under ``zero_ties``. The reference permutes raw floats by its one-hot
+    product at every block sort (``block`` lanes) and merge (two lists),
+    and that permute keeps a zero's sign only in a vector of at most
+    :data:`SIGNED_ZERO_LANES` lanes that all have the sign bit set
+    (``common.onehot_permute``); anywhere else a zero becomes +0.0, and
+    a lane without the sign bit makes every later vector's zeros +0.0.
+    The merges' vectors grow up the tree, so a zero keeps its sign exactly
+    when the block and the last vector (the root's merge of two lists, or
+    the block itself) are that short and every value of the row (the
+    reference's pads, the dtype minimum, included) has its sign bit
+    set."""
+    if block > SIGNED_ZERO_LANES:
+        return False
+    if lists <= 1:
+        return True
+    ln = min(k, block)
+    for _ in range((lists - 1).bit_length() - 1):
+        ln = min(k, 2 * ln)
+    return 2 * ln <= SIGNED_ZERO_LANES
+
+
+def _signed_zeros(keys: torch.Tensor, neg_rows: torch.Tensor) -> torch.Tensor:
+    """Zero keys of the rows ``neg_rows`` (rows, ...) made -0.0's key."""
+    neg = neg_rows.reshape(neg_rows.shape + (1,) * (keys.ndim - 1))
+    return torch.where(neg & (keys == 0), torch.full_like(keys, -1), keys)
+
+
+def _all_signed(x: torch.Tensor) -> torch.Tensor:
+    """(rows,): every value of the row has its sign bit set."""
+    return torch.signbit(x.float()).all(dim=-1)
+
+
 def vocab_merge_launches(v: int, block: int, k: int) -> int:
     """Merge-tree launches of one ``vocab_topk`` call (none for one block)."""
     return len(tree_launches(vocab_merge_plan(vocab_blocks(v, block), min(k, block), k,
@@ -182,10 +226,19 @@ def _merge_desc(av, ai, bv, bi, keep):
 
 
 def _keys(x: torch.Tensor, zero_ties: bool) -> torch.Tensor:
-    """The kernels' keys on load; ``zero_ties`` (``nan_policy="unsafe"``):
-    -0.0 with +0.0's key, so that the two tie as raw floats do."""
+    """The kernels' keys on load: int32 values as they are, floats encoded;
+    ``zero_ties`` (``nan_policy="unsafe"``): -0.0 with +0.0's key, so that
+    the two tie as raw floats do."""
+    if x.dtype == torch.int32:
+        return x
     keys = encode_key_values(x)
     return tie_signed_zeros(keys) if zero_ties else keys
+
+
+def _decode(keys: torch.Tensor, dtype) -> torch.Tensor:
+    """The kernels' store: keys decoded to a float ``dtype``; int32 keys
+    are the values."""
+    return keys if dtype == torch.int32 else decode_key_values(keys, dtype)
 
 
 def router_topk_plain(x: torch.Tensor, k: int, block: int, zero_ties: bool = False
@@ -205,14 +258,21 @@ def router_topk_plain(x: torch.Tensor, k: int, block: int, zero_ties: bool = Fal
         kk = min(k, 2 * kk)
         vs, is_ = _merge_desc(vs[..., 0::2, :], is_[..., 0::2, :],
                               vs[..., 1::2, :], is_[..., 1::2, :], kk)
-    return decode_key_values(vs[..., 0, :k], x.dtype), is_[..., 0, :k]
+    out = vs[..., 0, :k]
+    if zero_ties and x.dtype != torch.int32 and signed_zero_rule(block, k, g):
+        out = _signed_zeros(out, _all_signed(x))
+    return _decode(out, x.dtype), is_[..., 0, :k]
 
 
-def vocab_phase1_plain(x: torch.Tensor, k: int, block: int, zero_ties: bool = False
+def vocab_phase1_plain(x: torch.Tensor, k: int, block: int, zero_ties: bool = False,
+                       signs: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``vocab_phase1_kernel`` (``topk.py:122``): (B, V)
     -> int32 keys and indices (B, nblk, min(k, block)); with a single
-    block the keys come back decoded, as the reference's do."""
+    block the keys come back decoded, as the reference's do (with
+    ``zero_ties``, signed as :func:`signed_zero_rule` says). ``signs``
+    (int32 (B,)): set to 1 where a row holds a value without the sign bit
+    (what the merge tree's store reads)."""
     bsz, v = x.shape
     nblk = vocab_blocks(v, block)
     vp = nblk * block
@@ -224,31 +284,42 @@ def vocab_phase1_plain(x: torch.Tensor, k: int, block: int, zero_ties: bool = Fa
     vs, is_ = sort_nsorter(keys.reshape(bsz, nblk, block),
                            idx.reshape(bsz, nblk, block))
     vs, is_ = vs.flip(-1)[..., :kk], is_.flip(-1)[..., :kk]
+    if signs is not None:
+        signs |= (~_all_signed(x)).to(torch.int32)
     if nblk == 1:
-        vs = decode_key_values(vs, x.dtype)
+        if zero_ties and x.dtype != torch.int32 and signed_zero_rule(block, k, 1):
+            vs = _signed_zeros(vs, _all_signed(x))
+        vs = _decode(vs, x.dtype)
     return vs, is_
 
 
 def vocab_merge_level_plain(keys: torch.Tensor, idx: torch.Tensor, k: int,
-                            decode_dtype=None
+                            decode_dtype=None, signs: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of one ``vocab_merge_level_kernel`` launch
-    (``topk.py:142``): (B, 2g, len) -> (B, g, min(k, 2 len))."""
+    (``topk.py:142``): (B, 2g, len) -> (B, g, min(k, 2 len)). ``signs``
+    (the store of the tree's last level): zeros of the rows where it is 0
+    come out -0.0."""
     keep = min(k, 2 * keys.shape[-1])
     vs, is_ = _merge_desc(keys[:, 0::2], idx[:, 0::2], keys[:, 1::2],
                           idx[:, 1::2], keep)
+    if signs is not None:
+        vs = _signed_zeros(vs, signs == 0)
     if decode_dtype is not None:
         vs = decode_key_values(vs, decode_dtype)
     return vs, is_
 
 
 def vocab_merge_tree_plain(keys: torch.Tensor, idx: torch.Tensor, k: int,
-                           decode_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                           decode_dtype=None, signs: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the merge tree: ``vocab_merge_level_plain``
-    chained, (B, L, len) -> (B, 1, len'), the last level decoded."""
+    chained, (B, L, len) -> (B, 1, len'), the last level decoded (and
+    signed by ``signs``)."""
     while keys.shape[1] > 1:
         last = keys.shape[1] == 2
-        keys, idx = vocab_merge_level_plain(keys, idx, k, decode_dtype if last else None)
+        keys, idx = vocab_merge_level_plain(keys, idx, k, decode_dtype if last else None,
+                                            signs if last else None)
     return keys, idx
 
 
@@ -351,12 +422,20 @@ def sort_slots(block: int) -> int:
     return max(16, 1 << max(block - 1, 0).bit_length())
 
 
-def _block_words(keys: torch.Tensor, pos: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
+def _block_words(keys: torch.Tensor, pos: torch.Tensor, real: torch.Tensor,
+                 vpad: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The block sort's words (``make_word``): int32 keys and positions ->
     for 16-bit keys (sign-extended int16) the int32 word key << 16 |
     position, for f32 keys (int64 ``keys``) the int64 word key << 32 |
-    position; slots not ``real`` become the pad word, below every real one."""
-    if keys.dtype == torch.int64:
+    position; slots not ``real`` become the pad word, below every real one.
+    With ``vpad`` (int32 rows' slots past V in the block), the int32 word
+    key << 32 | position + 1, the slots ``vpad`` the key ``INT32_MIN``."""
+    if vpad is not None:
+        keys = torch.where(vpad, torch.full_like(keys, _KEY_PAD), keys)
+        words = (keys.long() << 32) | (pos.long() + 1)
+        real = real | vpad
+        pad = torch.iinfo(torch.int64).min
+    elif keys.dtype == torch.int64:
         words = (keys << 32) | pos.long()
         pad = torch.iinfo(torch.int64).min
     else:  # the 16-bit key's bits, shifted into the high half, wrap into int32
@@ -365,16 +444,22 @@ def _block_words(keys: torch.Tensor, pos: torch.Tensor, real: torch.Tensor) -> t
     return torch.where(real, words, torch.full_like(words, pad))
 
 
-def _word_fields(words: torch.Tensor, base) -> Tuple[torch.Tensor, torch.Tensor]:
+def _word_fields(words: torch.Tensor, base, v: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``word_key`` / ``word_index``: (int32 key, int32 base + position);
-    (INT32_MIN, -1) for the pad word."""
+    (INT32_MIN, -1) for the pad word. ``v`` (int32 words, position + 1):
+    an index past ``v`` is -1."""
     wide = words.dtype == torch.int64
     pad = words == (torch.iinfo(torch.int64).min if wide else _KEY_PAD)
     key = (words >> 32) if wide else (words >> 16)
     pos = (words & 0xFFFFFFFF) if wide else (words & 0xFFFF)
+    if v is not None:
+        pos = pos - 1
     key = torch.where(pad, torch.full_like(key, _KEY_PAD), key).to(torch.int32)
-    idx = torch.where(pad, torch.full_like(pos, -1), pos + base).to(torch.int32)
-    return key, idx
+    idx = torch.where(pad, torch.full_like(pos, -1), pos + base)
+    if v is not None:
+        idx = torch.where(idx >= v, -1, idx)
+    return key, idx.to(torch.int32)
 
 
 def _bitonic_desc(words: torch.Tensor) -> torch.Tensor:
@@ -400,23 +485,26 @@ def _bitonic_desc(words: torch.Tensor) -> torch.Tensor:
 
 
 def _sorted_blocks(keys: torch.Tensor, v: int, block: int, blocks: int, kk: int,
-                   global_pos: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                   global_pos: bool, x_int: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The first ``blocks`` blocks of each row of ``keys`` (rows, >= v;
     int32 keys of 16-bit floats, or f32 keys widened to int64), each
     padded to :func:`sort_slots` words (slots past ``block`` and past
     ``v``: pads), sorted by :func:`_bitonic_desc`, cut to ``kk``: int32
     keys and indices (rows, blocks, kk). The words' positions are the
     slot's in its block (phase 1) or in the row (``global_pos``: the
-    router)."""
+    router). ``x_int``: int32 rows, their values the keys (int32 words,
+    the pads past V the key ``INT32_MIN`` and the index -1)."""
     bp = sort_slots(block)
     p = torch.arange(bp)
     base = torch.arange(blocks)[:, None] * block
     pos = base + p
     real = (p < block) & (pos < v)
+    int_keys = keys.dtype == torch.int32 and x_int
+    vpad = ((p < block) & (pos >= v)).expand(keys.shape[0], -1, -1) if int_keys else None
     kx = keys[:, torch.clamp(pos, max=max(v - 1, 0))]
-    words = _block_words(kx, pos if global_pos else p.expand_as(pos), real)
+    words = _block_words(kx, pos if global_pos else p.expand_as(pos), real, vpad)
     words = _bitonic_desc(words)[..., :kk]
-    return _word_fields(words, 0 if global_pos else base)
+    return _word_fields(words, 0 if global_pos else base, v if int_keys else None)
 
 
 def vocab_phase1_emulated(x: torch.Tensor, k: int, block: int
@@ -430,13 +518,14 @@ def vocab_phase1_emulated(x: torch.Tensor, k: int, block: int
     real = min(nblk, -(-v // block))
     out = torch.full((bsz, nblk, kk), _KEY_PAD, dtype=torch.int32)
     idx = torch.full((bsz, nblk, kk), -1, dtype=torch.int32)
+    x_int = x.dtype == torch.int32
     if real:
-        keys = encode_key_values(x)
+        keys = x if x_int else encode_key_values(x)
         if x.dtype == torch.float32:
             keys = keys.long()  # the 64-bit words of f32 keys
-        out[:, :real], idx[:, :real] = _sorted_blocks(keys, v, block, real, kk, False)
+        out[:, :real], idx[:, :real] = _sorted_blocks(keys, v, block, real, kk, False, x_int)
     if nblk == 1:
-        out = decode_key_values(out, x.dtype)
+        out = _decode(out, x.dtype)
     return out, idx
 
 
@@ -451,25 +540,44 @@ def router_topk_emulated(x: torch.Tensor, k: int, block: int, *, rows_per_cta: i
     t, e = x.shape
     g, kk = e // block, min(k, block)
     levels = (g - 1).bit_length()
-    keys = encode_key_values(x)
+    x_int = x.dtype == torch.int32
+    keys = x if x_int else encode_key_values(x)
     if x.dtype == torch.float32:
         keys = keys.long()
-    words = _pack(*_sorted_blocks(keys, e, block, g, kk, True))
+    words = _pack(*_sorted_blocks(keys, e, block, g, kk, True, x_int))
     pad = _pack(torch.tensor(_KEY_PAD), torch.tensor(-1))
     words = torch.cat([words, pad.expand(t, (1 << levels) - g, kk)], dim=1)
     ln = kk
     for lvl in range(levels):
         words = _tree_level(words, ln, k, rows_per_cta << (levels - lvl - 1), threads)
         ln = words.shape[-1]
-    keys, idx = _unpack(words[:, 0], x.dtype)
+    keys, idx = _unpack(words[:, 0], _decode_dtype(x.dtype))
     return keys, idx
+
+
+def _vocab_signs(x: torch.Tensor, k: int, block: int, zero_ties: bool
+                 ) -> Optional[torch.Tensor]:
+    """The per-row sign flags phase 1 hands the merge tree's store, where
+    the tree can put out -0.0 (:func:`signed_zero_rule`); else None."""
+    nblk = vocab_blocks(x.shape[1], block)
+    if not zero_ties or x.dtype == torch.int32 or nblk == 1 \
+            or not signed_zero_rule(block, k, nblk):
+        return None
+    return torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+
+
+def _decode_dtype(dtype):
+    """What the merge tree decodes its keys to: floats; int32 keys are
+    the values (None)."""
+    return None if dtype == torch.int32 else dtype
 
 
 def vocab_topk_plain(x: torch.Tensor, k: int, block: int = 128, zero_ties: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the whole vocab path (phase 1 + merge levels)."""
-    vs, is_ = vocab_phase1_plain(x, k, block, zero_ties)
-    vs, is_ = vocab_merge_tree_plain(vs, is_, k, x.dtype)
+    signs = _vocab_signs(x, k, block, zero_ties)
+    vs, is_ = vocab_phase1_plain(x, k, block, zero_ties, signs)
+    vs, is_ = vocab_merge_tree_plain(vs, is_, k, _decode_dtype(x.dtype), signs)
     return vs[:, 0, :k], is_[:, 0, :k]
 
 
@@ -480,8 +588,8 @@ def vocab_topk_plain(x: torch.Tensor, k: int, block: int = 128, zero_ties: bool 
 def _check_input(x: torch.Tensor, k: int, k_max: int) -> None:
     if x.ndim != 2:
         raise ValueError(f"top-k takes a 2-D (rows, axis) tensor, got {tuple(x.shape)}")
-    if not key_transformable(x.dtype):
-        raise TypeError(f"top-k takes float32, bfloat16 or float16, not {x.dtype}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"top-k takes float32, bfloat16, float16 or int32, not {x.dtype}")
     if not 1 <= k <= k_max:
         raise ValueError(f"k={k} out of range [1, {k_max}]")
 
@@ -496,7 +604,8 @@ def _check_cuda(x: torch.Tensor) -> None:
 def router_topk(x: torch.Tensor, k: int, *, block: int = 32, zero_ties: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Descending top-k over the last axis of (T, E), E <= 512, E % block == 0;
-    ``zero_ties``: -0.0 and +0.0 tie (``nan_policy="unsafe"``).
+    ``zero_ties``: -0.0 and +0.0 tie (``nan_policy="unsafe"``), and zeros
+    are signed by :func:`signed_zero_rule`.
 
     Replaces ``router_topk_pallas`` (``src/repro/kernels/topk.py:88``)."""
     _check_input(x, k, x.shape[-1])
@@ -512,21 +621,24 @@ def router_topk(x: torch.Tensor, k: int, *, block: int = 32, zero_ties: bool = F
     v = torch.empty((t, k), dtype=x.dtype, device=x.device)
     i = torch.empty((t, k), dtype=torch.int32, device=x.device)
     if t:
+        negz = zero_ties and x.dtype != torch.int32 and signed_zero_rule(block, k, e // block)
         check_rc(library("topk").repro_router_topk(
-            x.data_ptr(), v.data_ptr(), i.data_ptr(), t, e, k, block, int(zero_ties),
-            _DTYPE_CODE[x.dtype], stream(x)), "router_topk")
+            x.data_ptr(), v.data_ptr(), i.data_ptr(), t, e, k, block,
+            int(zero_ties) | 2 * int(negz), _DTYPE_CODE[x.dtype], stream(x)), "router_topk")
         LAUNCHES["router_topk"] += 1
     return v, i
 
 
-def vocab_phase1(x: torch.Tensor, k: int, block: int, zero_ties: bool = False
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def vocab_phase1(x: torch.Tensor, k: int, block: int, zero_ties: bool = False,
+                 signs: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase 1 of the vocab top-k (replaces ``_phase1_kernel``): (B, V) ->
     int32 keys and indices (B, nblk, min(k, block)), nblk a power of two;
-    with a single block the values come back decoded."""
+    with a single block the values come back decoded. ``signs`` (int32
+    (B,), zeros): set to 1 where a row holds a value without the sign bit,
+    for the merge tree's store (:func:`signed_zero_rule`)."""
     _check_input(x, k, MERGE_MAX_LEN)
     if x.device.type == "cpu":
-        return vocab_phase1_plain(x, k, block, zero_ties)
+        return vocab_phase1_plain(x, k, block, zero_ties, signs)
     if x.device.type != "cuda":
         raise ValueError(f"no top-k kernel for device {x.device}")
     _check_cuda(x)
@@ -540,10 +652,12 @@ def vocab_phase1(x: torch.Tensor, k: int, block: int, zero_ties: bool = False
     idx = torch.empty((bsz, nblk, kk), dtype=torch.int32, device=x.device)
     out = torch.empty((bsz, nblk, kk), dtype=x.dtype if single else torch.int32,
                       device=x.device)
+    negz = single and zero_ties and x.dtype != torch.int32 and signed_zero_rule(block, k, 1)
     if bsz:
         check_rc(library("topk").repro_vocab_phase1(
-            x.data_ptr(), out.data_ptr(), out.data_ptr(), idx.data_ptr(), bsz, v,
-            nblk, block, kk, int(single), int(zero_ties), _DTYPE_CODE[x.dtype], stream(x)),
+            x.data_ptr(), out.data_ptr(), out.data_ptr(), idx.data_ptr(),
+            None if signs is None else signs.data_ptr(), bsz, v, nblk, block, kk,
+            int(single), int(zero_ties) | 2 * int(negz), _DTYPE_CODE[x.dtype], stream(x)),
             "vocab_phase1")
         LAUNCHES["vocab_phase1"] += 1
     return out, idx
@@ -563,11 +677,13 @@ def _tickets(device, rows: int) -> torch.Tensor:
 
 
 def vocab_merge_tree_launch(keys: torch.Tensor, idx: torch.Tensor, k: int, levels: int,
-                            tail_levels: int = 0, decode_dtype=None
+                            tail_levels: int = 0, decode_dtype=None,
+                            signs: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of ``vocab_merge_tree_kernel``: subtrees of 2^levels lists,
     then (``tail_levels`` > 0) the rest of each row's tree by its last CTA.
-    (B, L, len) -> (B, L >> (levels + tail_levels), len'). Counts a launch."""
+    (B, L, len) -> (B, L >> (levels + tail_levels), len'). ``signs``: as
+    :func:`vocab_merge_tree` (the tree's last launch). Counts a launch."""
     bsz, lists, ln = keys.shape
     mid = ln
     for _ in range(levels):
@@ -588,7 +704,7 @@ def vocab_merge_tree_launch(keys: torch.Tensor, idx: torch.Tensor, k: int, level
         check_rc(library("topk").repro_vocab_merge_tree(
             keys.data_ptr(), idx.data_ptr(), out.data_ptr(), out.data_ptr(),
             oidx.data_ptr(), *(None if t is None else t.data_ptr()
-                               for t in (skey, sidx, tickets)),
+                               for t in (skey, sidx, tickets, signs)),
             groups, ln, k, levels, tail_levels, int(decode_dtype is not None),
             TREE_THREADS, _DTYPE_CODE.get(decode_dtype, 0), stream(keys)),
             "vocab_merge_tree")
@@ -597,18 +713,20 @@ def vocab_merge_tree_launch(keys: torch.Tensor, idx: torch.Tensor, k: int, level
 
 
 def vocab_merge_tree(keys: torch.Tensor, idx: torch.Tensor, k: int,
-                     decode_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     decode_dtype=None, signs: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The vocab merge tree (replaces the launches of ``_merge_level_kernel``,
     one a level): int32 keys and indices (B, L, len), L a power of two ->
     (B, 1, len'), each level keeping min(k, 2 len), decoded to
-    ``decode_dtype`` when it is given. The launches of
+    ``decode_dtype`` when it is given; ``signs`` (int32 (B,), phase 1's):
+    the zeros of the rows where it is 0 come out -0.0. The launches of
     :func:`tree_launches` of :func:`vocab_merge_plan`: one at the serving
     shapes. The last CTA of a row is found by tickets kept per device, so
     two trees must not run at once on two streams of one card."""
     if decode_dtype is not None and not key_transformable(decode_dtype):
         raise TypeError(f"cannot decode keys to {decode_dtype}")
     if keys.device.type == "cpu":
-        return vocab_merge_tree_plain(keys, idx, k, decode_dtype)
+        return vocab_merge_tree_plain(keys, idx, k, decode_dtype, signs)
     if keys.device.type != "cuda":
         raise ValueError(f"no top-k kernel for device {keys.device}")
     if (keys.dtype != torch.int32 or idx.dtype != torch.int32 or keys.ndim != 3
@@ -622,8 +740,10 @@ def vocab_merge_tree(keys: torch.Tensor, idx: torch.Tensor, k: int,
     steps = tree_launches(vocab_merge_plan(keys.shape[1], keys.shape[2], k,
                                            launch.VOCAB_GROUP))
     for n, (levels, tail) in enumerate(steps):
+        last = n == len(steps) - 1
         keys, idx = vocab_merge_tree_launch(keys, idx, k, levels, tail,
-                                            decode_dtype if n == len(steps) - 1 else None)
+                                            decode_dtype if last else None,
+                                            signs if last else None)
     return keys, idx
 
 
@@ -634,8 +754,10 @@ def vocab_topk(x: torch.Tensor, k: int, *, block: int = 128, zero_ties: bool = F
     (``src/repro/kernels/topk.py:155``): one phase-1 launch, then the
     merge tree (:func:`vocab_merge_launches` launches). As in the
     reference, k may exceed V: the slots past the real candidates are
-    pads. ``zero_ties``: -0.0 and +0.0 tie (``nan_policy="unsafe"``)."""
-    vs, is_ = vocab_phase1(x, k, block, zero_ties)
+    pads. ``zero_ties``: -0.0 and +0.0 tie (``nan_policy="unsafe"``), and
+    zeros are signed by :func:`signed_zero_rule`."""
+    signs = _vocab_signs(x, k, block, zero_ties)
+    vs, is_ = vocab_phase1(x, k, block, zero_ties, signs)
     if vs.shape[1] > 1:
-        vs, is_ = vocab_merge_tree(vs, is_, k, x.dtype)
+        vs, is_ = vocab_merge_tree(vs, is_, k, _decode_dtype(x.dtype), signs)
     return vs[:, 0, :k], is_[:, 0, :k]

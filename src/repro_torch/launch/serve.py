@@ -3,10 +3,12 @@
   python -m repro_torch.launch.serve --arch qwen3-8b \
       --batch 4 --prompt-len 32 --new-tokens 16 --top-k 16
   python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
+  python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
 
 (with ``src`` on ``PYTHONPATH``). The flags are those of
 ``repro.launch.serve`` plus ``--device`` (default ``cuda``; ``cpu`` only
-when asked). The dense and MoE families serve. Weights are random,
+when asked). The dense and MoE families serve, DeepSeek-V2-Lite's MLA
+included. Weights are random,
 drawn from seed 0. ``--ragged`` draws a
 length per request in [1, prompt_len] and right-pads the batch.
 ``--engine`` serves the same requests through the request scheduler

@@ -1,7 +1,7 @@
-"""GQA attention with qk-norm and RoPE, and its KV cache.
+"""GQA attention with qk-norm and RoPE, MLA, and their caches.
 
-Counterpart of ``repro.models.attention`` (dense GQA; MLA waits). All of it
-is plain torch ops; the JAX package has no Pallas kernel here.
+Counterpart of ``repro.models.attention``. All of it is plain torch ops;
+the JAX package has no Pallas kernel here.
 
 * Prefill runs the forward half of the reference's chunked online softmax
   (``_flash_fwd_impl``, ``attention.py:49``), so a long prompt never
@@ -12,6 +12,13 @@ is plain torch ops; the JAX package has no Pallas kernel here.
   ``(B, Hkv, S, D)``, ``pos`` a scalar or one write position per row.
   The port writes the cache in place (the reference returns an updated
   copy); the returned dict holds the same tensors.
+* MLA (DeepSeek-V2's multi-head latent attention, ``attention.py:363``)
+  caches the compressed latent ``ckv`` (B, kv_lora, S) and the RoPE key
+  ``kpe`` (B, rope, S): 576 elements a token a layer at DeepSeek-V2-Lite's
+  width, where GQA at 16 kv-heads of 128 would cache 4,096. Train and
+  prefill expand the latent to per-head keys and values and run
+  :func:`flash_attention` (16 heads, d 192, dv 128); decode attends in
+  the absorbed form, the query folded through ``wuk`` into the latent.
 """
 from __future__ import annotations
 
@@ -167,5 +174,134 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
     return {
         "k": torch.zeros((batch, hkv, hd, max_len), dtype=dtype, device=device),
         "v": torch.zeros((batch, hkv, max_len, hd), dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(generator, cfg: ModelConfig, dtype, device) -> dict:
+    """``mla_init`` (``attention.py:363``): ``wq`` (d, h, nope + rope),
+    ``wdkv`` (d, kv_lora + rope), ``kv_norm`` (float32 ones, as the
+    reference keeps it), ``wuk`` (kv_lora, h, nope), ``wuv`` (kv_lora, h, v),
+    ``wo`` (h v, d)."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": dense_init(generator, d, (h, qd), dtype, device),
+        "wdkv": dense_init(generator, d, m.kv_lora_rank + m.qk_rope_head_dim, dtype, device),
+        "kv_norm": {"scale": torch.ones(m.kv_lora_rank, dtype=torch.float32, device=device)},
+        "wuk": dense_init(generator, m.kv_lora_rank, (h, m.qk_nope_head_dim), dtype, device),
+        "wuv": dense_init(generator, m.kv_lora_rank, (h, m.v_head_dim), dtype, device),
+        "wo": dense_init(generator, h * m.v_head_dim, d, dtype, device),
+    }
+
+
+def _mla_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """(q_nope, q_pe, ckv, k_pe) of x (B, S, D) (``attention.py:382``):
+    RoPE over the whole of ``q_pe`` and ``k_pe``; ``ckv`` RMS-normed in
+    float32."""
+    m = cfg.mla
+    q = dense(p["wq"], x)  # (b, s, h, nope + rope)
+    q_nope, q_pe = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_pe = apply_rope(q_pe, positions, 1.0, cfg.rope_theta)
+    dkv = dense(p["wdkv"], x)  # (b, s, kv_lora + rope)
+    ckv, k_pe = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    ckv = rmsnorm(p["kv_norm"], ckv, cfg.norm_eps)
+    k_pe = apply_rope(k_pe[:, :, None, :], positions, 1.0, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_pe, ckv, k_pe
+
+
+def _mla_decode(p: dict, q_nope: torch.Tensor, q_pe: torch.Tensor, ckv_c: torch.Tensor,
+                kpe_c: torch.Tensor, valid_len: torch.Tensor, scale: float,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The absorbed form (``attention.py:413-440``) for one query a row:
+    q_nope (B, h, nope), q_pe (B, h, rope), the caches (nc, kv_lora, S)
+    and (nc, rope, S) of the first nc <= B rows -> ctx (B, h, v), zero for
+    the rows past nc (``decode_step``'s pads). The query's latent and
+    both score products are in the working type, then widened; a float32
+    softmax, its weights in the cache's type; the latent context back in
+    the working type before ``wuv``. A row's bits do not depend on how
+    many real rows share the step: every product takes all B rows (the
+    padded count is fixed), the caches padded with zero rows, which
+    attend nothing (a batched product over nc rows gave rows 0-2 other
+    bits at 3 rows than at 4 on the H100)."""
+    b, nc = q_nope.shape[0], ckv_c.shape[0]
+    q_lat = torch.einsum("bhq,lhq->bhl", q_nope, p["wuk"]["w"].to(dtype))
+    ckv_r, kpe_r = ckv_c.to(dtype), kpe_c.to(dtype)
+    valid = valid_len.reshape(-1).expand(nc)
+    if nc < b:
+        ckv_r = torch.cat([ckv_r, ckv_r.new_zeros((b - nc,) + ckv_r.shape[1:])])
+        kpe_r = torch.cat([kpe_r, kpe_r.new_zeros((b - nc,) + kpe_r.shape[1:])])
+        valid = torch.cat([valid, valid.new_zeros(b - nc)])
+    s_lat = torch.matmul(q_lat, ckv_r).float()  # (b, h, S)
+    s_pe = torch.matmul(q_pe, kpe_r).float()
+    logits = (s_lat + s_pe) * scale
+    mask = torch.arange(ckv_c.shape[-1], device=q_nope.device)[None, :] < valid[:, None]
+    logits = logits.masked_fill(~mask[:, None, :], _NEG)
+    w = torch.softmax(logits, dim=-1).to(ckv_r.dtype)
+    ctx_lat = torch.matmul(w, ckv_r.transpose(1, 2)).to(dtype)  # pad rows: zero
+    return torch.einsum("bhl,lhv->bhv", ctx_lat, p["wuv"]["w"].to(dtype))
+
+
+def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: Optional[torch.Tensor] = None,
+              cache: Optional[dict] = None, mode: str = "train"):
+    """x (B, S, D) -> (out (B, S, D), cache) (``mla_apply``,
+    ``attention.py:394``). Decode rows past the cache's are
+    ``decode_step``'s pads: they attend nothing and give zeros."""
+    m = cfg.mla
+    b, sq, _ = x.shape
+    h = cfg.n_heads
+    if positions is None:
+        positions = torch.arange(sq, device=x.device)[None, :]
+    q_nope, q_pe, ckv, k_pe = _mla_qkv(p, x, cfg, positions)
+    scale = float(1.0 / np.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim))
+
+    new_cache = cache
+    if mode == "decode":
+        assert sq == 1 and cache is not None
+        idx = cache["pos"]
+        ckv_c, kpe_c = cache["ckv"], cache["kpe"]
+        nc = ckv_c.shape[0]
+        ckv_t = ckv[:nc, 0].to(ckv_c.dtype)  # (nc, kv_lora)
+        kpe_t = k_pe[:nc, 0].to(kpe_c.dtype)
+        if idx.ndim == 0:
+            ckv_c[:, :, idx.long()] = ckv_t
+            kpe_c[:, :, idx.long()] = kpe_t
+        else:
+            rows = torch.arange(nc, device=x.device)
+            ckv_c[rows, :, idx.long()] = ckv_t
+            kpe_c[rows, :, idx.long()] = kpe_t
+        new_cache = {"ckv": ckv_c, "kpe": kpe_c, "pos": idx + 1}
+        ctx = _mla_decode(p, q_nope[:, 0], q_pe[:, 0], ckv_c, kpe_c, idx + 1, scale, x.dtype)
+        out = ctx.reshape(b, 1, h * m.v_head_dim)
+    else:
+        if mode == "prefill" and cache is not None:
+            ckv_c, kpe_c = cache["ckv"], cache["kpe"]
+            ckv_c[:, :, :sq] = ckv.transpose(1, 2).to(ckv_c.dtype)
+            kpe_c[:, :, :sq] = k_pe.transpose(1, 2).to(kpe_c.dtype)
+            new_cache = {"ckv": ckv_c, "kpe": kpe_c,
+                         "pos": torch.full((), sq, dtype=torch.int32, device=x.device)}
+        k_nope = dense(p["wuk"], ckv)  # (b, s, h, nope): the latent expanded
+        v = dense(p["wuv"], ckv)
+        k_pe_b = k_pe[:, :, None, :].expand(b, sq, h, m.qk_rope_head_dim)
+        k = torch.cat([k_nope, k_pe_b], dim=-1)
+        q = torch.cat([q_nope, q_pe], dim=-1)[:, :, :, None, :]  # MHA: hkv = h, g = 1
+        out = flash_attention(q, k, v, causal=cfg.causal, chunk=cfg.attn_chunk, scale=scale)
+        out = out.reshape(b, sq, h * m.v_head_dim)
+    return dense(p["wo"], out), new_cache
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
+    """The latent cache: ``ckv`` (B, kv_lora, S), ``kpe`` (B, rope, S)."""
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, m.kv_lora_rank, max_len), dtype=dtype, device=device),
+        "kpe": torch.zeros((batch, m.qk_rope_head_dim, max_len), dtype=dtype, device=device),
         "pos": torch.zeros((), dtype=torch.int32, device=device),
     }

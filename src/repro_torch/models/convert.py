@@ -6,7 +6,8 @@ no JAX) and returns the port's parameters, so that both packages compute
 the same function. The stacked ``stack/body`` leaves, with their leading
 layer axis (the MoE router and expert weights too), become one dict per
 layer; the unscanned ``stack/head`` blocks of a MoE stack carry over as
-they are.
+they are. MLA's leaves (``wq``, ``wuk`` and ``wuv`` 3-D, ``wdkv``,
+``kv_norm``, ``wo``) carry over as every other leaf does.
 """
 from __future__ import annotations
 

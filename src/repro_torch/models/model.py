@@ -1,5 +1,6 @@
 """LM wrapper: init / forward / prefill / decode for the dense and MoE
-families.
+families, on GQA or MLA attention (each layer's cache a dict with its
+``pos``: ``k`` / ``v``, or MLA's ``ckv`` / ``kpe``).
 
 Counterpart of ``repro.models.model``. Parameters are a nested dict with
 the reference's names and layouts; the layer stack is a list of per-layer

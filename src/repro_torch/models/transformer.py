@@ -4,7 +4,8 @@ Counterpart of ``repro.models.transformer``: the reference scans stacked
 layer parameters; the port keeps one parameter dict per layer and runs
 the layers in a Python loop. The unscanned leading dense blocks of a MoE
 stack (``first_dense_layers``) are its ``head``, as in the reference.
-MLA, SSM, hybrid and the frontends wait for later slices.
+A config with ``mla`` runs MLA in every block, the head's included
+(DeepSeek-V2-Lite). SSM, hybrid and the frontends wait for later slices.
 """
 from __future__ import annotations
 
@@ -13,18 +14,15 @@ from typing import List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .attention import attn_apply, attn_cache_init, attn_init
+from .attention import (attn_apply, attn_cache_init, attn_init, mla_apply, mla_cache_init,
+                        mla_init)
 from .layers import mlp, mlp_init, rmsnorm
 from .moe import moe_apply, moe_init
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """The stacks the port runs: dense and MoE families on GQA attention.
-    The others raise with the ROADMAP item that brings them."""
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP Queue 1, item 7: "
-            "MLA with deepseek-v2-lite)")
+    """The stacks the port runs: dense and MoE families on GQA or MLA
+    attention. The others raise with the ROADMAP item that brings them."""
     if cfg.family in ("ssm", "hybrid") or cfg.ssm is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} stack is not ported yet (ROADMAP Queue 1, "
@@ -46,7 +44,8 @@ def _layer_ffn_kind(cfg: ModelConfig, layer: int) -> str:
 
 def block_init(generator, cfg: ModelConfig, dtype, device, *, ffn: str = "dense") -> dict:
     ones = lambda: {"scale": torch.ones(cfg.d_model, dtype=dtype, device=device)}  # noqa: E731
-    p = {"ln1": ones(), "attn": attn_init(generator, cfg, dtype, device), "ln2": ones()}
+    attn = mla_init if cfg.mla is not None else attn_init  # transformer.py:43
+    p = {"ln1": ones(), "attn": attn(generator, cfg, dtype, device), "ln2": ones()}
     if ffn == "moe":
         p["ffn"] = moe_init(generator, cfg, dtype, device)
     else:
@@ -60,8 +59,8 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     """Pre-norm residual block (``transformer.py:55``); ``rows``: the real
     rows of a padded decode batch (the MoE capacity counts those)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a, cache = attn_apply(p["attn"], h, cfg, cache=cache, mode=mode,
-                          positions=positions)
+    attn = mla_apply if cfg.mla is not None else attn_apply
+    a, cache = attn(p["attn"], h, cfg, cache=cache, mode=mode, positions=positions)
     x = x + a
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if ffn == "moe":
@@ -111,10 +110,10 @@ def stack_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                      device) -> dict:
     check_family(cfg)
     n_head = _n_head(cfg)
+    cache_init = mla_cache_init if cfg.mla is not None else attn_cache_init
     out = {}
     if n_head:
-        out["head"] = [attn_cache_init(cfg, batch, max_len, dtype, device)
-                       for _ in range(n_head)]
-    out["body"] = [attn_cache_init(cfg, batch, max_len, dtype, device)
+        out["head"] = [cache_init(cfg, batch, max_len, dtype, device) for _ in range(n_head)]
+    out["body"] = [cache_init(cfg, batch, max_len, dtype, device)
                    for _ in range(cfg.n_layers - n_head)]
     return out

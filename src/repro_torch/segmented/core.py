@@ -41,8 +41,10 @@ from repro_torch.kernels.common import (decode_key_values, encode_key_values,
                                         flip_keys, key_transformable, sentinel_max,
                                         sentinel_min, take_along, tie_signed_zeros)
 from repro_torch.kernels.segmented import segment_class_merge, segment_class_sort
+from repro_torch.networks import merge_program
+from repro_torch.streaming.chunked import _chunked_merge2
 from repro_torch.streaming.grid_merge import grid_chunked_merge2, grid_merge2_rows
-from repro_torch.streaming.planner import plan_chunked, sort_fits_vmem
+from repro_torch.streaming.planner import MergePlan, plan_chunked, sort_fits_vmem
 
 from .bucketing import (SizeClass, bucket_merge_pairs, bucket_segments,
                         gather_map, normalize_offsets, scatter_map,
@@ -181,16 +183,54 @@ def spill_merge_level(cur: torch.Tensor, m: int, ln: int, rest: int, tile: int):
     return nxt, p, 2 * ln, (ln if m % 2 else rest)
 
 
-def _spill_sort_values(dense: torch.Tensor, descending: bool, tile: int) -> torch.Tensor:
+def _merge_positions(ka: torch.Tensor, kb: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
+                     tile: int):
+    """(keys, positions): the key rows ``ka`` / ``kb`` merged, and their
+    positions ``pa`` / ``pb`` in the order the reference's grid merge puts
+    them, ties included: its carry loop (``chunked_merge(mode="loop")``)
+    at the grid merge's program, the positions as the payload."""
+    plan = MergePlan(n_cols=merge_program("loms", tile, tile).n_cols, use_mxu=False)
+    return _chunked_merge2(ka, kb, tile, plan, pa, pb)
+
+
+def _spill_positions(keys: torch.Tensor, tile: int) -> torch.Tensor:
+    """The reference's values-only sort spill on (S, c x tile) keys,
+    carried out on positions: every tile sorted by the class kernel (its
+    permutation), then the runs of each row merged pairwise in order (the
+    odd one carried) by :func:`_merge_positions`. Returns the (S, c x
+    tile) positions in the reference's order, ties included."""
+    s, width = keys.shape
+    c = width // tile
+    lens = torch.full((s * c, 1), tile, dtype=torch.int32, device=keys.device)
+    srt, perm, _ = segment_class_sort(keys.reshape(s * c, tile).contiguous(), lens,
+                                      network=class_plan((tile,), s * c, keys.dtype).network,
+                                      want_perm=True)
+    base = torch.arange(c, dtype=torch.int32, device=keys.device)[:, None] * tile
+    srt, pos = srt.reshape(s, c, tile), (perm.reshape(s, c, tile) + base)
+    runs = [(srt[:, i], pos[:, i]) for i in range(c)]
+    while len(runs) > 1:
+        nxt = [_merge_positions(runs[i][0], runs[i + 1][0], runs[i][1], runs[i + 1][1], tile)
+               for i in range(0, len(runs) - 1, 2)]
+        runs = nxt + runs[len(runs) - len(runs) % 2:]
+    return runs[0][1]
+
+
+def _spill_sort_values(dense: torch.Tensor, descending: bool, tile: int,
+                       zero_ties: bool = False) -> torch.Tensor:
     """Values-only sort of equal-length long rows: every tile of every row
     sorted in one class launch, then the sorted runs of each row merged
-    pairwise by the grid merge, one launch a level."""
+    pairwise by the grid merge, one launch a level. With ``zero_ties``
+    (-0.0 and +0.0 tie, so equal keys hold unequal values) the runs carry
+    positions (:func:`_spill_positions`) and the raw values are gathered
+    at them."""
     s, ln = dense.shape
-    keys = _keys_for(dense, descending)
+    keys = _keys_for(dense, descending, zero_ties)
     c = -(-ln // tile)
     if c * tile != ln:
         keys = torch.cat([keys, keys.new_full((s, c * tile - ln),
                                               sentinel_max(keys.dtype))], dim=1)
+    if zero_ties:
+        return take_along(dense, 1, _spill_positions(keys, tile)[:, :ln])
     lens = torch.full((s * c, 1), tile, dtype=torch.int32, device=dense.device)
     cur = segment_class_sort(keys.reshape(s * c, tile).contiguous(), lens,
                              network=class_plan((tile,), s * c, keys.dtype).network
@@ -264,7 +304,7 @@ def segment_sort_impl(values: torch.Tensor, offsets, *, descending: bool = False
         smap = scatter_map(offs, cls, cls.width)
         if not need_perm:
             _scatter(out_v, smap, _spill_sort_values(_take(vext, gmap), descending,
-                                                     min(SPILL_TILE, mw)))
+                                                     min(SPILL_TILE, mw), zt))
             continue
         res_v, res_perm = _spill_sort_perm(_take(vext, gmap), descending, zt)
         _scatter(out_v, smap, res_v)
@@ -360,9 +400,17 @@ def segment_merge_impl(a: torch.Tensor, b: torch.Tensor, offsets_a, offsets_b, *
         ln = ca.width + cb.width
         smap = scatter_map(out_offs, SizeClass(width=ln, seg_ids=ca.seg_ids,
                                                lens=(ln,) * ca.n), ln)
+        zt = _zero_ties(a, nan_policy)
         if not need_perm:  # one grid merge of the keys
-            ka, kb = _keys_for(dense_a, descending), _keys_for(dense_b, descending)
+            ka, kb = _keys_for(dense_a, descending, zt), _keys_for(dense_b, descending, zt)
             tile = plan_chunked(ca.width, cb.width, batch=ca.n, dtype=ka.dtype).tile
+            if zt:  # equal keys, unequal values: the merge's positions
+                pa = torch.arange(ca.width, dtype=torch.int32, device=dev).expand(ca.n, -1)
+                pb = (ca.width + torch.arange(cb.width, dtype=torch.int32, device=dev)
+                      ).expand(ca.n, -1)
+                pos = _merge_positions(ka, kb, pa, pb, tile)[1]
+                _scatter(out_v, smap, take_along(torch.cat([dense_a, dense_b], 1), 1, pos))
+                continue
             _scatter(out_v, smap, _undo_keys(grid_chunked_merge2(ka, kb, tile=tile),
                                              a.dtype, descending))
             continue
@@ -452,10 +500,10 @@ def segment_topk_impl(values: torch.Tensor, offsets, k, *, descending: bool = Tr
             from repro_torch.api.ops import topk
 
             # stable: idx are genuine positions, ties by ascending position
-            res_v, res_perm = topk(dense, k_out, stable=True)
+            res_v, res_perm = topk(dense, k_out, stable=True, nan_policy=nan_policy)
         else:
-            order = torch.argsort(_keys_for(dense, False), dim=-1,
-                                  stable=True)[:, :k_out]
+            order = torch.argsort(_keys_for(dense, False, _zero_ties(values, nan_policy)),
+                                  dim=-1, stable=True)[:, :k_out]
             res_v, res_perm = take_along(dense, 1, order), order.to(torch.int32)
         smap = scatter_map(out_offs, cls, k_out, counts=cnts, trash=total)
         _scatter(out_v, smap, res_v)

@@ -58,62 +58,86 @@ def chunked_merge(a: torch.Tensor, b: torch.Tensor, *, tile: Optional[int] = Non
     if mode == "grid":
         out = grid_chunked_merge2(a2.contiguous(), b2.contiguous(), tile=t)
     else:
-        out = _chunked_merge2(a2.contiguous(), b2.contiguous(), t, plan)
+        out = _chunked_merge2(a2.contiguous(), b2.contiguous(), t, plan)[0]
     return out.reshape(lead + (na + nb,)) if lead else out[0]
 
 
-def _merge_pair(carry: torch.Tensor, tile: torch.Tensor, plan: MergePlan) -> torch.Tensor:
-    """(B, T) + (B, T) -> (B, 2T) ascending (``chunked.py:69``): one launch
-    of the 2-way merge when the plan's columns divide the tile, else the
-    schedule merge."""
+def _merge_pair(carry: torch.Tensor, tile: torch.Tensor, plan: MergePlan,
+                lanes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """(B, T) + (B, T) -> ((B, 2T) ascending, its position lane | None)
+    (``chunked.py:69``): one launch of the 2-way merge when the plan's
+    columns divide the tile, else the schedule merge. ``lanes``, the two
+    halves' int32 positions, ride as the merge's payload (the plan's
+    columns must then divide the tile)."""
     from repro_torch.api import schedules
     from repro_torch.kernels.loms_merge import loms_merge2
 
     t = carry.shape[-1]
-    if plan.kind == "loms" and t % plan.n_cols == 0:
+    if lanes is not None or (plan.kind == "loms" and t % plan.n_cols == 0):
         raw = plan.use_mxu and carry.dtype.is_floating_point
-        return loms_merge2(carry.contiguous(), tile.contiguous(), network=plan.network,
-                           n_cols=plan.n_cols, use_mxu=raw)[0]
-    return schedules.merge(carry, tile)
+        payloads = () if lanes is None else (torch.cat(lanes, dim=1),)
+        out, _, pos = loms_merge2(carry.contiguous(), tile.contiguous(), payloads,
+                                  network=plan.network, n_cols=plan.n_cols, use_mxu=raw)
+        return out, (pos[0] if pos else None)
+    return schedules.merge(carry, tile), None
 
 
-def _chunked_merge2(a: torch.Tensor, b: torch.Tensor, t: int,
-                    plan: MergePlan) -> torch.Tensor:
+def _chunked_merge2(a: torch.Tensor, b: torch.Tensor, t: int, plan: MergePlan,
+                    pos_a: Optional[torch.Tensor] = None,
+                    pos_b: Optional[torch.Tensor] = None):
     """The reference's loop (``_chunked_merge2``, ``chunked.py:122``): the
     first tile of each stream merged, the lower half out; then a tile at a
     time from the stream whose last loaded value is the smaller (the FLiMS
     rule), merged with the carry. Each stream has one all-sentinel drain
     tile past its tail, where its pointer stops. The pointers and last
-    values stay on the device, each tile a gather at them."""
+    values stay on the device, each tile a gather at them. Returns (out,
+    positions | None): with int32 position lanes ``pos_a`` / ``pos_b``
+    (the values-only spills where equal keys hold unequal values) the
+    positions come back in the order the loop puts their elements, the
+    drain tiles' -1."""
     bsz, na = a.shape
     nb = b.shape[-1]
     total = na + nb
     out_tiles = -(-total // t)
     la, lb = (-(-na // t) + 1) * t, (-(-nb // t) + 1) * t
     ap, bp = pad_tail_sorted(a, la), pad_tail_sorted(b, lb)
+    carried = pos_a is not None
+    if carried:
+        qa = torch.cat([pos_a, pos_a.new_full((bsz, la - na), -1)], dim=1)
+        qb = torch.cat([pos_b, pos_b.new_full((bsz, lb - nb), -1)], dim=1)
     lane = torch.arange(t, device=a.device)
     ta, tb = ap[:, :t], bp[:, :t]
-    merged = _merge_pair(ta, tb, plan)
+    merged, pos = _merge_pair(ta, tb, plan, (qa[:, :t], qb[:, :t]) if carried else None)
     out = torch.empty((bsz, out_tiles * t), dtype=a.dtype, device=a.device)
+    out_p = (torch.empty((bsz, out_tiles * t), dtype=torch.int32, device=a.device)
+             if carried else None)
     out[:, :t] = merged[:, :t]
     carry = merged[:, t:]
+    if carried:
+        out_p[:, :t], carry_p = pos[:, :t], pos[:, t:]
     last_a, last_b = ta[:, -1], tb[:, -1]
     pa = torch.full((bsz,), t, dtype=torch.int64, device=a.device)
     pb = torch.full_like(pa, t)
     for i in range(1, out_tiles):
         sel_a = last_a <= last_b
         # a load clamps its start into the row, as a dynamic slice does
-        tile_a = take_along(ap, 1, pa.clamp(max=la - t)[:, None] + lane)
-        tile_b = take_along(bp, 1, pb.clamp(max=lb - t)[:, None] + lane)
-        cur = torch.where(sel_a[:, None], tile_a, tile_b)
+        ia = pa.clamp(max=la - t)[:, None] + lane
+        ib = pb.clamp(max=lb - t)[:, None] + lane
+        cur = torch.where(sel_a[:, None], take_along(ap, 1, ia), take_along(bp, 1, ib))
         last_a = torch.where(sel_a, cur[:, -1], last_a)
         last_b = torch.where(sel_a, last_b, cur[:, -1])
         pa = torch.where(sel_a, (pa + t).clamp(max=la - t), pa)
         pb = torch.where(sel_a, pb, (pb + t).clamp(max=lb - t))
-        merged = _merge_pair(carry, cur, plan)
+        lanes = None
+        if carried:
+            lanes = (carry_p, torch.where(sel_a[:, None], take_along(qa, 1, ia),
+                                          take_along(qb, 1, ib)))
+        merged, pos = _merge_pair(carry, cur, plan, lanes)
         out[:, i * t:(i + 1) * t] = merged[:, :t]
         carry = merged[:, t:]
-    return out[:, :total]
+        if carried:
+            out_p[:, i * t:(i + 1) * t], carry_p = pos[:, :t], pos[:, t:]
+    return out[:, :total], (out_p[:, :total] if carried else None)
 
 
 def _global_positions(lists: Sequence[torch.Tensor]) -> List[torch.Tensor]:

@@ -4,7 +4,9 @@ merge) against their plain versions, in the key mode and in the
 reference's raw-float mode (``use_mxu=True``: rows 1, 2 and 8), the
 sort executor of rows 2 and 6 at every lanes-a-thread layout, the
 row-merge executor of rows 1 and 7 at every threads a row, rows 3-7
-with -0.0 and +0.0 tied (``zero_ties``, ``nan_policy="unsafe"``), and
+with -0.0 and +0.0 tied (``zero_ties``, ``nan_policy="unsafe"``; rows
+3-5 also where the reference's one-hot permute keeps -0.0), rows 3-5 on
+raw int32 keys (``INT32_MIN`` tying the pads), and
 ``chunked_merge(mode="loop")``, one launch of row 1 a tile.
 
 Marked ``gpu``: each test skips without a CUDA card. This file imports
@@ -130,9 +132,59 @@ def test_vocab_merge_tree_matches_plain(cuda, monkeypatch, threads, group, rows,
     _same(got, K.vocab_merge_tree_plain(keys, idx, k, torch.bfloat16))
 
 
+def _int_rows(rows, n, seed=0):
+    """int32 rows heavy in INT32_MIN (which ties the pads), with INT32_MAX."""
+    vals = np.array([-2 ** 31, -2 ** 31, -2 ** 31 + 1, -5, 0, 3, 3, 2 ** 31 - 1], np.int64)
+    return torch.from_numpy(np.random.default_rng(seed).choice(vals, (rows, n)).astype(np.int32))
+
+
+@pytest.mark.parametrize("rows,e,k,block", [(64, 256, 16, 16), (33, 96, 96, 32),
+                                            (8, 48, 40, 16), (4096, 128, 8, 16),
+                                            (4, 512, 300, 256)])
+def test_router_kernel_int32_matches_plain(cuda, rows, e, k, block):
+    x = _int_rows(rows, e, e + k)
+    got = K.router_topk(x.to(cuda), k, block=block)
+    assert got[0].dtype == torch.int32
+    _same(got, K.router_topk_plain(x, k, block))
+
+
+@pytest.mark.parametrize("rows,v,k,block", [(4, 151_936, 64, 64), (8, 530, 530, 16),
+                                            (4, 700, 1000, 128), (3, 2000, 64, 256),
+                                            (2, 600, 64, 1024)])
+def test_vocab_kernels_int32_match_plain(cuda, rows, v, k, block):
+    x = _int_rows(rows, v, v + k)
+    _same(K.vocab_phase1(x.to(cuda), k, block), K.vocab_phase1_plain(x, k, block))
+    _same(K.vocab_topk(x.to(cuda), k, block=block), K.vocab_topk_plain(x, k, block))
+
+
+def _negative_rows(rows, n, dtype, seed=0):
+    """Rows of -1.5, -0.5 and -0.0, every third row with +0.0 and 0.5 too."""
+    rng = np.random.default_rng(seed)
+    x = rng.choice(np.array([-1.5, -0.5, -0.0], np.float32), size=(rows, n))
+    x[::3] = rng.choice(np.array([-1.5, -0.5, -0.0, 0.0, 0.5], np.float32), size=x[::3].shape)
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("e,block,k", [(6, 6, 3), (8, 4, 2), (24, 3, 1), (16, 4, 3),
+                                       (8, 4, 4)])
+def test_router_kernel_signed_zeros_match_plain(cuda, dtype, e, block, k):
+    x = _negative_rows(4096 if e == 16 else 9, e, dtype, e * k)
+    _same(K.router_topk(x.to(cuda), k, block=block, zero_ties=True),
+          K.router_topk_plain(x, k, block, zero_ties=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,block,k", [(600, 4, 2), (520, 3, 1), (6, 6, 3), (600, 4, 4)])
+def test_vocab_kernels_signed_zeros_match_plain(cuda, dtype, v, block, k):
+    x = _negative_rows(9, v, dtype, v + k)
+    _same(K.vocab_topk(x.to(cuda), k, block=block, zero_ties=True),
+          K.vocab_topk_plain(x, k, block, zero_ties=True))
+
+
 def test_wrapper_rejects_bad_input(cuda):
     with pytest.raises(TypeError):
-        K.router_topk(torch.zeros(4, 64, dtype=torch.int32, device=cuda), 4)
+        K.router_topk(torch.zeros(4, 64, dtype=torch.int16, device=cuda), 4)
     with pytest.raises(ValueError):
         K.vocab_topk(torch.zeros(4, 2048, device=cuda)[:, ::2], 4)
 
@@ -803,3 +855,25 @@ def test_chunked_merge_loop_launches_row_1_a_tile(cuda):
     got = repro_torch.chunked_merge(a, b, tile=512, mode="loop")
     assert K.LAUNCHES["loms_merge2"] == -(-4000 // 512)
     assert torch.equal(_bits(got), _bits(repro_torch.chunked_merge(a, b, tile=512)))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.uint8, torch.uint16])
+def test_narrow_int_library_calls_match_cpu(cuda, dtype):
+    """The narrow integer types as int32 keys on the card: ``sort`` with a
+    payload, ``topk`` at the vocab width and ``merge``, bit-equal (and of
+    the caller's dtype) to the same calls on CPU tensors."""
+    info = torch.iinfo(dtype)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(info.min, info.max + 1, (8, 1000))).to(dtype)
+    x[:, :50] = info.min  # ties with the pads
+    pay = torch.arange(8000, dtype=torch.int32).reshape(8, 1000)
+    runs = torch.cat([torch.sort(x[:, :512])[0], torch.sort(x[:, 512:])[0]], 1)
+    for call, t in ((lambda t, p: repro_torch.sort(t, payload=p), x),
+                    (lambda t, p: repro_torch.topk(t, 1000), x),
+                    (lambda t, p: repro_torch.merge(t[:, :512], t[:, 512:]), runs)):
+        got, want = call(t.to(cuda), pay.to(cuda)), call(t, pay)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            assert torch.equal(g.cpu(), w)

@@ -20,9 +20,10 @@ a leading dense layer; the reference's weights carried over with
   orders, so a near-tie between a token's k-th and (k+1)-th logit could
   flip an expert; each of those tests records the smallest such gap and
   names it when the logits differ.
-* The refusals: expert parallelism (ROADMAP item 9), MLA, SSM, hybrid and
-  the frontends (item 7), MoE through the scheduler; the launcher at
-  smoke width on the CPU.
+* The refusals: expert parallelism (ROADMAP item 9), SSM, hybrid and the
+  frontends (item 7), MoE through the scheduler; the launcher at smoke
+  width on the CPU. MLA (deepseek-v2-lite) is held by
+  ``tests/test_torch_mla.py``.
 """
 import dataclasses
 import os
@@ -318,8 +319,7 @@ def test_decode_at_b9_counts_the_real_rows(models, router_gaps, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,item", [("deepseek-v2-lite-16b", "MLA"),
-                                       ("mamba2-780m", "SSM"), ("zamba2-2.7b", "hybrid"),
+@pytest.mark.parametrize("arch,item", [("mamba2-780m", "SSM"), ("zamba2-2.7b", "hybrid"),
                                        ("internvl2-26b", "frontends"),
                                        ("hubert-xlarge", "frontends")])
 def test_families_not_ported_raise(arch, item):

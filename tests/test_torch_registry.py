@@ -173,7 +173,7 @@ def test_explicit_asks_a_backend_cannot_run_raise():
                  lambda: repro_torch.sort(x, backend="streaming"),
                  lambda: repro_torch.sort(x, stable=True, backend="cuda"),
                  lambda: repro_torch.merge(x, x, network="mwms", backend="cuda"),
-                 lambda: repro_torch.topk(x.int(), 2, backend="cuda"),
+                 lambda: repro_torch.topk(x, 2, backend="streaming"),
                  lambda: repro_torch.topk(x, 2, descending=False, backend="cuda"),
                  lambda: repro_torch.median_of_lists([x[:, :5]] * 4, backend="cuda"),
                  lambda: repro_torch.segment_sort(x[0], (0, 8), backend="schedule"),
@@ -217,13 +217,15 @@ def test_explicit_sort_and_topk_asks_match_reference():
 
 def test_topk_new_arguments_match_reference():
     rng = np.random.default_rng(21)
-    x = rng.integers(-6, 6, (50, 3)).astype(np.int32)  # integer keys: the executor
+    # integer keys: the top-k kernels on raw int32, the reference's accelerator route
+    x = rng.integers(-6, 6, (50, 3)).astype(np.int32)
     feat = rng.standard_normal((50, 3, 2)).astype(np.float32)
-    w = repro.topk(jnp.asarray(x), 6, axis=0, block=16, payload={"f": jnp.asarray(feat)})
+    w = repro.topk(jnp.asarray(x), 6, axis=0, block=16, payload={"f": jnp.asarray(feat)},
+                   backend="pallas")
     g = repro_torch.topk(torch.from_numpy(x), 6, axis=0, block=16,
                          payload={"f": torch.from_numpy(feat)})
     _same(w[:2] + (w[2]["f"],), g[:2] + (g[2]["f"],))
-    _same(repro.topk(jnp.asarray(x), 6, axis=0, with_indices=False),
+    _same(repro.topk(jnp.asarray(x), 6, axis=0, with_indices=False, backend="pallas"),
           repro_torch.topk(torch.from_numpy(x), 6, axis=0, with_indices=False))
     _same(repro.topk(jnp.asarray(x), 6, axis=0, descending=False, stable=True),
           repro_torch.topk(torch.from_numpy(x), 6, axis=0, descending=False, stable=True))
