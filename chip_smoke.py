@@ -127,6 +127,23 @@ script with a non-zero exit code when it fails:
       ``MLA_ERR_FACTOR`` times the same comparison on Qwen3-8B's GQA
       layer, made before its weights are freed), and the decode profile
       with the attention as a range too;
+   j. mamba2-780m (the SSM family: 48 Mamba2 layers, d_model 1536,
+      d_state 128, vocab 50,280, tied; 0.78 B parameters) at its published
+      width and depth after 3i's weights are freed, through ``generate`` on
+      3a's prompts: sampled (rows 4 and 5 a token), greedy (no launch),
+      ragged (refused); a decode step at B = 3 and B = 4 from one cache
+      (rows 0-2 bit-equal); the recurrent decode against the chunked dual
+      form with the inter-chunk carry on the first layer in float32 (128
+      teacher-forced decode steps after a 128-token prefill against one
+      256-token prefill, within ``SSM_ERR_FACTOR`` times the GQA decode's
+      error); the smoke config in float32 on the card against the CPU;
+      the SSM state's bytes and the decode profile with the mixer as a
+      range, beside the step's floor (the weights and the state);
+   k. zamba2-2.7b (the hybrid: 54 Mamba2 layers of d_model 2560 and one
+      shared attention + MLP block after every 6; 2.42 B parameters, vocab
+      32,000) after 3j's weights are freed: 3j's runs and checks, the
+      recurrent check also on the shared block, and its attention as a
+      profiler range too;
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
@@ -418,8 +435,9 @@ class sort_lanes:
         launch.SORT_LANES = self.old
 
 
-#: the models phase 3 serves at full width (3a-3b, 3h, 3i)
-SERVED_ARCHS = ("qwen3-8b", "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b")
+#: the models phase 3 serves at full width (3a-3b, 3h-3k)
+SERVED_ARCHS = ("qwen3-8b", "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "mamba2-780m",
+                "zamba2-2.7b")
 
 
 def phase_kernels(dev, K, topk_block) -> dict:
@@ -2915,6 +2933,243 @@ def phase_moe(dev, K, card, arch: str = "qwen3-moe-30b-a3b", gqa_err=None) -> di
     return launches
 
 
+#: the recurrent SSM decode's error against the chunked dual form (the
+#: last of 128 teacher-forced decode steps after a 128-token prefill,
+#: against one prefill of all 256 tokens, on one layer in float32) may be
+#: this many times the GQA decode's (:func:`decode_vs_prefill`): the
+#: recurrence rounds its state 128 times where the dual form sums a chunk
+#: in one product. Measured on an H100 80GB HBM3 at 700 W against GQA's
+#: 2.347e-06: mamba2-780m's first layer 2.148e-06 (0.92x), zamba2-2.7b's
+#: 1.305e-06 (0.56x) and its shared block 6.270e-07 (0.27x), so 4 leaves
+#: more than 4x of headroom
+SSM_ERR_FACTOR = 4
+
+
+def recurrent_vs_dual(dev, mixer, cfg, card, gqa_err, shared=None) -> float:
+    """The SSM mixer's recurrent form against its dual form, with the
+    inter-chunk carry, on one layer's full-width weights in float32: a
+    prefill of 256 tokens (two chunks of 128) against a prefill of the
+    first 128 and 128 decode steps, teacher-forced on the same inputs.
+    ``shared`` (zamba2's attention + MLP block) gets the same comparison
+    through ``block_apply``. Returns the largest error of the last
+    position's output over its largest value; raises past
+    ``SSM_ERR_FACTOR`` x ``gqa_err``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.attention import attn_cache_init
+    from repro_torch.models.ssm import ssm_apply, ssm_cache_init
+    from repro_torch.models.transformer import block_apply
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    bsz, half = 4, cfg.ssm.chunk
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (bsz, 2 * half, cfg.d_model)).astype(np.float32)).to(dev)
+
+    def ssm_run(p, xs, mode, cache, t):
+        return ssm_apply(p, xs, c32, cache=cache, mode=mode)
+
+    def attn_run(p, xs, mode, cache, t):
+        pos = None if mode == "prefill" else torch.full((bsz, 1), t, dtype=torch.int32,
+                                                          device=dev)
+        return block_apply(p, xs, c32, mode=mode, cache=cache, positions=pos)
+
+    checks = [("SSM mixer", _map(mixer, lambda t: t.float()), ssm_run,
+               lambda: ssm_cache_init(c32, bsz, torch.float32, dev))]
+    if shared is not None:
+        checks.append(("shared attention + MLP block", _map(shared, lambda t: t.float()),
+                       attn_run, lambda: attn_cache_init(c32, bsz, 2 * half, torch.float32,
+                                                         dev)))
+    worst = 0.0
+    with torch.inference_mode():
+        for name, p, run, cache_init in checks:
+            full, _ = run(p, x, "prefill", cache_init(), 0)
+            _, cache = run(p, x[:, :half], "prefill", cache_init(), 0)
+            steps = []
+            for t in range(half, 2 * half):
+                y, cache = run(p, x[:, t:t + 1], "decode", cache, t)
+                steps.append(y)
+            rec = torch.cat(steps, dim=1)
+            ref = full[:, half:]
+            last = float((rec[:, -1] - ref[:, -1]).abs().max() / ref[:, -1].abs().max())
+            every = float((rec - ref).abs().max() / ref.abs().max())
+            if not bool(torch.isfinite(rec).all()):
+                raise AssertionError(f"{cfg.name} {name}: recurrent outputs not finite")
+            log(f"  {cfg.name} {name}, float32: {half} decode steps after a {half}-token "
+                f"prefill vs one {2 * half}-token prefill: last position {last:.3e}, every "
+                f"position {every:.3e} (largest difference / largest value); GQA's "
+                f"decode_vs_prefill {gqa_err:.3e} (ratio {last / gqa_err:.2f}); {card}")
+            worst = max(worst, last)
+            del p, full, cache, steps, rec, ref
+    tol = SSM_ERR_FACTOR * gqa_err
+    if not worst <= tol:
+        raise AssertionError(f"{cfg.name}: recurrent decode differs from the dual form by "
+                             f"{worst:.3e} > {tol:.3e} = {SSM_ERR_FACTOR} x GQA's {gqa_err:.3e}")
+    log(f"  {cfg.name}: recurrent against dual within {tol:.3e} = {SSM_ERR_FACTOR} x GQA's")
+    return worst
+
+
+def phase_ssm(dev, K, card, arch: str, gqa_err: float) -> dict:
+    """Phases 3j and 3k: the SSM family (mamba2-780m: 48 Mamba2 layers,
+    d_model 1536, d_state 128, head_dim 64, chunk 128, vocab 50,280, tied
+    embeddings) and the hybrid (zamba2-2.7b: 54 Mamba2 layers of d_model
+    2560, d_state 64, and one shared attention + MLP block after every 6 of
+    them, 32 heads of 80, d_ff 10,240, vocab 32,000) at their published
+    width and depth, random bf16 weights from seed 0, through ``generate``
+    on 3a's prompts, each run with its launch counts zeroed before and read
+    after: sampled (rows 4 and 5 a token), greedy (nothing), ragged
+    (refused); a decode step at B = 3 and B = 4 from one cache (rows 0-2
+    bit-equal); the recurrent decode against the chunked dual form
+    (:func:`recurrent_vs_dual`); the smoke config in float32 on the card
+    against the CPU; the decode profile with the mixer (and the shared
+    block's attention) as ranges, beside the step's floor: the weights a
+    step reads and the SSM state read and written."""
+    import numpy as np
+    import torch
+
+    import repro_torch.models.transformer as TR
+    from repro_torch.api import topk_block
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import decode_step, init_cache, model_init, prefill
+    from repro_torch.serving import ServeConfig, generate
+
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model_init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+    n_params = sum(t.numel() for t in _leaves(params))
+    total = nbytes(params)
+    step_bytes = total  # the tied embedding is read at the logits
+    if not cfg.tie_embeddings:  # the embedding: B rows
+        step_bytes -= nbytes(params["embed"])
+    n_groups = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    if n_groups:  # the shared block is read once a group
+        step_bytes += (n_groups - 1) * nbytes(params["stack"]["shared"])
+    s = cfg.ssm
+    shape = (f", shared attention + MLP after every {cfg.attn_every} ({n_groups} calls: "
+             f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff})" if n_groups else "")
+    log(f"  {cfg.name}: {cfg.n_layers} Mamba2 layers, d_model {cfg.d_model}, d_state "
+        f"{s.d_state}, head_dim {s.head_dim}, chunk {s.chunk}{shape}, vocab {cfg.vocab_size}: "
+        f"{n_params / 1e9:.3f} B parameters, {total / 1e9:.2f} GB of weights, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, init "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+
+    rng = np.random.default_rng(0)  # phase 3a's prompts
+    bsz, plen, new, k, temp = 4, 128, 16, 64, 0.8
+    tokens = rng.integers(0, cfg.vocab_size, (bsz, plen)).astype(np.int32)
+    lens = rng.integers(1, plen + 1, bsz).astype(np.int32)
+    state = init_cache(cfg, bsz, plen + new, dev)
+    ssm_bytes = sum(nbytes(lc) for lc in state["body"])
+    kv_bytes = sum(nbytes(lc) for lc in state.get("shared", []))
+    del state
+    floor_ms = (step_bytes + 2 * ssm_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"  SSM state at B={bsz}: {ssm_bytes / 1e6:.1f} MB ({cfg.n_layers} layers of float32 "
+        f"(B, H, P, N) and the conv window), read and written every step"
+        + (f"; the shared block's KV caches {kv_bytes / 1e6:.1f} MB at {plen + new} tokens"
+           if n_groups else ""))
+    log(f"  floor of a decode step: weights read {step_bytes / 1e9:.2f} GB + state "
+        f"2 x {ssm_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = {floor_ms:.3f} ms")
+
+    sc = ServeConfig(max_new_tokens=new, top_k=k, temperature=temp, seed=0, time_steps=True)
+    tree = K.vocab_merge_launches(cfg.vocab_size, topk_block(cfg.vocab_size, k), k)
+    runs = (
+        ("sampled", lambda: generate(params, {"tokens": tokens}, cfg, sc, device=dev),
+         {"vocab_phase1": new, "vocab_merge_level": new * tree}),
+        ("greedy", lambda: generate(params, {"tokens": tokens}, cfg,
+                                    dataclasses.replace(sc, temperature=0.0), device=dev), {}),
+    )
+    outs, launches = {}, {n: 0 for n in K.LAUNCHES}
+    for name, run, want in runs:
+        want = {**{n: 0 for n in K.LAUNCHES}, **want}
+        K.reset_launch_counts()
+        outs[name] = run()
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        log(f"  launches, {name} run: { {n: c for n, c in got.items() if c} } "
+            f"(expected { {n: c for n, c in want.items() if c} })")
+        if got != want:
+            raise AssertionError(f"{cfg.name} {name} run: launch counts {got} != {want}")
+        for n, c in got.items():
+            launches[n] += c
+        o = outs[name]
+        t = o["tokens"]
+        if t.shape != (bsz, new) or t.min() < 0 or t.max() >= cfg.vocab_size:
+            raise AssertionError(f"{cfg.name} {name} run gave tokens {t.shape} outside the "
+                                 "vocab")
+        log(f"  {name}: prefill {o['prefill_s'] * 1e3:.2f} ms, decode step p50 "
+            f"{o['decode_step_p50_us'] / 1e3:.3f} ms p99 {o['decode_step_p99_us'] / 1e3:.3f} ms, "
+            f"{o['tok_per_s']:.2f} tok/s (floor {floor_ms:.3f} ms); first tokens "
+            f"{t[0, :6].tolist()}; {card}")
+    ragged = tokens.copy()
+    for r, n in enumerate(lens):
+        ragged[r, n:] = 0
+    K.reset_launch_counts()
+    try:
+        generate(params, {"tokens": ragged, "lengths": lens}, cfg, sc, device=dev)
+    except ValueError as exc:
+        log(f"  ragged prompts refused: {exc}")
+    else:
+        raise AssertionError(f"{cfg.name}: ragged prompts were served")
+    if any(K.LAUNCHES.values()):
+        raise AssertionError(f"{cfg.name}: the refused ragged run launched {dict(K.LAUNCHES)}")
+
+    with torch.inference_mode():
+        toks = torch.from_numpy(tokens).to(dev)
+        pos = torch.full((bsz, 1), plen, dtype=torch.int32, device=dev)
+        lg, cache = prefill(params, {"tokens": toks}, init_cache(cfg, bsz, plen + 1, dev), cfg)
+        if lg.shape != (bsz, cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{cfg.name}: prefill logits not finite of shape (B, V)")
+        nxt = torch.argmax(lg, -1).to(torch.int32)[:, None]
+        if not np.array_equal(nxt[:, 0].cpu().numpy(), outs["greedy"]["tokens"][:, 0]):
+            raise AssertionError(f"{cfg.name}: first token is not the greedy run's")
+        dl4, _ = decode_step(params, nxt, _rows_of(cache, bsz), cfg, positions=pos)
+        dl3, _ = decode_step(params, nxt[:3], _rows_of(cache, 3), cfg, positions=pos[:3])
+        if not bool(torch.isfinite(dl4).all()):
+            raise AssertionError(f"{cfg.name}: decode logits not finite")
+        if not torch.equal(bits(dl3), bits(dl4[:3])):
+            raise AssertionError(f"{cfg.name} decode at B = 3 and B = 4: rows 0-2 differ")
+        log("  decode step at B = 3 and B = 4 from one cache: rows 0-2 bit-equal")
+        del lg, cache, dl3, dl4
+
+    stack = params["stack"]
+    recurrent_vs_dual(dev, stack["body"][0]["mixer"], cfg, card, gqa_err,
+                      shared=stack.get("shared"))
+
+    # a small input against the CPU: the smoke config in float32
+    small = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    p_gpu = model_init(torch.Generator(device=dev).manual_seed(1), small, dev)
+    p_cpu = _map(p_gpu, lambda t: t.cpu())
+    stoks = torch.from_numpy(rng.integers(0, small.vocab_size, (2, 32)).astype(np.int32))
+    nxt = stoks[:, :1]
+    p1 = torch.full((2, 1), 32, dtype=torch.int32)
+    with torch.inference_mode():
+        lg, c = prefill(p_gpu, {"tokens": stoks.to(dev)}, init_cache(small, 2, 33, dev), small)
+        dg, _ = decode_step(p_gpu, nxt.to(dev), c, small, positions=p1.to(dev))
+        lc, c = prefill(p_cpu, {"tokens": stoks}, init_cache(small, 2, 33, "cpu"), small)
+        dc, _ = decode_step(p_cpu, nxt, c, small, positions=p1)
+    diff = max(float((lg.cpu() - lc).abs().max()), float((dg.cpu() - dc).abs().max()))
+    if not diff <= 1e-4:
+        raise AssertionError(f"{small.name}: logits on the card differ from the CPU by {diff}")
+    log(f"  {small.name} f32: card vs CPU prefill and decode logits max |diff| {diff:.2e} "
+        "(<= 1e-4)")
+
+    spans = [(TR, "ssm_apply", "ssm.mixer")]
+    if n_groups:
+        spans.append((TR, "attn_apply", "attention"))
+    ranges = profile_serve(dev, params, cfg, card, spans=tuple(spans))
+    for label, (calls, dev_ms, host_ms) in sorted(ranges.items()):
+        log(f"    {label}: {calls:.0f} calls a step, device {dev_ms:.3f} ms, host "
+            f"{host_ms:.3f} ms a step; {card}")
+    log(f"    the step's floor {floor_ms:.3f} ms (weights {step_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
+        f" ms, state {2 * ssm_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); {card}")
+    return launches
+
+
 def _ranged(fn, label):
     """fn inside a profiler range named ``label``."""
     from torch.profiler import record_function
@@ -3022,6 +3277,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def since() -> str:
+        return f"({time.perf_counter() - t_start:.1f} s in)"
+
     dev = torch.device("cuda")
     card = card_line()
     ops_per_s = int32_ops_per_s()
@@ -3039,7 +3298,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"   {src}: " + line.strip())
 
-    log("phase 2: kernels against their plain versions")
+    log(f"phase 2: kernels against their plain versions {since()}")
     err = phase_kernels(dev, K, topk_block)
     err.update(phase_seg_kernels(dev, SK, capable_families))
     err.update(phase_merge_sort_kernels(dev, capable_families))
@@ -3049,21 +3308,21 @@ def main() -> int:
     for name, e in phase_signed_zero_kernels(dev, K, SK, topk_block, capable_families).items():
         err[name] = max(err[name], e)
 
-    log("phase 3a: serve Qwen3-8B at full width")
+    log(f"phase 3a: serve Qwen3-8B at full width {since()}")
     params, logits, smoke_logits, launches = phase_serve(dev, K)
-    log("phase 3b: the request scheduler at full width")
+    log(f"phase 3b: the request scheduler at full width {since()}")
     runs = [launches, phase_engine(dev, K, params, card)]
     phase_invariance(dev, params, get_config("qwen3-8b"), card)
-    log("phase 3c: --engine at smoke width")
+    log(f"phase 3c: --engine at smoke width {since()}")
     got, tick_rows, tick_k = phase_engine_smoke(dev, K, SK, 4, 32, 16, 64, 0.8)
     runs.append(got)
-    log("phase 3d: the segmented library calls")
+    log(f"phase 3d: the segmented library calls {since()}")
     runs.append(phase_seg_library(dev, K, SK))
-    log("phase 3e: the library's merge and sort")
+    log(f"phase 3e: the library's merge and sort {since()}")
     runs.append(phase_library_merge_sort(dev))
-    log("phase 3f: the k-way merge and the median")
+    log(f"phase 3f: the k-way merge and the median {since()}")
     runs.append(phase_library_kway(dev))
-    log("phase 3g: the schedule executor and the backends")
+    log(f"phase 3g: the schedule executor and the backends {since()}")
     got, no_kernel_rows = phase_schedule_backends(dev, logits, card)
     runs.append(got)
     log("  Qwen3-8B: the decode profile and the cost of the padded rows")
@@ -3073,12 +3332,20 @@ def main() -> int:
     del params  # the MoE's 61 GB of weights need the room
     gc.collect()
     torch.cuda.empty_cache()
-    log("phase 3h: qwen3-moe-30b-a3b at full width")
+    log(f"phase 3h: qwen3-moe-30b-a3b at full width {since()}")
     runs.append(phase_moe(dev, K, card))
     gc.collect()
     torch.cuda.empty_cache()
-    log("phase 3i: deepseek-v2-lite-16b (MLA) at full width")
+    log(f"phase 3i: deepseek-v2-lite-16b (MLA) at full width {since()}")
     runs.append(phase_moe(dev, K, card, "deepseek-v2-lite-16b", gqa_err))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3j: mamba2-780m (SSM) at full width {since()}")
+    runs.append(phase_ssm(dev, K, card, "mamba2-780m", gqa_err))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3k: zamba2-2.7b (hybrid) at full width {since()}")
+    runs.append(phase_ssm(dev, K, card, "zamba2-2.7b", gqa_err))
     gc.collect()
     torch.cuda.empty_cache()
     launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}
@@ -3087,7 +3354,7 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels never launched on the main paths: {idle}")
 
-    log("phase 4: times")
+    log(f"phase 4: times {since()}")
     rows = phase_times(dev, K, logits, smoke_logits, launches, err, card, ops_per_s)
     rows += phase_seg_times(dev, SK, tick_rows, tick_k, launches, err, card, ops_per_s)
     rows += phase_merge_sort_times(dev, launches, err, card, ops_per_s)

@@ -4,13 +4,17 @@
       --batch 4 --prompt-len 32 --new-tokens 16 --top-k 16
   python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
   python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+  python -m repro_torch.launch.serve --arch mamba2-780m
+  python -m repro_torch.launch.serve --arch zamba2-2.7b
 
 (with ``src`` on ``PYTHONPATH``). The flags are those of
 ``repro.launch.serve`` plus ``--device`` (default ``cuda``; ``cpu`` only
 when asked). The dense and MoE families serve, DeepSeek-V2-Lite's MLA
-included. Weights are random,
-drawn from seed 0. ``--ragged`` draws a
-length per request in [1, prompt_len] and right-pads the batch.
+included, and the SSM (mamba2-780m) and hybrid (zamba2-2.7b) families.
+Weights are random, drawn from seed 0. ``--ragged`` draws a
+length per request in [1, prompt_len] and right-pads the batch
+(attention caches only: the SSM and hybrid families raise, as in the
+reference launcher).
 ``--engine`` serves the same requests through the request scheduler
 (paged slots, continuous batching; ``--slots``, ``--page-size``; dense
 stacks only, as in the reference launcher): request r arrives at tick r

@@ -1,6 +1,10 @@
 """LM wrapper: init / forward / prefill / decode for the dense and MoE
 families, on GQA or MLA attention (each layer's cache a dict with its
-``pos``: ``k`` / ``v``, or MLA's ``ckv`` / ``kpe``).
+``pos``: ``k`` / ``v``, or MLA's ``ckv`` / ``kpe``), the SSM family
+(each layer's cache ``conv``, the last ``d_conv - 1`` pre-convolution
+rows, and ``ssm``, the float32 state; no ``pos``) and the hybrid (SSM
+caches in ``body``, one KV cache a group of ``attn_every`` layers in
+``shared``).
 
 Counterpart of ``repro.models.model``. Parameters are a nested dict with
 the reference's names and layouts; the layer stack is a list of per-layer
@@ -78,7 +82,13 @@ def prefill(p: dict, batch: dict, cache: dict, cfg: ModelConfig, *,
     (``model.py:137``). Returns (last-position logits (B, V), cache).
     With ``lengths`` (B,) the prompts are right-padded: logits come from
     each row's position ``lengths - 1`` (causal attention keeps the valid
-    positions exact) and every layer's ``pos`` becomes ``lengths``."""
+    positions exact) and every layer's ``pos`` becomes ``lengths``. The
+    SSM and hybrid families refuse ``lengths``: a pad token would enter
+    the recurrent state (as ``repro.serving.engine.generate`` refuses
+    them)."""
+    if lengths is not None and cfg.family in ("ssm", "hybrid"):
+        raise ValueError(f"{cfg.name}: ragged prompts need attention caches, not the "
+                         f"{cfg.family} family's recurrent state")
     x = embed(p["embed"], batch["tokens"], _dtype(cfg))
     x, cache = stack_apply(p["stack"], x, cfg, mode="prefill", caches=cache)
     if lengths is None:
@@ -101,7 +111,8 @@ def decode_step(p: dict, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
     weight product then has the same shape for one row as for a full
     tile, so a row's logits do not depend on how many rows share the
     step. Decode attention is one batched call over the cache's rows;
-    its result for a row does not depend on the batch either."""
+    its result for a row does not depend on the batch either, and neither
+    does an SSM layer's recurrence, which runs on the cache's rows."""
     b = tokens.shape[0]
     pad = -b % DECODE_TILE
     if positions is None:  # as attn_apply's default: position 0

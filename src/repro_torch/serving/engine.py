@@ -85,7 +85,8 @@ def generate(params: dict, batch: Dict[str, object], cfg: ModelConfig,
     with top-k sampling. Returns the tokens (B, max_new_tokens) and times.
 
     ``batch["lengths"]`` (B,) marks right-padded ragged prompts: each row
-    continues from its own last valid position. ``device`` must be where
+    continues from its own last valid position (attention caches only:
+    ``prefill`` refuses the SSM and hybrid families). ``device`` must be where
     ``params`` live; it defaults to the card."""
     dev = resolve_device(device)
     if params["embed"]["emb"].device.type != dev.type:

@@ -103,6 +103,11 @@ class ScheduledEngine:
                  sched: Optional[SchedulerConfig] = None, device: DeviceLike = None):
         sched = sched or SchedulerConfig()
         check_family(cfg)
+        if cfg.family in ("ssm", "hybrid"):
+            raise ValueError(
+                f"{cfg.name}: the scheduler serves attention stacks, not the {cfg.family} "
+                "family (as repro.serving.scheduler.ScheduledEngine: its paged slots hold "
+                "KV caches)")
         if cfg.moe is not None:
             raise NotImplementedError(
                 f"{cfg.name}: MoE through the scheduler is not ported: expert capacity "

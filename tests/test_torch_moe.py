@@ -20,10 +20,10 @@ a leading dense layer; the reference's weights carried over with
   orders, so a near-tie between a token's k-th and (k+1)-th logit could
   flip an expert; each of those tests records the smallest such gap and
   names it when the logits differ.
-* The refusals: expert parallelism (ROADMAP item 9), SSM, hybrid and the
-  frontends (item 7), MoE through the scheduler; the launcher at smoke
-  width on the CPU. MLA (deepseek-v2-lite) is held by
-  ``tests/test_torch_mla.py``.
+* The refusals: expert parallelism (ROADMAP item 9), the frontends (item
+  7), MoE through the scheduler; the launcher at smoke width on the CPU.
+  MLA (deepseek-v2-lite) is held by ``tests/test_torch_mla.py``, the SSM
+  and hybrid families by ``tests/test_torch_ssm.py``.
 """
 import dataclasses
 import os
@@ -319,8 +319,7 @@ def test_decode_at_b9_counts_the_real_rows(models, router_gaps, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,item", [("mamba2-780m", "SSM"), ("zamba2-2.7b", "hybrid"),
-                                       ("internvl2-26b", "frontends"),
+@pytest.mark.parametrize("arch,item", [("internvl2-26b", "frontends"),
                                        ("hubert-xlarge", "frontends")])
 def test_families_not_ported_raise(arch, item):
     cfg = get_smoke_config(arch)
