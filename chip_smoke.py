@@ -144,6 +144,33 @@ script with a non-zero exit code when it fails:
       32,000) after 3j's weights are freed: 3j's runs and checks, the
       recurrent check also on the shared block, and its attention as a
       profiler range too;
+   l. internvl2-26b (the vlm frontend: 48 layers of d_model 6144, 48/8
+      heads, d_ff 16,384, vocab 92,553; 256 patches of 3200 a row through
+      ``patch_proj`` in front of the text; about 19.9 B parameters, 39.8
+      GB) at published width and depth after 3k's weights are freed,
+      through ``generate`` on 3a's prompts with the launcher's patches:
+      sampled (rows 4 and 5 a token at the odd vocab 92,553), greedy,
+      ragged (refused); the first step's candidates and token against the
+      plain top-k; B = 3 against B = 4 at the position after the patches;
+      the smoke config in float32 on the card against the CPU; the
+      prefill of 4 x 384 positions profiled beside its tensor-core floor
+      and the decode profile beside the step's weight-read floor;
+   m. hubert-xlarge (the audio encoder: 48 non-causal layers of d_model
+      1280, gelu MLP, 504 classes; 0.945 B parameters) at published width
+      and depth: ``forward`` and ``loss_fn`` (with and without a mask) on
+      4 x 1,000 frames of 512, logits finite; the first layer in float32
+      against bf16; the smoke config on the card against the CPU; the
+      forward profiled beside its floor; ``init_cache``, ``generate`` and
+      the launcher refuse it. No LOMS kernel runs (its counts stay 0);
+   n. the telemetry layer (``repro_torch.obs``) on: the smoke launcher,
+      the ``--engine`` drain, ``segment_topk`` at 3d's re-rank shape, 3e's
+      sort spill and ``autotune_topk`` into a temporary cache; the spans
+      they must record, ``serve.tokens``, ``sched.completed``,
+      ``segmented.class_launches`` and ``grid_merge.launches`` against
+      the launch counts; a valid Chrome trace, a Prometheus file and a
+      recorder dump holding the tournament; a profiled ``generate`` with
+      the ``serve.decode`` range; then obs off: an empty snapshot and the
+      same launches and results. Every other phase runs with obs off;
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
@@ -3170,6 +3197,493 @@ def phase_ssm(dev, K, card, arch: str, gqa_err: float) -> dict:
     return launches
 
 
+#: bf16 dense tensor-core peak of an H100 SXM (NVIDIA's data sheet, no
+#: sparsity), the rate a model's products are floored at
+BF16_FLOP_PER_S = 989e12
+
+
+def device_busy(fn, steps: int = 1):
+    """torch.profiler over ``fn`` (run once, warm): (kernels, device busy
+    ms, wall ms), each over ``steps``; device busy is the sum of the
+    kernels' own times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, kernels = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0)
+        busy += t
+        kernels += ev.count
+    return kernels / steps, busy / steps / 1e3, wall_us / steps / 1e3
+
+
+def phase_vlm(dev, K, card) -> dict:
+    """Phase 3l: internvl2-26b (the vlm frontend: 48 layers, d_model 6144,
+    48/8 heads of 128, d_ff 16,384, vocab 92,553; 256 patches of 3200 a
+    row projected by ``patch_proj`` in front of the text) at its published
+    width and depth, random bf16 weights from seed 0, through ``generate``
+    on 3a's prompts with the launcher's patches (drawn after the tokens
+    from the same generator), each run with its launch counts zeroed
+    before and read after: sampled (rows 4 and 5 a token at vocab 92,553,
+    an odd width whose last block is padded), greedy (nothing), ragged
+    (refused); the first step's candidates and token against the plain
+    top-k; a decode step at B = 3 and B = 4 from one cache (rows 0-2
+    bit-equal); the smoke config in float32 on the card against the CPU;
+    the prefill of 4 x 384 positions beside its tensor-core floor and the
+    decode profile beside the step's weight-read floor."""
+    import numpy as np
+    import torch
+
+    import repro_torch.models.transformer as TR
+    from repro_torch import topk
+    from repro_torch.api import topk_block
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import decode_step, init_cache, model_init, prefill
+    from repro_torch.serving import ServeConfig, generate
+    from repro_torch.serving.sample import canonical_token, categorical, gumbel_noise
+
+    cfg = get_config("internvl2-26b")
+    torch.cuda.synchronize()
+    log(f"  before init: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    t0 = time.perf_counter()
+    params = model_init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    emb = params["embed"]["emb"]
+    emb_bytes = emb.numel() * emb.element_size()
+    pw = params["patch_proj"]["w"]
+    step_bytes = nbytes - emb_bytes - pw.numel() * pw.element_size()  # B rows, no patches
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.frontend_len} patches of {cfg.frontend_dim}: {n_params / 1e9:.3f} B parameters, "
+        f"{nbytes / 1e9:.2f} GB of weights, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated, init {time.perf_counter() - t0:.1f} s; {card}")
+    floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  weight-read floor of a decode step (no embedding table, no patch_proj): "
+        f"{step_bytes / 1e9:.2f} GB = {floor_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+    rng = np.random.default_rng(0)  # phase 3a's prompts, then the launcher's patches
+    bsz, plen, new, k, temp = 4, 128, 16, 64, 0.8
+    tokens = rng.integers(0, cfg.vocab_size, (bsz, plen)).astype(np.int32)
+    patches = rng.standard_normal((bsz, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)
+    lens = np.random.default_rng(1).integers(1, plen + 1, bsz).astype(np.int32)
+    off = cfg.frontend_len
+    # the prefill's products: every non-embedding weight once a position
+    # (the patch projection on the patches, the head on the last position)
+    # and the causal attention's two products, at the bf16 peak
+    s_all = off + plen
+    head = params["lm_head"]["w"].numel()
+    stack = n_params - emb.numel() - head - params["patch_proj"]["w"].numel()
+    pf_flop = (2 * stack * bsz * s_all + 2 * params["patch_proj"]["w"].numel() * bsz * off
+               + 2 * head * bsz + cfg.n_layers * bsz * 2 * s_all * s_all * cfg.n_heads
+               * cfg.head_dim)
+    log(f"  prefill of {bsz} x {s_all} positions: {pf_flop / 1e12:.2f} TFLOP, floor "
+        f"{pf_flop / BF16_FLOP_PER_S * 1e3:.2f} ms at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s")
+
+    batch = {"tokens": tokens, "patches": patches}
+    sc = ServeConfig(max_new_tokens=new, top_k=k, temperature=temp, seed=0, time_steps=True)
+    blk = topk_block(cfg.vocab_size, k)
+    tree = K.vocab_merge_launches(cfg.vocab_size, blk, k)
+    runs = (
+        ("sampled", lambda: generate(params, batch, cfg, sc, device=dev),
+         {"vocab_phase1": new, "vocab_merge_level": new * tree}),
+        ("greedy", lambda: generate(params, batch, cfg, dataclasses.replace(sc, temperature=0.0),
+                                    device=dev), {}),
+    )
+    outs, launches = {}, {n: 0 for n in K.LAUNCHES}
+    for name, run, want in runs:
+        want = {**{n: 0 for n in K.LAUNCHES}, **want}
+        K.reset_launch_counts()
+        outs[name] = run()
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        log(f"  launches, {name} run: { {n: c for n, c in got.items() if c} } "
+            f"(expected { {n: c for n, c in want.items() if c} })")
+        if got != want:
+            raise AssertionError(f"{cfg.name} {name} run: launch counts {got} != {want}")
+        for n, c in got.items():
+            launches[n] += c
+        o = outs[name]
+        t = o["tokens"]
+        if t.shape != (bsz, new) or t.min() < 0 or t.max() >= cfg.vocab_size:
+            raise AssertionError(f"{cfg.name} {name} run gave tokens {t.shape} outside the "
+                                 "vocab")
+        log(f"  {name}: prefill {o['prefill_s'] * 1e3:.2f} ms (floor "
+            f"{pf_flop / BF16_FLOP_PER_S * 1e3:.2f}), decode step p50 "
+            f"{o['decode_step_p50_us'] / 1e3:.3f} ms p99 {o['decode_step_p99_us'] / 1e3:.3f} ms "
+            f"(floor {floor_ms:.3f}), {o['tok_per_s']:.2f} tok/s; first tokens "
+            f"{t[0, :6].tolist()}; {card}")
+    ragged = tokens.copy()
+    for r, n in enumerate(lens):
+        ragged[r, n:] = 0
+    K.reset_launch_counts()
+    try:
+        generate(params, {**batch, "tokens": ragged, "lengths": lens}, cfg, sc, device=dev)
+    except ValueError as exc:
+        log(f"  ragged prompts refused: {exc}")
+    else:
+        raise AssertionError(f"{cfg.name}: ragged prompts were served")
+    if any(K.LAUNCHES.values()):
+        raise AssertionError(f"{cfg.name}: the refused ragged run launched {dict(K.LAUNCHES)}")
+
+    pt = torch.from_numpy(patches).to(dev)
+    with torch.inference_mode():
+        toks = torch.from_numpy(tokens).to(dev)
+        lg, cache = prefill(params, {"tokens": toks, "patches": pt},
+                            init_cache(cfg, bsz, s_all + 1, dev), cfg)
+        if lg.shape != (bsz, cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{cfg.name}: prefill logits not finite of shape (B, V)")
+        got = topk(lg, k)
+        want_tk = K.vocab_topk_plain(lg, k, blk)
+        require_equal(f"{cfg.name}: first-step candidates at vocab {cfg.vocab_size}", got,
+                      want_tk)
+        noise = gumbel_noise((bsz, k), generator=torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        tok_k = canonical_token(lg, got[0], categorical(got[0].float() / temp, gumbel=noise))
+        tok_p = canonical_token(lg, want_tk[0],
+                                categorical(want_tk[0].float() / temp, gumbel=noise))
+        if not torch.equal(tok_k, tok_p) or not np.array_equal(
+                tok_k.cpu().numpy(), outs["sampled"]["tokens"][:, 0]):
+            raise AssertionError(f"{cfg.name}: first token differs between the kernel, the "
+                                 "plain top-k and the sampled run")
+        log(f"  first step: candidates bit-equal to the plain top-k (block {blk}, "
+            f"{K.vocab_levels(cfg.vocab_size, blk)} merge levels in {tree} launches), token "
+            f"{tok_k.tolist()} the sampled run's")
+        nxt = torch.argmax(lg, -1).to(torch.int32)[:, None]
+        if not np.array_equal(nxt[:, 0].cpu().numpy(), outs["greedy"]["tokens"][:, 0]):
+            raise AssertionError(f"{cfg.name}: first token is not the greedy run's")
+        pos = torch.full((bsz, 1), s_all, dtype=torch.int32, device=dev)
+        dl4, _ = decode_step(params, nxt, _rows_of(cache, bsz), cfg, positions=pos)
+        dl3, _ = decode_step(params, nxt[:3], _rows_of(cache, 3), cfg, positions=pos[:3])
+        if not bool(torch.isfinite(dl4).all()):
+            raise AssertionError(f"{cfg.name}: decode logits not finite")
+        if not torch.equal(bits(dl3), bits(dl4[:3])):
+            raise AssertionError(f"{cfg.name} decode at B = 3 and B = 4: rows 0-2 differ")
+        # the greedy run's second token is the argmax of this step
+        if not np.array_equal(torch.argmax(dl4, -1).cpu().numpy(),
+                              outs["greedy"]["tokens"][:, 1]):
+            raise AssertionError(f"{cfg.name}: the decode step at position {s_all} is not the "
+                                 "greedy run's second step")
+        log(f"  decode step at position {s_all} (after the patches): its argmax the greedy "
+            "run's second tokens; B = 3 and B = 4 from one cache: rows 0-2 bit-equal")
+        del lg, cache, dl3, dl4
+
+    with torch.inference_mode():
+        kernels, busy, wall = device_busy(lambda: prefill(
+            params, {"tokens": toks, "patches": pt}, init_cache(cfg, bsz, s_all, dev), cfg))
+    log(f"  prefill {bsz} x {s_all} profiled: {kernels:.0f} kernels, device busy {busy:.3f} ms "
+        f"of {wall:.3f} ms wall (idle share {1 - busy / wall:.3f}), floor "
+        f"{pf_flop / BF16_FLOP_PER_S * 1e3:.2f} ms ({busy / (pf_flop / BF16_FLOP_PER_S * 1e3):.2f}"
+        f"x); {card}")
+
+    # a small input against the CPU: the smoke config in float32
+    small = dataclasses.replace(get_smoke_config("internvl2-26b"), dtype="float32")
+    p_gpu = model_init(torch.Generator(device=dev).manual_seed(1), small, dev)
+    p_cpu = _map(p_gpu, lambda t: t.cpu())
+    stoks = torch.from_numpy(rng.integers(0, small.vocab_size, (2, 24)).astype(np.int32))
+    spt = torch.from_numpy(rng.standard_normal((2, small.frontend_len, small.frontend_dim))
+                           .astype(np.float32))
+    n = small.frontend_len + 24
+    p1 = torch.full((2, 1), n, dtype=torch.int32)
+    with torch.inference_mode():
+        lg, c = prefill(p_gpu, {"tokens": stoks.to(dev), "patches": spt.to(dev)},
+                        init_cache(small, 2, n + 1, dev), small)
+        dg, _ = decode_step(p_gpu, stoks[:, :1].to(dev), c, small, positions=p1.to(dev))
+        lc, c = prefill(p_cpu, {"tokens": stoks, "patches": spt}, init_cache(small, 2, n + 1,
+                                                                            "cpu"), small)
+        dc, _ = decode_step(p_cpu, stoks[:, :1], c, small, positions=p1)
+    diff = max(float((lg.cpu() - lc).abs().max()), float((dg.cpu() - dc).abs().max()))
+    if not diff <= 1e-4:
+        raise AssertionError(f"{small.name}: logits on the card differ from the CPU by {diff}")
+    log(f"  {small.name} f32: card vs CPU prefill (with patches) and decode logits max |diff| "
+        f"{diff:.2e} (<= 1e-4)")
+
+    ranges = profile_serve(dev, params, cfg, card, spans=((TR, "attn_apply", "attention"),),
+                           patches=pt)
+    for label, (calls, dev_ms, host_ms) in sorted(ranges.items()):
+        log(f"    {label}: {calls:.0f} calls a step, device {dev_ms:.3f} ms, host "
+            f"{host_ms:.3f} ms a step; {card}")
+    log(f"    the step's weight-read floor {floor_ms:.3f} ms; {card}")
+    return launches
+
+
+def phase_audio(dev, K, card) -> None:
+    """Phase 3m: hubert-xlarge (the audio encoder: 48 non-causal layers,
+    d_model 1280, 16 heads of 80, a gelu MLP of 5120, 504 classes; frames
+    of 512 through ``frontend``) at its published width and depth, random
+    bf16 weights from seed 0: ``forward`` and ``loss_fn`` on 4 x 1,000
+    frames (20 s of audio at 50 frames a second), logits finite of shape
+    (4, 1000, 504); the first layer in float32 against its bf16 run; the
+    smoke config in float32 on the card against the CPU; the forward's
+    device time beside its floor; ``generate``, ``init_cache`` and the
+    launcher refuse it. No LOMS kernel runs here (no sampler: the counts
+    must stay 0)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import forward, init_cache, loss_fn, model_init
+    from repro_torch.serving import ServeConfig, generate
+
+    cfg = get_config("hubert-xlarge")
+    t0 = time.perf_counter()
+    params = model_init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"  {cfg.name}: {cfg.n_layers} layers (causal={cfg.causal}), d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, {cfg.mlp_act} d_ff {cfg.d_ff}, "
+        f"{cfg.vocab_size} classes, frames of {cfg.frontend_dim}: {n_params / 1e9:.3f} B "
+        f"parameters, {nbytes / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s; {card}")
+    rng = np.random.default_rng(0)
+    bsz, frames = 4, 1000
+    x = torch.from_numpy(rng.standard_normal((bsz, frames, cfg.frontend_dim))
+                         .astype(np.float32)).to(dev)
+    tgt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (bsz, frames)).astype(np.int32)
+                           ).to(dev)
+    mask = torch.from_numpy((rng.random((bsz, frames)) < 0.8).astype(np.float32)).to(dev)
+    flop = 2 * n_params * bsz * frames + cfg.n_layers * bsz * 4 * frames * frames * cfg.d_model
+    floor = flop / BF16_FLOP_PER_S * 1e3
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits = forward(params, {"frames": x}, cfg)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        if logits.shape != (bsz, frames, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name}: logits {tuple(logits.shape)} not finite of shape "
+                                 f"({bsz}, {frames}, {cfg.vocab_size})")
+        loss = float(loss_fn(params, {"frames": x, "targets": tgt}, cfg))
+        mloss = float(loss_fn(params, {"frames": x, "targets": tgt, "mask": mask}, cfg))
+    torch.cuda.synchronize()
+    if not (np.isfinite(loss) and np.isfinite(mloss)) or abs(loss - np.log(cfg.vocab_size)) > 3:
+        raise AssertionError(f"{cfg.name}: loss {loss}, masked {mloss}: not finite near "
+                             f"log(V) = {np.log(cfg.vocab_size):.3f}")
+    if any(K.LAUNCHES.values()):
+        raise AssertionError(f"{cfg.name}: the encoder launched {dict(K.LAUNCHES)}")
+    log(f"  forward {bsz} x {frames} frames: logits {tuple(logits.shape)} finite, {t_fwd * 1e3:.2f}"
+        f" ms wall (first call); loss {loss:.4f}, masked {mloss:.4f} (log V "
+        f"{np.log(cfg.vocab_size):.4f}); no LOMS kernel launched (an encoder samples nothing)")
+    with torch.inference_mode():
+        kernels, busy, wall = device_busy(lambda: forward(params, {"frames": x}, cfg))
+    log(f"  forward profiled: {kernels:.0f} kernels, device busy {busy:.3f} ms of {wall:.3f} ms "
+        f"wall (idle share {1 - busy / wall:.3f}); floor {flop / 1e12:.2f} TFLOP = {floor:.2f} ms "
+        f"at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s ({busy / floor:.2f}x); {card}")
+
+    # the first layer in float32 against the same layer in bf16
+    p1, c1 = first_layer_f32(params, cfg)
+    pb = {k: v for k, v in params.items() if k != "stack"}
+    pb["stack"] = {"body": params["stack"]["body"][:1]}
+    with torch.inference_mode():
+        lf = forward(p1, {"frames": x}, c1)
+        lb = forward(pb, {"frames": x}, dataclasses.replace(cfg, n_layers=1)).float()
+    rel = float((lf - lb).abs().max() / lf.abs().max())
+    if not rel <= 0.05:
+        raise AssertionError(f"{cfg.name} first layer: bf16 differs from float32 by {rel:.3e} "
+                             "of the largest logit")
+    log(f"  first layer, bf16 vs float32 logits: largest difference / largest logit {rel:.3e} "
+        f"(<= 0.05); {card}")
+    del lf, lb, p1, pb, logits
+
+    small = dataclasses.replace(get_smoke_config("hubert-xlarge"), dtype="float32")
+    p_gpu = model_init(torch.Generator(device=dev).manual_seed(1), small, dev)
+    p_cpu = _map(p_gpu, lambda t: t.cpu())
+    sx = torch.from_numpy(rng.standard_normal((2, 64, small.frontend_dim)).astype(np.float32))
+    st = torch.from_numpy(rng.integers(0, small.vocab_size, (2, 64)).astype(np.int32))
+    with torch.inference_mode():
+        g = forward(p_gpu, {"frames": sx.to(dev)}, small)
+        c = forward(p_cpu, {"frames": sx}, small)
+        gl = float(loss_fn(p_gpu, {"frames": sx.to(dev), "targets": st.to(dev)}, small))
+        cl = float(loss_fn(p_cpu, {"frames": sx, "targets": st}, small))
+    diff = max(float((g.cpu() - c).abs().max()), abs(gl - cl))
+    if not diff <= 1e-4:
+        raise AssertionError(f"{small.name}: the card differs from the CPU by {diff}")
+    log(f"  {small.name} f32: card vs CPU forward logits and loss max |diff| {diff:.2e} "
+        "(<= 1e-4)")
+
+    refused = []
+    for what, fn, exc in (
+            ("init_cache", lambda: init_cache(cfg, bsz, 8, dev), ValueError),
+            ("generate", lambda: generate(params, {"tokens": np.zeros((bsz, 4), np.int32)},
+                                          cfg, ServeConfig(), device=dev), ValueError),
+            ("the launcher", lambda: launcher.main(["--arch", cfg.name, "--device", str(dev)]),
+             AssertionError)):
+        try:
+            fn()
+        except exc as e:
+            refused.append(f"{what} ({e})")
+        else:
+            raise AssertionError(f"{cfg.name}: {what} did not refuse an encoder")
+    log("  refused: " + "; ".join(refused))
+    del params
+
+
+def phase_obs(dev, K) -> dict:
+    """Phase 3n: the telemetry layer (``repro_torch.obs``) on the card. With
+    obs on: the launcher at smoke width (sampled: the router kernel, row
+    3), the ``--engine`` smoke drain (row 6 a tick), ``segment_topk`` at
+    3d's re-rank shape (row 6), the values-only sort spill of 3e (rows 6
+    and 9) and ``autotune_topk`` into a temporary cache (row 3), each
+    launch counted; the spans each must record, ``serve.tokens`` and
+    ``sched.completed``, ``segmented.class_launches`` and
+    ``grid_merge.launches`` equal to the port's own launch counts over the
+    same calls; a Chrome trace (valid), a Prometheus file and a recorder
+    dump (holding the tournament) written to a temporary directory; one
+    profiled ``generate`` showing the ``serve.decode`` range. Then obs off
+    and cleared: one call again, the snapshot empty and the launches and
+    results those of the obs-on call."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch
+    import repro_torch.obs as obs
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.streaming import cache as C
+    from repro_torch.streaming import planner as P
+
+    bsz, plen, new, k, temp = 4, 32, 16, 64, 0.8
+    smoke = ["--arch", "qwen3-8b", "--smoke", "--batch", str(bsz), "--prompt-len", str(plen),
+             "--new-tokens", str(new), "--top-k", str(k), "--temperature", str(temp),
+             "--device", str(dev)]
+    nq, nc, kq = 4096, 1024, 64
+    scores = seg_tile(nq, nc, torch.bfloat16, dev, seed=9).reshape(-1)
+    q_offs = tuple(range(0, (nq + 1) * nc, nc))
+    n_seg, seg_len = 16, 65_536
+    v8 = seg_tile(1, n_seg * seg_len, torch.float32, dev, seed=11).reshape(-1)
+    offs8 = tuple(range(0, n_seg * seg_len + 1, seg_len))
+
+    def seg_call():
+        return repro_torch.segment_topk(scores, q_offs, kq)
+
+    def clear():
+        obs.trace.clear()
+        obs.metrics.reset()
+        obs.recorder.clear()
+
+    tmp = tempfile.TemporaryDirectory(prefix="obs_")
+    prev_cache = C.set_default_cache(C.AutotuneCache(os.path.join(tmp.name, "autotune.json")))
+    prev = obs.set_enabled(True)
+    clear()
+    try:
+        K.reset_launch_counts()
+        served = launcher.main(smoke)
+        drained = launcher.main(smoke + ["--engine"])
+        seg_on = seg_call()
+        repro_torch.segment_sort(v8, offs8)
+        tuned = P.autotune_topk(256, 16, device=dev, batch=4096)
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        snap = obs.snapshot()
+        names = {sp["name"] for sp in snap["spans"]}
+        need = {"serve.prefill", "serve.decode", "sched.prefill", "sched.decode", "plan",
+                "plan_op", "autotune.topk", "request", "req.queue_wait", "req.prefill",
+                "req.insert", "req.decode"}
+        if need - names:
+            raise AssertionError(f"obs: spans missing: {sorted(need - names)}")
+        m = obs.metrics
+        checks = {
+            "serve.tokens": (m.counter("serve.tokens").total(), bsz * new),
+            "sched.completed": (m.counter("sched.completed").total(), len(drained["tokens"])),
+            "segmented.class_launches": (m.counter("segmented.class_launches").total(),
+                                         got["seg_sort"] + got["seg_merge"]),
+            "grid_merge.launches": (m.counter("grid_merge.launches").total(),
+                                    got["grid_merge2"]),
+        }
+        log(f"  launches with obs on: { {n: c for n, c in got.items() if c} }")
+        for name, (have, want) in checks.items():
+            log(f"  {name} = {have:.0f} (want {want})")
+            if have != want:
+                raise AssertionError(f"obs: {name} = {have}, not {want}")
+        if not got["router_topk"] or not got["seg_sort"] or not got["grid_merge2"]:
+            raise AssertionError(f"obs: a kernel of the path did not launch: {got}")
+        if served["tokens"].shape != (bsz, new):
+            raise AssertionError("obs: the launcher's tokens are not (B, new)")
+        falls = obs.request_waterfalls(snap)
+        if len(falls) != len(drained["tokens"]) or any(w["unaccounted_ns"] < 0 for w in falls):
+            raise AssertionError(f"obs: request waterfalls {len(falls)} do not reconcile")
+        paths = {n: os.path.join(tmp.name, n) for n in ("trace.json", "metrics.prom",
+                                                        "flight.jsonl")}
+        obs.write_chrome_trace(paths["trace.json"], snap)
+        obs.write_prom(paths["metrics.prom"], snap)
+        obs.recorder.dump(paths["flight.jsonl"])
+        with open(paths["trace.json"]) as f:
+            errs = obs.validate_chrome_trace(json.load(f))
+        if errs:
+            raise AssertionError(f"obs: the Chrome trace is invalid: {errs[:5]}")
+        with open(paths["flight.jsonl"]) as f:
+            events = [json.loads(ln) for ln in f]
+        if not any(ev.get("kind") == "tournament" for ev in events):
+            raise AssertionError("obs: the recorder dump holds no tournament event")
+        prom = open(paths["metrics.prom"]).read()
+        if "repro_serve_tokens_total" not in prom or "repro_sched_ttft_s_count" not in prom:
+            raise AssertionError("obs: the Prometheus file lacks the serve / sched series")
+        log(f"  spans {len(snap['spans'])} ({len(names)} names), metrics "
+            f"{len(snap['metrics'])}, events {len(events) - 1}: Chrome trace valid "
+            f"({os.path.getsize(paths['trace.json'])} bytes), Prometheus "
+            f"{prom.count(chr(10))} lines, dump with the tournament "
+            f"({tuned.block} won at {tuned.us:.2f} us); {len(falls)} request waterfalls "
+            f"reconcile (TTFT p50 "
+            f"{np.median([w['ttft_us'] for w in falls]) / 1e3:.3f} ms); meta "
+            f"{ {k: snap['meta'][k] for k in ('platform', 'torch', 'cuda', 'device')} }")
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            launcher.main(smoke)
+            torch.cuda.synchronize()
+        keys = {ev.key for ev in prof.key_averages()}
+        if not {"serve.decode", "serve.prefill"} <= keys:
+            raise AssertionError("obs: the profiled generate shows no serve.decode range")
+        log("  profiled generate: the serve.prefill and serve.decode ranges are in the trace")
+
+        K.reset_launch_counts()
+        seg_on = seg_call()
+        torch.cuda.synchronize()
+        on_launches = dict(K.LAUNCHES)
+        obs.set_enabled(False)
+        clear()
+        K.reset_launch_counts()
+        seg_off = seg_call()
+        torch.cuda.synchronize()
+        off_launches = dict(K.LAUNCHES)
+        after = obs.snapshot()
+        if after["spans"] or after["events"] or any(
+                mm["series"] for mm in after["metrics"].values()):
+            raise AssertionError("obs off: the snapshot is not empty")
+        if off_launches != on_launches:
+            raise AssertionError(f"obs off: launches {off_launches} != obs on {on_launches}")
+        for a, b in zip(seg_on[:2], seg_off[:2]):
+            if not torch.equal(bits(a) if a.dtype.is_floating_point else a,
+                               bits(b) if b.dtype.is_floating_point else b):
+                raise AssertionError("obs off: segment_topk differs from the obs-on call")
+        log(f"  obs off: snapshot empty, segment_topk bit-equal and its launches "
+            f"{ {n: c for n, c in off_launches.items() if c} } those of the obs-on call")
+    finally:
+        obs.set_enabled(prev)
+        clear()
+        C.set_default_cache(prev_cache)
+        tmp.cleanup()
+    for n, c in on_launches.items():
+        got[n] += c
+    return got
+
+
 def _ranged(fn, label):
     """fn inside a profiler range named ``label``."""
     from torch.profiler import record_function
@@ -3180,13 +3694,14 @@ def _ranged(fn, label):
     return wrapped
 
 
-def profile_serve(dev, params, cfg, card, spans=()) -> dict:
+def profile_serve(dev, params, cfg, card, spans=(), patches=None) -> dict:
     """Where a decode step's time goes: torch.profiler over four sampled
-    decode steps of the main path (B=4 after a 128-token prompt), device
-    time by kernel, against the host's wall time. ``spans``: (module,
-    function name, label) triples run inside a profiler range while
-    profiled; returns label -> (calls, device ms, host ms), each a step
-    (device ms: the kernels launched inside the range)."""
+    decode steps of the main path (B=4 after a 128-token prompt, behind
+    ``patches`` for a vlm), device time by kernel, against the host's wall
+    time. ``spans``: (module, function name, label) triples run inside a
+    profiler range while profiled; returns label -> (calls, device ms,
+    host ms), each a step (device ms: the kernels launched inside the
+    range)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -3201,13 +3716,17 @@ def profile_serve(dev, params, cfg, card, spans=()) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     labels = {label for _, _, label in spans}
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in spans]
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    off = 0
+    if patches is not None:
+        batch["patches"], off = patches, cfg.frontend_len
     with torch.inference_mode():
-        cache = init_cache(cfg, bsz, plen + steps + 1, dev)
-        logits, cache = prefill(params, {"tokens": torch.from_numpy(toks).to(dev)}, cache, cfg)
+        cache = init_cache(cfg, bsz, off + plen + steps + 1, dev)
+        logits, cache = prefill(params, batch, cache, cfg)
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
 
         def pos(i):
-            return torch.full((bsz, 1), plen + i, dtype=torch.int32, device=dev)
+            return torch.full((bsz, 1), off + plen + i, dtype=torch.int32, device=dev)
 
         tok, cache = step(params, tok, cache, pos(0), gen)  # warm
         torch.cuda.synchronize()
@@ -3348,6 +3867,16 @@ def main() -> int:
     runs.append(phase_ssm(dev, K, card, "zamba2-2.7b", gqa_err))
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 3l: internvl2-26b (vlm) at full width {since()}")
+    runs.append(phase_vlm(dev, K, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3m: hubert-xlarge (audio encoder) at full width {since()}")
+    phase_audio(dev, K, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3n: the telemetry layer (repro_torch.obs) {since()}")
+    runs.append(phase_obs(dev, K))
     launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}
     log(f"  launches over all the main paths: {launches}")
     idle = [n for n, c in launches.items() if c == 0]

@@ -50,6 +50,8 @@ import os
 from typing import List, Optional
 
 from repro_torch.kernels.topk import ROUTER_TOPK_MAX
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 from .fused import dtype_of
 from .registry import get_backend
@@ -99,11 +101,24 @@ def _plan_segmented(spec: SortSpec) -> Decision:
 
 def plan(spec: SortSpec) -> Decision:
     """Resolve the backend of one problem. Pure function of ``spec`` and
-    the autotune cache."""
-    dec = _measured_override(spec, _resolve(spec))
-    if dec.backend == "cuda":
-        entry = _tuned_entry(spec)
-        dec = dataclasses.replace(dec, network=str((entry or {}).get("network", "loms")))
+    the autotune cache.
+
+    Every decision is recorded in the obs layer (the ``plan`` span and
+    the ``plan.decisions`` counter: op / backend / detail / device labels)
+    when ``REPRO_OBS`` is on; the port counts every call (the reference
+    counts compilations)."""
+    with obs_trace.span("plan", kind="trace", op=spec.op):
+        dec = _measured_override(spec, _resolve(spec))
+        if dec.backend == "cuda":
+            entry = _tuned_entry(spec)
+            dec = dataclasses.replace(dec, network=str((entry or {}).get("network", "loms")))
+    if obs_trace.enabled():
+        obs_metrics.counter("plan.decisions").inc(
+            op=spec.op, backend=dec.backend, detail=dec.detail,
+            device=spec.device or "?", segmented=spec.segmented,
+            sharded=spec.sharded, payload=spec.has_payload,
+            source=dec.source, network=dec.network or "-",
+        )
     return dec
 
 

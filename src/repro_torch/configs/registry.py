@@ -2,10 +2,11 @@
 
 A copy of ``repro.configs.registry``. Every entry is exact at the listed
 fields; smoke variants keep the family topology at toy width. The port's
-model stack serves the dense family (``qwen3-8b`` is its full-width
-model) and the MoE family (``qwen3-moe-30b-a3b``, and
-``deepseek-v2-lite-16b`` with MLA); the other entries are kept so
-``--arch`` names mean the same in both packages.
+model stack runs every family: dense (``qwen3-8b``), MoE
+(``qwen3-moe-30b-a3b``; ``deepseek-v2-lite-16b`` with MLA), SSM
+(``mamba2-780m``), hybrid (``zamba2-2.7b``), vlm (``internvl2-26b``) and
+the audio encoder (``hubert-xlarge``); ``--arch`` names mean the same in
+both packages.
 """
 from __future__ import annotations
 

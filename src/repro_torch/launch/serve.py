@@ -6,15 +6,20 @@
   python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
   python -m repro_torch.launch.serve --arch mamba2-780m
   python -m repro_torch.launch.serve --arch zamba2-2.7b
+  python -m repro_torch.launch.serve --arch internvl2-26b
 
 (with ``src`` on ``PYTHONPATH``). The flags are those of
 ``repro.launch.serve`` plus ``--device`` (default ``cuda``; ``cpu`` only
 when asked). The dense and MoE families serve, DeepSeek-V2-Lite's MLA
-included, and the SSM (mamba2-780m) and hybrid (zamba2-2.7b) families.
+included, the SSM (mamba2-780m) and hybrid (zamba2-2.7b) families, and
+the vlm family (internvl2-26b): its ``frontend_len`` image patches of
+``frontend_dim`` float32 are drawn from the launcher's generator after
+the tokens, as the reference launcher draws them. An encoder-only config
+(hubert-xlarge) has no decode and is refused before any weight is drawn.
 Weights are random, drawn from seed 0. ``--ragged`` draws a
 length per request in [1, prompt_len] and right-pads the batch
-(attention caches only: the SSM and hybrid families raise, as in the
-reference launcher).
+(attention caches of token prompts only: the SSM, hybrid and vlm
+families raise).
 ``--engine`` serves the same requests through the request scheduler
 (paged slots, continuous batching; ``--slots``, ``--page-size``; dense
 stacks only, as in the reference launcher): request r arrives at tick r
@@ -98,6 +103,9 @@ def main(argv=None):
     batch = {"tokens": tokens}
     if lengths is not None:
         batch["lengths"] = lengths
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (args.batch, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)
     out = generate(params, batch, cfg,
                    ServeConfig(max_new_tokens=args.new_tokens, top_k=args.top_k,
                                top_p=args.top_p, temperature=args.temperature),

@@ -10,7 +10,8 @@ they are. MLA's leaves (``wq``, ``wuk`` and ``wuv`` 3-D, ``wdkv``,
 ``kv_norm``, ``wo``) and an SSM block's (``norm``, and the mixer's
 ``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``,
 ``norm``, ``out_proj``) carry over as every other leaf does; so does the
-hybrid's unstacked ``stack/shared`` block.
+hybrid's unstacked ``stack/shared`` block, and the frontends' top-level
+``frontend`` (audio) and ``patch_proj`` (vlm) denses.
 """
 from __future__ import annotations
 

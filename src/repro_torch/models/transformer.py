@@ -10,7 +10,10 @@ A config with ``mla`` runs MLA in every block, the head's included
 residual add (mamba2-780m). The hybrid stack (zamba2-2.7b) runs its
 ``n_layers`` SSM blocks in groups of ``attn_every``, each group followed
 by one shared attention + MLP block whose weights every group reuses and
-whose KV cache is the group's own. The frontends wait for a later slice.
+whose KV cache is the group's own. The frontends' stacks are dense: vlm
+(internvl2-26b) a GQA stack behind its patch prefix, audio (hubert-xlarge)
+a non-causal encoder with a gelu MLP; their input projections live in
+``models.model``.
 """
 from __future__ import annotations
 
@@ -26,14 +29,23 @@ from .moe import moe_apply, moe_init
 from .ssm import ssm_apply, ssm_cache_init, ssm_init
 
 
+#: the frontend each frontend family takes
+_FRONTENDS = {"vlm": "patch", "audio": "frame"}
+
+
 def check_family(cfg: ModelConfig) -> None:
     """The stacks the port runs: dense and MoE families on GQA or MLA
-    attention, the SSM family and the hybrid. The frontends raise with the
-    ROADMAP item that brings them."""
-    if cfg.family in ("vlm", "audio") or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} frontend is not ported yet (ROADMAP Queue 1, "
-            "item 7: the vlm and audio frontends)")
+    attention, the SSM family, the hybrid, and the frontends' dense stacks
+    (vlm: patches in front of the text; audio: frames, an encoder)."""
+    if cfg.frontend != _FRONTENDS.get(cfg.family, "none"):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} with frontend {cfg.frontend!r}")
+    if cfg.family in _FRONTENDS:
+        if cfg.moe is not None or cfg.ssm is not None or cfg.mla is not None \
+                or cfg.frontend_dim < 1:
+            raise ValueError(f"{cfg.name}: the {cfg.family} stack is dense GQA with a "
+                             f"frontend, got moe={cfg.moe}, ssm={cfg.ssm}, mla={cfg.mla}, "
+                             f"frontend_dim={cfg.frontend_dim}")
+        return
     if cfg.family in ("ssm", "hybrid"):
         if cfg.ssm is None or cfg.moe is not None:
             raise ValueError(f"{cfg.name}: family {cfg.family!r} with ssm={cfg.ssm}, "

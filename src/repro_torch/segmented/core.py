@@ -26,6 +26,16 @@ launch takes the family (and a merge the column count) of
 ``plan_op("segmented")``: an autotune winner where the cache holds one.
 ``nan_policy="unsafe"`` runs as ``"last"`` with -0.0 and +0.0 tied (see
 ``_check_values``).
+
+Telemetry (``REPRO_OBS`` on), with the reference's series:
+``segmented.class_launches`` counts the class-kernel calls a call makes,
+each one launch on the card (``LAUNCHES["seg_sort"]`` plus
+``["seg_merge"]``): one a size class wider than 1 (a class of width 1
+sorts nothing and launches nothing) and one a values-only sort spill
+group (its chunk sort). The reference counts its classes, once a
+compilation. ``spill_groups``, ``spill_segments``, ``padded_slots``,
+``valid_slots`` and the ``padded_waste_frac`` histogram are the
+reference's, counted a call.
 """
 from __future__ import annotations
 
@@ -42,6 +52,8 @@ from repro_torch.kernels.common import (decode_key_values, encode_key_values,
                                         sentinel_min, take_along, tie_signed_zeros)
 from repro_torch.kernels.segmented import segment_class_merge, segment_class_sort
 from repro_torch.networks import merge_program
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.streaming.chunked import _chunked_merge2
 from repro_torch.streaming.grid_merge import grid_chunked_merge2, grid_merge2_rows
 from repro_torch.streaming.planner import MergePlan, plan_chunked, sort_fits_vmem
@@ -75,6 +87,39 @@ def max_class_width(dtype: torch.dtype) -> int:
     while w > 2 and not sort_fits_vmem(w, dtype=dtype):
         w //= 2
     return w
+
+
+def _record_bucketing(op: str, classes, spill, launches: int) -> None:
+    """The ``segmented.*`` series of one call. ``classes`` / ``spill``
+    hold :class:`SizeClass` entries for sort and top-k and ``(ca, cb)``
+    pairs for merge; ``launches``: the class-kernel calls the call made.
+    The padded-slot waste is the share of class-kernel lanes that carry
+    sentinel padding rather than data."""
+    if not obs_trace.enabled():
+        return
+
+    def slots(group) -> int:
+        if isinstance(group, tuple):  # merge pair
+            ca, cb = group
+            return ca.n * (ca.width + cb.width)
+        return group.n * group.width
+
+    def valid(group) -> int:
+        if isinstance(group, tuple):
+            return sum(group[0].lens) + sum(group[1].lens)
+        return sum(group.lens)
+
+    class_slots = sum(slots(g) for g in classes)
+    class_valid = sum(valid(g) for g in classes)
+    spill_segs = sum((g[0].n if isinstance(g, tuple) else g.n) for g in spill)
+    obs_metrics.counter("segmented.class_launches").inc(launches, op=op)
+    obs_metrics.counter("segmented.spill_groups").inc(len(spill), op=op)
+    obs_metrics.counter("segmented.spill_segments").inc(spill_segs, op=op)
+    obs_metrics.counter("segmented.padded_slots").inc(class_slots - class_valid, op=op)
+    obs_metrics.counter("segmented.valid_slots").inc(class_valid, op=op)
+    if class_slots:
+        obs_metrics.histogram("segmented.padded_waste_frac").observe(
+            (class_slots - class_valid) / class_slots, op=op)
 
 
 def _check_values(x: torch.Tensor, nan_policy: str) -> None:
@@ -312,6 +357,8 @@ def segment_sort_impl(values: torch.Tensor, offsets, *, descending: bool = False
         for o, lx in zip(out_l, lext):
             _scatter(o, smap, _take_perm(_take(lx, gmap), res_perm))
 
+    _record_bucketing("segment_sort", classes, spill,
+                      sum(c.width > 1 for c in classes) + (0 if need_perm else len(spill)))
     ptree = None if payload is None else rebuild([o[:n] for o in out_l], n)
     return out_v[:n], (out_p[:n] if want_perm else None), ptree
 
@@ -421,6 +468,7 @@ def segment_merge_impl(a: torch.Tensor, b: torch.Tensor, offsets_a, offsets_b, *
         for o, lx in zip(out_l, lext):
             _scatter(o, smap, _take_perm(_take(lx, lane_gmap(ca, cb)), res_perm))
 
+    _record_bucketing("segment_merge", classes, spill, len(classes))
     ptree = None if payload is None else rebuild([o[:total] for o in out_l], total)
     return out_v[:total], (out_p[:total] if want_perm else None), ptree, out_offs
 
@@ -511,6 +559,7 @@ def segment_topk_impl(values: torch.Tensor, offsets, k, *, descending: bool = Tr
         for o, lx in zip(out_l, lext):
             _scatter(o, smap, _take_perm(_take(lx, gmap), res_perm))
 
+    _record_bucketing("segment_topk", classes, spill, sum(c.width > 1 for c in classes))
     ptree = None if payload is None else rebuild([o[:total] for o in out_l], total)
     return out_v[:total], out_i[:total], ptree, out_offs
 

@@ -5,14 +5,16 @@ value for the batch or one per request (the ragged ``segment_topk``
 path). Tokens stay on the device until the loop ends and are copied to
 the host once: a copy per step would make the host wait for every step.
 Per-step times are opt-in (``ServeConfig.time_steps``) because they need
-a synchronise per step. The request scheduler is
-:mod:`repro_torch.serving.scheduler`; the obs spans and metrics wait for
-a later slice.
+a synchronise per step. Prefill and decode are timed by
+:func:`repro_torch.obs.timing.time_once` and run under the ``serve.prefill``
+/ ``serve.decode`` obs spans, which feed the ``serve.*`` metrics when
+``REPRO_OBS`` is on. A vlm batch's ``patches`` go in front of the prompt:
+the cache holds ``frontend_len`` more positions and decode starts after
+them. The request scheduler is :mod:`repro_torch.serving.scheduler`.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -21,6 +23,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import decode_step, init_cache, prefill
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.timing import block_until_ready, time_once
+from repro_torch.obs.trace import span
 from .sample import sample_greedy, sample_topk
 
 
@@ -73,9 +78,9 @@ def _percentiles_us(times_s) -> Dict[str, float]:
     }
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _param_device(params: dict) -> torch.device:
+    """Where a parameter tree lives (every family has ``final_norm``)."""
+    return params["final_norm"]["scale"].device
 
 
 @torch.inference_mode()
@@ -85,13 +90,17 @@ def generate(params: dict, batch: Dict[str, object], cfg: ModelConfig,
     with top-k sampling. Returns the tokens (B, max_new_tokens) and times.
 
     ``batch["lengths"]`` (B,) marks right-padded ragged prompts: each row
-    continues from its own last valid position (attention caches only:
-    ``prefill`` refuses the SSM and hybrid families). ``device`` must be where
-    ``params`` live; it defaults to the card."""
+    continues from its own last valid position (attention caches of token
+    prompts only: ``prefill`` refuses the SSM, hybrid and frontend
+    families). ``batch["patches"]`` (B, frontend_len, frontend_dim) are a
+    vlm batch's image patches. An encoder-only config (audio) has no
+    decode and raises. ``device`` must be where ``params`` live; it
+    defaults to the card."""
+    if cfg.is_encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode")
     dev = resolve_device(device)
-    if params["embed"]["emb"].device.type != dev.type:
-        raise ValueError(f"params live on {params['embed']['emb'].device}, "
-                         f"not on {dev}")
+    if _param_device(params).type != dev.type:
+        raise ValueError(f"params live on {_param_device(params)}, not on {dev}")
     tokens = torch.as_tensor(np.asarray(batch["tokens"]), dtype=torch.int32).to(dev)
     bsz, prompt_len = tokens.shape
     lengths = batch.get("lengths")
@@ -101,18 +110,22 @@ def generate(params: dict, batch: Dict[str, object], cfg: ModelConfig,
             raise ValueError(f"lengths {lengths.tolist()} do not fit prompts "
                              f"of shape {tuple(tokens.shape)}")
         lengths = torch.as_tensor(lengths).to(dev)
+    inputs = {"tokens": tokens}
     total = prompt_len + sc.max_new_tokens
+    if cfg.family == "vlm":
+        inputs["patches"] = torch.as_tensor(np.asarray(batch["patches"]),
+                                            dtype=torch.float32).to(dev)
+        total += cfg.frontend_len
+        prompt_len += cfg.frontend_len
     if sc.cache_len is not None:
         if sc.cache_len < total:
             raise ValueError(f"cache_len {sc.cache_len} < prompt + new tokens {total}")
         total = sc.cache_len
-    cache = init_cache(cfg, bsz, total, dev)
+    cache = block_until_ready(init_cache(cfg, bsz, total, dev))
 
-    _sync(dev)
-    t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens}, cache, cfg, lengths=lengths)
-    _sync(dev)
-    t_prefill = time.perf_counter() - t0
+    with span("serve.prefill", kind="run", batch=bsz, prompt_len=prompt_len):
+        (logits, cache), t_prefill = time_once(prefill, params, inputs, cache, cfg,
+                                               lengths=lengths)
 
     step = make_serve_step(cfg, top_k=sc.top_k, temperature=sc.temperature,
                            top_p=sc.top_p)
@@ -125,30 +138,38 @@ def generate(params: dict, batch: Dict[str, object], cfg: ModelConfig,
     toks = [tok]
     step_times = [] if sc.time_steps else None
     n_steps = sc.max_new_tokens - 1
-    t1 = time.perf_counter()
-    for i in range(n_steps):
-        if lengths is None:
-            positions = torch.full((bsz, 1), prompt_len + i, dtype=torch.int32,
-                                   device=dev)
-        else:
-            positions = (lengths + i)[:, None]
+
+    def decode():
+        nonlocal tok, cache
         if step_times is not None:
-            _sync(dev)
-            ts = time.perf_counter()
-            tok, cache = step(params, tok, cache, positions, gen)
-            _sync(dev)
-            step_times.append(time.perf_counter() - ts)
-        else:
-            tok, cache = step(params, tok, cache, positions, gen)
-        toks.append(tok)
-    _sync(dev)
-    t_decode = time.perf_counter() - t1
+            block_until_ready(tok)
+        for i in range(n_steps):
+            if lengths is None:
+                positions = torch.full((bsz, 1), prompt_len + i, dtype=torch.int32,
+                                       device=dev)
+            else:
+                positions = (lengths + i)[:, None]
+            if step_times is not None:
+                (tok, cache), dt = time_once(step, params, tok, cache, positions, gen)
+                step_times.append(dt)
+            else:
+                tok, cache = step(params, tok, cache, positions, gen)
+            toks.append(tok)
+        return tok
+
+    with span("serve.decode", kind="run", batch=bsz, steps=n_steps):
+        _, t_decode = time_once(decode)
     out_tokens = torch.cat(toks, dim=1).cpu().numpy()
+    tok_per_s = bsz * max(n_steps, 1) / max(t_decode, 1e-9)
+    obs_metrics.counter("serve.requests").inc(bsz)
+    obs_metrics.counter("serve.decode_steps").inc(max(n_steps, 0))
+    obs_metrics.counter("serve.tokens").inc(int(out_tokens.size))
+    obs_metrics.histogram("serve.tok_per_s").observe(tok_per_s)
     out: Dict[str, object] = {
         "tokens": out_tokens,
         "prefill_s": t_prefill,
         "decode_s": t_decode,
-        "tok_per_s": bsz * max(n_steps, 1) / max(t_decode, 1e-9),
+        "tok_per_s": tok_per_s,
     }
     if step_times:
         out["step_times_s"] = np.asarray(step_times)

@@ -34,14 +34,30 @@ hold in the port:
 A decode tick in which every slot is greedy scores nothing (no
 ``segment_topk`` call, no launch): nothing would read the candidates.
 
-Not ported yet (ROADMAP Queue 1, item 8): the obs spans and metrics, the
-flight recorder and the failpoints of the reference engine. The bounded
-retry around every prefill, insert and decode launch is kept.
+Telemetry (``REPRO_OBS`` on), at the reference's sites and with its
+names: the ``sched.prefill`` / ``sched.decode`` spans, the per-request
+``req.queue_wait`` / ``req.prefill`` / ``req.insert`` / ``req.decode``
+stage spans and the ``request`` root span (``obs.request_waterfalls``
+rebuilds each request's timeline from them), the ``sched.*`` counters,
+gauges and histograms, ``sched`` recorder events at each terminal state,
+and a flight-recorder dump (:func:`repro_torch.obs.recorder.crash_dump`)
+when ``run()`` meets an unhandled exception. Series that differ from the
+reference by design, because the port prefills each admitted request
+alone: ``sched.prefill_batches`` counts one a request, and the
+``sched.prefill`` span's ``batch`` is 1 and its ``bucket`` the request's
+pow2 bucket (``req.prefill``'s likewise); the reference counts one a
+batch of up to ``max_prefill_batch`` requests of a bucket. ``req.decode``'s
+``compiled`` marks the first tick of a batch signature, as the
+reference's does, though the port compiles nothing there. The
+reference's failpoints are the resilience layer's (not ported: ROADMAP
+Queue 1, item 8); the bounded retry around every prefill, insert and
+decode launch is kept.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -53,6 +69,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import decode_step, init_cache, prefill
 from repro_torch.models.model import DECODE_TILE
 from repro_torch.models.transformer import check_family
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import recorder as obs_recorder
+from repro_torch.obs.timing import block_until_ready
+from repro_torch.obs.trace import enabled as obs_enabled
+from repro_torch.obs.trace import record_span, span
 
 from ..sample import canonical_token, sample_greedy, sample_topk, scored_draw
 from .paged import PagedKVCache, SlotManager, gather_view, scatter_col, split_pages, take_col
@@ -103,11 +124,11 @@ class ScheduledEngine:
                  sched: Optional[SchedulerConfig] = None, device: DeviceLike = None):
         sched = sched or SchedulerConfig()
         check_family(cfg)
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.family in ("ssm", "hybrid", "vlm", "audio"):
             raise ValueError(
-                f"{cfg.name}: the scheduler serves attention stacks, not the {cfg.family} "
-                "family (as repro.serving.scheduler.ScheduledEngine: its paged slots hold "
-                "KV caches)")
+                f"{cfg.name}: the scheduler serves attention stacks of token "
+                f"prompts, not the {cfg.family} family (as "
+                "repro.serving.scheduler.ScheduledEngine: its paged slots hold KV caches)")
         if cfg.moe is not None:
             raise NotImplementedError(
                 f"{cfg.name}: MoE through the scheduler is not ported: expert capacity "
@@ -134,6 +155,10 @@ class ScheduledEngine:
         self.tick_log: List[tuple] = []
         #: wall seconds of each decode tick
         self.tick_s: List[float] = []
+        #: batch signatures already decoded: the first tick of each is
+        #: tagged ``compiled=True`` on its ``req.decode`` spans
+        self._decode_seen: set = set()
+        self._trace_prefix = f"{os.getpid():x}-{id(self) & 0xFFFF:04x}"
 
     # ----------------------------------------------------------------- API
 
@@ -152,8 +177,10 @@ class ScheduledEngine:
                              f"({self.cfg.vocab_size})")
         rid = self._next_rid
         self._next_rid += 1
-        req = Request(rid=rid, prompt=prompt, params=params, arrival=int(arrival))
-        req.t_submit = time.perf_counter()
+        req = Request(rid=rid, prompt=prompt, params=params, arrival=int(arrival),
+                      trace_id=f"{self._trace_prefix}-{rid}")
+        req.t_submit_ns = time.perf_counter_ns()
+        req.t_submit = req.t_submit_ns * 1e-9
         self.requests[rid] = req
         try:
             self.queue.push(req)
@@ -161,7 +188,10 @@ class ScheduledEngine:
             req.state = RequestState.REJECTED
             req.error = str(e)
             self._mark_finish(req)
+            obs_metrics.counter("sched.rejected").inc()
+            self._record_request(req)
             raise
+        obs_metrics.counter("sched.submitted").inc()
         return rid
 
     @torch.no_grad()
@@ -173,19 +203,26 @@ class ScheduledEngine:
             self._run_prefill(admitted)
         if self.active:
             self._run_decode()
+        self._gauges()
         self.t += 1
 
     def run(self, max_steps: int = 1_000_000) -> Dict[int, np.ndarray]:
         """Drain the queue; returns {rid: generated tokens} of the DONE
-        requests."""
+        requests. An unhandled exception dumps the flight recorder (to
+        ``REPRO_OBS_DUMP`` if set, else a bounded event tail to stderr)
+        before it propagates."""
         steps = 0
-        while (len(self.queue) or self.active) and steps < max_steps:
-            if not self.active:
-                nxt = self.queue.next_arrival()
-                if nxt is not None and nxt > self.t:
-                    self.t = nxt  # idle fast-forward to the next arrival
-            self.step()
-            steps += 1
+        try:
+            while (len(self.queue) or self.active) and steps < max_steps:
+                if not self.active:
+                    nxt = self.queue.next_arrival()
+                    if nxt is not None and nxt > self.t:
+                        self.t = nxt  # idle fast-forward to the next arrival
+                self.step()
+                steps += 1
+        except Exception as e:  # noqa: BLE001 — dump context, re-raise
+            obs_recorder.crash_dump("sched.run", e)
+            raise
         assert not len(self.queue) and not self.active, \
             f"drain incomplete after {steps} steps"
         return {rid: np.asarray(r.tokens, np.int32)
@@ -208,10 +245,26 @@ class ScheduledEngine:
 
     def _mark_finish(self, r: Request) -> None:
         r.finish_tick = self.t
-        r.t_finish = time.perf_counter()
+        r.t_finish_ns = time.perf_counter_ns()
+        r.t_finish = r.t_finish_ns * 1e-9
+
+    def _record_request(self, r: Request) -> None:
+        """Close the request's root span at its terminal state: the whole
+        submit -> terminal window and the trace id, so the exporter
+        (``obs.request_waterfalls``) rebuilds its timeline from the stage
+        spans recorded as the stages ran."""
+        if not obs_enabled():
+            return
+        record_span("request", r.t_submit_ns,
+                    (r.t_finish_ns or time.perf_counter_ns()) - r.t_submit_ns,
+                    rid=r.rid, trace_id=r.trace_id, state=r.state.value,
+                    tokens=len(r.tokens), arrival=r.arrival, finish_tick=r.finish_tick)
+        obs_recorder.emit("sched", f"request.{r.state.value}", rid=r.rid,
+                          trace_id=r.trace_id, tokens=len(r.tokens))
 
     def _end(self, r: Request, state: RequestState, err: Optional[str] = None) -> None:
-        """Make ``r`` terminal and give back its slot and pages."""
+        """Make ``r`` terminal, give back its slot and pages, and record
+        it (``sched.completed`` / ``timed_out`` / ``failed``)."""
         r.state = state
         r.error = err
         self._mark_finish(r)
@@ -219,8 +272,17 @@ class ScheduledEngine:
             self.slots.release(r.slot)
             self.active.pop(r.slot, None)
             r.slot = None
+        self._record_request(r)
+        if state is RequestState.DONE:
+            obs_metrics.counter("sched.completed").inc()
+            obs_metrics.histogram("sched.request_latency_s").observe(r.t_finish - r.t_submit)
+            if len(r.tokens) > 1 and r.t_first:
+                obs_metrics.histogram("sched.tpot_s").observe(
+                    (r.t_finish - r.t_first) / (len(r.tokens) - 1))
+        else:
+            obs_metrics.counter(f"sched.{state.value}").inc()
 
-    def _with_retry(self, fn):
+    def _with_retry(self, what: str, fn):
         """Run one launch with bounded retry and exponential backoff."""
         attempt = 0
         while True:
@@ -229,6 +291,7 @@ class ScheduledEngine:
             except Exception:
                 if attempt >= self.sc.max_retries:
                     raise
+                obs_metrics.counter("sched.retries").inc(what=what)
                 if self.sc.retry_backoff_s:
                     time.sleep(self.sc.retry_backoff_s * (2 ** attempt))
                 attempt += 1
@@ -254,6 +317,8 @@ class ScheduledEngine:
             self.queue.pop()
             req.admit_tick = self.t
             admitted.append(req)
+        if admitted:
+            obs_metrics.counter("sched.admitted").inc(len(admitted))
         return admitted
 
     # ------------------------------------------------------------- prefill
@@ -281,14 +346,29 @@ class ScheduledEngine:
 
     def _run_prefill(self, admitted: List[Request]) -> None:
         ps = self.sc.page_size
+        traced = obs_enabled()
         order = sorted(admitted, key=lambda r: self._bucket(r.prompt.size))
         for r in order:  # stable: arrival order within a bucket
-            try:
-                logits, body = self._with_retry(lambda: self._prefill_one(r))
-            except Exception as e:  # noqa: BLE001 — retries exhausted
-                self._end(r, RequestState.FAILED,
-                          f"prefill failed: {type(e).__name__}: {e}")
-                continue
+            blen = self._bucket(r.prompt.size)
+            t_pf0 = time.perf_counter_ns()
+            with span("sched.prefill", kind="run", batch=1, bucket=blen):
+                try:
+                    logits, body = self._with_retry("prefill", lambda: self._prefill_one(r))
+                    block_until_ready(logits)  # the span times the device work
+                except Exception as e:  # noqa: BLE001 — retries exhausted
+                    self._end(r, RequestState.FAILED,
+                              f"prefill failed: {type(e).__name__}: {e}")
+                    continue
+            t_pf1 = time.perf_counter_ns()
+            if traced:
+                # the stage spans share integer-ns endpoints, so queue_wait
+                # + prefill + insert is the request's TTFT exactly
+                record_span("req.queue_wait", r.t_submit_ns, t_pf0 - r.t_submit_ns,
+                            rid=r.rid, trace_id=r.trace_id, arrival=r.arrival,
+                            admit_tick=r.admit_tick)
+                record_span("req.prefill", t_pf0, t_pf1 - t_pf0, rid=r.rid,
+                            trace_id=r.trace_id, bucket=blen, batch=1)
+            obs_metrics.counter("sched.prefill_batches").inc()
             r.generator = torch.Generator(device=self.dev).manual_seed(r.params.seed)
             tok = self._first_token(logits, r)
             slot, pages = self.slots.alloc(self._npg_need(r))
@@ -296,7 +376,7 @@ class ScheduledEngine:
             blocks = {name: split_pages(body, name, npg_store, ps) for name in ("k", "v")}
             page_ids = torch.as_tensor(pages[:npg_store]).to(self.dev)
             try:
-                self._with_retry(lambda: self.pool.insert(page_ids, blocks))
+                self._with_retry("insert", lambda: self.pool.insert(page_ids, blocks))
             except Exception as e:  # noqa: BLE001 — retries exhausted
                 self.slots.release(slot)  # not yet r.slot: reclaim directly
                 self._end(r, RequestState.FAILED,
@@ -306,7 +386,12 @@ class ScheduledEngine:
             r.slot = slot
             r.length = int(r.prompt.size)
             r.tokens = [tok]
-            r.t_first = time.perf_counter()
+            r.t_first_ns = time.perf_counter_ns()
+            r.t_first = r.t_first_ns * 1e-9
+            if traced:
+                record_span("req.insert", t_pf1, r.t_first_ns - t_pf1, rid=r.rid,
+                            trace_id=r.trace_id, slot=slot, pages=npg_store)
+            obs_metrics.histogram("sched.ttft_s").observe(r.t_first - r.t_submit)
             self.active[slot] = r
             if r.params.max_new_tokens == 1:
                 self._end(r, RequestState.DONE)
@@ -359,14 +444,28 @@ class ScheduledEngine:
     def _run_decode(self) -> None:
         slots = sorted(self.active)
         reqs = [self.active[s] for s in slots]
+        sig = tuple(r.params.sig for r in reqs)
+        compiled = sig not in self._decode_seen
         t0 = time.perf_counter()
-        try:
-            toks = self._with_retry(lambda: self._decode(slots, reqs))
-        except Exception as e:  # noqa: BLE001 — retries exhausted
-            for r in reqs:
-                self._end(r, RequestState.FAILED, f"decode failed: {type(e).__name__}: {e}")
-            return
+        t_d0 = time.perf_counter_ns()
+        with span("sched.decode", kind="run", batch=len(slots)):
+            try:
+                toks = self._with_retry("decode", lambda: self._decode(slots, reqs))
+            except Exception as e:  # noqa: BLE001 — retries exhausted
+                for r in reqs:
+                    self._end(r, RequestState.FAILED,
+                              f"decode failed: {type(e).__name__}: {e}")
+                return
+        t_d1 = time.perf_counter_ns()
         self.tick_s.append(time.perf_counter() - t0)
+        self._decode_seen.add(sig)
+        if obs_enabled():
+            # one tick span per request sharing the launch window
+            for i, r in enumerate(reqs):
+                record_span("req.decode", t_d0, t_d1 - t_d0, rid=r.rid, trace_id=r.trace_id,
+                            tick=self.t, slot=slots[i], batch=len(slots), compiled=compiled)
+        obs_metrics.counter("sched.decode_steps").inc()
+        obs_metrics.counter("sched.tokens").inc(len(slots))
         self.tick_log.append((self.t, len(slots), tuple(
             r.params.k for r in reqs if not r.params.greedy)))
         for r, tok in zip(reqs, toks):
@@ -374,3 +473,8 @@ class ScheduledEngine:
             r.tokens.append(int(tok))
             if len(r.tokens) >= r.params.max_new_tokens:
                 self._end(r, RequestState.DONE)
+
+    def _gauges(self) -> None:
+        obs_metrics.gauge("sched.queue_depth").set(len(self.queue))
+        obs_metrics.gauge("sched.slots_occupied").set(len(self.active))
+        obs_metrics.gauge("sched.free_pages").set(self.slots.free_page_count)

@@ -51,3 +51,8 @@ class SamplingParams:
         cumsums could otherwise mask real lanes and change the draw)."""
         return not self.greedy and self.top_p < 1.0
 
+    @property
+    def sig(self):
+        """Static per-slot decode signature: (k, greedy, topp_active)."""
+        return (self.k, self.greedy, self.topp_active)
+

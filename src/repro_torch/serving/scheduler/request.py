@@ -46,6 +46,11 @@ class Request:
     prompt: np.ndarray  # (len,) int32
     params: SamplingParams
     arrival: int = 0  # virtual tick (admission is tick-deterministic)
+    #: per-request trace id (engine-assigned at submit): groups this
+    #: request's stage spans (queue-wait → prefill → insert → decode
+    #: ticks) in the obs export so TTFT and tail latency decompose into
+    #: named stages (DESIGN.md §17)
+    trace_id: str = ""
 
     state: RequestState = RequestState.QUEUED
     slot: Optional[int] = None
@@ -62,6 +67,12 @@ class Request:
     t_submit: float = 0.0
     t_first: float = 0.0
     t_finish: float = 0.0
+    # ns twins on the perf_counter_ns clock, shared with the span tracer
+    # so per-request stage spans reconcile *exactly* (integer ns) with
+    # the measured TTFT / request latency
+    t_submit_ns: int = 0
+    t_first_ns: int = 0
+    t_finish_ns: int = 0
     admit_tick: int = -1
     finish_tick: int = -1
     #: why a FAILED/TIMED_OUT/REJECTED request ended (human-readable)

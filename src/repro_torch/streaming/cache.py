@@ -24,7 +24,11 @@ The default location is ``$REPRO_AUTOTUNE_CACHE`` or
 ``~/.cache/repro_torch/autotune.json``. A key's platform tag is the
 process's (``"cuda"`` with a card, else ``"cpu"``), as the reference's is
 ``jax.default_backend()``: a card's timings never rank against a host's.
-Telemetry counters are not ported (ROADMAP Queue 1, item 8).
+
+Telemetry, when ``REPRO_OBS`` is on: the ``autotune.cache`` counter
+(``op``, ``result``: hit / miss / stale_schema / quarantined /
+load_failed / store_failed) and a ``quarantine`` recorder event, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ import tempfile
 import threading
 from typing import Any, Dict, Optional
 
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import recorder as obs_recorder
 
 #: entry-format version; bump when MergePlan fields change meaning.
 #: v2 added the fused-pipeline knobs (``block``) and the VMEM-fit
@@ -106,6 +112,7 @@ class AutotuneCache:
             self._quarantine()
             return
         except OSError:  # unreadable: the cache is reconstructible
+            obs_metrics.counter("autotune.cache").inc(op="-", result="load_failed")
             return
         if isinstance(data, dict):
             self._entries = {str(k): dict(v) for k, v in data.items()
@@ -116,6 +123,8 @@ class AutotuneCache:
             return json.load(f)
 
     def _quarantine(self) -> None:
+        obs_metrics.counter("autotune.cache").inc(op="-", result="quarantined")
+        obs_recorder.emit("quarantine", self.path, sidecar=self.path + ".bad")
         try:
             os.replace(self.path, self.path + ".bad")
         except OSError:
@@ -157,8 +166,16 @@ class AutotuneCache:
     def get(self, key: str) -> Optional[Dict[str, Any]]:
         with self._lock:
             entry = self._entries.get(key)
-        if entry is None or entry.get("_schema") != SCHEMA_VERSION:
+        # hit / miss / stale-schema telemetry: the op is the key's first
+        # component (low-cardinality by construction)
+        op = key.split("|", 1)[0]
+        if entry is None:
+            obs_metrics.counter("autotune.cache").inc(op=op, result="miss")
+            return None
+        if entry.get("_schema") != SCHEMA_VERSION:
+            obs_metrics.counter("autotune.cache").inc(op=op, result="stale_schema")
             return None  # stale-schema entries degrade to a heuristic plan
+        obs_metrics.counter("autotune.cache").inc(op=op, result="hit")
         return entry
 
     def put(self, key: str, value: Dict[str, Any]) -> None:
@@ -169,7 +186,8 @@ class AutotuneCache:
             try:
                 self._save_locked()
             except OSError:  # keep tuning in memory
-                pass
+                obs_metrics.counter("autotune.cache").inc(
+                    op=key.split("|", 1)[0], result="store_failed")
 
     def __len__(self) -> int:
         return len(self._entries)

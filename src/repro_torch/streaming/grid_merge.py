@@ -20,6 +20,14 @@ gives the carry loop's bits. :func:`grid_merge2_emulated` runs the
 kernel's decomposition on the CPU for the tests. :func:`grid_merge2_rows`
 merges rows addressed as (group, member) views in one launch, which is how
 the values-only sort spill merges a whole level of runs in place.
+
+Telemetry (``REPRO_OBS`` on), with the reference's names:
+``grid_merge.launches`` counts every call of :func:`grid_merge2_rows`
+that merges anything, one a kernel launch on the card (equal to
+``LAUNCHES["grid_merge2"]``; the reference counts compilations), and
+``grid_merge.refill_tiles`` the tiles the rows stream, rows x (output
+tiles + 1), labelled with the tile: the kernel's (threads x outputs a
+thread) on the card, ``tile`` on the CPU.
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ from repro_torch.kernels.common import pad_tail_sorted, take_along
 from repro_torch.kernels.launch import KEY_CODE, check_rc, library, stream
 from repro_torch.kernels.topk import LAUNCHES
 from repro_torch.networks import merge_program, merge_runs
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 #: threads of a merge CTA and the most outputs a thread merges
 #: (``csrc/grid_merge.cu`` THREADS, ITEMS)
@@ -228,15 +238,26 @@ def grid_merge2_rows(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
     if tile < 2 or tile % 2:
         raise ValueError(f"tile must be even and >= 2, got {tile}")
     na, nb = a.shape[2], b.shape[2]
+    rows = a.shape[0] * a.shape[1]
     if a.device.type == "cpu":
         out.copy_(grid_chunked_merge2_plain(a.reshape(-1, na), b.reshape(-1, nb), tile=tile,
                                             network=network).reshape(out.shape))
+        if out.numel() and obs_trace.enabled():
+            _record(rows, na + nb, tile)
         return out
     _check_rows((a, b, out), a.dtype)
     if out.numel():
         _launch(a, b, out)
         LAUNCHES["grid_merge2"] += 1
+        if obs_trace.enabled():
+            _record(rows, na + nb, _items(a.device, rows, na + nb) * GRID_THREADS)
     return out
+
+
+def _record(rows: int, total: int, tile: int) -> None:
+    """The ``grid_merge.*`` counters of one merge of ``rows`` rows."""
+    obs_metrics.counter("grid_merge.launches").inc(tile=tile)
+    obs_metrics.counter("grid_merge.refill_tiles").inc(rows * (-(-total // tile) + 1), tile=tile)
 
 
 def grid_merge2_phases(a: torch.Tensor, b: torch.Tensor, *, out: torch.Tensor = None,

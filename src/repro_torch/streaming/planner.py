@@ -18,13 +18,25 @@ the closed-form heuristic on a miss (no measurement at run time). A
 cached plan names a network family, a column count and a top-k block,
 and with them the tie order, so a cache hit changes permutations as it
 does in the reference. The ``autotune_*`` functions time the port's own
-candidates on the tensor's device (CUDA events on the card) and persist
-the winner.
+candidates on the tensor's device with the one timing helper
+(:func:`repro_torch.obs.timing.time_jitted`: synchronised host-timed
+calls, the p50) and persist the winner.
+
+Telemetry (when ``REPRO_OBS`` is on), with the reference's names:
+:func:`plan_op` records a ``plan_op`` span, ``plan.tile_plans`` (op,
+source) and the ``plan.vmem_bytes`` histogram, which in the port holds
+:func:`estimate_working_bytes`: the reference's working-set model of the
+plan at one row, the quantity the routing budget is held to (the
+reference's figure multiplies it by its ``block_batch`` rows a grid
+step, and it sizes VMEM; the card's kernels size their shared memory
+themselves). A tournament records an ``autotune.{op}`` span,
+``autotune.sweeps``, ``autotune.best_us``, ``tournament.sweeps`` /
+``tournament.picks`` and a ``tournament`` recorder event. Each
+:func:`plan_op` call counts once (the port runs eagerly).
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,6 +44,10 @@ import torch
 
 from repro_torch.kernels.common import ceil_pow2
 from repro_torch.networks import capable_families, divisor_cols, pick_merge_cols
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import recorder as obs_recorder
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.timing import time_jitted
 
 from .cache import AutotuneCache, default_cache, plan_key
 
@@ -208,6 +224,30 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
+def estimate_working_bytes(op: str, lengths: Sequence[int], plan: MergePlan,
+                           dtype: torch.dtype = torch.float32) -> int:
+    """The reference's working-set model (``estimate_vmem_bytes``) of
+    ``plan`` on one ``op`` problem, at one row: the bytes the routing
+    budget compares (the ``plan.vmem_bytes`` histogram)."""
+    lengths = tuple(int(x) for x in lengths)
+    if op == "merge2":
+        return _vmem_bytes_merge2(lengths[0], lengths[1], plan.n_cols, 1, dtype)
+    if op == "sort":
+        return _vmem_bytes_sort(lengths[0], 1, dtype)
+    if op == "kway":
+        return sum(lengths) ** 2 * 4
+    if op == "topk":
+        return lengths[0] * (max(_itemsize(dtype), 4) + (plan.block or 32) * 4)
+    if op == "segmented":
+        if len(lengths) == 1:
+            return _vmem_bytes_sort(lengths[0], 1, dtype)
+        return _vmem_bytes_merge2(lengths[0], lengths[1], plan.n_cols, 1, dtype)
+    if op in ("chunked2", "chunked_k"):
+        t = max(plan.tile, 1)
+        return _vmem_bytes_merge2(t, t, max(plan.n_cols, 2), 1, dtype)
+    return 0
+
+
 def plan_op(op: str, lengths: Sequence[int], *, batch: int = 8,
             dtype: torch.dtype = torch.float32, k: Optional[int] = None,
             cache: Optional[AutotuneCache] = None) -> MergePlan:
@@ -218,10 +258,17 @@ def plan_op(op: str, lengths: Sequence[int], *, batch: int = 8,
         raise ValueError(f"plan_op: unknown op {op!r}; known: {sorted(_HEURISTICS)}")
     lengths = tuple(int(x) for x in lengths)
     cache = cache if cache is not None else default_cache()
-    hit = cache.get(plan_key(op, shapes=(batch,) + lengths, dtype=dtype_name(dtype), k=k))
-    if hit is not None:
-        return MergePlan.from_entry(hit, source="cache")
-    return _HEURISTICS[op](lengths, batch, dtype, k)
+    with obs_trace.span("plan_op", kind="trace", op=op):
+        hit = cache.get(plan_key(op, shapes=(batch,) + lengths, dtype=dtype_name(dtype), k=k))
+        if hit is not None:
+            plan = MergePlan.from_entry(hit, source="cache")
+        else:
+            plan = _HEURISTICS[op](lengths, batch, dtype, k)
+    if obs_trace.enabled():
+        obs_metrics.counter("plan.tile_plans").inc(op=op, source=plan.source)
+        obs_metrics.histogram("plan.vmem_bytes").observe(
+            estimate_working_bytes(op, lengths, plan, dtype), op=op)
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -231,29 +278,6 @@ def plan_op(op: str, lengths: Sequence[int], *, batch: int = 8,
 #: ``timer(plan, fn) -> µs``: how a candidate is timed (tests inject a
 #: deterministic one, so that the winner never depends on the clock)
 Timer = Callable[[MergePlan, Callable[[], object]], float]
-
-
-def time_call(fn: Callable[[], object], *, device: torch.device, warmup: int = 1,
-              iters: int = 3) -> float:
-    """Median µs of ``fn``: CUDA events on the card, the host clock
-    otherwise."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        if device.type == "cuda":
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            fn()
-            t1.record()
-            t1.synchronize()
-            times.append(t0.elapsed_time(t1) * 1e3)
-        else:
-            s = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - s) * 1e6)
-    return float(np.median(times))
 
 
 def _tournament_cols(m: int, n: int, limit: int = 3) -> Tuple[int, ...]:
@@ -304,12 +328,25 @@ def _autotune(op: str, key: str, cands: Sequence[MergePlan],
     if not cands:
         return fallback
     best, best_us = None, float("inf")
-    for plan in cands:
-        us = float(timer(plan, runner(plan)))
-        if us < best_us:
-            best, best_us = plan, us
+    with obs_trace.span(f"autotune.{op}", kind="run", candidates=len(cands)):
+        for plan in cands:
+            us = float(timer(plan, runner(plan)))
+            if us < best_us:
+                best, best_us = plan, us
+    # the measured p50 persists with the winner: plan_op cache hits carry
+    # it back out (MergePlan.us) and decision_table() surfaces it
     best = dataclasses.replace(best, us=best_us)
     cache.put(key, best.to_entry())
+    obs_metrics.counter("autotune.sweeps").inc(op=op)
+    obs_metrics.histogram("autotune.best_us").observe(best_us, op=op)
+    # tournament telemetry: how many sweeps compared several network
+    # families, and which family each size class picked
+    if len({c.network for c in cands}) > 1:
+        obs_metrics.counter("tournament.sweeps").inc(op=op)
+    obs_metrics.counter("tournament.picks").inc(op=op, family=best.network)
+    obs_recorder.emit("tournament", f"{op}:{best.network}", key=key,
+                      family=best.network, us=round(best_us, 2),
+                      candidates=len(cands))
     return best
 
 
@@ -320,7 +357,7 @@ def _setup(cache, device, iters, timer):
     cache = cache if cache is not None else default_cache()
     if timer is None:
         def timer(plan, fn):
-            return time_call(fn, device=dev, iters=iters)
+            return time_jitted(fn, warmup=1, iters=iters).p50_us
     return cache, dev, timer
 
 

@@ -20,10 +20,11 @@ a leading dense layer; the reference's weights carried over with
   orders, so a near-tie between a token's k-th and (k+1)-th logit could
   flip an expert; each of those tests records the smallest such gap and
   names it when the logits differ.
-* The refusals: expert parallelism (ROADMAP item 9), the frontends (item
-  7), MoE through the scheduler; the launcher at smoke width on the CPU.
-  MLA (deepseek-v2-lite) is held by ``tests/test_torch_mla.py``, the SSM
-  and hybrid families by ``tests/test_torch_ssm.py``.
+* The refusals: expert parallelism (ROADMAP item 9), MoE through the
+  scheduler; the launcher at smoke width on the CPU. MLA
+  (deepseek-v2-lite) is held by ``tests/test_torch_mla.py``, the SSM and
+  hybrid families by ``tests/test_torch_ssm.py``, the vlm and audio
+  frontends by ``tests/test_torch_frontends.py``.
 """
 import dataclasses
 import os
@@ -53,7 +54,6 @@ from repro_torch.models import (decode_step, forward, init_cache, model_init,
                                 params_from_jax, prefill)
 from repro_torch.models import moe as t_moe
 from repro_torch.models.convert import _map
-from repro_torch.models.transformer import check_family
 from repro_torch.serving import ServeConfig, generate
 from repro_torch.streaming import cache as tcache
 
@@ -317,16 +317,6 @@ def test_decode_at_b9_counts_the_real_rows(models, router_gaps, monkeypatch):
 # ---------------------------------------------------------------------------
 # refusals and the launcher
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch,item", [("internvl2-26b", "frontends"),
-                                       ("hubert-xlarge", "frontends")])
-def test_families_not_ported_raise(arch, item):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=f"item 7.*{item}"):
-        check_family(cfg)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        init_cache(cfg, 1, 4, "cpu")
 
 
 def test_scheduler_refuses_moe():
