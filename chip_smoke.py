@@ -171,6 +171,31 @@ script with a non-zero exit code when it fails:
       recorder dump holding the tournament; a profiled ``generate`` with
       the ``serve.decode`` range; then obs off: an empty snapshot and the
       same launches and results. Every other phase runs with obs off;
+   o. the three dense configs that 3a's recipe had not served, each at
+      its published width and depth with random bf16 weights from seed 0
+      after the previous model's weights are freed: qwen1.5-32b (35.195 B
+      parameters, 70.39 GB, 40 KV heads and QKV biases), deepseek-coder-33b
+      (33.342 B, 66.68 GB) and chatglm3-6b (6.243 B, half-width RoPE),
+      each through ``generate`` on 3a's prompts sampled (rows 4 and 5 a
+      token at vocabularies 152,064, 32,256 and 65,024) and greedy; the
+      first step's candidates against the plain top-k; B = 3 against B =
+      4 (rows 0-2 bit-equal); parameters, bytes, KV cache a token, peak
+      memory and the weight-read floor beside the decode profile;
+   p. the resilience layer (``repro_torch.resilience``) at full width on
+      chatglm3-6b, obs on: 3b's six staggered requests through
+      ``ScheduledEngine`` with ``sched.*`` failpoints armed once each, at
+      a seeded ``p:0.2:7``, and a persistent ``sched.decode`` (streams
+      bit-equal to the fault-free drain, ``sched.retries`` counting the
+      fires, nothing leaked); ``generate`` with the fused top-k failing
+      (the unfused rung answers, three fallbacks open its breaker) and with
+      every kernel top-k failing (the plan reroutes to the schedule
+      executor, ``source="breaker"``); 3e's merge and sort with the kernel
+      seams failing (the values the healthy call's, the tie order the
+      answering rung's) and armed ``off`` (the same results and launches);
+      a real (not injected) error of the fused sort on the card
+      propagating; the tie-order table of ``tests/test_torch_resilience.py``
+      on the card against the CPU. Its launches, made with failpoints
+      armed, are logged apart and not counted on the main paths;
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
@@ -180,6 +205,14 @@ script with a non-zero exit code when it fails:
    3e spill's and the widest; rows 1 and 3-7 also as a graph of 20 calls
    over the calls (``amortised_ms`` in the kernels line), beside the
    floor (one one-element ``torch.add``) timed both ways.
+
+Every phase runs with the degradation ladder on and no failpoint armed
+(the script refuses to start with ``REPRO_FAILPOINTS`` set or
+``REPRO_RESILIENCE=0``) and ends with an empty breaker registry. On the
+card only an injected fault degrades a call (a kernel's real error
+raises), and a rung that failed and was answered by a slower one would
+have made a breaker, so no fallback hides a kernel. Phase 3p arms faults
+and resets the breakers and failpoints before it ends.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Needs one card.
@@ -462,9 +495,9 @@ class sort_lanes:
         launch.SORT_LANES = self.old
 
 
-#: the models phase 3 serves at full width (3a-3b, 3h-3k)
+#: the models phase 3 serves at full width with the vocab kernels (3a-3b, 3h-3k, 3o)
 SERVED_ARCHS = ("qwen3-8b", "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "mamba2-780m",
-                "zamba2-2.7b")
+                "zamba2-2.7b", "qwen1.5-32b", "chatglm3-6b", "deepseek-coder-33b")
 
 
 def phase_kernels(dev, K, topk_block) -> dict:
@@ -3684,6 +3717,505 @@ def phase_obs(dev, K) -> dict:
     return got
 
 
+#: phase 3o's dense configs in order; chatglm3-6b last, so that 3p reuses its weights
+DENSE_ARCHS = ("qwen1.5-32b", "deepseek-coder-33b", "chatglm3-6b")
+
+
+def phase_dense(dev, K, card, arch: str) -> tuple:
+    """Phase 3o: one dense config at its published width and depth, random
+    bf16 weights from seed 0, through 3a's recipe: ``generate`` on 3a's
+    prompts sampled (rows 4 and 5 a token) and greedy (nothing), each with
+    its launch counts zeroed before and read after; the first step's
+    candidates against the plain top-k and the token against the sampled
+    run's; a decode step at B = 3 and B = 4 from one cache (rows 0-2
+    bit-equal) whose argmax is the greedy run's second token; the
+    parameters, their bytes, the KV cache a token, the peak memory and the
+    step's weight-read floor beside the decode profile. Returns
+    ``(launches, params, cfg, sampled run)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import topk
+    from repro_torch.api import topk_block
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, model_init, prefill
+    from repro_torch.serving import ServeConfig, generate
+    from repro_torch.serving.sample import canonical_token, categorical, gumbel_noise
+
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"  {cfg.name}: before init {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+    t0 = time.perf_counter()
+    params = model_init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    emb = params["embed"]["emb"]
+    step_bytes = nbytes - emb.numel() * emb.element_size()  # the table is gathered, not read
+    floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    kv = sum(t.numel() * t.element_size() for t in _leaves(init_cache(cfg, 1, 1, dev)))
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+        f"{', qkv bias' if cfg.qkv_bias else ''}, rope fraction {cfg.rope_fraction}: "
+        f"{n_params / 1e9:.3f} B parameters (params_billions {cfg.params_billions():.3f}), "
+        f"{nbytes / 1e9:.2f} GB of weights, init {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; KV cache {kv / 1e6:.4f} MB a "
+        f"token (incl. its position); {card}")
+    log(f"  weight-read floor of a decode step (all but the embedding table): "
+        f"{step_bytes / 1e9:.2f} GB = {floor_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+    rng = np.random.default_rng(0)  # phase 3a's prompts
+    bsz, plen, new, k, temp = 4, 128, 16, 64, 0.8
+    tokens = rng.integers(0, cfg.vocab_size, (bsz, plen)).astype(np.int32)
+    sc = ServeConfig(max_new_tokens=new, top_k=k, temperature=temp, seed=0, time_steps=True)
+    blk = topk_block(cfg.vocab_size, k)
+    tree = K.vocab_merge_launches(cfg.vocab_size, blk, k)
+    if tree > 2:
+        raise AssertionError(f"{cfg.name}: the merge tree takes {tree} launches a call")
+    runs = (
+        ("sampled", lambda: generate(params, {"tokens": tokens}, cfg, sc, device=dev),
+         {"vocab_phase1": new, "vocab_merge_level": new * tree}),
+        ("greedy", lambda: generate(params, {"tokens": tokens}, cfg,
+                                    dataclasses.replace(sc, temperature=0.0), device=dev), {}),
+    )
+    outs, launches = {}, {n: 0 for n in K.LAUNCHES}
+    for name, run, want in runs:
+        want = {**{n: 0 for n in K.LAUNCHES}, **want}
+        K.reset_launch_counts()
+        outs[name] = run()
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        if got != want:
+            raise AssertionError(f"{cfg.name} {name} run: launch counts {got} != {want}")
+        for n, c in got.items():
+            launches[n] += c
+        o = outs[name]
+        t = o["tokens"]
+        if t.shape != (bsz, new) or t.min() < 0 or t.max() >= cfg.vocab_size:
+            raise AssertionError(f"{cfg.name} {name} run gave tokens outside the vocab")
+        log(f"  {name}: launches { {n: c for n, c in got.items() if c} }; prefill "
+            f"{o['prefill_s'] * 1e3:.2f} ms, decode step p50 {o['decode_step_p50_us'] / 1e3:.3f} "
+            f"ms p99 {o['decode_step_p99_us'] / 1e3:.3f} ms (floor {floor_ms:.3f}), "
+            f"{o['tok_per_s']:.2f} tok/s; first tokens {t[0, :6].tolist()}; {card}")
+
+    with torch.inference_mode():
+        toks = torch.from_numpy(tokens).to(dev)
+        lg, cache = prefill(params, {"tokens": toks}, init_cache(cfg, bsz, plen + 1, dev), cfg)
+        if lg.shape != (bsz, cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{cfg.name}: prefill logits not finite of shape (B, V)")
+        got = topk(lg, k)
+        want_tk = K.vocab_topk_plain(lg, k, blk)
+        require_equal(f"{cfg.name}: first-step candidates at vocab {cfg.vocab_size}", got,
+                      want_tk)
+        noise = gumbel_noise((bsz, k), generator=torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        tok_k = canonical_token(lg, got[0], categorical(got[0].float() / temp, gumbel=noise))
+        tok_p = canonical_token(lg, want_tk[0],
+                                categorical(want_tk[0].float() / temp, gumbel=noise))
+        if not torch.equal(tok_k, tok_p) or not np.array_equal(
+                tok_k.cpu().numpy(), outs["sampled"]["tokens"][:, 0]):
+            raise AssertionError(f"{cfg.name}: first token differs between the kernel, the "
+                                 "plain top-k and the sampled run")
+        nxt = torch.argmax(lg, -1).to(torch.int32)[:, None]
+        if not np.array_equal(nxt[:, 0].cpu().numpy(), outs["greedy"]["tokens"][:, 0]):
+            raise AssertionError(f"{cfg.name}: first token is not the greedy run's")
+        pos = torch.full((bsz, 1), plen, dtype=torch.int32, device=dev)
+        dl4, _ = decode_step(params, nxt, _rows_of(cache, bsz), cfg, positions=pos)
+        dl3, _ = decode_step(params, nxt[:3], _rows_of(cache, 3), cfg, positions=pos[:3])
+        if not bool(torch.isfinite(dl4).all()):
+            raise AssertionError(f"{cfg.name}: decode logits not finite")
+        if not torch.equal(bits(dl3), bits(dl4[:3])):
+            raise AssertionError(f"{cfg.name} decode at B = 3 and B = 4: rows 0-2 differ")
+        if not np.array_equal(torch.argmax(dl4, -1).cpu().numpy(),
+                              outs["greedy"]["tokens"][:, 1]):
+            raise AssertionError(f"{cfg.name}: the decode step is not the greedy run's second")
+        log(f"  first step: candidates bit-equal to the plain top-k (block {blk}, "
+            f"{K.vocab_levels(cfg.vocab_size, blk)} merge levels in {tree} launches), token "
+            f"{tok_k.tolist()} the sampled run's; decode at B = 3 and B = 4 from one cache: "
+            "rows 0-2 bit-equal, its argmax the greedy run's second tokens")
+        del lg, cache, dl3, dl4
+    profile_serve(dev, params, cfg, card)
+    log(f"    the step's weight-read floor {floor_ms:.3f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card}")
+    return launches, params, cfg, outs["sampled"]
+
+
+#: the tie-order findings of ``tests/test_torch_resilience.py`` (tied bf16
+#: rows, seed 0): per op, the rung each arming makes the ladder answer
+#: from, and the rungs grouped by equal tie order
+_TIE_F, _TIE_K, _TIE_E = ({"fused.launch": "always"}, {"kernel.launch": "always"},
+                          {"executor.run": "always"})
+TIE_LADDERS = {
+    "sort+payload": {"fused": {}, "schedule": _TIE_F, "lax": {**_TIE_F, **_TIE_E}},
+    "topk": {"fused": {}, "cuda": _TIE_F, "schedule": {**_TIE_F, **_TIE_K},
+             "lax": {**_TIE_F, **_TIE_K, **_TIE_E}},
+    "merge+payload": {"fused": {}, "schedule": _TIE_F, "lax": {**_TIE_F, **_TIE_E}},
+    "merge_k+payload": {"fused": {}, "schedule": _TIE_F, "lax": {**_TIE_F, **_TIE_E}},
+}
+TIE_GROUPS = {
+    "sort+payload": [["fused", "lax"], ["schedule"]],
+    "topk": [["fused", "cuda"], ["schedule"], ["lax"]],
+    "merge+payload": [["fused"], ["schedule"], ["lax"]],
+    "merge_k+payload": [["fused", "schedule"], ["lax"]],
+}
+_TIE_POOL = (-1.5, -0.0, 0.0, 0.5, 2.0, float("inf"), float("-inf"), float("nan"))
+_TIE_RANK = (1, 2, 3, 4, 5, 6, 0, 7)  # each pool value's place in the key order
+
+
+def tie_rows(rng, shape, sort=False):
+    """The test's tied bf16 rows: eight values, ±0.0, ±inf and NaN among
+    them; ``sort``: ascending in the total key order."""
+    import numpy as np
+    import torch
+
+    idx = rng.integers(0, len(_TIE_POOL), shape)
+    if sort:
+        idx = np.take_along_axis(idx, np.argsort(np.asarray(_TIE_RANK)[idx], axis=-1,
+                                                 kind="stable"), -1)
+    return torch.from_numpy(np.asarray(_TIE_POOL, np.float32)[idx]).to(torch.bfloat16)
+
+
+def same_values(a, b) -> bool:
+    """Bit-equal, a NaN matching any NaN (its bits are the route's)."""
+    import torch
+
+    a, b = a.float().cpu(), b.float().cpu()
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb) and torch.equal(a[~na].view(torch.int32),
+                                                    b[~nb].view(torch.int32)))
+
+
+def tie_order_walk(device) -> dict:
+    """Each op of the tie-order table on ``device``: the answer of every
+    rung the ladder reaches under the table's armings, the rungs that
+    failed checked from the breakers. Returns op -> rung -> (values,
+    order)."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.resilience import breaker_states, failpoints, reset_breakers
+
+    rng = np.random.default_rng(0)
+    x = tie_rows(rng, (4, 64)).to(device)
+    a, b, c = (tie_rows(rng, (4, 32), sort=True).to(device) for _ in range(3))
+    tp = torch.arange(4 * 96, dtype=torch.int32, device=device).reshape(4, 96)
+    calls = {
+        "sort+payload": lambda: repro_torch.sort(x, payload=tp[:, :64]),
+        "topk": lambda: repro_torch.topk(x, 16),
+        "merge+payload": lambda: repro_torch.merge(a, b, payload=(tp[:, :32], tp[:, 32:64])),
+        "merge_k+payload": lambda: repro_torch.merge_k(
+            [a, b, c], payload=[tp[:, :32], tp[:, 32:64], tp[:, 64:]]),
+    }
+    out = {}
+    for op, ladder in TIE_LADDERS.items():
+        out[op] = {}
+        order = list(ladder)
+        for rung, armed in ladder.items():
+            reset_breakers()
+            with failpoints(armed):
+                out[op][rung] = tuple(t.cpu() for t in calls[op]())
+            failed = {r for _, r, _ in breaker_states()}
+            if failed != set(order[:order.index(rung)]):
+                raise AssertionError(f"tie order {op}: the {rung} arming failed {failed}")
+        reset_breakers()
+    return out
+
+
+def tie_groups(answers) -> list:
+    """The rungs grouped by equal tie order; raises if a value differs."""
+    import torch
+
+    first = next(iter(answers.values()))
+    groups = []
+    for rung, (vals, order) in answers.items():
+        if not same_values(vals, first[0]):
+            raise AssertionError(f"the {rung} rung's values differ from the fused rung's")
+        for g in groups:
+            if torch.equal(answers[g[0]][1], order):
+                g.append(rung)
+                break
+        else:
+            groups.append([rung])
+    return groups
+
+
+def drain_invariants(eng, name: str) -> None:
+    """Every request terminal, the queue empty, no slot or page held."""
+    from repro_torch.serving.scheduler import TERMINAL_STATES
+
+    bad = {rid: r.state.value for rid, r in eng.requests.items()
+           if r.state not in TERMINAL_STATES}
+    if bad or len(eng.queue) or eng.active:
+        raise AssertionError(f"{name}: the drain left {bad}, queue {len(eng.queue)}, "
+                             f"active {list(eng.active)}")
+    if (eng.slots.free_slot_count != eng.sc.n_slots
+            or eng.slots.free_page_count != eng.pool.n_pages - 1):
+        raise AssertionError(f"{name}: leaked slots or pages ({eng.slots.free_slot_count} of "
+                             f"{eng.sc.n_slots} slots, {eng.slots.free_page_count} of "
+                             f"{eng.pool.n_pages - 1} pages free)")
+
+
+def phase_resilience(dev, K, card, params, cfg, sampled) -> dict:
+    """Phase 3p: the resilience layer at full width on chatglm3-6b (3o's
+    weights), obs on for its counters. (a) Phase 3b's six staggered
+    requests drained by ``ScheduledEngine``: fault-free, then under
+    ``sched.prefill`` / ``insert`` / ``decode`` armed once each and under
+    a seeded ``p:0.2:7`` on ``sched`` (every stream bit-equal to the
+    fault-free drain, ``sched.retries`` counting the fires), then under a
+    persistent ``sched.decode`` (the decoding requests FAILED, the drain
+    whole, nothing leaked). (b) ``generate`` with ``fused.launch.topk``
+    armed: the unfused cuda rung answers with the same kernels, three
+    fallbacks open the fused rung's breaker, the tokens are 3o's; with
+    ``kernel.launch.topk`` armed too the schedule executor answers and the
+    plan reroutes (``source="breaker"``), the tokens those of a
+    fault-free run. (c) 3e's merge and sort at their users' sizes with
+    ``kernel.launch`` and ``fused.launch`` armed: the values the healthy
+    call's, the tie order the answering rung's (its explicit ask's);
+    every seam armed ``off``: the same results and launches; the
+    tie-order table on the card against the CPU. (d) Breakers and
+    failpoints reset."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch import obs
+    from repro_torch.api import topk_block
+    from repro_torch.obs import metrics, recorder, trace
+    from repro_torch.resilience import (breaker_states, failpoints, fires, reset_breakers,
+                                        reset_failpoints)
+    from repro_torch.serving import ServeConfig, generate
+    from repro_torch.serving.scheduler import SamplingParams, ScheduledEngine, SchedulerConfig
+
+    launches = {n: 0 for n in K.LAUNCHES}
+
+    def counted(fn):
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        for n, c in got.items():
+            launches[n] += c
+        return out, got
+
+    prev = obs.set_enabled(True)
+    trace.clear()
+    metrics.reset()
+    recorder.clear()
+    try:
+        # (a) the scheduler under faults
+        t_a = time.perf_counter()
+        vocab = cfg.vocab_size
+        plens, arrivals = (128, 77, 128, 33, 100, 5), (0, 0, 1, 2, 4, 6)
+        sps = [SamplingParams(k=64, temperature=0.8, seed=11),
+               SamplingParams(k=16, temperature=1.0, seed=12),
+               SamplingParams(k=256, temperature=0.7, top_p=0.9, seed=13),
+               SamplingParams(temperature=0.0, seed=14),
+               SamplingParams(k=64, temperature=0.8, top_p=0.95, max_new_tokens=1, seed=15),
+               SamplingParams(k=64, temperature=0.8, max_new_tokens=8, seed=16)]
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in plens]
+
+        def drain(name, armed, **kw):
+            sc = SchedulerConfig(n_slots=4, page_size=16, pages_per_slot=9,
+                                 retry_backoff_s=0.0, **kw)
+            eng = ScheduledEngine(params, cfg, sc, device=dev)
+            rids = [eng.submit(p, sp, arrival=a) for p, sp, a in zip(prompts, sps, arrivals)]
+            metrics.reset()
+            t0 = time.perf_counter()
+            with failpoints(armed):
+                out, got = counted(eng.run)
+                fired = {n: fires(n) for n in armed}
+            wall = time.perf_counter() - t0
+            drain_invariants(eng, name)
+            retries = {w: int(metrics.counter("sched.retries").value(what=w))
+                       for w in ("prefill", "insert", "decode")}
+            states = [eng.requests[r].state.value for r in rids]
+            log(f"  {name}: {wall:.3f} s, states {states}, fired {fired}, sched.retries "
+                f"{retries}, launches { {n: c for n, c in got.items() if c} }")
+            return [out.get(r) for r in rids], states, fired, retries
+
+        clean, states, _, _ = drain("fault-free drain", {})
+        if set(states) != {"done"}:
+            raise AssertionError(f"fault-free drain: states {states}")
+        out, states, fired, retries = drain(
+            "sched.prefill / insert / decode once each",
+            {"sched.prefill": "once", "sched.insert": "once", "sched.decode": "once"})
+        if set(states) != {"done"} or any(not np.array_equal(o, c) for o, c in zip(out, clean)):
+            raise AssertionError("once each: a stream differs from the fault-free drain")
+        if retries != {"prefill": 1, "insert": 1, "decode": 1}:
+            raise AssertionError(f"once each: sched.retries {retries}")
+        out, states, fired, retries = drain("sched p:0.2:7 (max_retries 30)",
+                                            {"sched": "p:0.2:7"}, max_retries=30)
+        if set(states) != {"done"} or any(not np.array_equal(o, c) for o, c in zip(out, clean)):
+            raise AssertionError("p:0.2:7: a stream differs from the fault-free drain")
+        if not fired["sched"] or sum(retries.values()) != fired["sched"]:
+            raise AssertionError(f"p:0.2:7: {fired} fires, sched.retries {retries}")
+        out, states, fired, retries = drain("sched.decode always (max_retries 1)",
+                                            {"sched.decode": "always"}, max_retries=1)
+        if not set(states) <= {"failed", "done"} or "failed" not in states:
+            raise AssertionError(f"persistent decode fault: states {states}")
+        for o, c, s in zip(out, clean, states):
+            if s == "done" and not np.array_equal(o, c):
+                raise AssertionError("persistent decode fault: a finished stream differs")
+        log(f"  (a) every faulted drain whole, no slot or page leaked, every finished stream "
+            f"bit-equal to the fault-free drain: {time.perf_counter() - t_a:.1f} s")
+
+        # (b) generate with the fused top-k failing, then every kernel rung
+        t_b = time.perf_counter()
+        bsz, plen, new, k, temp = 4, 128, 16, 64, 0.8
+        tokens = np.random.default_rng(0).integers(0, vocab, (bsz, plen)).astype(np.int32)
+        sc = ServeConfig(max_new_tokens=new, top_k=k, temperature=temp, seed=0)
+        cls = f"{1 << (vocab - 1).bit_length()}v"
+        tree = K.vocab_merge_launches(vocab, topk_block(vocab, k), k)
+        metrics.reset()
+        with failpoints({"fused.launch.topk": "always"}):
+            out, got = counted(lambda: generate(params, {"tokens": tokens}, cfg, sc, device=dev))
+        fb = metrics.counter("resilience.fallbacks").value(op="topk", rung="fused", cls=cls,
+                                                           err="FailpointError")
+        if fb != 3 or breaker_states() != {("topk", "fused", cls): "open"}:
+            raise AssertionError(f"fused top-k failing: {fb} fallbacks, {breaker_states()}")
+        if not np.array_equal(out["tokens"], sampled["tokens"]):
+            raise AssertionError("fused top-k failing: the tokens differ from 3o's")
+        if (got["vocab_phase1"], got["vocab_merge_level"]) != (new, new * tree):
+            raise AssertionError(f"fused top-k failing: launches {got}")
+        log(f"  (b) fused.launch.topk always: {int(fb)} fallbacks then the breaker "
+            f"{('topk', 'fused', cls)} open; the unfused cuda rung answered {new} tokens with "
+            f"the same kernels ({got['vocab_phase1']} phase 1, {got['vocab_merge_level']} "
+            "tree launches), the tokens 3o's")
+        reset_breakers()
+        sc4 = dataclasses.replace(sc, max_new_tokens=4)
+        want4, _ = counted(lambda: generate(params, {"tokens": tokens}, cfg, sc4, device=dev))
+        metrics.reset()
+        t0 = time.perf_counter()
+        with failpoints({"fused.launch.topk": "always", "kernel.launch.topk": "always"}):
+            out4, got = counted(lambda: generate(params, {"tokens": tokens}, cfg, sc4,
+                                                 device=dev))
+        wall = time.perf_counter() - t0
+        fbs = {r: metrics.counter("resilience.fallbacks").value(
+            op="topk", rung=r, cls=cls, err="FailpointError") for r in ("fused", "cuda")}
+        rerouted = sum(s["value"] for s in metrics.counter("plan.decisions").series()
+                       if s["labels"].get("op") == "topk"
+                       and s["labels"].get("source") == "breaker"
+                       and s["labels"].get("backend") == "schedule")
+        if fbs != {"fused": 3, "cuda": 3} or rerouted != 1 or any(got.values()):
+            raise AssertionError(f"every kernel rung failing: fallbacks {fbs}, {rerouted} "
+                                 f"plans rerouted, launches {got}")
+        if not np.array_equal(out4["tokens"], want4["tokens"]):
+            raise AssertionError("every kernel rung failing: the tokens differ")
+        log(f"  (b) fused and kernel top-k always: fallbacks {fbs}, then the plan rerouted to "
+            f"the schedule executor ({int(rerouted)} plan with source=breaker), no kernel "
+            f"launched, {sc4.max_new_tokens} tokens equal to a fault-free run's; {wall:.2f} s; "
+            f"{time.perf_counter() - t_b:.1f} s in (b)")
+        reset_breakers()
+
+        # (c) the library's merge and sort with the kernels failing
+        t_c = time.perf_counter()
+        a1, b1 = (total_order_sorted(seg_tile(65_536, 32, torch.float32, dev, seed=s))
+                  for s in (1, 2))
+        a2, b2 = (total_order_sorted(seg_tile(4096, 512, torch.float32, dev, seed=s), True)
+                  for s in (3, 4))
+        id2 = torch.arange(a2.numel() * 2, dtype=torch.int32, device=dev).reshape(-1, 1024)
+        x4 = seg_tile(16_384, 1024, torch.bfloat16, dev, seed=7)
+        p4 = torch.arange(x4.numel(), dtype=torch.int32, device=dev).reshape(x4.shape)
+        x5 = seg_tile(16, 1007, torch.float32, dev, seed=8)
+        cases = (
+            ("merge (65536, 32 + 32) f32", lambda **kw: repro_torch.merge(a1, b1, **kw),
+             "cuda"),
+            ("merge (4096, 512 + 512) f32 desc + ids", lambda **kw: repro_torch.merge(
+                a2, b2, descending=True, payload=(id2[:, :512], id2[:, 512:]), **kw),
+             "schedule"),
+            ("sort (16384, 1024) bf16 + payload",
+             lambda **kw: repro_torch.sort(x4, payload=p4, **kw), "schedule"),
+            ("sort (16, 1007) f32 desc", lambda **kw: repro_torch.sort(x5, descending=True,
+                                                                       **kw), "schedule"),
+        )
+        faults = {"kernel.launch": "always", "fused.launch": "always"}
+        seams = ("kernel.launch", "fused.launch", "executor.run", "grid_merge.refill",
+                 "segmented.spill", "cache")
+        for name, call, rung in cases:
+            healthy, want_l = counted(call)
+            with failpoints({s: "off" for s in seams}):
+                off, got_l = counted(call)
+            h, o = ((t,) if isinstance(t, torch.Tensor) else t for t in (healthy, off))
+            if got_l != want_l or any(not torch.equal(bits(p) if p.dtype.is_floating_point
+                                                      else p, bits(q) if q.dtype
+                                                      .is_floating_point else q)
+                                      for p, q in zip(h, o)):
+                raise AssertionError(f"{name}: the seams armed off changed the call")
+            reset_breakers()
+            t0 = time.perf_counter()
+            with failpoints(faults):
+                deg, deg_l = counted(call)
+            ms = (time.perf_counter() - t0) * 1e3
+            failed = sorted(r for _, r, _ in breaker_states())
+            asked, _ = counted(lambda: call(backend=rung))
+            d, w = ((t,) if isinstance(t, torch.Tensor) else t for t in (deg, asked))
+            if not same_values(d[0], h[0]) or any(not torch.equal(p, q)
+                                                  for p, q in zip(d[1:], w[1:])):
+                raise AssertionError(f"{name}: the {rung} rung's answer is not the contract's")
+            log(f"  (c) {name}: healthy launches { {n: c for n, c in want_l.items() if c} }, "
+                f"the same with every seam off; kernels failing: rungs {failed} failed, "
+                f"{rung} answered in {ms:.1f} ms (launches "
+                f"{ {n: c for n, c in deg_l.items() if c} }), values bit-equal to the "
+                f"healthy call's, tie order its explicit ask's")
+        reset_breakers()
+        # a real error of a kernel rung on the card propagates: no plain rung answers
+        import repro_torch.api.fused as fused_mod
+
+        real_sort = fused_mod.fused_sort
+
+        def broken_sort(*args, **kw):
+            raise RuntimeError("a kernel that fails to launch")
+
+        fused_mod.fused_sort = broken_sort
+        try:
+            repro_torch.sort(x5)
+            raise AssertionError("a failed fused sort on the card was answered by another rung")
+        except RuntimeError as e:
+            if "fails to launch" not in str(e) or breaker_states():
+                raise
+        finally:
+            fused_mod.fused_sort = real_sort
+        log("  (c) a real error of the fused sort on the card propagated, no breaker made")
+        card_walk, cpu_walk = tie_order_walk(dev), tie_order_walk("cpu")
+        for op, answers in card_walk.items():
+            groups = tie_groups(answers)
+            for rung, (vals, order) in answers.items():
+                cv, co = cpu_walk[op][rung]
+                if not same_values(vals, cv) or not torch.equal(order, co):
+                    raise AssertionError(f"tie order {op}: the {rung} rung differs from the CPU")
+            if groups != TIE_GROUPS[op]:
+                raise AssertionError(f"tie order {op}: groups {groups} != {TIE_GROUPS[op]}")
+            log(f"  (c) tie order {op} (tied bf16 rows with ±0.0, ±inf, NaN): values the same "
+                f"on every rung, tie-order groups {groups} as on the CPU, each rung bit-equal "
+                "to the CPU's")
+        log(f"  (c) {time.perf_counter() - t_c:.1f} s")
+    finally:
+        reset_failpoints()
+        reset_breakers()
+        trace.clear()
+        metrics.reset()
+        recorder.clear()
+        obs.set_enabled(prev)
+    return launches
+
+
+def guard(phase: str) -> None:
+    """No breaker exists and no failpoint is armed after ``phase``: every
+    call was answered by its planned rung (a caught failure makes a
+    breaker), so no slower rung hid a kernel."""
+    from repro_torch.resilience import breaker_states
+    from repro_torch.resilience.failpoints import active
+
+    if breaker_states() or active():
+        raise AssertionError(f"phase {phase}: breakers {breaker_states()}, failpoints "
+                             f"{active()}: a rung failed and another answered")
+
+
 def _ranged(fn, label):
     """fn inside a profiler range named ``label``."""
     from torch.profiler import record_function
@@ -3783,6 +4315,11 @@ def main() -> int:
         print(f"chip_smoke: src/repro_torch is not beside this script ({exc})",
               file=sys.stderr)
         return 3
+    if os.environ.get("REPRO_FAILPOINTS", "").strip() or os.environ.get(
+            "REPRO_RESILIENCE", "1") == "0":
+        print("chip_smoke: REPRO_FAILPOINTS is set or REPRO_RESILIENCE=0: every phase must "
+              "run with no fault armed and the degradation ladder on", file=sys.stderr)
+        return 4
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -3826,21 +4363,28 @@ def main() -> int:
         err[name] = max(err[name], e)
     for name, e in phase_signed_zero_kernels(dev, K, SK, topk_block, capable_families).items():
         err[name] = max(err[name], e)
+    guard("2")
 
     log(f"phase 3a: serve Qwen3-8B at full width {since()}")
     params, logits, smoke_logits, launches = phase_serve(dev, K)
+    guard("3a")
     log(f"phase 3b: the request scheduler at full width {since()}")
     runs = [launches, phase_engine(dev, K, params, card)]
     phase_invariance(dev, params, get_config("qwen3-8b"), card)
+    guard("3b")
     log(f"phase 3c: --engine at smoke width {since()}")
     got, tick_rows, tick_k = phase_engine_smoke(dev, K, SK, 4, 32, 16, 64, 0.8)
     runs.append(got)
+    guard("3c")
     log(f"phase 3d: the segmented library calls {since()}")
     runs.append(phase_seg_library(dev, K, SK))
+    guard("3d")
     log(f"phase 3e: the library's merge and sort {since()}")
     runs.append(phase_library_merge_sort(dev))
+    guard("3e")
     log(f"phase 3f: the k-way merge and the median {since()}")
     runs.append(phase_library_kway(dev))
+    guard("3f")
     log(f"phase 3g: the schedule executor and the backends {since()}")
     got, no_kernel_rows = phase_schedule_backends(dev, logits, card)
     runs.append(got)
@@ -3848,35 +4392,65 @@ def main() -> int:
     profile_serve(dev, params, get_config("qwen3-8b"), card)
     decode_tile_cost(dev, params, get_config("qwen3-8b"), card)
     gqa_err = decode_vs_prefill(dev, params, get_config("qwen3-8b"), card)
+    guard("3g")
     del params  # the MoE's 61 GB of weights need the room
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3h: qwen3-moe-30b-a3b at full width {since()}")
     runs.append(phase_moe(dev, K, card))
+    guard("3h")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3i: deepseek-v2-lite-16b (MLA) at full width {since()}")
     runs.append(phase_moe(dev, K, card, "deepseek-v2-lite-16b", gqa_err))
+    guard("3i")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3j: mamba2-780m (SSM) at full width {since()}")
     runs.append(phase_ssm(dev, K, card, "mamba2-780m", gqa_err))
+    guard("3j")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3k: zamba2-2.7b (hybrid) at full width {since()}")
     runs.append(phase_ssm(dev, K, card, "zamba2-2.7b", gqa_err))
+    guard("3k")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3l: internvl2-26b (vlm) at full width {since()}")
     runs.append(phase_vlm(dev, K, card))
+    guard("3l")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3m: hubert-xlarge (audio encoder) at full width {since()}")
     phase_audio(dev, K, card)
+    guard("3m")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3n: the telemetry layer (repro_torch.obs) {since()}")
     runs.append(phase_obs(dev, K))
+    guard("3n")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_op = time.perf_counter()
+    for arch in DENSE_ARCHS:
+        log(f"phase 3o: {arch} (dense) at full width {since()}")
+        got, params, cfg, sampled = phase_dense(dev, K, card, arch)
+        runs.append(got)
+        guard(f"3o {arch}")
+        if arch != DENSE_ARCHS[-1]:
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    t_o = time.perf_counter() - t_op
+    log(f"phase 3p: the resilience layer at full width on {cfg.name} {since()}")
+    got = phase_resilience(dev, K, card, params, cfg, sampled)
+    log(f"  launches of 3p (failpoints armed; not counted on the main paths): "
+        f"{ {n: c for n, c in got.items() if c} }")
+    guard("3p")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phases 3o {t_o:.1f} s and 3p {time.perf_counter() - t_op - t_o:.1f} s")
     launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}
     log(f"  launches over all the main paths: {launches}")
     idle = [n for n, c in launches.items() if c == 0]
@@ -3888,6 +4462,7 @@ def main() -> int:
     rows += phase_seg_times(dev, SK, tick_rows, tick_k, launches, err, card, ops_per_s)
     rows += phase_merge_sort_times(dev, launches, err, card, ops_per_s)
     rows += phase_kway_times(dev, launches, err, card, ops_per_s)
+    guard("4")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log("  routes without a kernel (phase 3g): " + json.dumps(no_kernel_rows))
     print(json.dumps({"kernels": rows}))

@@ -31,13 +31,16 @@ its accelerator rows ("TPU") for ``"cuda"``, and ``pallas`` named
   merge_k the rows of merge, then: total^2 cloud past the budget: streaming,
           cuda: cuda kway_merge, otherwise: schedule loms_kway
 
-A median the LOMS device cannot take (unequal or even lists, an even count of them) is planned as
-in the reference and answered by the ``lax`` rung after it (``ops``),
-where the reference's degradation ladder (on by default) lands: the one
-step of that ladder the port takes (ROADMAP Queue 1, item 8). The budget
-is the reference's routing budget (``streaming.planner``). A measured route sample in the autotune cache
-overrides the rule as in the reference (:func:`record_route_us`); the
-sharded rows are planned but refuse to run (item 9).
+A median the LOMS device cannot take (unequal or even lists, an even
+count of them) is planned as in the reference and answered by the
+``lax`` rung after it: its schedule rung declines the call, and the
+degradation ladder (:mod:`repro_torch.resilience.ladder`) walks on. The
+ladder also reroutes a plan whose rung has an open circuit breaker
+(``source="breaker"``, :func:`~repro_torch.resilience.ladder.reroute`).
+The budget is the reference's routing budget (``streaming.planner``). A
+measured route sample in the autotune cache overrides the rule as in the
+reference (:func:`record_route_us`); the sharded rows are planned but
+refuse to run (item 9).
 
 Explicit ``backend=`` asks skip the rules but are checked against the
 backend's capability predicate: an ask it cannot run raises
@@ -52,6 +55,7 @@ from typing import List, Optional
 from repro_torch.kernels.topk import ROUTER_TOPK_MAX
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.resilience.ladder import reroute
 
 from .fused import dtype_of
 from .registry import get_backend
@@ -65,10 +69,11 @@ DIST_MIN_TOTAL = 8192
 class Decision:
     """One routing outcome: backend, kernel detail, reason.
 
-    ``source``: ``"rule"`` (the table) or ``"measured"`` (a faster
-    measured route sample overrode it); ``measured_us`` the winning
-    sample. ``network``: the family the cuda kernels run (an autotune
-    winner where the cache holds one), None for other backends."""
+    ``source``: ``"rule"`` (the table), ``"measured"`` (a faster
+    measured route sample overrode it) or ``"breaker"`` (an open circuit
+    breaker moved the call down the degradation ladder); ``measured_us``
+    the winning sample. ``network``: the family the cuda kernels run (an
+    autotune winner where the cache holds one), None for other backends."""
 
     backend: str
     detail: str = ""
@@ -100,15 +105,16 @@ def _plan_segmented(spec: SortSpec) -> Decision:
 
 
 def plan(spec: SortSpec) -> Decision:
-    """Resolve the backend of one problem. Pure function of ``spec`` and
-    the autotune cache.
+    """Resolve the backend of one problem. Pure function of ``spec``, the
+    autotune cache and the circuit breakers.
 
     Every decision is recorded in the obs layer (the ``plan`` span and
     the ``plan.decisions`` counter: op / backend / detail / device labels)
     when ``REPRO_OBS`` is on; the port counts every call (the reference
     counts compilations)."""
     with obs_trace.span("plan", kind="trace", op=spec.op):
-        dec = _measured_override(spec, _resolve(spec))
+        # breaker avoidance: one dict miss while no failure was recorded
+        dec = reroute(spec, _measured_override(spec, _resolve(spec)))
         if dec.backend == "cuda":
             entry = _tuned_entry(spec)
             dec = dataclasses.replace(dec, network=str((entry or {}).get("network", "loms")))

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels.common import (encode_key_values, gather_lanes, key_transformable,
                                         take_along)
+from repro_torch.resilience.failpoints import failpoint
 
 from .spec import SortSpec
 
@@ -179,6 +180,7 @@ class _FusedSort(torch.autograd.Function):
 
 def fused_sort(cfg: FusedCfg, x: torch.Tensor, leaves: Sequence[torch.Tensor] = ()):
     """One-launch sort of (B, n) rows: ``(values, payload_outs)``."""
+    failpoint("fused.launch.sort")
     res = _FusedSort.apply(cfg, x, *leaves)
     return res[0], tuple(res[1:])
 
@@ -225,6 +227,7 @@ def fused_merge_k(cfg: FusedCfg, lists: Sequence[torch.Tensor],
     payload_outs)``; the leaves are already concatenated along the list
     axis, (B, sum n_i[, F]). Two lists of a ``merge`` config run kernel
     row 1, anything else kernel row 8 on ``kway_schedule(cfg.lens)``."""
+    failpoint("fused.launch.merge_k")
     if len(lists) == 2 and cfg.op == "merge":
         from repro_torch.kernels.loms_merge import loms_merge2
 

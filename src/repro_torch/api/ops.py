@@ -16,22 +16,31 @@ One entry point per op, with the reference's semantics on every backend:
   last, -0.0 below +0.0); ``"unsafe"`` sends raw floats through the
   networks (finite, NaN-free inputs only).
 
-A call runs its planned backend and only that (a ``LadderSkip``-style
-fall-through from the fused rung to the unfused one, as in the reference
-with its ladder off): no failure is caught, nothing drops to another
-route (the degradation ladder is ROADMAP Queue 1, item 8). The cuda
-backend's fused rung is one launch of kernel row 1 (merge), row 2 (sort)
-or row 8 (k-way merge); its top-k the router kernel (row 3) or the vocab
-kernels (rows 4 and 5); its median one launch of row 8. A CPU tensor
-takes the same route through the kernels' plain versions. The integer
-types other than int32 (int8, int16, uint8, uint16, uint32) run as
-order-preserving int32 keys whose extremes are the type's
+A call runs through the degradation ladder
+(:mod:`repro_torch.resilience.ladder`), as the reference's does: the
+planned backend's rungs first (the cuda backend's fused rung, then its
+unfused one), then streaming, schedule and lax. A failed rung of an auto
+call feeds its circuit breaker, is counted and the next rung answers
+(values bit-equal, tie order the answering rung's) where its error may
+degrade: an injected fault, or any error off the card; on the card a
+real error propagates (:func:`~repro_torch.resilience.ladder.degradable`).
+An explicit ``backend=`` or ``REPRO_RESILIENCE=0`` runs the first rung
+that does not decline and lets its error through. The segment ops fall
+back from the class kernels to the per-segment plain version
+(:func:`_segmented_degrade`) under the same rule.
+
+The cuda backend's fused rung is one launch of kernel row 1 (merge), row
+2 (sort) or row 8 (k-way merge); its top-k the router kernel (row 3) or
+the vocab kernels (rows 4 and 5); its median one launch of row 8. A CPU
+tensor takes the same route through the kernels' plain versions. The
+integer types other than int32 (int8, int16, uint8, uint16, uint32) run
+as order-preserving int32 keys whose extremes are the type's
 (:func:`~.keys.widen_int_keys`) and come back narrowed; a top-k pad
 comes back as the type's minimum, as the reference's pad in the raw type.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,6 +48,8 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.common import decode_key_values, encode_key_values
 from repro_torch.kernels.topk import topk_tiles
+from repro_torch.resilience.failpoints import failpoint
+from repro_torch.resilience.ladder import LadderSkip, run_ladder, rungs_for
 
 from .keys import (decode_keys, encode_keys, has_int_widening, has_key_transform,
                    narrow_int_keys, widen_int_keys)
@@ -99,37 +110,6 @@ def _restore_values(out2, perm2, raw, decode, descending: bool = False):
         return _DecodeSorted.apply(raw, out2, descending)
     got = take_rows(raw, -1, torch.where(perm2 < 0, 0, perm2))
     return torch.where(perm2 < 0, decode(out2), got)
-
-
-def _rungs(spec, dec) -> List[str]:
-    """The rungs one call tries, in order (the reference's ``rungs_for``
-    with its ladder off): the planned backend, the cuda backend's fused
-    rung first. An auto median ends in the lax rung, which answers where
-    the LOMS device cannot take the lists (as the reference's ladder)."""
-    from .spec import BACKEND_AUTO
-
-    if spec.op == "median" and spec.backend == BACKEND_AUTO:
-        return list(dict.fromkeys([dec.backend, "schedule", "lax"]))
-    if dec.backend != "cuda":
-        return [dec.backend]
-    if spec.needs_perm and spec.op != "topk":
-        # the unfused cuda adapters are values-only
-        return ["fused"] if spec.backend == BACKEND_AUTO else ["fused", "schedule"]
-    return ["fused", "cuda"]
-
-
-class _Skip(Exception):
-    """A rung declines a call (the fused config resolved to None)."""
-
-
-def _run_rungs(rungs, attempt):
-    """The first rung that does not decline; all declining raises."""
-    for rung in rungs:
-        try:
-            return attempt(rung)
-        except _Skip:
-            continue
-    raise ValueError(f"no rung of {rungs} can run this call")
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -199,13 +179,16 @@ def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = F
     def attempt(rung: str):
         if rung in ("fused", "cuda"):
             if rung == "fused" and stable:
-                raise _Skip
-            from repro_torch.kernels.ops import topk as kernel_topk
+                raise LadderSkip
+            from repro_torch.kernels.ops import topk as kernel_topk, topk_rows
 
-            blk = (topk_block(n, k, batch=batch, dtype=x2.dtype) if rung == "fused"
-                   else block)
             unsafe = nan_policy == "unsafe"  # -0.0 and +0.0 tie, as raw floats
-            vals2, idx2 = kernel_topk(x2, k, block=blk, zero_ties=unsafe)
+            if rung == "fused":
+                failpoint("fused.launch.topk")
+                vals2, idx2 = topk_rows(x2, k, zero_ties=unsafe,
+                                        block=topk_block(n, k, batch=batch, dtype=x2.dtype))
+            else:
+                vals2, idx2 = kernel_topk(x2, k, block=block, zero_ties=unsafe)
             if rung == "fused" or unsafe or not x2.dtype.is_floating_point:
                 return finish(vals2, idx2, None)  # the kernels' values
             keys = torch.where(idx2 < 0, _KEY_PAD, encode_key_values(vals2))
@@ -214,7 +197,7 @@ def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = F
         vals2, idx2 = get_backend(rung).run["topk"](enc, k, spec=spec, block=block)
         return finish(vals2, idx2.to(torch.int32), decode)
 
-    return _run_rungs(_rungs(spec, dec), attempt)
+    return run_ladder(spec, rungs_for(spec, dec), attempt, device=x2.device)
 
 
 def _as_tensor(x, device: DeviceLike) -> torch.Tensor:
@@ -243,6 +226,39 @@ def _segmented(op: str, offsets, values: torch.Tensor, *, k=None, descending: bo
     return get_backend(plan(spec).backend).run[op], spec
 
 
+def _segmented_degrade(spec, call, device=None):
+    """The segmented backend's fall-back from the class kernels to the
+    per-segment plain version (``segmented/reference.py``), as the
+    reference's: with resilience on and an auto ask, a failed kernel path
+    whose error may degrade (an injected spill or launch fault; any error
+    off the card, ``device`` being the values') feeds a breaker on the
+    synthetic ``segmented_kernel`` rung, is counted, and ``call(False)``
+    answers; an open breaker skips the kernel path until its cooldown
+    probe. ``call(use_kernel)`` runs the op."""
+    from repro_torch.resilience.breaker import breaker_for
+    from repro_torch.resilience.ladder import (degradable, record_fallback, resilience_enabled,
+                                               spec_class)
+
+    from .spec import BACKEND_AUTO
+
+    if not (resilience_enabled() and spec.backend == BACKEND_AUTO):
+        return call(True)
+    cls = spec_class(spec)
+    br = breaker_for(spec.op, "segmented_kernel", cls, create=False)
+    if br is not None and not br.allow():
+        return call(False)
+    try:
+        result = call(True)
+    except Exception as e:  # noqa: BLE001 — degradable() decides
+        if not degradable(e, device):
+            raise
+        record_fallback(spec.op, "segmented_kernel", cls, e, br)
+        return call(False)
+    if br is not None:
+        br.record_success()
+    return result
+
+
 def segment_sort(values, segment_offsets, *, descending: bool = False,
                  payload=None, backend: str = "auto", nan_policy: str = "last",
                  device: DeviceLike = None):
@@ -256,8 +272,9 @@ def segment_sort(values, segment_offsets, *, descending: bool = False,
     run, spec = _segmented("sort", (segment_offsets,), values, descending=descending,
                            has_payload=payload is not None, backend=backend,
                            nan_policy=nan_policy)
-    out, _, ptree = run(values, spec=spec, descending=descending, payload=payload,
-                        nan_policy=nan_policy)
+    out, _, ptree = _segmented_degrade(spec, lambda uk: run(
+        values, spec=spec, descending=descending, payload=payload, nan_policy=nan_policy,
+        use_kernel=uk), values.device)
     out = _unkey(out, narrow)
     return out if payload is None else (out, ptree)
 
@@ -273,8 +290,9 @@ def segment_merge(a, b, offsets_a, offsets_b, *, descending: bool = False,
     run, spec = _segmented("merge", (offsets_a, offsets_b), a, descending=descending,
                            has_payload=payload is not None, backend=backend,
                            nan_policy=nan_policy)
-    out, _, ptree, out_offs = run(a, b, spec=spec, descending=descending, payload=payload,
-                                  nan_policy=nan_policy)
+    out, _, ptree, out_offs = _segmented_degrade(spec, lambda uk: run(
+        a, b, spec=spec, descending=descending, payload=payload, nan_policy=nan_policy,
+        use_kernel=uk), a.device)
     out = _unkey(out, narrow)
     return (out, out_offs) if payload is None else (out, ptree, out_offs)
 
@@ -292,8 +310,9 @@ def segment_topk(values, segment_offsets, k, *, descending: bool = True,
     run, spec = _segmented("topk", (segment_offsets,), values, k=max(ks) if ks else 1,
                            descending=descending, has_payload=payload is not None,
                            backend=backend, nan_policy=nan_policy)
-    out, idx, ptree, out_offs = run(values, k, spec=spec, descending=descending,
-                                    payload=payload, nan_policy=nan_policy)
+    out, idx, ptree, out_offs = _segmented_degrade(spec, lambda uk: run(
+        values, k, spec=spec, descending=descending, payload=payload, nan_policy=nan_policy,
+        use_kernel=uk), values.device)
     out = _unkey(out, narrow)
     return (out, idx, out_offs) if payload is None else (out, idx, ptree, out_offs)
 
@@ -305,7 +324,10 @@ def segment_argmax(values, segment_offsets, *, backend: str = "auto",
     values, narrow = _int_keys(_as_tensor(values, device))
     run, spec = _segmented("argmax", (segment_offsets,), values, k=1, descending=True,
                            has_payload=False, backend=backend, nan_policy=nan_policy)
-    vals, idx = run(values, spec=spec, nan_policy=nan_policy)
+    vals, idx = _segmented_degrade(spec, lambda uk: run(values, spec=spec,
+                                                        nan_policy=nan_policy,
+                                                        use_kernel=uk),
+                                   values.device)
     return _unkey(vals, narrow), idx
 
 
@@ -473,7 +495,7 @@ def merge_k(lists, *, axis: int = -1, descending: bool = False, stable: bool = F
         if rung == "fused":
             cfg = fused_cfg_for(spec, batch, flats[0].dtype)
             if cfg is None:
-                raise _Skip
+                raise LadderSkip
             if payload is None:
                 out2, _ = fused_merge_k(cfg, flats)
                 return _unkey(from_batched_last(out2, lead, ax, ndim), narrow)
@@ -510,7 +532,7 @@ def merge_k(lists, *, axis: int = -1, descending: bool = False, stable: bool = F
         return out, take_payload_tree(ptree, from_batched_last(perm2, lead, ax, ndim),
                                       ax, ndim)
 
-    return _run_rungs(_rungs(spec, dec), attempt)
+    return run_ladder(spec, rungs_for(spec, dec), attempt, device=flats[0].device)
 
 
 def median_of_lists(lists, *, axis: int = -1, backend: str = "auto",
@@ -538,14 +560,16 @@ def median_of_lists(lists, *, axis: int = -1, backend: str = "auto",
     dec = plan(spec)
 
     def attempt(rung: str):
+        if rung == "fused":
+            raise LadderSkip  # no fused median kernel
         if rung in ("cuda", "schedule") and network != "mwms" and not median_device_fits(spec):
-            raise _Skip  # no LOMS median device for these lists
+            raise LadderSkip  # no LOMS median device for these lists
         out = get_backend(rung).run["median"](keys, spec=spec)
         if decode is not None:
             out = _DecodeMedian.apply(torch.cat(flats, dim=-1), out)
         return _unkey(out.reshape(lead), narrow)
 
-    return _run_rungs(_rungs(spec, dec), attempt)
+    return run_ladder(spec, rungs_for(spec, dec), attempt, device=flats[0].device)
 
 
 def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,
@@ -581,7 +605,7 @@ def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,
         if rung == "fused":
             cfg = fused_cfg_for(spec, batch, x2.dtype)
             if cfg is None:
-                raise _Skip
+                raise LadderSkip
             if payload is None:
                 out2, _ = fused_sort(cfg, x2)
                 return _unkey(from_batched_last(out2, lead, ax, ndim), narrow)
@@ -603,4 +627,4 @@ def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,
         return out, take_payload_tree(payload, from_batched_last(perm2, lead, ax, ndim),
                                       ax, ndim)
 
-    return _run_rungs(_rungs(spec, dec), attempt)
+    return run_ladder(spec, rungs_for(spec, dec), attempt, device=x2.device)

@@ -23,8 +23,8 @@ Built-in backends: ``schedule`` (the schedule executor, plain torch: runs
 everything, carries payloads), ``cuda`` (the hand-written kernels, the
 reference's ``pallas``), ``streaming`` (the grid merge and the k-way
 tiles), ``segmented`` (CSR segments by size class), ``lax`` (plain
-``torch.sort`` / ``torch.topk``: a cross-check, picked by auto only for
-the median the LOMS device cannot take) and ``sharded`` (refuses: the
+``torch.sort`` / ``torch.topk``: a cross-check, and the last rung of the
+degradation ladder) and ``sharded`` (refuses: the
 distributed backends are ROADMAP Queue 1, item 9).
 """
 from __future__ import annotations
@@ -35,6 +35,7 @@ from typing import Callable, Dict, Mapping, Tuple
 import torch
 
 from repro_torch.kernels.common import take_along
+from repro_torch.resilience.failpoints import failpoint
 
 from .spec import SortSpec
 
@@ -84,6 +85,7 @@ def _dense(spec: SortSpec) -> bool:
 def _sched_merge(a, b, *, spec, pos=None):
     from . import schedules
 
+    failpoint("executor.run.merge")
     if pos is None:
         return schedules.merge(a, b, kind=spec.network), None
     return schedules.merge(a, b, kind=spec.network, payload=pos)
@@ -92,6 +94,7 @@ def _sched_merge(a, b, *, spec, pos=None):
 def _sched_merge_k(lists, *, spec, pos=None):
     from . import schedules
 
+    failpoint("executor.run.merge_k")
     if pos is None:
         return schedules.merge_k(lists, kind=spec.network), None
     return schedules.merge_k(lists, kind=spec.network, payload=pos)
@@ -100,6 +103,7 @@ def _sched_merge_k(lists, *, spec, pos=None):
 def _sched_sort(x, *, spec, pos=None):
     from . import schedules
 
+    failpoint("executor.run.sort")
     kind = spec.network if spec.network != "batcher-bitonic" else "bitonic"
     if pos is None:
         return schedules.sort(x, kind=kind), None
@@ -109,12 +113,14 @@ def _sched_sort(x, *, spec, pos=None):
 def _sched_topk(x, k, *, spec, block=None):
     from . import schedules
 
+    failpoint("executor.run.topk")
     return schedules.topk(x, k, block=block or 0)
 
 
 def _sched_median(lists, *, spec):
     from . import schedules
 
+    failpoint("executor.run.median")
     return schedules.median_of_lists(lists, kind="mwms" if spec.network == "mwms" else "loms")
 
 

@@ -20,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.networks import kway_schedule, median_schedule
+from repro_torch.resilience.failpoints import failpoint
 from repro_torch.streaming.planner import plan_op
 
 from .kway import kway_merge
@@ -39,6 +40,7 @@ def merge2(a: torch.Tensor, b: torch.Tensor, *, n_cols: int = 2,
     registered family; for loms, ``n_cols`` must divide both lengths."""
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError("merge2 takes (B, m) and (B, n) rows")
+    failpoint("kernel.launch.merge2")
     m, n = a.shape[-1], b.shape[-1]
     if kind != "loms":
         # the reference's default use_mxu=True; the port's int32 rows keep
@@ -58,6 +60,7 @@ def sort(x: torch.Tensor) -> torch.Tensor:
     """Sort every row of (B, n) in one launch of the fused sort."""
     if x.ndim != 2:
         raise ValueError("sort takes (B, n) rows")
+    failpoint("kernel.launch.sort")
     plan = plan_op("sort", (x.shape[-1],), batch=x.shape[0], dtype=x.dtype)
     return loms_sort(x, network=plan.network, use_mxu=_use_mxu(plan, x))[0]
 
@@ -65,6 +68,7 @@ def sort(x: torch.Tensor) -> torch.Tensor:
 def merge_k(lists: Sequence[torch.Tensor]) -> torch.Tensor:
     """Merge the sorted rows (B, len_i) of k lists in one launch of the
     k-way kernel on ``kway_schedule(lens)``."""
+    failpoint("kernel.launch.merge_k")
     lens = tuple(int(t.shape[-1]) for t in lists)
     x = torch.cat(list(lists), dim=-1).contiguous()
     plan = plan_op("kway", lens, batch=x.shape[0], dtype=x.dtype)
@@ -83,6 +87,7 @@ def median_readout(sched, pos: int):
 def median_k(lists: Sequence[torch.Tensor]) -> torch.Tensor:
     """Median (B,) of k equal odd-length sorted rows after the two LOMS
     stages, in one launch of the k-way kernel."""
+    failpoint("kernel.launch.median")
     lens = tuple(int(t.shape[-1]) for t in lists)
     sched, pos = median_schedule(lens)
     x = torch.cat(list(lists), dim=-1).contiguous()
@@ -96,6 +101,14 @@ def topk(x: torch.Tensor, k: int, *, block: Optional[int] = None, zero_ties: boo
     float or int32 rows: the router kernel (row 3) for E <= 512, the vocab
     kernels (rows 4 and 5) above; ``block`` defaults to the planner's.
     ``zero_ties`` (``nan_policy="unsafe"``): -0.0 and +0.0 tie."""
+    failpoint("kernel.launch.topk")
+    return topk_rows(x, k, block=block, zero_ties=zero_ties)
+
+
+def topk_rows(x: torch.Tensor, k: int, *, block: Optional[int] = None,
+              zero_ties: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`topk` without its ``kernel.launch.topk`` seam: the fused
+    top-k rung's launch, which has a seam of its own."""
     if x.ndim != 2:
         raise ValueError("topk takes (B, E) rows")
     bsz, e = x.shape

@@ -26,6 +26,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from .layers import apply_rope, dense, dense_init, rmsnorm
@@ -102,6 +103,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return torch.matmul(w.to(v_cache.dtype), v_cache).to(q.dtype)
 
 
+def pad_decode_rows(b: int, valid_len: torch.Tensor, *caches: torch.Tensor):
+    """Decode attention's batch-invariance rule, for GQA and MLA: every
+    product takes all ``b`` rows of the step (``decode_step`` pads them to
+    a multiple of ``DECODE_TILE``, so the count is fixed), the caches'
+    ``nc <= b`` rows padded with zero rows of valid length 0, which attend
+    nothing and give zeros. A batched product over the nc real rows alone
+    gave rows 0-2 other bits at 3 rows than at 4 on the H100 (qwen1.5-32b,
+    one query a kv-head). The pad copies each cache once a step, one op a
+    tensor (PERF.md gives its measured cost). Returns ``(valid (b,),
+    *caches)``."""
+    nc = caches[0].shape[0]
+    valid = valid_len.reshape(-1).expand(nc)
+    if nc == b:
+        return (valid,) + caches
+    return tuple(F.pad(t, (0, 0) * (t.ndim - 1) + (0, b - nc)) for t in (valid,) + caches)
+
+
 def attn_init(generator, cfg: ModelConfig, dtype, device) -> dict:
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
@@ -151,10 +169,9 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             kc[rows, :, :, idx.long()] = k_t
             vc[rows, :, idx.long(), :] = v_t
         new_cache = {"k": kc, "v": vc, "pos": idx + 1}
-        qh = q[:nc, 0].reshape(nc, hkv, g, hd)
-        out = decode_attention(qh, kc, vc, valid_len=idx + 1).reshape(nc, 1, h * hd)
-        if nc < b:  # the pad rows' attention output is zero
-            out = torch.cat([out, out.new_zeros((b - nc, 1, h * hd))])
+        valid, kc, vc = pad_decode_rows(b, idx + 1, kc, vc)
+        qh = q[:, 0].reshape(b, hkv, g, hd)
+        out = decode_attention(qh, kc, vc, valid_len=valid).reshape(b, 1, h * hd)
     else:
         if mode == "prefill" and cache is not None:
             kc, vc = cache["k"], cache["v"]
@@ -225,19 +242,11 @@ def _mla_decode(p: dict, q_nope: torch.Tensor, q_pe: torch.Tensor, ckv_c: torch.
     the rows past nc (``decode_step``'s pads). The query's latent and
     both score products are in the working type, then widened; a float32
     softmax, its weights in the cache's type; the latent context back in
-    the working type before ``wuv``. A row's bits do not depend on how
-    many real rows share the step: every product takes all B rows (the
-    padded count is fixed), the caches padded with zero rows, which
-    attend nothing (a batched product over nc rows gave rows 0-2 other
-    bits at 3 rows than at 4 on the H100)."""
-    b, nc = q_nope.shape[0], ckv_c.shape[0]
+    the working type before ``wuv``. Every product takes all B rows
+    (:func:`pad_decode_rows`)."""
     q_lat = torch.einsum("bhq,lhq->bhl", q_nope, p["wuk"]["w"].to(dtype))
-    ckv_r, kpe_r = ckv_c.to(dtype), kpe_c.to(dtype)
-    valid = valid_len.reshape(-1).expand(nc)
-    if nc < b:
-        ckv_r = torch.cat([ckv_r, ckv_r.new_zeros((b - nc,) + ckv_r.shape[1:])])
-        kpe_r = torch.cat([kpe_r, kpe_r.new_zeros((b - nc,) + kpe_r.shape[1:])])
-        valid = torch.cat([valid, valid.new_zeros(b - nc)])
+    valid, ckv_r, kpe_r = pad_decode_rows(q_nope.shape[0], valid_len, ckv_c.to(dtype),
+                                          kpe_c.to(dtype))
     s_lat = torch.matmul(q_lat, ckv_r).float()  # (b, h, S)
     s_pe = torch.matmul(q_pe, kpe_r).float()
     logits = (s_lat + s_pe) * scale

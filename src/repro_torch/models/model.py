@@ -179,9 +179,9 @@ def decode_step(p: dict, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
     take token 0 at position 0, have no cache and are dropped): every
     weight product then has the same shape for one row as for a full
     tile, so a row's logits do not depend on how many rows share the
-    step. Decode attention is one batched call over the cache's rows;
-    its result for a row does not depend on the batch either, and neither
-    does an SSM layer's recurrence, which runs on the cache's rows. It
+    step. Decode attention (GQA and MLA) takes the padded rows too, the
+    caches padded with zero rows; an SSM layer's recurrence runs on the
+    cache's rows, and its result for a row does not depend on the batch. It
     embeds tokens only, as the reference's does (``model.py:157``)."""
     b = tokens.shape[0]
     pad = -b % DECODE_TILE

@@ -8,8 +8,8 @@ process-global, thread-safe ring of the last ``capacity`` events:
 
 * span closes (fed by :mod:`repro_torch.obs.trace`),
 * circuit-breaker transitions, ladder fallbacks and failpoint fires
-  (``breaker``, ``fallback`` / ``forced``, ``failpoint``) once the
-  resilience layer is ported,
+  (``breaker``, ``fallback`` / ``forced``, ``failpoint``: fed by
+  :mod:`repro_torch.resilience`),
 * autotune tournament picks (``tournament``),
 * autotune-cache quarantines (``quarantine``),
 * scheduler lifecycle marks (``sched``).

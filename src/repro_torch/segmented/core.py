@@ -54,6 +54,7 @@ from repro_torch.kernels.segmented import segment_class_merge, segment_class_sor
 from repro_torch.networks import merge_program
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.resilience.failpoints import failpoint
 from repro_torch.streaming.chunked import _chunked_merge2
 from repro_torch.streaming.grid_merge import grid_chunked_merge2, grid_merge2_rows
 from repro_torch.streaming.planner import MergePlan, plan_chunked, sort_fits_vmem
@@ -61,6 +62,7 @@ from repro_torch.streaming.planner import MergePlan, plan_chunked, sort_fits_vme
 from .bucketing import (SizeClass, bucket_merge_pairs, bucket_segments,
                         gather_map, normalize_offsets, scatter_map,
                         segment_lengths)
+from .reference import ref_segment_merge, ref_segment_sort, ref_segment_topk
 
 #: hard cap on the dense class width (the reference's ``MAX_CLASS_WIDTH``)
 MAX_CLASS_WIDTH = 2048
@@ -268,6 +270,7 @@ def _spill_sort_values(dense: torch.Tensor, descending: bool, tile: int,
     (-0.0 and +0.0 tie, so equal keys hold unequal values) the runs carry
     positions (:func:`_spill_positions`) and the raw values are gathered
     at them."""
+    failpoint("segmented.spill.values")
     s, ln = dense.shape
     keys = _keys_for(dense, descending, zero_ties)
     c = -(-ln // tile)
@@ -289,6 +292,7 @@ def _spill_sort_values(dense: torch.Tensor, descending: bool, tile: int,
 def _spill_sort_perm(dense: torch.Tensor, descending: bool, zero_ties: bool = False):
     """Permutation-carrying spill rows: a stable argsort of the keys, as
     the reference's batched XLA path."""
+    failpoint("segmented.spill.perm")
     order = torch.argsort(_keys_for(dense, descending, zero_ties), dim=-1, stable=True)
     return take_along(dense, 1, order), order.to(torch.int32)
 
@@ -305,9 +309,10 @@ def _zeros(n: int, like: torch.Tensor, dtype=None) -> torch.Tensor:
 
 def segment_sort_impl(values: torch.Tensor, offsets, *, descending: bool = False,
                       payload=None, nan_policy: str = "last",
-                      want_perm: bool = False):
+                      want_perm: bool = False, use_kernel: bool = True):
     """Sort each CSR segment on its own: ``(values, perm | None,
-    payload_tree | None)``."""
+    payload_tree | None)``. ``use_kernel=False`` runs the per-segment
+    plain version (``reference.py``) in place of the class path."""
     offs = normalize_offsets(offsets)
     n = offs[-1]
     if values.ndim != 1 or values.shape[0] != n:
@@ -316,10 +321,15 @@ def segment_sort_impl(values: torch.Tensor, offsets, *, descending: bool = False
     _check_values(values, nan_policy)
     lanes, rebuild = ([], None) if payload is None else _flatten_leaves(payload, n)
     need_perm = want_perm or payload is not None
+    zt = _zero_ties(values, nan_policy)
+    if not use_kernel:
+        out, perm, pouts = ref_segment_sort(values, offs, descending=descending, zero_ties=zt,
+                                            payload_lanes=lanes)
+        return (out, perm if want_perm else None,
+                None if payload is None else rebuild(list(pouts), n))
     mw = max_class_width(values.dtype)
     classes, spill = bucket_segments(segment_lengths(offs), mw)
     dev = values.device
-    zt = _zero_ties(values, nan_policy)
     vext, lext = _ext(values), [_ext(l) for l in lanes]
     out_v = _zeros(n + 1, values)
     out_p = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
@@ -381,10 +391,12 @@ def _cat_csr(lane_a, lane_b, offs_a, offs_b) -> torch.Tensor:
 
 def segment_merge_impl(a: torch.Tensor, b: torch.Tensor, offsets_a, offsets_b, *,
                        descending: bool = False, payload=None,
-                       nan_policy: str = "last", want_perm: bool = False):
+                       nan_policy: str = "last", want_perm: bool = False,
+                       use_kernel: bool = True):
     """Merge per-segment sorted runs ``a[s]`` and ``b[s]``: ``(values,
     perm | None, payload_tree | None, out_offsets)``; ``perm`` holds
-    positions in the concatenated segment (a first, then b)."""
+    positions in the concatenated segment (a first, then b).
+    ``use_kernel=False`` runs the per-segment plain version."""
     offs_a, offs_b = normalize_offsets(offsets_a), normalize_offsets(offsets_b)
     if len(offs_a) != len(offs_b):
         raise ValueError("the two runs need the same number of segments")
@@ -402,6 +414,12 @@ def segment_merge_impl(a: torch.Tensor, b: torch.Tensor, offsets_a, offsets_b, *
         lb, _ = _flatten_leaves(tree_b, nb)
         lanes = [_cat_csr(pa, pb, offs_a, offs_b) for pa, pb in zip(la, lb)]
     need_perm = want_perm or payload is not None
+    if not use_kernel:
+        out, perm, pouts, _ = ref_segment_merge(a, b, offs_a, offs_b, descending=descending,
+                                                zero_ties=_zero_ties(a, nan_policy),
+                                                payload_lanes=lanes)
+        return (out, perm if want_perm else None,
+                None if payload is None else rebuild(list(pouts), total), out_offs)
     dev = a.device
     mw = max_class_width(a.dtype)
     classes, spill = bucket_merge_pairs(segment_lengths(offs_a),
@@ -491,13 +509,14 @@ def normalize_ks(k, n_segs: int) -> Tuple[int, ...]:
 
 
 def segment_topk_impl(values: torch.Tensor, offsets, k, *, descending: bool = True,
-                      payload=None, nan_policy: str = "last"):
+                      payload=None, nan_policy: str = "last", use_kernel: bool = True):
     """Per-segment top-k (``descending=False``: the smallest, ascending);
     ``k`` one int or one per segment. A size class runs **one** launch
     with its largest k and each segment keeps its own prefix. Returns
     ``(values, idx, payload_tree | None, out_offsets)`` in CSR layout
     with ``min(k_s, len_s)`` entries per segment; ``idx`` are positions
-    within the segment."""
+    within the segment. ``use_kernel=False`` runs the per-segment plain
+    version."""
     offs = normalize_offsets(offsets)
     n = offs[-1]
     if values.ndim != 1 or values.shape[0] != n:
@@ -511,6 +530,11 @@ def segment_topk_impl(values: torch.Tensor, offsets, k, *, descending: bool = Tr
     out_offs = (0,) + tuple(itertools.accumulate(counts))
     total = out_offs[-1]
     lanes, rebuild = ([], None) if payload is None else _flatten_leaves(payload, n)
+    if not use_kernel:
+        out, idx, pouts, _ = ref_segment_topk(values, offs, ks, descending=descending,
+                                              zero_ties=_zero_ties(values, nan_policy),
+                                              payload_lanes=lanes)
+        return out, idx, None if payload is None else rebuild(list(pouts), total), out_offs
     dev = values.device
     mw = max_class_width(values.dtype)
     classes, spill = bucket_segments(lengths, mw)
@@ -540,6 +564,7 @@ def segment_topk_impl(values: torch.Tensor, offsets, k, *, descending: bool = Tr
             _scatter(o, smap, r)
 
     for cls in spill:  # equal-length vocab-scale rows
+        failpoint("segmented.spill.topk")
         cnts = [counts[sid] for sid in cls.seg_ids]
         k_out = max(max(cnts), 1)
         gmap = gather_map(offs, cls, n)
@@ -564,13 +589,14 @@ def segment_topk_impl(values: torch.Tensor, offsets, k, *, descending: bool = Tr
     return out_v[:total], out_i[:total], ptree, out_offs
 
 
-def segment_argmax_impl(values: torch.Tensor, offsets, *, nan_policy: str = "last"):
+def segment_argmax_impl(values: torch.Tensor, offsets, *, nan_policy: str = "last",
+                        use_kernel: bool = True):
     """Per-segment argmax ``(vals (S,), idx (S,))``; an empty segment
     gives the dtype minimum and index -1."""
     offs = normalize_offsets(offsets)
     n_segs = len(offs) - 1
     vals, idx, _, out_offs = segment_topk_impl(values, offs, 1, descending=True,
-                                               nan_policy=nan_policy)
+                                               nan_policy=nan_policy, use_kernel=use_kernel)
     has = torch.as_tensor(np.diff(np.asarray(out_offs)) > 0, device=values.device)
     src = _idx(np.minimum(np.asarray(out_offs[:-1]), max(out_offs[-1] - 1, 0)),
                values.device)

@@ -48,10 +48,13 @@ alone: ``sched.prefill_batches`` counts one a request, and the
 pow2 bucket (``req.prefill``'s likewise); the reference counts one a
 batch of up to ``max_prefill_batch`` requests of a bucket. ``req.decode``'s
 ``compiled`` marks the first tick of a batch signature, as the
-reference's does, though the port compiles nothing there. The
-reference's failpoints are the resilience layer's (not ported: ROADMAP
-Queue 1, item 8); the bounded retry around every prefill, insert and
-decode launch is kept.
+reference's does, though the port compiles nothing there.
+
+Every prefill, insert and decode launch runs under a bounded retry with
+exponential backoff; its ``sched.{prefill,insert,decode}`` failpoint
+(:mod:`repro_torch.resilience.failpoints`) fires before the launch, so a
+retry always sees whole inputs and draws the same noise. A launch whose
+retries run out fails its requests (FAILED), and the engine drains on.
 """
 from __future__ import annotations
 
@@ -74,6 +77,7 @@ from repro_torch.obs import recorder as obs_recorder
 from repro_torch.obs.timing import block_until_ready
 from repro_torch.obs.trace import enabled as obs_enabled
 from repro_torch.obs.trace import record_span, span
+from repro_torch.resilience.failpoints import failpoint
 
 from ..sample import canonical_token, sample_greedy, sample_topk, scored_draw
 from .paged import PagedKVCache, SlotManager, gather_view, scatter_col, split_pages, take_col
@@ -283,10 +287,13 @@ class ScheduledEngine:
             obs_metrics.counter(f"sched.{state.value}").inc()
 
     def _with_retry(self, what: str, fn):
-        """Run one launch with bounded retry and exponential backoff."""
+        """Run one launch with bounded retry and exponential backoff. The
+        ``sched.{what}`` failpoint fires before ``fn``, so an injected
+        fault never lands after the launch changed its inputs."""
         attempt = 0
         while True:
             try:
+                failpoint(f"sched.{what}")
                 return fn()
             except Exception:
                 if attempt >= self.sc.max_retries:

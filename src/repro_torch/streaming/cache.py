@@ -25,6 +25,9 @@ The default location is ``$REPRO_AUTOTUNE_CACHE`` or
 process's (``"cuda"`` with a card, else ``"cpu"``), as the reference's is
 ``jax.default_backend()``: a card's timings never rank against a host's.
 
+The ``cache.load`` and ``cache.store`` failpoints sit before the read and
+the write; a fire counts as ``load_failed`` / ``store_failed``.
+
 Telemetry, when ``REPRO_OBS`` is on: the ``autotune.cache`` counter
 (``op``, ``result``: hit / miss / stale_schema / quarantined /
 load_failed / store_failed) and a ``quarantine`` recorder event, as in
@@ -40,6 +43,7 @@ from typing import Any, Dict, Optional
 
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import recorder as obs_recorder
+from repro_torch.resilience.failpoints import failpoint
 
 #: entry-format version; bump when MergePlan fields change meaning.
 #: v2 added the fused-pipeline knobs (``block``) and the VMEM-fit
@@ -103,6 +107,7 @@ class AutotuneCache:
     def load(self) -> None:
         self._entries = {}
         try:
+            failpoint("cache.load")
             data = self._read_disk()
         except FileNotFoundError:
             return  # first run: nothing to load, nothing to report
@@ -111,7 +116,7 @@ class AutotuneCache:
             # sidecar keeps the evidence without re-crashing every run
             self._quarantine()
             return
-        except OSError:  # unreadable: the cache is reconstructible
+        except Exception:  # noqa: BLE001 — unreadable: the cache is reconstructible
             obs_metrics.counter("autotune.cache").inc(op="-", result="load_failed")
             return
         if isinstance(data, dict):
@@ -135,6 +140,7 @@ class AutotuneCache:
             self._save_locked()
 
     def _save_locked(self) -> None:
+        failpoint("cache.store")
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         # merge entries a concurrent writer landed since our load: ours
         # win per-key, theirs survive wholesale (corrupt on-disk state is
@@ -185,7 +191,7 @@ class AutotuneCache:
                 return
             try:
                 self._save_locked()
-            except OSError:  # keep tuning in memory
+            except Exception:  # noqa: BLE001 — keep tuning in memory
                 obs_metrics.counter("autotune.cache").inc(
                     op=key.split("|", 1)[0], result="store_failed")
 

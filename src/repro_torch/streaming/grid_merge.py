@@ -27,7 +27,8 @@ that merges anything, one a kernel launch on the card (equal to
 ``LAUNCHES["grid_merge2"]``; the reference counts compilations), and
 ``grid_merge.refill_tiles`` the tiles the rows stream, rows x (output
 tiles + 1), labelled with the tile: the kernel's (threads x outputs a
-thread) on the card, ``tile`` on the CPU.
+thread) on the card, ``tile`` on the CPU. The ``grid_merge.refill``
+failpoint (the reference's name) is hit once a merge, before it runs.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from repro_torch.kernels.topk import LAUNCHES
 from repro_torch.networks import merge_program, merge_runs
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.resilience.failpoints import failpoint
 
 #: threads of a merge CTA and the most outputs a thread merges
 #: (``csrc/grid_merge.cu`` THREADS, ITEMS)
@@ -237,6 +239,7 @@ def grid_merge2_rows(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
         raise ValueError(f"the rows need one dtype, got {a.dtype}, {b.dtype}, {out.dtype}")
     if tile < 2 or tile % 2:
         raise ValueError(f"tile must be even and >= 2, got {tile}")
+    failpoint("grid_merge.refill")
     na, nb = a.shape[2], b.shape[2]
     rows = a.shape[0] * a.shape[1]
     if a.device.type == "cpu":
@@ -282,6 +285,7 @@ def grid_chunked_merge2(a: torch.Tensor, b: torch.Tensor, *, tile: int = 512,
     the card the rows may be strided views (elements contiguous)."""
     _check(a, b, int(tile))
     if a.device.type == "cpu":
+        failpoint("grid_merge.refill")  # the card's path meets it in grid_merge2_rows
         return grid_chunked_merge2_plain(a, b, tile=tile, network=network)
     bsz, na = a.shape
     nb = b.shape[1]

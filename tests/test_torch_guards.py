@@ -163,3 +163,16 @@ def test_merge_k_and_median_raise_without_a_card(no_card):
     assert med.device.type == "cpu" and torch.equal(med, want[:, 10])
     assert torch.equal(repro_torch.chunked_merge_k([torch.from_numpy(x) for x in lists]),
                        want)
+
+
+@pytest.mark.parametrize("env", [{"REPRO_FAILPOINTS": "kernel.launch=once"},
+                                 {"REPRO_RESILIENCE": "0"}])
+def test_chip_smoke_refuses_armed_faults_or_the_ladder_off(env):
+    """Every phase must run with no failpoint armed and the ladder on, so
+    that its empty breaker registry shows no slower rung hid a kernel."""
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         env={**_env_without_pythonpath(), **env}, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "REPRO_FAILPOINTS is set or REPRO_RESILIENCE=0" in out.stderr
+    assert '"ok"' not in out.stdout

@@ -68,8 +68,11 @@ def models(request):
 def test_config_matches_reference():
     from repro.configs import get_config as j_get_config
     from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ARCHS
 
-    for name in ("qwen3-8b", "chatglm3-6b"):
+    dense = sorted(n for n, c in ARCHS.items() if c.family == "dense")
+    assert dense == ["chatglm3-6b", "deepseek-coder-33b", "qwen1.5-32b", "qwen3-8b"]
+    for name in dense:
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(j_get_config(name))
         assert dataclasses.asdict(get_smoke_config(name)) == dataclasses.asdict(j_smoke(name))
     assert abs(get_config("qwen3-8b").params_billions() - 8.19) < 0.01
