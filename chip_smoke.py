@@ -196,6 +196,28 @@ script with a non-zero exit code when it fails:
       propagating; the tie-order table of ``tests/test_torch_resilience.py``
       on the card against the CPU. Its launches, made with failpoints
       armed, are logged apart and not counted on the main paths;
+   q. the trainer (``repro_torch.runtime``, ``optim``, ``data``,
+      ``checkpoint``) at full width, float32 master weights. First the
+      gradients on the card against the CPU: ``loss_fn``'s at smoke width
+      in float32 (qwen3-8b, and qwen3-moe-30b-a3b with its router), and
+      ``topk``'s through the fused rung at (4, 151936) and (4096, 128),
+      bit-equal (their launches logged apart, not counted on the main
+      paths). Then Qwen3-8B cut to 4 layers, six steps of the trainer's
+      step (batch 4 x 512, every update lowering its own batch's loss):
+      step times (CUDA events, wall, and AdamW's share), tokens/s and peak
+      memory beside the step's floor, and ``remat`` none / full / dots
+      from the sixth step's state (the loss bit-equal, the grad norm
+      within 1e-3, the memory held after the forward full < dots < none).
+      Then Qwen3-8B cut to 1 layer through ``train_with_retries`` (6
+      steps, a checkpoint every 3 in a temporary directory, a fault at
+      step 4: fired once, step 3's loss after the resume bit-equal, the
+      resume's restore in place within one leaf of the resident state,
+      step 6's checkpoint restored bit-equal): each save's and the
+      restore's seconds, bytes and memory. Then qwen3-moe-30b-a3b cut to
+      2 layers, three steps (a finite nonzero router gradient each, the
+      router's forward and backward as profiler ranges). No LOMS kernel
+      runs on the training paths (their counts stay 0); the storage
+      bytes the whole script wrote are logged at its end;
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
@@ -4204,6 +4226,561 @@ def phase_resilience(dev, K, card, params, cfg, sampled) -> dict:
     return launches
 
 
+#: phase 3q: the trained configs at full width and the layers each keeps.
+#: The depth is the one cut. Qwen3-8B's step is timed at 4 layers (32.3 GB
+#: of training state, no checkpoint). Its checkpointed run is cut further:
+#: the machine that runs this script may write 45 GiB (48.3 GB) to its
+#: disk in a run, freed blocks included, and the two checkpoints (steps 3
+#: and 6) write 12 bytes a parameter each: 48.4 GB at 4 layers, 43.8 GB at
+#: 3, 34.5 GB at 1 (the embedding and the head are 1.244 B parameters)
+TRAIN_LAYERS = {"qwen3-8b": 4, "qwen3-8b checkpointed": 1, "qwen3-moe-30b-a3b": 2}
+#: the smoke-width gradients on the card against the CPU's, float32: each
+#: leaf's largest difference over its largest magnitude (the tolerance the
+#: CPU tests hold the port's gradients to against the JAX package)
+GRAD_RTOL = 1e-4
+#: AdamW's bytes a parameter: read p, g, mu, nu and write p, mu, nu, float32
+ADAMW_BYTES = 28
+BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
+
+
+def train_floor(cfg, n_params: int, emb_params: int, tokens: int, seq: int):
+    """The least time of one training step, in two phases that run one
+    after the other: the products at the bf16 dense peak (6 flops a
+    product parameter a token: every weight but the embedding, the head
+    included; plus the causal attention's two products of 2 flops a
+    multiply-add over half the S x S scores, forward once and backward
+    twice) and AdamW at the memory rate (``ADAMW_BYTES`` a parameter).
+    Returns (flops, bytes, products ms, AdamW ms)."""
+    attn = 3 * 2 * 2 * tokens * (seq / 2) * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    flops = 6 * (n_params - emb_params) * tokens + attn
+    nbytes = ADAMW_BYTES * n_params
+    return flops, nbytes, flops / BF16_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+class _StepRecorder:
+    """Wraps ``make_train_step`` while a phase runs: every step's loss and
+    grad norm, its time by CUDA events and by the host's clock (both
+    synchronised), and the peak memory it reached; with ``after``, also
+    the loss of the step's own batch after its update (an untimed
+    forward, after the step's numbers are taken)."""
+
+    def __init__(self, TL, after: bool = False):
+        self.TL, self.real, self.steps, self.after = TL, TL.make_train_step, [], after
+        self.real_update, self.update_events = TL.opt_update, None
+
+    def __enter__(self):
+        import torch
+
+        def update(*args, **kw):  # AdamW's share of the step, by CUDA events
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = self.real_update(*args, **kw)
+            e1.record()
+            self.update_events = (e0, e1)
+            return out
+
+        def make(*args, **kw):
+            fn = self.real(*args, **kw)
+
+            def step(params, opt_state, batch):
+                from repro_torch.models import loss_fn
+
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0 = time.perf_counter()
+                e0.record()
+                out = fn(params, opt_state, batch)
+                e1.record()
+                torch.cuda.synchronize()
+                self.steps.append({
+                    "loss": float(out[2]["loss"]), "grad_norm": float(out[2]["grad_norm"]),
+                    "ms": e0.elapsed_time(e1), "wall_ms": (time.perf_counter() - t0) * 1e3,
+                    "update_ms": self.update_events[0].elapsed_time(self.update_events[1]),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+                if self.after:
+                    with torch.no_grad():
+                        self.steps[-1]["after"] = float(loss_fn(params, batch, args[0]))
+                return out
+            return step
+        self.TL.make_train_step, self.TL.opt_update = make, update
+        return self
+
+    def __exit__(self, *exc):
+        self.TL.make_train_step, self.TL.opt_update = self.real, self.real_update
+
+
+class _CheckpointClock:
+    """Times each checkpoint save (the host snapshot, then the write that
+    ends with the publish and the keep-last sweep) and restore while a
+    phase runs, with the bytes each wrote or read, and each restore's
+    device memory: resident at its start and its peak above that."""
+
+    def __init__(self, CM):
+        self.CM, self.saves, self.restores = CM, [], []
+        self.real = (CM.save, CM._gc, CM.restore)
+
+    def __enter__(self):
+        real_save, real_gc, real_restore = self.real
+        clock = self
+
+        def save(mgr, step, state, *a, **kw):
+            mgr.wait()  # the write before this one ends first, as save() has it
+            rec = {"step": step, "dir": mgr.dir, "t0": time.perf_counter()}
+            clock.saves.append(rec)
+            real_save(mgr, step, state, *a, **kw)
+            rec["snapshot_s"] = time.perf_counter() - rec["t0"]
+
+        def gc_(mgr):  # the last act of a write
+            clock.saves[-1]["write_end"] = time.perf_counter()
+            real_gc(mgr)
+
+        def restore(mgr, step, template, *a, **kw):
+            import torch
+
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = real_restore(mgr, step, template, *a, **kw)
+            torch.cuda.synchronize()
+            clock.restores.append({
+                "step": step, "s": time.perf_counter() - t0, "bytes": _dir_bytes(mgr.dir, step),
+                "in_place": kw.get("in_place", False), "resident": base,
+                "above": torch.cuda.max_memory_allocated() - base})
+            return out
+        self.CM.save, self.CM._gc, self.CM.restore = save, gc_, restore
+        return self
+
+    def __exit__(self, *exc):
+        self.CM.save, self.CM._gc, self.CM.restore = self.real
+
+
+def _dir_bytes(root, step) -> int:
+    d = os.path.join(root, f"step_{step:08d}")
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+#: the bytes the script's own files take on disk: 3q's checkpoints (each
+#: written, then removed) and the kernel builds
+DISK_BYTES = {"checkpoints": 0, "builds": 0}
+
+
+def _tree_bytes(root) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def _router_ranges(real):
+    """``router_topk`` inside a profiler range, and its backward (from the
+    gates' gradient to the logits') inside another, opened and closed by
+    gradient hooks on the autograd thread."""
+    from torch.profiler import record_function
+
+    def wrapped(logits, k, block):
+        with record_function("moe.router_topk"):
+            gates, ids = real(logits, k, block)
+        if gates.requires_grad:
+            rf = record_function("moe.router_topk.backward")
+
+            def opened(grad):  # the gates' gradient: the router's backward starts
+                rf.__enter__()
+
+            def closed(grad):  # the logits' gradient: it ends
+                rf.__exit__(None, None, None)
+            gates.register_hook(opened)
+            logits.register_hook(closed)
+        return gates, ids
+    return wrapped
+
+
+def _grads_against_cpu(dev, K, card, count) -> None:
+    """3q's first part: gradients on the card against the same call on
+    the CPU. ``loss_fn``'s at smoke width in float32 (qwen3-8b, and
+    qwen3-moe-30b-a3b with its router on the schedule executor): the loss
+    and every leaf within ``GRAD_RTOL``, the router's gradient nonzero, no
+    launch. ``topk``'s through the fused rung at a vocab row (4, 151936)
+    and router rows (4096, 128), k = 64: the values, indices and the
+    input's gradient bit-equal to the CPU's (one scatter of the same
+    cotangent), its launches logged and not counted on the main paths."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import loss_fn, model_init
+    from repro_torch.optim.adamw import leaves, map_tree
+
+    def value_and_grads(params, batch, cfg):
+        ps = leaves(params)
+        for t in ps:
+            t.requires_grad_(True)
+        try:
+            loss = loss_fn(params, batch, cfg)
+            gs = torch.autograd.grad(loss, ps, allow_unused=True)
+        finally:
+            for t in ps:
+                t.requires_grad_(False)
+        return float(loss.detach()), [torch.zeros_like(t) if g is None else g
+                                      for g, t in zip(gs, ps)]
+
+    def chain(fn):  # the autograd nodes from the values down to x
+        names = []
+        while fn is not None:
+            names.append(type(fn).__name__)
+            fn = next((f for f, _ in fn.next_functions if f is not None), None)
+        return names
+
+    K.reset_launch_counts()
+    for arch in ("qwen3-8b", "qwen3-moe-30b-a3b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        host = model_init(torch.Generator().manual_seed(0), cfg, "cpu", torch.float32)
+        batch = TokenPipeline(cfg, DataConfig(seq_len=64, global_batch=4, seed=0)).get_batch(0)
+        l_cpu, g_cpu = value_and_grads(
+            host, {k: torch.from_numpy(v) for k, v in batch.items()}, cfg)
+        l_dev, g_dev = value_and_grads(
+            map_tree(lambda t: t.to(dev), host),
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, cfg)
+        rel = []
+        for a, b in zip(g_dev, g_cpu):
+            d, m = float((a.cpu() - b).abs().max()), float(b.abs().max())
+            rel.append(d / m if m > 0 else (0.0 if d == 0 else float("inf")))
+        routers = [float(g.norm()) for g, t in zip(g_cpu, leaves(host)) if any(
+            t is lay["ffn"]["router"]["w"] for lay in host["stack"]["body"]
+            if "router" in lay["ffn"])]
+        log(f"  {cfg.name} float32 loss_fn on the card against the CPU: loss {l_dev!r} vs "
+            f"{l_cpu!r}; {len(rel)} gradient leaves, largest difference over the leaf's "
+            f"largest magnitude {max(rel):.3e} (limit {GRAD_RTOL:g}); router gradient norms "
+            f"{routers}; {card}")
+        if abs(l_dev - l_cpu) > GRAD_RTOL * abs(l_cpu) or max(rel) > GRAD_RTOL:
+            raise AssertionError(f"{cfg.name}: the card's gradients are not the CPU's")
+        if ("moe" in arch) != bool(routers) or not all(0 < r < float("inf") for r in routers):
+            raise AssertionError(f"{cfg.name}: router gradient norms {routers}")
+    count("the smoke-width gradients")
+
+    rng = np.random.default_rng(7)
+    for shape in ((4, 151936), (4096, 128)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        w = torch.from_numpy(rng.standard_normal((shape[0], 64)).astype(np.float32))
+        xc = x.clone().requires_grad_(True)
+        vc, ic = repro_torch.topk(xc, 64)
+        (vc * w).sum().backward()
+        K.reset_launch_counts()
+        xd = x.to(dev).requires_grad_(True)
+        vd, idd = repro_torch.topk(xd, 64)
+        fn = chain(vd.grad_fn)
+        (vd * w.to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        got = {n: c for n, c in K.LAUNCHES.items() if c}
+        log(f"  topk(x, 64) at {shape} float32 with a gradient on the card: autograd "
+            f"{' <- '.join(fn)}, "
+            f"launches {got} (not counted on the main paths); values, indices and "
+            f"x's gradient bit-equal to the CPU's: "
+            f"{torch.equal(xd.grad.cpu(), xc.grad)}")
+        if not got or "_TopKVjpBackward" not in fn:
+            raise AssertionError(f"topk at {shape}: launches {got}, autograd {fn}")
+        if not (torch.equal(vd.detach().cpu(), vc.detach()) and torch.equal(idd.cpu(), ic)
+                and torch.equal(xd.grad.cpu(), xc.grad)):
+            raise AssertionError(f"topk at {shape}: the card's values or gradient differ")
+    K.reset_launch_counts()
+
+
+def phase_train(dev, K, card) -> dict:
+    """Phase 3q: the trainer (``repro_torch.runtime``) at full width.
+
+    First :func:`_grads_against_cpu`. Then Qwen3-8B cut to
+    ``TRAIN_LAYERS["qwen3-8b"]`` layers: six steps of the trainer's
+    ``make_train_step`` with the launcher's defaults (batch 4 x 512,
+    float32 master weights, AdamW warmed up over 1 of 6 steps), every
+    step's update lowering the loss of its own batch (the loss of the
+    next step's new batch moves by less than the batches differ); each
+    step's time (CUDA events and wall), tokens per second and peak memory
+    beside the step's floor (:func:`train_floor`). From the sixth step's
+    state, one forward and backward each with ``remat`` none, full and
+    dots: the loss bit-equal, the grad norm within 1e-3, the memory held
+    after the forward full < dots < none and the peak full <= dots <=
+    none. Then Qwen3-8B cut to ``TRAIN_LAYERS["qwen3-8b checkpointed"]``
+    through ``train_with_retries`` (6 steps, a checkpoint every 3, a
+    fault injected at step 4): the fault fires once, the second attempt
+    resumes from step 3's checkpoint, restored in place (its peak within
+    one leaf of the resident state), and its step-3 loss is bit-equal to
+    the first attempt's; step 6's checkpoint restored into a fresh
+    template is bit-equal to the returned parameters; each save's and
+    the restore's seconds and bytes, the free disk and the storage
+    written. Then qwen3-moe-30b-a3b cut to its first layers, three steps
+    of ``make_train_step`` at batch 4 x 128 (4,096 router choices):
+    finite losses, a finite nonzero router gradient each step, the
+    router's forward and backward as profiler ranges. No LOMS kernel may
+    launch on the training paths; returns their launch counts (all
+    zero)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import repro_torch.checkpoint.manager as CKM
+    import repro_torch.models.moe as MOE
+    import repro_torch.runtime.train_loop as TL
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import loss_fn, model_init
+    from repro_torch.optim import OptConfig, global_norm, opt_init
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime import TrainConfig, train_with_retries
+
+    launches = {n: 0 for n in K.LAUNCHES}
+
+    def count(what):
+        torch.cuda.synchronize()
+        got = {n: c for n, c in K.LAUNCHES.items() if c}
+        log(f"  launches, {what}: {got}")
+        if got:
+            raise AssertionError(f"{what} launched LOMS kernels: {got}")
+
+    def to_dev(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    _grads_against_cpu(dev, K, card, count)
+
+    # Qwen3-8B: the step's time, memory and remat
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=TRAIN_LAYERS["qwen3-8b"])
+    dc = DataConfig(seq_len=512, global_batch=4, seed=0)
+    oc = OptConfig(lr=3e-4, warmup_steps=1, total_steps=6)
+    pipe = TokenPipeline(cfg, dc)
+    log(f"  {cfg.name} cut to {cfg.n_layers} of 36 layers at full width (d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}); "
+        f"batch {dc.global_batch} x {dc.seq_len}; six steps of make_train_step")
+    params = model_init(torch.Generator(device=dev).manual_seed(0), cfg, dev, torch.float32)
+    opt_state = opt_init(params)
+    K.reset_launch_counts()
+    with _StepRecorder(TL, after=True) as rec:
+        step_fn = TL.make_train_step(cfg, oc)
+        for i in range(6):
+            params, opt_state, _ = step_fn(params, opt_state, to_dev(pipe.get_batch(i)))
+    count(f"{cfg.name} training steps")
+    steps = rec.steps
+    losses, after = [s["loss"] for s in steps], [s["after"] for s in steps]
+    log(f"  losses by step {[round(v, 4) for v in losses]}; each step's own batch after its "
+        f"update {[round(v, 4) for v in after]}")
+    if not all(np.isfinite(losses + after)):
+        raise AssertionError(f"losses {losses}, {after}: not finite")
+    if not all(a < s for a, s in zip(after, losses)):
+        raise AssertionError("a step's update did not lower its own batch's loss")
+    n_params = sum(t.numel() for t in leaves(params))
+    emb = params["embed"]["emb"].numel()
+    tokens = dc.global_batch * dc.seq_len
+    ms = float(np.median([s["ms"] for s in steps]))
+    upd_ms = float(np.median([s["update_ms"] for s in steps]))
+    wall_ms = float(np.median([s["wall_ms"] for s in steps]))
+    peak = max(s["peak_gb"] for s in steps)
+    flops, abytes, f_ms, a_ms = train_floor(cfg, n_params, emb, tokens, dc.seq_len)
+    log(f"  {n_params / 1e9:.3f} B parameters ({emb / 1e9:.3f} B embedding); training "
+        f"state {16 * n_params / 1e9:.1f} GB; step p50 {ms:.2f} ms (CUDA events), "
+        f"{wall_ms:.2f} ms wall, {tokens / ms * 1e3:.0f} tokens/s; peak memory "
+        f"{peak:.2f} GB; AdamW (opt_update) p50 {upd_ms:.2f} ms of the step; steps "
+        f"(events ms) {[round(s['ms'], 2) for s in steps]}; {card}")
+    log(f"  floor of a step: products {flops / 1e12:.2f} TFLOP = {f_ms:.2f} ms at "
+        f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16, AdamW {abytes / 1e9:.1f} GB = {a_ms:.2f} ms "
+        f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: {f_ms + a_ms:.2f} ms, "
+        f"{(f_ms + a_ms) / ms:.3f} of the measured step; {card}")
+
+    # remat: one forward and backward each from the sixth step's state
+    del opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = to_dev(pipe.get_batch(6))
+    ps = leaves(params)
+    resident = torch.cuda.memory_allocated()
+    res = {}
+    K.reset_launch_counts()
+    for remat in ("none", "full", "dots"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for t in ps:
+            t.requires_grad_(True)
+        loss = loss_fn(params, batch, cfg, remat=remat)
+        torch.cuda.synchronize()
+        held = (torch.cuda.memory_allocated() - resident) / 1e9  # what backward keeps
+        grads = torch.autograd.grad(loss, ps)
+        gn = float(global_norm(grads))
+        for t in ps:
+            t.requires_grad_(False)
+        res[remat] = (float(loss.detach()), gn, held,
+                      (torch.cuda.max_memory_allocated() - resident) / 1e9)
+        del loss, grads
+    count("remat")
+    log("  remat from the sixth step's state (loss, grad norm; held after the forward and the "
+        f"peak, above the resident weights of {resident / 1e9:.2f} GB): " + ", ".join(
+            f"{r} {v[0]!r} {v[1]:.6f}, {v[2]:.3f} GB, {v[3]:.3f} GB"
+            for r, v in res.items()) + f"; {card}")
+    if not res["none"][0] == res["full"][0] == res["dots"][0]:
+        raise AssertionError(f"remat changes the loss: {res}")
+    for r in ("full", "dots"):
+        if abs(res[r][1] - res["none"][1]) > 1e-3 * res["none"][1]:
+            raise AssertionError(f"remat {r}: grad norm {res[r][1]} vs {res['none'][1]}")
+    # the activations backward keeps fall with the remat; the step's peak
+    # (set by the head and the loss at a cut depth) does not rise
+    if not (res["full"][2] < res["dots"][2] < res["none"][2]
+            and res["full"][3] <= res["dots"][3] <= res["none"][3]):
+        raise AssertionError(f"memory not full < dots < none held, <= at the peak: {res}")
+    del params, ps, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Qwen3-8B through train_with_retries: the fault, the resume, the checkpoints
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS["qwen3-8b checkpointed"])
+    root = tempfile.mkdtemp(prefix="repro_train_")
+    tc = TrainConfig(steps=6, ckpt_every=3, log_every=1, ckpt_dir=root)
+    free0 = shutil.disk_usage(root).free
+    log(f"  {cfg.name} cut to {cfg.n_layers} of 36 layers through train_with_retries (batch "
+        f"{dc.global_batch} x {dc.seq_len}, {tc.steps} steps, a checkpoint every "
+        f"{tc.ckpt_every}, a fault at step 4); checkpoints in {root}, {free0 / 1e9:.1f} GB "
+        f"free there")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with _StepRecorder(TL) as rec, \
+                _CheckpointClock(CKM.CheckpointManager) as ck, \
+                contextlib.redirect_stdout(buf):
+            out = train_with_retries(cfg, dc, tc, oc, retries=1, fail_at_step=4, device=dev)
+        wall = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            log("   " + line)
+        count(f"{cfg.name} train_with_retries")
+        text = buf.getvalue()
+        if text.count("injected fault at step 4") != 1 or "resumed from step 3" not in text:
+            raise AssertionError("the injected fault did not fire once, or no resume from step 3")
+        steps = rec.steps
+        if len(steps) != 7 or out["losses"] != [s["loss"] for s in steps[4:]]:
+            raise AssertionError(f"{len(steps)} steps recorded, returned losses {out['losses']}")
+        losses = [s["loss"] for s in steps[:4]] + out["losses"][1:]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"losses {losses}: not finite")
+        if steps[3]["loss"] != steps[4]["loss"]:
+            raise AssertionError(f"step 3's loss {steps[3]['loss']!r} after the resume is not "
+                                 f"the first attempt's {steps[4]['loss']!r}")
+        params = out["params"]
+        n_params = sum(t.numel() for t in leaves(params))
+        largest = max(t.numel() for t in leaves(params)) * 4
+        log(f"  losses by step {[round(v, 4) for v in losses]}; step 3 after the resume "
+            f"bit-equal to the first attempt's ({steps[3]['loss']!r}); {n_params / 1e9:.3f} B "
+            f"parameters, step p50 {float(np.median([s['ms'] for s in steps])):.2f} ms (CUDA "
+            f"events); train_with_retries {wall:.1f} s in all; {card}")
+        for sv in ck.saves:
+            nb = _dir_bytes(sv["dir"], sv["step"]) if os.path.isdir(
+                os.path.join(sv["dir"], f"step_{sv['step']:08d}")) else 0
+            log(f"  save of step {sv['step']}: snapshot to host {sv['snapshot_s']:.2f} s, "
+                f"written and published {sv['write_end'] - sv['t0']:.2f} s after the call, "
+                f"{nb / 1e9:.2f} GB ({nb / (sv['write_end'] - sv['t0']) / 1e9:.2f} GB/s)")
+        for rs in ck.restores:
+            log(f"  restore of step {rs['step']} (the resume, in place {rs['in_place']}): "
+                f"{rs['s']:.2f} s, {rs['bytes'] / 1e9:.2f} GB ({rs['bytes'] / rs['s'] / 1e9:.2f} "
+                f"GB/s); device memory {rs['resident'] / 1e9:.2f} GB resident (the fresh "
+                f"state it fills), peak {rs['above'] / 1e9:.3f} GB above it (the largest leaf "
+                f"{largest / 1e9:.3f} GB)")
+            if not rs["in_place"] or rs["above"] > largest:
+                raise AssertionError(f"the resume's restore held more than one leaf: {rs}")
+        DISK_BYTES["checkpoints"] += _tree_bytes(root)
+        log(f"  free disk {shutil.disk_usage(root).free / 1e9:.1f} GB with both checkpoints "
+            f"written (before: {free0 / 1e9:.1f} GB): {_tree_bytes(root) / 1e9:.2f} GB")
+
+        # step 6's checkpoint into a fresh template, against the returned parameters
+        t1 = time.perf_counter()
+        template = model_init(None, cfg, dev, torch.float32)
+        state, extra = CheckpointManager(root).restore(6, (template, opt_init(template)))
+        torch.cuda.synchronize()
+        rs = time.perf_counter() - t1
+        del template
+        got, opt_state = state
+        if extra["step"] != 6 or int(opt_state["step"]) != 6 or not all(
+                torch.equal(a, b) for a, b in zip(leaves(got), leaves(params))):
+            raise AssertionError("step 6's checkpoint is not the returned parameters")
+        log(f"  restore of step 6 into a fresh template: bit-equal to the returned "
+            f"parameters ({rs:.2f} s with the template's init)")
+        del out, params, state, got, opt_state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # qwen3-moe-30b-a3b: three steps, the router learning through the executor's top-k
+    mcfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                               n_layers=TRAIN_LAYERS["qwen3-moe-30b-a3b"])
+    params = model_init(torch.Generator(device=dev).manual_seed(0), mcfg, dev, torch.float32)
+    opt_state = opt_init(params)
+    n_params = sum(t.numel() for t in leaves(params))
+    ps = leaves(params)
+    routers = [i for i, t in enumerate(ps)
+               if any(t is lay["ffn"]["router"]["w"] for lay in params["stack"]["body"])]
+    mdc = DataConfig(seq_len=128, global_batch=4, seed=0)
+    pipe = TokenPipeline(mcfg, mdc)
+    log(f"  {mcfg.name} cut to {mcfg.n_layers} of 48 layers at full width "
+        f"({mcfg.moe.n_experts} experts top-{mcfg.moe.top_k}, dispatch "
+        f"{mcfg.moe.dispatch}): {n_params / 1e9:.3f} B parameters, training state "
+        f"{16 * n_params / 1e9:.1f} GB; batch {mdc.global_batch} x {mdc.seq_len} = "
+        f"{mdc.global_batch * mdc.seq_len * mcfg.moe.top_k} router choices")
+    real_update, router_norms = TL.opt_update, []
+
+    def update(grads, state, prm, oc_):
+        router_norms.append([float(grads[i].norm()) for i in routers])
+        return real_update(grads, state, prm, oc_)
+    real_router = MOE.router_topk
+    TL.opt_update = update
+    MOE.router_topk = _router_ranges(real_router)
+    K.reset_launch_counts()
+    try:
+        with _StepRecorder(TL) as rec:
+            step_fn = TL.make_train_step(mcfg, OptConfig(lr=3e-4, warmup_steps=1,
+                                                         total_steps=3))
+            batches = [{k: torch.from_numpy(v).to(dev) for k, v in pipe.get_batch(i).items()}
+                       for i in range(3)]
+            for b in batches[:2]:
+                params, opt_state, _ = step_fn(params, opt_state, b)
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                params, opt_state, _ = step_fn(params, opt_state, batches[2])
+                torch.cuda.synchronize()
+    finally:
+        TL.opt_update, MOE.router_topk = real_update, real_router
+    count(f"{mcfg.name} training")
+    losses = [s["loss"] for s in rec.steps]
+    if len(losses) != 3 or not all(np.isfinite(losses)):
+        raise AssertionError(f"MoE training losses {losses}")
+    if not all(np.isfinite(n).all() and min(n) > 0 for n in map(np.asarray, router_norms)):
+        raise AssertionError(f"router gradient norms {router_norms}: not finite and nonzero")
+    busy, ranges = 0.0, {}
+    for ev in prof.key_averages():
+        if ev.key.startswith("moe.router_topk") and ev.device_type != DeviceType.CUDA:
+            t_dev = getattr(ev, "device_time_total", None)
+            ranges[ev.key] = (ev.count, (t_dev if t_dev is not None
+                                         else getattr(ev, "cuda_time_total", 0)) / 1e3,
+                              ev.cpu_time_total / 1e3)
+        elif ev.device_type == DeviceType.CUDA:
+            t = getattr(ev, "self_device_time_total", None)
+            busy += t if t is not None else getattr(ev, "self_cuda_time_total", 0)
+    log(f"  losses {losses}; router gradient norms by step {router_norms}; step ms "
+        f"(CUDA events) {[round(s['ms'], 2) for s in rec.steps]}, AdamW "
+        f"{[round(s['update_ms'], 2) for s in rec.steps]}, wall "
+        f"{[round(s['wall_ms'], 2) for s in rec.steps]}; peak memory "
+        f"{max(s['peak_gb'] for s in rec.steps):.2f} GB; {card}")
+    log(f"  profiled step 3: device busy {busy / 1e3:.2f} ms; " + ", ".join(
+        f"{k}: {c} calls, device {d:.3f} ms, host {h:.3f} ms" for k, (c, d, h) in
+        sorted(ranges.items())) + f"; {card}")
+    if set(ranges) != {"moe.router_topk", "moe.router_topk.backward"}:
+        raise AssertionError(f"router profiler ranges {sorted(ranges)}")
+    del params, opt_state, batches, ps
+    return launches
+
+
 def guard(phase: str) -> None:
     """No breaker exists and no failpoint is armed after ``phase``: every
     call was answered by its planned rung (a caught failure makes a
@@ -4451,6 +5028,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phases 3o {t_o:.1f} s and 3p {time.perf_counter() - t_op - t_o:.1f} s")
+    t_q = time.perf_counter()
+    log(f"phase 3q: the trainer at full width {since()}")
+    runs.append(phase_train(dev, K, card))
+    guard("3q")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 3q {time.perf_counter() - t_q:.1f} s")
     launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}
     log(f"  launches over all the main paths: {launches}")
     idle = [n for n, c in launches.items() if c == 0]
@@ -4463,7 +5047,11 @@ def main() -> int:
     rows += phase_merge_sort_times(dev, launches, err, card, ops_per_s)
     rows += phase_kway_times(dev, launches, err, card, ops_per_s)
     guard("4")
-    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    DISK_BYTES["builds"] = _tree_bytes(build.build_dir())
+    log(f"  total {time.perf_counter() - t_start:.1f} s; disk written by the script's own "
+        f"files {sum(DISK_BYTES.values()) / 1e9:.2f} GB (3q's checkpoints "
+        f"{DISK_BYTES['checkpoints'] / 1e9:.2f} GB, the kernel builds "
+        f"{DISK_BYTES['builds'] / 1e6:.1f} MB); {card}")
     log("  routes without a kernel (phase 3g): " + json.dumps(no_kernel_rows))
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -15,6 +15,7 @@ the permutation. With payload lanes the permutation is the kernel's own
 order need not be a stable argsort's); values-only, backward recomputes
 it with one stable argsort of the keys, the subgradient convention of a
 sort. The TPU had no backward kernel, so backward is plain torch.
+:func:`topk_vjp` is the fused top-k's backward (``fused.py:354``).
 """
 from __future__ import annotations
 
@@ -144,6 +145,41 @@ def merge_order(cfg: FusedCfg, lists: Sequence[torch.Tensor]) -> torch.Tensor:
         offs += ln
     order = torch.argsort(torch.cat(asc, dim=-1), dim=-1, stable=True)
     return take_along(torch.cat(pos, dim=-1), -1, order).flip(-1)
+
+
+# ---------------------------------------------------------------------------
+# top-k
+# ---------------------------------------------------------------------------
+
+
+class _TopKVjp(torch.autograd.Function):
+    """The reference's fused top-k VJP (``_fused_topk_bwd``,
+    ``fused.py:363``): the values pass through as the kernel wrote them;
+    backward scatter-adds their cotangent into zeros shaped like ``x`` at
+    the kernel's own indices, pad slots (``idx < 0``) adding nothing."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor):
+        ctx.save_for_backward(idx)
+        ctx.shape = x.shape
+        return vals.view_as(vals)
+
+    @staticmethod
+    def backward(ctx, ct_v):
+        (idx,) = ctx.saved_tensors
+        pad = idx < 0
+        contrib = torch.where(pad, torch.zeros_like(ct_v), ct_v)
+        safe = torch.where(pad, 0, idx).long()
+        return ct_v.new_zeros(ctx.shape).scatter_add(1, safe, contrib), None, None
+
+
+def topk_vjp(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``vals`` (B, k), a top-k of the (B, n) rows ``x`` at ``idx``, made
+    differentiable in ``x`` where ``x`` takes a gradient (integer values
+    carry none); the values' bits are untouched."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return vals
+    return _TopKVjp.apply(x, vals, idx)
 
 
 # ---------------------------------------------------------------------------

@@ -154,6 +154,10 @@ def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = F
     def finish(vals2, idx2, decode):
         if stable:
             vals2, idx2 = stabilize_ties(vals2, idx2, descending=descending)
+        if decode is None:  # the route's own values: the fused top-k's gradient
+            from .fused import topk_vjp
+
+            vals2 = topk_vjp(x2, vals2, idx2)
         vals = _unkey(from_batched_last(_restore_values(vals2, idx2, x2, decode),
                                         lead, ax, ndim), narrow)
         idx = from_batched_last(idx2, lead, ax, ndim)

@@ -43,18 +43,20 @@ class _Take(torch.autograd.Function):
     def forward(ctx, t: torch.Tensor, dim: int, idx: torch.Tensor):
         ctx.save_for_backward(idx)
         ctx.dim = dim
+        ctx.shape = t.shape  # a top-k's gather shrinks the axis: the cotangent has t's shape
         return take_along(t, dim, idx)
 
     @staticmethod
     def backward(ctx, ct):
         (idx,) = ctx.saved_tensors
-        return torch.zeros_like(ct).scatter_add(ctx.dim, idx, ct), None, None
+        return ct.new_zeros(ctx.shape).scatter_add(ctx.dim, idx, ct), None, None
 
 
 def take_rows(t: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
     """``torch.gather`` that keeps every bit of the values (see
-    ``take_along``) and is differentiable in ``t``; ``idx`` a permutation
-    along ``dim``."""
+    ``take_along``) and is differentiable in ``t``; ``idx`` holds unique
+    positions along ``dim`` in each row (a permutation, or a top-k's
+    winners), possibly fewer than ``t`` has."""
     return _Take.apply(t, dim, idx.long())
 
 

@@ -3,9 +3,11 @@
 Counterpart of ``repro.models.attention``. All of it is plain torch ops;
 the JAX package has no Pallas kernel here.
 
-* Prefill runs the forward half of the reference's chunked online softmax
+* Train and prefill run the reference's chunked online softmax
   (``_flash_fwd_impl``, ``attention.py:49``), so a long prompt never
-  materialises an S x S score matrix. Scores and sums are float32.
+  materialises an S x S score matrix, and its flash backward
+  (``_flash_bwd``, ``attention.py:102``) recomputes each chunk's
+  probabilities from the saved log-sum-exp. Scores and sums are float32.
 * Decode attends one query against the cache with float32 logits
   (``decode_attention``, ``attention.py:185``).
 * The cache layout is the reference's: k ``(B, Hkv, D, S)``, v
@@ -42,21 +44,18 @@ def _fit_chunk(size: int, want: int) -> int:
     return c
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, q_offset: int = 0, chunk: int = 1024,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Chunked attention, forward only. q (B, Sq, Hkv, G, D), k (B, Sk,
-    Hkv, D), v (B, Sk, Hkv, Dv) -> (B, Sq, Hkv, G, Dv).
+def _flash_fwd(q, k, v, causal: bool, q_offset: int, chunk: int, scale: float):
+    """The reference's ``_flash_fwd_impl`` (``attention.py:49``): the
+    output and each query row's log-sum-exp (B, Sq, Hkv, G), float32.
 
     A causal key chunk that lies wholly after a query chunk is skipped:
     its probabilities are exactly zero and its correction factor exactly
     one, so the result is the reference's."""
     b, sq, hkv, g, d = q.shape
     sk, dv = k.shape[1], v.shape[-1]
-    scale = scale if scale is not None else float(1.0 / np.sqrt(d))
     cq, ck = _fit_chunk(sq, chunk), _fit_chunk(sk, chunk)
     f32 = torch.float32
-    outs = []
+    outs, lses = [], []
     for iq in range(sq // cq):
         qi = q[:, iq * cq:(iq + 1) * cq].to(f32)
         qpos = q_offset + iq * cq + torch.arange(cq, device=q.device)
@@ -80,8 +79,77 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             acc = acc * corr[..., None] + torch.einsum(
                 "bqhgk,bkhd->bqhgd", p.to(vi.dtype).to(f32), vi.to(f32))
             m = m_new
-        outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
-    return torch.cat(outs, dim=1)
+        l = torch.clamp(l, min=1e-30)
+        outs.append((acc / l[..., None]).to(q.dtype))
+        lses.append(m + torch.log(l))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal: bool, q_offset: int, chunk: int,
+               scale: float):
+    """The reference's ``_flash_bwd`` (``attention.py:102``): each chunk's
+    probabilities recomputed from q, k and the log-sum-exp, so the
+    backward holds O(S) state, not the S x S matrices. Float32
+    throughout; the causal chunks the forward skipped add exact zeros
+    there, so they are skipped here too."""
+    b, sq, hkv, g, d = q.shape
+    sk, dv = k.shape[1], v.shape[-1]
+    cq, ck = _fit_chunk(sq, chunk), _fit_chunk(sk, chunk)
+    f32 = torch.float32
+    dout = dout.to(f32)
+    delta = (dout * out.to(f32)).sum(-1)  # (b, sq, hkv, g)
+    dq = torch.zeros((b, sq, hkv, g, d), dtype=f32, device=q.device)
+    dk = torch.zeros((b, sk, hkv, d), dtype=f32, device=q.device)
+    dvs = torch.zeros((b, sk, hkv, dv), dtype=f32, device=q.device)
+    for iq in range(sq // cq):
+        rq = slice(iq * cq, (iq + 1) * cq)
+        qi, doi, lsei, di = q[:, rq].to(f32), dout[:, rq], lse[:, rq], delta[:, rq]
+        qpos = q_offset + iq * cq + torch.arange(cq, device=q.device)
+        for ik in range(sk // ck):
+            if causal and ik * ck > q_offset + (iq + 1) * cq - 1:
+                break
+            rk = slice(ik * ck, (ik + 1) * ck)
+            ki, vi = k[:, rk].to(f32), v[:, rk].to(f32)
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qi, ki) * scale
+            if causal:
+                kpos = ik * ck + torch.arange(ck, device=q.device)
+                mask = qpos[:, None] >= kpos[None, :]
+                s = s.masked_fill(~mask[None, :, None, None, :], _NEG)
+            p = torch.exp(s - lsei[..., None])  # (b, cq, hkv, g, ck)
+            dvs[:, rk] += torch.einsum("bqhgk,bqhgv->bkhv", p, doi)
+            dp = torch.einsum("bqhgv,bkhv->bqhgk", doi, vi)
+            ds = p * (dp - di[..., None]) * scale
+            dq[:, rq] += torch.einsum("bqhgk,bkhd->bqhgd", ds, ki)
+            dk[:, rk] += torch.einsum("bqhgk,bqhgd->bkhd", ds, qi)
+    return dq.to(q.dtype), dk.to(k.dtype), dvs.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """Chunked attention with the flash gradient (the reference's
+    ``_flash`` custom VJP): forward keeps q, k, v, the output and the
+    per-row log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int, chunk: int, scale: float):
+        out, lse = _flash_fwd(q, k, v, causal, q_offset, chunk, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, chunk, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return _flash_bwd(q, k, v, out, lse, dout, *ctx.args) + (None,) * 4
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: int = 0, chunk: int = 1024,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Chunked attention. q (B, Sq, Hkv, G, D), k (B, Sk, Hkv, D), v (B,
+    Sk, Hkv, Dv) -> (B, Sq, Hkv, G, Dv); differentiable with the flash
+    backward (:func:`_flash_bwd`)."""
+    scale = scale if scale is not None else float(1.0 / np.sqrt(q.shape[-1]))
+    return _Flash.apply(q, k, v, bool(causal), int(q_offset), int(chunk), float(scale))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -12,10 +12,12 @@ they are. MLA's leaves (``wq``, ``wuk`` and ``wuv`` 3-D, ``wdkv``,
 ``norm``, ``out_proj``) carry over as every other leaf does; so does the
 hybrid's unstacked ``stack/shared`` block, and the frontends' top-level
 ``frontend`` (audio) and ``patch_proj`` (vlm) denses.
+``opt_state_from_jax`` carries the reference's AdamW state over the same
+way.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -39,13 +41,14 @@ def _map(tree: Any, fn) -> Any:
     return fn(tree)
 
 
-def params_from_jax(tree: Mapping, cfg: ModelConfig,
-                    device: DeviceLike = None) -> dict:
+def params_from_jax(tree: Mapping, cfg: ModelConfig, device: DeviceLike = None,
+                    dtype: Optional[torch.dtype] = None) -> dict:
     """Reference parameter tree (numpy leaves) -> port parameters in
-    ``cfg.dtype`` on ``device``."""
+    ``dtype`` (default ``cfg.dtype``, as served; the trainer's float32
+    masters with ``torch.float32``) on ``device``."""
     check_family(cfg)
     dev = resolve_device(device)
-    dt = getattr(torch, cfg.dtype)
+    dt = dtype or getattr(torch, cfg.dtype)
 
     def leaf(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dt)
@@ -60,3 +63,14 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
     if "shared" in tree["stack"]:
         out["stack"]["shared"] = _map(tree["stack"]["shared"], leaf)
     return out
+
+
+def opt_state_from_jax(tree: Mapping, cfg: ModelConfig, device: DeviceLike = None) -> dict:
+    """The reference's AdamW state ``{"mu", "nu", "step"}`` (numpy leaves)
+    -> the port's: float32 moments in the port's parameter layout and the
+    int32 step, on ``device``."""
+    dev = resolve_device(device)
+    return {"mu": params_from_jax(tree["mu"], cfg, dev, torch.float32),
+            "nu": params_from_jax(tree["nu"], cfg, dev, torch.float32),
+            "step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
+                                 device=dev)}

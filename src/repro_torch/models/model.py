@@ -42,19 +42,23 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def model_init(generator: Optional[torch.Generator], cfg: ModelConfig,
-               device: DeviceLike = None) -> dict:
+               device: DeviceLike = None, dtype: Optional[torch.dtype] = None) -> dict:
     """Random weights with the distributions of ``repro.models.model_init``:
     embedding normal x 0.02, dense weights normal x 1/sqrt(fan_in), norms
-    ones. Each tensor is drawn in float32 and stored in ``cfg.dtype`` one
-    at a time, so the full-width model never holds a float32 copy of all
-    its weights. ``generator`` (on ``device``) makes the draw
-    reproducible; ``None`` seeds one with 0. The audio family has a
-    ``frontend`` dense (``frontend_dim`` -> ``d_model``) in place of the
-    embedding; the vlm family adds ``patch_proj`` (``model.py:22``)."""
+    ones. Each tensor is drawn in float32 and stored in ``dtype`` one at a
+    time, so the full-width model never holds a float32 copy of all its
+    weights when it serves. ``dtype`` defaults to ``cfg.dtype`` (serving);
+    the trainer asks for float32 master weights, as the reference's
+    ``model_init`` returns them, and :func:`forward` casts them to
+    ``cfg.dtype``. The draws do not depend on ``dtype``. ``generator`` (on
+    ``device``) makes the draw reproducible; ``None`` seeds one with 0. The
+    audio family has a ``frontend`` dense (``frontend_dim`` -> ``d_model``)
+    in place of the embedding; the vlm family adds ``patch_proj``
+    (``model.py:22``)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    dt = _dtype(cfg)
+    dt = dtype or _dtype(cfg)
     if cfg.family == "audio":
         p = {"frontend": dense_init(generator, cfg.frontend_dim, cfg.d_model, dt, dev)}
     else:
@@ -69,6 +73,19 @@ def model_init(generator: Optional[torch.Generator], cfg: ModelConfig,
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dt, dev)
     return p
+
+
+def _cast_params(p, cfg: ModelConfig):
+    """Every float32 leaf cast to ``cfg.dtype`` once, before the stack
+    (``model.py:58``): float32 master weights compute as the serving
+    weights do, and the cast is part of the graph, so their gradients are
+    float32. Weights already in ``cfg.dtype`` pass as they are."""
+    dt = _dtype(cfg)
+    if isinstance(p, dict):
+        return {k: _cast_params(v, cfg) for k, v in p.items()}
+    if isinstance(p, list):
+        return [_cast_params(v, cfg) for v in p]
+    return p.to(dt) if p.dtype == torch.float32 else p
 
 
 def _logits(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -102,23 +119,30 @@ def _embed_inputs(p: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     return x
 
 
-def forward(p: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def forward(p: dict, batch: dict, cfg: ModelConfig, *, par=None,
+            remat: str = "none") -> torch.Tensor:
     """Full-sequence forward -> logits (B, S_out, V); the vlm family
-    drops its ``frontend_len`` patch positions (``model.py:77``). Forward
-    only: no autograd checkpointing (``remat``) and no ``par`` yet
-    (ROADMAP Queue 1, items 9 and 10)."""
+    drops its ``frontend_len`` patch positions (``model.py:77``).
+    ``remat`` (none | full | dots) checkpoints each block for the
+    backward (:func:`~.transformer.stack_apply`). ``par`` (the sharded
+    layouts) comes with distribution (ROADMAP Queue 1, item 9)."""
+    if par is not None:
+        raise NotImplementedError("par (sharded parameters and activations) comes with "
+                                  "distribution (ROADMAP Queue 1, item 9)")
+    p = _cast_params(p, cfg)
     x = _embed_inputs(p, batch, cfg)
-    x, _ = stack_apply(p["stack"], x, cfg, mode="train")
+    x, _ = stack_apply(p["stack"], x, cfg, mode="train", remat=remat)
     if cfg.family == "vlm":
         x = x[:, cfg.frontend_len:]  # logits over the text positions only
     return _logits(p, x, cfg)
 
 
-def loss_fn(p: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(p: dict, batch: dict, cfg: ModelConfig, *, par=None,
+            remat: str = "none") -> torch.Tensor:
     """Mean next-token (LM) or per-frame (encoder) cross entropy in
     float32 (``model.py:87``): log-sum-exp minus the target's logit,
     averaged over ``batch["mask"]`` where one is given."""
-    logits = forward(p, batch, cfg).float()
+    logits = forward(p, batch, cfg, par=par, remat=remat).float()
     targets = _input(batch["targets"], logits).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]

@@ -124,16 +124,57 @@ def stack_init(generator, cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
+#: the products whose outputs the ``dots`` policy keeps: unbatched matrix
+#: products, as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+#: (a weight product is one ``mm``; the attention's einsums and the
+#: experts' products are batched, ``bmm``, and are recomputed)
+_DOTS = ("mm", "addmm")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    name = getattr(op, "__name__", "").split(".")[0]
+    return (CheckpointPolicy.MUST_SAVE if name in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the reference's remat (``transformer.py:147``): none;
+    full (every activation of the block recomputed in the backward; a
+    non-reentrant ``torch.utils.checkpoint``); dots (the same, keeping the
+    unbatched products' outputs)."""
+    if remat == "none":
+        return fn
+    if remat not in ("full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, got {remat!r}")
+    import functools
+
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
+
+    def wrapped(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+    return wrapped
+
+
 def stack_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 mode: str = "train", caches: Optional[dict] = None,
-                positions=None, rows: Optional[int] = None):
+                positions=None, rows: Optional[int] = None, remat: str = "none"):
     """Run every layer (``stack_apply``, ``transformer.py:131``): the head
     blocks, then the body; in the hybrid, the shared block after every
     ``attn_every`` body layers, with the group's cache (``:153-227``).
     ``caches`` mirrors the parameters; the hybrid's ``shared`` caches are
-    one a group."""
+    one a group. ``remat`` (none | full | dots) wraps each block as the
+    reference's ``wrap`` does."""
+    block = _remat(block_apply, remat)
     if cfg.family == "hybrid":
-        return _hybrid_apply(p, x, cfg, mode=mode, caches=caches, positions=positions)
+        return _hybrid_apply(p, x, cfg, mode=mode, caches=caches, positions=positions,
+                             block=block)
     out = {}
     head = p.get("head", [])
     ffn_kind = _layer_ffn_kind(cfg, len(head))
@@ -143,23 +184,23 @@ def stack_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         new: List[Optional[dict]] = []
         for i, lp in enumerate(p[part]):
             c = caches[part][i] if caches is not None else None
-            x, c = block_apply(lp, x, cfg, mode=mode, cache=c, positions=positions,
-                               ffn=kind, rows=rows)
+            x, c = block(lp, x, cfg, mode=mode, cache=c, positions=positions,
+                         ffn=kind, rows=rows)
             new.append(c)
         out[part] = new
     return x, (out if caches is not None else None)
 
 
 def _hybrid_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                  caches: Optional[dict], positions):
+                  caches: Optional[dict], positions, block=block_apply):
     out = {"body": [], "shared": []}
     for i, lp in enumerate(p["body"]):
         c = caches["body"][i] if caches is not None else None
-        x, c = block_apply(lp, x, cfg, mode=mode, cache=c, ffn="ssm")
+        x, c = block(lp, x, cfg, mode=mode, cache=c, ffn="ssm")
         out["body"].append(c)
         if (i + 1) % cfg.attn_every == 0:
             c = caches["shared"][i // cfg.attn_every] if caches is not None else None
-            x, c = block_apply(p["shared"], x, cfg, mode=mode, cache=c, positions=positions)
+            x, c = block(p["shared"], x, cfg, mode=mode, cache=c, positions=positions)
             out["shared"].append(c)
     return x, (out if caches is not None else None)
 
