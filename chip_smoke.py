@@ -218,6 +218,15 @@ script with a non-zero exit code when it fails:
       router's forward and backward as profiler ranges). No LOMS kernel
       runs on the training paths (their counts stay 0); the storage
       bytes the whole script wrote are logged at its end;
+   r. distribution (``repro_torch.parallel``, ``par=``) on NCCL, one
+      spawned rank a card (``phase_dist``): the library's sort, merges,
+      median and top-k, the sampler, qwen3-moe-30b-a3b's MoE layer in
+      both expert-parallel modes, ``pipeline_apply`` and
+      ``compressed_psum``, each call's launches, device time, exchange
+      bytes and result against the single-device call on the same card.
+      At one card the TP axis is 1, so every ``par`` call plans the
+      single-device route and the distributed functions are called
+      directly; on four cards the sharded routes run;
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
@@ -4781,6 +4790,337 @@ def phase_train(dev, K, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3r: distribution (repro_torch.parallel) on NCCL, one rank a card
+# ---------------------------------------------------------------------------
+
+def link_rate() -> tuple:
+    """(bytes/s from card 0 to its peers, where the number comes from): the
+    per-link speeds of ``nvidia-smi nvlink -s`` summed over card 0's
+    links (a direction), else the ``nvidia-smi topo -m`` entry between
+    GPU0 and GPU1 (NV<n>: n links of 25 GB/s, NVLink 4), else (None,
+    what the machine said)."""
+    def run(*args):
+        out = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True,
+                             timeout=60)
+        return out.stdout if out.returncode == 0 else ""
+
+    speeds = []
+    for ln in run("nvlink", "-s", "-i", "0").splitlines():
+        parts = ln.split()
+        if parts[:1] == ["Link"] and parts[-1:] == ["GB/s"]:
+            speeds.append(float(parts[-2]))
+    if speeds:
+        return sum(speeds) * 1e9, f"nvlink -s: {len(speeds)} links"
+    rows = [ln.split() for ln in run("topo", "-m").splitlines() if ln.startswith("GPU0")]
+    entry = rows[0][2] if rows and len(rows[0]) > 2 else "not reported"
+    if entry.startswith("NV") and entry[2:].isdigit():
+        return int(entry[2:]) * 25e9, f"topo -m: {entry}"
+    return None, entry
+
+
+def _dist_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """One NCCL rank of phase 3r on ``cuda:<rank>``: every call at full
+    width with ``par``, its launches counted, its device time beside the
+    single-device call's on the same card, held to it (see
+    :func:`phase_dist`); writes its record to ``out_dir``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # bootstrap over loopback: one host
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    import repro_torch
+    from repro_torch.api import SortSpec, plan
+    from repro_torch.api.payload import stabilize_ties
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import topk as K
+    from repro_torch.models import moe as t_moe
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.parallel import (compress, compressed_psum, decompress, dist_sort_axis,
+                                      init_mesh, make_parallelism, pipeline_apply,
+                                      sample_merge_k, sample_sort, vocab_topk_axis)
+    from repro_torch.resilience import breaker_states
+    from repro_torch.serving.sample import sample_topk, sample_topp
+
+    dev = torch.device("cuda", rank)
+    par = make_parallelism(init_mesh("cuda", (1, world)))
+    rec = {"rows": [], "launches": {n: 0 for n in K.LAUNCHES}, "a2a_bytes": []}
+
+    def same(name, got, want):
+        gs = got if isinstance(got, (tuple, list)) else (got,)
+        ws = want if isinstance(want, (tuple, list)) else (want,)
+        for g, w in zip(gs, ws):
+            if g.shape != w.shape or not torch.equal(
+                    bits(g) if g.dtype.is_floating_point else g,
+                    bits(w) if w.dtype.is_floating_point else w):
+                raise AssertionError(f"rank {rank}, {name}: differs from the single-device call")
+
+    def ranks_agree(name, t):
+        """Every rank holds the same ``t`` (bits)."""
+        mine = t.contiguous().view(torch.uint8)  # NCCL moves no int16
+        outs = [torch.empty_like(mine) for _ in range(world)]
+        dist.all_gather(outs, mine)
+        if not all(torch.equal(o, outs[0]) for o in outs):
+            raise AssertionError(f"{name}: the ranks disagree")
+
+    def run(name, call, single, check):
+        """``call`` (the ``par`` route) with its launches counted and its
+        ``dist_sort.all_to_all_bytes``; ``single`` the single-device call;
+        ``check(got, want)`` holds one to the other (None: bit-equal)."""
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        obs_metrics.reset()
+        prev = obs_trace.set_enabled(True)  # the exchange counter counts with obs on
+        got = call()
+        torch.cuda.synchronize()
+        obs_trace.set_enabled(prev)
+        counts = dict(K.LAUNCHES)
+        a2a = int(obs_metrics.counter("dist_sort.all_to_all_bytes").total())
+        for n, c in counts.items():
+            rec["launches"][n] += c
+        want = single()
+        (check or (lambda g, w: same(name, g, w)))(got, want)
+        ms, single_ms = cuda_ms(call, 3, warm=1), cuda_ms(single, 3, warm=1)
+        rec["rows"].append((name, ms, single_ms, a2a, {n: c for n, c in counts.items() if c}))
+        return got
+
+    gen = torch.Generator(device=dev)
+    t0 = time.perf_counter()
+    # -- the sort: (8, 2^20) float32, the decision table's row ---------------
+    x = torch.randn((8, 1 << 20), generator=gen.manual_seed(1), device=dev)
+    iota = torch.arange(1 << 20, dtype=torch.int32, device=dev).expand(8, 1 << 20)
+    offs = tuple(range(0, 8 * (1 << 20) + 1, 1 << 20))
+    flat = x.reshape(-1)
+    if dist_sort_axis(par, (1 << 20,)) is None:  # one rank: the single-device route
+        spec = SortSpec(op="sort", lengths=(1 << 20,), batch=8, device="cuda", sharded=False)
+        rec["plan"] = [plan(spec, par).backend]
+        run("sample_sort (8, 2^20) f32", lambda: sample_sort(x, mesh=par.mesh,
+                                                              axis_name="model")[0],
+            lambda: repro_torch.segment_sort(flat, offs).reshape(8, -1), None)
+
+        def stable(got, want):
+            v, p = stabilize_ties(*got)
+            same("sample_sort positions, ties stabilised", (v, p), want)
+        run("sample_sort (8, 2^20) f32 + positions",
+            lambda: sample_sort(x, mesh=par.mesh, axis_name="model", pos=iota),
+            lambda: tuple(t.reshape(8, -1) for t in repro_torch.segment_sort(
+                flat, offs, payload=iota.reshape(-1))), stable)
+    else:
+        rec["plan"] = [plan(SortSpec(op="sort", lengths=(1 << 20,), batch=8, device="cuda",
+                                     sharded=True), par).backend]
+        run("sort (8, 2^20) f32", lambda: repro_torch.sort(x, par=par),
+            lambda: repro_torch.segment_sort(flat, offs).reshape(8, -1), None)
+
+        def gathers(got, want):
+            same("sort + payload: values", got[0], want[0])
+            same("sort + payload: the permutation gathers the values",
+                 torch.gather(x, 1, got[1].long()), got[0])
+        run("sort (8, 2^20) f32 + payload", lambda: repro_torch.sort(x, par=par, payload=iota),
+            lambda: tuple(t.reshape(8, -1) for t in repro_torch.segment_sort(
+                flat, offs, payload=iota.reshape(-1))), gathers)
+        run("sort (8, 2^20) f32 + payload, stable",
+            lambda: repro_torch.sort(x, par=par, payload=iota, stable=True),
+            lambda: tuple(t.reshape(8, -1) for t in repro_torch.segment_sort(
+                flat, offs, payload=iota.reshape(-1))), None)
+    del x, iota, flat
+    # -- the merges ------------------------------------------------------------
+    lists = [torch.sort(torch.randn((1, 50_000), generator=gen.manual_seed(10 + i),
+                                    device=dev))[0] for i in range(4)]
+    a, b = (torch.sort(torch.randn((1, 1 << 19), generator=gen.manual_seed(20 + i),
+                                   device=dev))[0] for i in range(2))
+    run("merge_k 4 x 50,000 f32", lambda: repro_torch.merge_k(lists, par=par),
+        lambda: repro_torch.merge_k(lists), None)
+    run("merge 2 x 2^19 f32", lambda: repro_torch.merge(a, b, par=par),
+        lambda: repro_torch.merge(a, b), None)
+    if world == 1:
+        rec["plan"].append(plan(SortSpec(op="merge_k", lengths=(50_000,) * 4, device="cuda",
+                                         sharded=False), par).backend)
+        run("sample_merge_k 4 x 50,000 f32",
+            lambda: sample_merge_k(lists, mesh=par.mesh, axis_name="model")[0],
+            lambda: repro_torch.merge_k(lists), None)
+    med = [total_order_sorted(seg_tile(65_536, 7, torch.float32, dev, 40 + j))
+           for j in range(3)]
+    run("median_of_lists 65,536 x (7, 7, 7) f32",
+        lambda: repro_torch.median_of_lists(med, par=par),
+        lambda: repro_torch.median_of_lists(med), None)
+    # -- top-k and sampling at Qwen3-8B's vocabulary ---------------------------
+    vocab = get_config("qwen3-8b").vocab_size
+    logits = (torch.randn((4, vocab), generator=gen.manual_seed(3), device=dev) * 3
+              ).to(torch.bfloat16)
+    rec["plan"].append(plan(SortSpec(op="topk", lengths=(vocab,), k=64, batch=4,
+                                     dtype="bfloat16", device="cuda",
+                                     sharded=vocab_topk_axis(par, vocab) is not None),
+                            par).backend)
+
+    def topk_check(got, want):
+        same("topk values", got[0], want[0])
+        same("topk indices gather the values", torch.gather(logits, 1, got[1].long()), got[0])
+        ranks_agree("topk indices", got[1])
+    run("topk (4, 151936) bf16, k 64", lambda: repro_torch.topk(logits, 64, par=par),
+        lambda: repro_torch.topk(logits, 64), topk_check)
+
+    def token_check(name):
+        def check(got, want):  # the same drawn value; under ties, possibly another id
+            same(name, torch.gather(logits, 1, got.long()[:, None]),
+                 torch.gather(logits, 1, want.long()[:, None]))
+            ranks_agree(name, got)
+        return check
+    for name, kw in (("sample_topk k 64", dict(k=64)),
+                     ("sample_topk ragged k (64, 8, 32, 1)", dict(k=[64, 8, 32, 1]))):
+        run(f"{name}, T 0.8", lambda kw=kw: sample_topk(
+            logits, temperature=0.8, generator=gen.manual_seed(5), par=par, **kw),
+            lambda kw=kw: sample_topk(logits, temperature=0.8, generator=gen.manual_seed(5),
+                                      **kw), token_check(name))
+    run("sample_topp p 0.9, k_max 256", lambda: sample_topp(
+        logits, p=0.9, generator=gen.manual_seed(6), par=par),
+        lambda: sample_topp(logits, p=0.9, generator=gen.manual_seed(6)),
+        token_check("sample_topp"))
+    del logits
+    # -- MoE: qwen3-moe-30b-a3b's layer, float32, no drops ---------------------
+    cfg = get_config("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts // cfg.moe.top_k)))
+    p = t_moe.moe_init(torch.Generator(device=dev).manual_seed(0), cfg, torch.float32, dev)
+    for name, shape in (("MoE prefill 4 x 128 (all_to_all)", (4, 128, cfg.d_model)),
+                        ("MoE decode 4 x 1 (psum)", (4, 1, cfg.d_model))):
+        xm = torch.randn(shape, generator=gen.manual_seed(7), device=dev)
+
+        def close(got, want, name=name):
+            tol = 1e-5 * float(want.abs().max())
+            err = float((got - want).abs().max())
+            if not err <= tol:
+                raise AssertionError(f"rank {rank}, {name}: {err} > {tol}")
+            ranks_agree(name, got)
+        run(name, lambda xm=xm: t_moe.moe_apply(p, xm, cfg, par=par),
+            lambda xm=xm: t_moe.moe_apply(p, xm, cfg), close)
+    del p
+    # -- the pipeline: one Qwen3-8B-wide layer a stage ------------------------
+    d = get_config("qwen3-8b").d_model
+    stages = {"w": torch.randn((world, d, d), generator=gen.manual_seed(8), device=dev) / d**.5,
+              "b": torch.randn((world, d), generator=gen.manual_seed(9), device=dev) * 0.1}
+    xp = torch.randn((8, 4, d), generator=gen.manual_seed(11), device=dev)
+
+    def stage_fn(q, h):
+        return torch.tanh(h @ q["w"] + q["b"])
+
+    def sequential():  # a microbatch at a time, as the stages take them
+        out = []
+        for m in range(xp.shape[0]):
+            h = xp[m]
+            for s in range(world):
+                h = stage_fn({"w": stages["w"][s], "b": stages["b"][s]}, h)
+            out.append(h)
+        return torch.stack(out)
+    def pipe_check(got, want):  # one card: bit-equal; stages on other cards: within 1e-6
+        err = float((got - want).abs().max())
+        rec["pipeline_err"] = err
+        if world == 1:
+            same("pipeline", got, want)
+        elif not err <= 1e-6 * float(want.abs().max()):
+            raise AssertionError(f"rank {rank}, pipeline: {err} from the sequential stages")
+    run(f"pipeline_apply {world} stage(s) of d {d}, 8 x 4 microbatches",
+        lambda: pipeline_apply(stage_fn, stages, xp, par.mesh, axis="model"), sequential,
+        pipe_check)
+    # -- the compressed reduction of a 64 MB gradient --------------------------
+    n = 16 * 1024 * 1024
+
+    def grad(r):
+        g = torch.Generator(device=dev).manual_seed(100 + r)
+        return (torch.randn((4096, n // 4096), generator=g, device=dev),
+                torch.randn((4096, n // 4096), generator=g, device=dev) * 1e-3)
+
+    g_me, e_me = grad(rank)
+
+    def psum_plain():  # every rank's codes summed here, in rank order
+        qs, ss = zip(*(compress(sum(grad(r))) for r in range(world)))
+        q_sum = sum(q.to(torch.int32) for q in qs)
+        s_sum = sum(ss)
+        return decompress(q_sum.float() / world, s_sum / world, g_me.shape) * world
+
+    def psum_check(got, want):
+        tol = 1e-6 * float(want.abs().max())
+        if world == 1:
+            same("compressed_psum", got[0], want)
+        elif not float((got[0] - want).abs().max()) <= tol:
+            raise AssertionError(f"rank {rank}, compressed_psum beyond {tol}")
+    run("compressed_psum 64 MB f32", lambda: compressed_psum(g_me, par.group("model"), e_me),
+        psum_plain, psum_check)
+    if breaker_states():
+        raise AssertionError(f"rank {rank}: breakers {breaker_states()} after phase 3r")
+    rec["seconds"] = time.perf_counter() - t0
+    torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase_dist(card) -> dict:
+    """Phase 3r: distribution (``repro_torch.parallel``, ``par=`` through
+    the library, the sampler and the MoE layer) on NCCL, one rank a card
+    (``torch.cuda.device_count()``, start method ``spawn``, rendezvous
+    through a temporary file). Each rank: ``repro_torch.sort(x, par=par)``
+    of (8, 2^20) float32 (values; a payload; ``stable=True`` and a
+    payload), ``merge_k`` of 4 x 50,000, ``merge`` of 2 x 2^19 and
+    ``median_of_lists`` with ``par``; ``topk(logits, 64, par=par)``,
+    ``sample_topk`` (k 64 and a ragged k) and ``sample_topp`` at Qwen3-8B's
+    vocabulary (4, 151,936) bf16; qwen3-moe-30b-a3b's MoE layer in float32
+    (128 experts, d_model 2048, top 8, seed 0, no-drop capacity) on a 4 x
+    128 prefill (all_to_all) and a B = 4 decode (psum); ``pipeline_apply``
+    of one stage a rank; ``compressed_psum`` of a 64 MB gradient. Each is
+    held to the single-device call on the same card: values bit-equal,
+    payload lanes bit-equal with ``stable=True`` (without it the
+    permutation gathers the values), every rank's top-k and tokens
+    bit-equal to the others', MoE within 1e-5 of the layer's largest
+    magnitude. The single-device route of a (8, 2^20) sort is the schedule
+    executor, whose comparison clouds are quadratic; its single-device
+    call here is ``segment_sort`` over the 8 rows (the values-only spill,
+    and the stable permutation). At one card the TP axis is 1, so, as the
+    reference, every ``par`` call plans the single-device route (asserted)
+    and the sample-sort, the sample-merge, the pipeline and the
+    compressed reduction are called directly so that their collectives
+    run, of one rank; everything is bit-equal there. Returns rank 0's
+    launches."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    rate, entry = link_rate()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_dist_rank, args=(world, os.path.join(d, "rendezvous"), d), nprocs=world,
+                 join=True, start_method="spawn")
+        recs = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+    rec = recs[0]
+    single = world == 1
+    # one card: the sort's executor (over the fused budget), the k-way
+    # tiles, the vocab kernels; more: the sample-sort and the device tree
+    want_plan = ["schedule", "streaming", "cuda"] if single else ["sharded", "sharded"]
+    if rec["plan"] != want_plan:
+        raise AssertionError(f"phase 3r plans {rec['plan']}, not {want_plan}")
+    log(f"  {world} NCCL rank(s), one a card; TP axis {world}; plans {rec['plan']}; "
+        f"peer link: {entry} ({'no rate' if rate is None else f'{rate / 1e9:.1f} GB/s a direction'})"
+        f"; {card}")
+    for name, ms, single_ms, a2a, counts in rec["rows"]:
+        wire = ("" if not a2a or rate is None
+                else f", exchange bound {a2a * (world - 1) / world / rate * 1e3:.4f} ms")
+        log(f"  {name}: {ms:.4f} ms with par (rank 0), single device {single_ms:.4f} ms; "
+            f"all_to_all bytes "
+            f"{a2a}{wire}; launches {counts}")
+    log(f"  phase 3r {time.perf_counter() - t0:.1f} s ({max(r['seconds'] for r in recs):.1f} s "
+        f"in the ranks' calls); launches (rank 0) "
+        f"{ {n: c for n, c in rec['launches'].items() if c} }")
+    return rec["launches"]
+
+
 def guard(phase: str) -> None:
     """No breaker exists and no failpoint is armed after ``phase``: every
     call was answered by its planned rung (a caught failure makes a
@@ -5035,6 +5375,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 3q {time.perf_counter() - t_q:.1f} s")
+    log(f"phase 3r: distribution on NCCL, one rank a card {since()}")
+    runs.append(phase_dist(card))
+    guard("3r")
     launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}
     log(f"  launches over all the main paths: {launches}")
     idle = [n for n, c in launches.items() if c == 0]

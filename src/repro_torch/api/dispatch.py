@@ -39,8 +39,9 @@ ladder also reroutes a plan whose rung has an open circuit breaker
 (``source="breaker"``, :func:`~repro_torch.resilience.ladder.reroute`).
 The budget is the reference's routing budget (``streaming.planner``). A
 measured route sample in the autotune cache overrides the rule as in the
-reference (:func:`record_route_us`); the sharded rows are planned but
-refuse to run (item 9).
+reference (:func:`record_route_us`). The sharded rows need ``spec.sharded``, which
+the ops layer sets where the caller's ``par`` offers a TP axis that
+divides every list (:mod:`repro_torch.parallel`).
 
 Explicit ``backend=`` asks skip the rules but are checked against the
 backend's capability predicate: an ask it cannot run raises
@@ -55,14 +56,13 @@ from typing import List, Optional
 from repro_torch.kernels.topk import ROUTER_TOPK_MAX
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.parallel.dist_sort import DIST_MIN_TOTAL
 from repro_torch.resilience.ladder import reroute
 
 from .fused import dtype_of
 from .registry import get_backend
 from .spec import BACKEND_AUTO, SortSpec
 
-#: the reference's sharded cutover (``parallel.dist_sort.DIST_MIN_TOTAL``)
-DIST_MIN_TOTAL = 8192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,9 +104,11 @@ def _plan_segmented(spec: SortSpec) -> Decision:
                     f"{spec.device} host: the class kernels' plain versions")
 
 
-def plan(spec: SortSpec) -> Decision:
+def plan(spec: SortSpec, par=None) -> Decision:
     """Resolve the backend of one problem. Pure function of ``spec``, the
-    autotune cache and the circuit breakers.
+    autotune cache and the circuit breakers; ``par`` is the reference's
+    argument, which its rules do not read either (``spec.sharded`` carries
+    what the planner needs of it).
 
     Every decision is recorded in the obs layer (the ``plan`` span and
     the ``plan.decisions`` counter: op / backend / detail / device labels)
@@ -133,8 +135,6 @@ def _resolve(spec: SortSpec) -> Decision:
         return _plan_segmented(spec)
     if spec.backend != BACKEND_AUTO:
         be = get_backend(spec.backend)
-        if spec.backend == "sharded":
-            be.run["sort"]()  # raises: ROADMAP Queue 1, item 9
         if not be.supports(spec):
             raise ValueError(
                 f"backend {spec.backend!r} cannot run {spec.describe()} "

@@ -25,7 +25,11 @@ call feeds its circuit breaker, is counted and the next rung answers
 degrade: an injected fault, or any error off the card; on the card a
 real error propagates (:func:`~repro_torch.resilience.ladder.degradable`).
 An explicit ``backend=`` or ``REPRO_RESILIENCE=0`` runs the first rung
-that does not decline and lets its error through. The segment ops fall
+that does not decline and lets its error through. ``par=`` (a
+:class:`~repro_torch.parallel.Parallelism`) makes ``sort`` / ``merge`` /
+``merge_k`` / ``topk`` eligible for the ``sharded`` backend where its TP
+axis divides the lists: every rank passes the same tensors and gets the
+same result. The segment ops fall
 back from the class kernels to the per-segment plain version
 (:func:`_segmented_degrade`) under the same rule.
 
@@ -116,8 +120,22 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
+def _dist_sharded(par, lens) -> bool:
+    """Whether the offered Parallelism makes the spec sample-sortable."""
+    if par is None:
+        return False
+    from repro_torch.parallel.sharding import dist_sort_axis
+
+    return dist_sort_axis(par, lens) is not None
+
+
+def _par_kw(rung: str, par) -> dict:
+    """The sharded rung's adapters take ``par``; no other does."""
+    return {"par": par} if rung == "sharded" else {}
+
+
 def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = False,
-         payload=None, backend: str = "auto", block: Optional[int] = None,
+         payload=None, backend: str = "auto", block: Optional[int] = None, par=None,
          with_indices: bool = True, nan_policy: str = "last", device: DeviceLike = None):
     """Top-k along ``axis``: the largest ``k`` descending (default), or the
     smallest ``k`` ascending with ``descending=False``.
@@ -132,7 +150,11 @@ def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = F
     index first with ``stable=True``. On the card the router kernel
     (axis <= 512) or the vocab kernels run it, integers on their raw
     int32 keys; ``descending=False`` runs the schedule executor.
-    ``block`` sets the executor's and the unfused kernels' block."""
+    ``block`` sets the executor's and the unfused kernels' block. With a
+    :class:`~repro_torch.parallel.Parallelism` whose TP axis divides the
+    last axis of a 2-D ``x``, ``backend="auto"`` routes to the device-tree
+    reduction over that axis (every rank passes the same rows and gets
+    the same answer, rank 0's of the reference)."""
     from .dispatch import plan
     from .payload import canonical_axis, from_batched_last, to_batched_last
     from .registry import get_backend
@@ -146,10 +168,15 @@ def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = F
     batch, n = x2.shape
     if not 1 <= k <= n:
         raise ValueError(f"k={k} out of range for an axis of {n}")
+    sharded = False
+    if par is not None and ax == ndim - 1 and ndim == 2:
+        from repro_torch.parallel.sharding import vocab_topk_axis
+
+        sharded = vocab_topk_axis(par, n) is not None
     spec = SortSpec(op="topk", lengths=(n,), batch=batch, dtype=_dtype_name(x2.dtype), k=k,
                     axis=axis, descending=descending, stable=stable,
                     has_payload=payload is not None, backend=backend,
-                    nan_policy=nan_policy)
+                    sharded=sharded, nan_policy=nan_policy)
 
     def finish(vals2, idx2, decode):
         if stable:
@@ -178,7 +205,7 @@ def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = F
                                      pos=_iota_rows(n, batch, False, x2.device))
         return finish(out2[:, :k], perm2[:, :k], decode)
 
-    dec = plan(spec)
+    dec = plan(spec, par)
 
     def attempt(rung: str):
         if rung in ("fused", "cuda"):
@@ -198,7 +225,8 @@ def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = F
             keys = torch.where(idx2 < 0, _KEY_PAD, encode_key_values(vals2))
             return finish(keys, idx2, lambda out: decode_key_values(out, x2.dtype))
         (enc,), decode = _encode_lists([x2], nan_policy)
-        vals2, idx2 = get_backend(rung).run["topk"](enc, k, spec=spec, block=block)
+        vals2, idx2 = get_backend(rung).run["topk"](enc, k, spec=spec, block=block,
+                                                    **_par_kw(rung, par))
         return finish(vals2, idx2.to(torch.int32), decode)
 
     return run_ladder(spec, rungs_for(spec, dec), attempt, device=x2.device)
@@ -380,7 +408,7 @@ def _fused_leaves(payload, ax: int, ndim: int):
 
 
 def merge(a, b, *, axis: int = -1, descending: bool = False, stable: bool = False,
-          payload=None, backend: str = "auto", network: str = "loms",
+          payload=None, backend: str = "auto", network: str = "loms", par=None,
           nan_policy: str = "last", device: DeviceLike = None):
     """Merge two lists sorted along ``axis`` (both descending with
     ``descending=True``) into one sorted list.
@@ -391,9 +419,9 @@ def merge(a, b, *, axis: int = -1, descending: bool = False, stable: bool = Fals
     payload_tree)``. NaNs order last and -0.0 below +0.0 (the total-order
     key); values-only routes decode the keys, so a NaN comes out
     canonical. Tensors stay on their device; anything else goes to
-    ``device``."""
+    ``device``. ``par``: as :func:`merge_k`."""
     return merge_k([a, b], axis=axis, descending=descending, stable=stable,
-                   payload=payload, backend=backend, network=network,
+                   payload=payload, backend=backend, network=network, par=par,
                    nan_policy=nan_policy, device=device)
 
 
@@ -463,7 +491,7 @@ def _lists_batched(lists, axis: int, device: DeviceLike):
 
 
 def merge_k(lists, *, axis: int = -1, descending: bool = False, stable: bool = False,
-            payload=None, backend: str = "auto", network: str = "loms",
+            payload=None, backend: str = "auto", network: str = "loms", par=None,
             nan_policy: str = "last", device: DeviceLike = None):
     """k-way merge of lists sorted along ``axis`` (all descending with
     ``descending=True``). ``payload`` is a sequence of tensor trees, one a
@@ -473,7 +501,10 @@ def merge_k(lists, *, axis: int = -1, descending: bool = False, stable: bool = F
     schedule executor (``"mwms"`` / ``"tree"`` for three lists or more,
     ``"s2ms"`` / ``"batcher-oe"`` / ``"batcher-bitonic"`` for two). Two
     lists run the 2-way device (``merge_schedule``), as the reference's.
-    Tensors stay on their device; anything else goes to ``device``."""
+    Tensors stay on their device; anything else goes to ``device``. With
+    a :class:`~repro_torch.parallel.Parallelism` whose TP axis divides
+    every list, merges of at least ``DIST_MIN_TOTAL`` route to the
+    distributed sample-sort (:mod:`repro_torch.parallel.dist_sort`)."""
     from .dispatch import plan
     from .fused import fused_cfg_for, fused_merge_k
     from .payload import concat_payload_trees, from_batched_last, take_payload_tree
@@ -492,8 +523,9 @@ def merge_k(lists, *, axis: int = -1, descending: bool = False, stable: bool = F
     spec = SortSpec(op="merge" if len(lists) == 2 else "merge_k", lengths=lens, batch=batch,
                     dtype=_dtype_name(flats[0].dtype), axis=axis, descending=descending,
                     stable=stable, has_payload=payload is not None, network=network,
-                    backend=backend, nan_policy=nan_policy)
-    dec = plan(spec)
+                    backend=backend, sharded=_dist_sharded(par, lens),
+                    nan_policy=nan_policy)
+    dec = plan(spec, par)
 
     def attempt(rung: str):
         if rung == "fused":
@@ -517,11 +549,12 @@ def merge_k(lists, *, axis: int = -1, descending: bool = False, stable: bool = F
             offs = np.cumsum((0,) + lens)
             pos = [_iota_rows(ln, batch, descending, f.device, int(off))
                    for ln, off, f in zip(lens, offs, flats)]
+        kw = _par_kw(rung, par)
         if spec.op == "merge":
             out2, perm2 = be.run["merge"](enc[0], enc[1], spec=spec,
-                                          pos=None if pos is None else (pos[0], pos[1]))
+                                          pos=None if pos is None else (pos[0], pos[1]), **kw)
         else:
-            out2, perm2 = be.run["merge_k"](enc, spec=spec, pos=pos)
+            out2, perm2 = be.run["merge_k"](enc, spec=spec, pos=pos, **kw)
         if descending:
             out2 = out2.flip(-1)
             perm2 = None if perm2 is None else perm2.flip(-1)
@@ -540,14 +573,16 @@ def merge_k(lists, *, axis: int = -1, descending: bool = False, stable: bool = F
 
 
 def median_of_lists(lists, *, axis: int = -1, backend: str = "auto",
-                    network: str = "loms", nan_policy: str = "last",
+                    network: str = "loms", par=None, nan_policy: str = "last",
                     device: DeviceLike = None):
     """Median of lists sorted along ``axis``, shaped like the lists
     without that axis: the paper's early exit after two LOMS stages for
     an odd count of equal odd-length lists (``network="mwms"``: the MWMS
     baseline's device), else the middle element ``n // 2`` of a sort (the
     ``lax`` rung). Floats are medians of their total-order keys, decoded.
-    Tensors stay on their device; anything else goes to ``device``."""
+    Tensors stay on their device; anything else goes to ``device``.
+    ``par`` is handed to ``plan``, as the reference does: no median route
+    is sharded."""
     from .dispatch import plan
     from .registry import get_backend, median_device_fits
     from .spec import SortSpec
@@ -561,7 +596,7 @@ def median_of_lists(lists, *, axis: int = -1, backend: str = "auto",
     spec = SortSpec(op="median", lengths=lens, batch=flats[0].shape[0],
                     dtype=_dtype_name(keys[0].dtype), axis=axis, network=network,
                     backend=backend, nan_policy=nan_policy)
-    dec = plan(spec)
+    dec = plan(spec, par)
 
     def attempt(rung: str):
         if rung == "fused":
@@ -577,7 +612,7 @@ def median_of_lists(lists, *, axis: int = -1, backend: str = "auto",
 
 
 def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,
-         payload=None, backend: str = "auto", network: str = "loms",
+         payload=None, backend: str = "auto", network: str = "loms", par=None,
          nan_policy: str = "last", device: DeviceLike = None):
     """Sort along ``axis``. ``payload`` is a tensor tree whose leaves
     match ``x`` on its dims (trailing feature dims allowed) and ride the
@@ -586,7 +621,11 @@ def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,
     the ascending result reversed, so tied values come out in descending
     position (ascending with ``stable=True``). ``network``: ``"loms"``,
     or the executor's ``"bitonic"`` / ``"oems"`` / ``"rank"``. Tensors
-    stay on their device; anything else goes to ``device``."""
+    stay on their device; anything else goes to ``device``. With a
+    :class:`~repro_torch.parallel.Parallelism` whose TP axis divides the
+    length, sorts of at least ``DIST_MIN_TOTAL`` route to the distributed
+    sample-sort (every rank passes the same rows and gets the full
+    result)."""
     from .dispatch import plan
     from .fused import fused_cfg_for, fused_sort
     from .payload import canonical_axis, from_batched_last, take_payload_tree, to_batched_last
@@ -602,8 +641,8 @@ def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,
     spec = SortSpec(op="sort", lengths=(n,), batch=batch, dtype=_dtype_name(x2.dtype),
                     axis=axis, descending=descending, stable=stable,
                     has_payload=payload is not None, network=network, backend=backend,
-                    nan_policy=nan_policy)
-    dec = plan(spec)
+                    sharded=_dist_sharded(par, (n,)), nan_policy=nan_policy)
+    dec = plan(spec, par)
 
     def attempt(rung: str):
         if rung == "fused":
@@ -618,7 +657,8 @@ def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,
             return _unkey(from_batched_last(out2, lead, ax, ndim), narrow), rebuild(pouts, n)
         (enc,), decode = _encode_lists([x2], nan_policy)
         pos = _iota_rows(n, batch, False, x2.device) if spec.needs_perm else None
-        out2, perm2 = get_backend(rung).run["sort"](enc, spec=spec, pos=pos)
+        out2, perm2 = get_backend(rung).run["sort"](enc, spec=spec, pos=pos,
+                                                    **_par_kw(rung, par))
         if descending:  # the ascending sort, read out reversed
             out2 = out2.flip(-1)
             perm2 = None if perm2 is None else perm2.flip(-1)

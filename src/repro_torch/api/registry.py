@@ -24,8 +24,9 @@ everything, carries payloads), ``cuda`` (the hand-written kernels, the
 reference's ``pallas``), ``streaming`` (the grid merge and the k-way
 tiles), ``segmented`` (CSR segments by size class), ``lax`` (plain
 ``torch.sort`` / ``torch.topk``: a cross-check, and the last rung of the
-degradation ladder) and ``sharded`` (refuses: the
-distributed backends are ROADMAP Queue 1, item 9).
+degradation ladder) and ``sharded`` (the distributed sample-sort and the
+device-tree top-k over a :class:`~repro_torch.parallel.Parallelism`'s TP
+axis; its adapters take ``par=`` besides the convention's arguments).
 """
 from __future__ import annotations
 
@@ -256,23 +257,70 @@ register_backend(Backend(
 
 
 # ---------------------------------------------------------------------------
-# sharded: the distributed backends are not ported
+# sharded: the sample-sort and the device-tree top-k over the TP axis
 # ---------------------------------------------------------------------------
 
 
-def _sharded_refuses(*args, **kwargs):
-    raise NotImplementedError(
-        "the sharded backend (distributed sample-sort, device-tree top-k) is not "
-        "ported (ROADMAP Queue 1, item 9)")
+def _needs_par(par) -> None:
+    if par is None:
+        raise ValueError("the sharded backend needs a Parallelism (par=)")
+
+
+def _sharded_topk(x, k, *, spec, par=None, block=None):
+    from repro_torch.streaming.tree import tree_topk_for
+
+    _needs_par(par)
+    return tree_topk_for(par, x, k)
+
+
+def _sharded_axis(par, lengths) -> str:
+    from repro_torch.parallel.sharding import dist_sort_axis
+
+    _needs_par(par)
+    axis = dist_sort_axis(par, lengths)
+    if axis is None:
+        raise ValueError(f"lengths {tuple(lengths)} do not split over the TP axis "
+                         f"of {par.tp_size}")
+    return axis
+
+
+def _sharded_sort(x, *, spec, pos=None, par=None):
+    from repro_torch.parallel.dist_sort import sample_sort
+
+    axis = _sharded_axis(par, (x.shape[-1],))
+    return sample_sort(x, mesh=par.mesh, axis_name=axis, pos=pos)
+
+
+def _sharded_merge_k(lists, *, spec, pos=None, par=None):
+    from repro_torch.parallel.dist_sort import sample_merge_k
+
+    axis = _sharded_axis(par, tuple(t.shape[-1] for t in lists))
+    return sample_merge_k(lists, mesh=par.mesh, axis_name=axis,
+                          pos=None if pos is None else list(pos))
+
+
+def _sharded_merge(a, b, *, spec, pos=None, par=None):
+    return _sharded_merge_k([a, b], spec=spec, pos=pos, par=par)
+
+
+def _sharded_supports(spec: SortSpec) -> bool:
+    if not _dense(spec):
+        return False
+    if spec.op == "topk":
+        return spec.sharded
+    # the sample-sort realises the LOMS family only; spec.sharded already
+    # says that every list length divides the offered TP axis
+    return spec.op in ("merge", "merge_k", "sort") and spec.sharded and spec.network == "loms"
 
 
 register_backend(Backend(
     name="sharded",
-    run={"topk": _sharded_refuses, "sort": _sharded_refuses,
-         "merge": _sharded_refuses, "merge_k": _sharded_refuses},
-    supports=lambda spec: False,
-    description="distributed sample-sort / k-way merge and tree top-k over a "
-                "TP axis: not ported (ROADMAP Queue 1, item 9)",
+    run={"topk": _sharded_topk, "sort": _sharded_sort,
+         "merge": _sharded_merge, "merge_k": _sharded_merge_k},
+    supports=_sharded_supports,
+    description="distributed sample-sort / k-way merge (local sort, regular-sampling "
+                "splitters, all_to_all, a merge a rank, rebalance) and the log-depth "
+                "tree top-k over the TP axis (repro_torch.parallel, streaming.tree)",
 ))
 
 

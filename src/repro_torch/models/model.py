@@ -125,10 +125,11 @@ def forward(p: dict, batch: dict, cfg: ModelConfig, *, par=None,
     drops its ``frontend_len`` patch positions (``model.py:77``).
     ``remat`` (none | full | dots) checkpoints each block for the
     backward (:func:`~.transformer.stack_apply`). ``par`` (the sharded
-    layouts) comes with distribution (ROADMAP Queue 1, item 9)."""
+    parameters and activations through the model, on
+    :mod:`repro_torch.parallel`) is ROADMAP Queue 1, item 10."""
     if par is not None:
-        raise NotImplementedError("par (sharded parameters and activations) comes with "
-                                  "distribution (ROADMAP Queue 1, item 9)")
+        raise NotImplementedError("par (sharded parameters and activations through the "
+                                  "model) is ROADMAP Queue 1, item 10")
     p = _cast_params(p, cfg)
     x = _embed_inputs(p, batch, cfg)
     x, _ = stack_apply(p["stack"], x, cfg, mode="train", remat=remat)

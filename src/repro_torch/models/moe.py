@@ -11,9 +11,19 @@ unique keys ``expert * n + arrival`` (the class sort, kernel row 6, on
 the card where ``n`` fits one class; the executor otherwise), bit-equal
 to the cumsum's.
 
-The expert-parallel paths of the reference (``axis_name``, ``ep_psum``,
-``par``: all_to_all and psum under ``shard_map``) come with distribution
-(ROADMAP Queue 1, item 9); asking for them raises.
+Expert parallelism (``moe_apply(par=...)`` with ``par.ep_enabled``):
+the experts split over the TP axis, ``E / P`` a rank. Every rank passes
+the full tokens and weights, takes its experts, and, where the sequence
+divides the axis (prefill, training), its slice of the sequence: its
+tokens' (E, C, D) buckets go to the expert owners as (E/P, P*C, D) by one
+all_to_all and come back by another. Otherwise (decode) every rank takes
+every token, masks the choices of experts it does not own, and one
+all_reduce sums the ranks' outputs (``ep_psum``). The batch splits over
+the dp axes. Every rank returns the full (B, S, D) output.
+:func:`moe_ffn_local` is the reference's ``shard_map`` body: its
+``axis_name`` is the TP axis's process group. ``expert_capacities`` is
+refused under EP, as the reference asserts: EP buckets travel as dense
+(E, C, D).
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -30,13 +41,9 @@ from .layers import dense, dense_init
 #: the largest key count the sorted dispatch sorts (``moe.py:223``);
 #: above it the cumsum gives the positions
 SORTED_CAP = 4096
-
-
-def _no_expert_parallel(axis_name, ep_size, ep_psum, par) -> None:
-    if axis_name is not None or ep_size != 1 or ep_psum or par is not None:
-        raise NotImplementedError(
-            "expert parallelism (axis_name, ep_psum, par) comes with distribution "
-            "(ROADMAP Queue 1, item 9)")
+#: with a TP axis that the distributed sample-sort can use, the cap rises
+#: to this (``moe.py:227``)
+SORTED_CAP_SHARDED = 1 << 16
 
 
 def moe_init(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
@@ -84,12 +91,13 @@ def _positions_cumsum(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
     return (pos * oh).sum(-1).to(torch.int32)
 
 
-def _positions_sorted(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+def _positions_sorted(flat_e: torch.Tensor, n_experts: int, par=None) -> torch.Tensor:
     """The same positions from a sort of the unique keys ``expert * n +
     arrival`` with an iota payload (``moe.py:84``): rank minus the start of
-    the expert. On the card, where ``n`` fits one size class, the class
-    sort (kernel row 6) sorts them, as the reference's TPU does; else, and
-    on the CPU, the schedule executor."""
+    the expert. On the card, where ``n`` fits one size class and no
+    ``par`` is offered, the class sort (kernel row 6) sorts them, as the
+    reference's TPU does; else, and on the CPU, the schedule executor;
+    with ``par`` the planner, which may pick the distributed sample-sort."""
     from repro_torch.api.ops import segment_sort, sort
     from repro_torch.segmented import max_class_width
 
@@ -97,10 +105,11 @@ def _positions_sorted(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
     dev = flat_e.device
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     keys = flat_e.to(torch.int32) * n + iota
-    if dev.type == "cuda" and n <= max_class_width(torch.int32):
+    if par is None and dev.type == "cuda" and n <= max_class_width(torch.int32):
         sorted_keys, perm = segment_sort(keys, (0, n), payload=iota, backend="segmented")
     else:
-        sorted_keys, perm = sort(keys, payload=iota, backend="schedule")
+        sorted_keys, perm = sort(keys, payload=iota,
+                                 backend="schedule" if par is None else "auto", par=par)
     sorted_e = (sorted_keys // n).long()
     counts = torch.bincount(flat_e.long(), minlength=n_experts)
     starts = torch.cumsum(counts, dim=0) - counts
@@ -137,6 +146,23 @@ def _expert_ffn_csr(buf: torch.Tensor, p: dict, caps: np.ndarray,
     return out
 
 
+def _expert_a2a(buf: torch.Tensor, group, forward: bool) -> torch.Tensor:
+    """The EP bucket exchange: forward, (E, C, D) -> (E/P, P*C, D), each
+    rank's buckets of expert block ``j`` to rank ``j`` (the reference's
+    ``all_to_all(split_axis=0, concat_axis=1, tiled=True)``); back, the
+    inverse."""
+    from repro_torch.parallel.comm import all_to_all
+
+    p = dist.get_world_size(group)
+    if forward:
+        e, c, d = buf.shape
+        got = all_to_all(buf.reshape(p, e // p, c, d), group, dim=0)  # [i]: from rank i
+        return got.transpose(0, 1).reshape(e // p, p * c, d)
+    el, pc, d = buf.shape
+    back = all_to_all(buf.reshape(el, p, pc // p, d).transpose(0, 1), group, dim=0)
+    return back.reshape(p * el, pc // p, d)
+
+
 def moe_ffn_local(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                   n_real: Optional[int] = None, axis_name=None, ep_size: int = 1,
                   ep_psum: bool = False, par=None) -> torch.Tensor:
@@ -146,19 +172,47 @@ def moe_ffn_local(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     dispatch count the real tokens only, as the reference's unpadded batch
     does. Each kept slot of the (E, C) buffer receives exactly one token;
     the choices past their expert's capacity land in a spill row that is
-    dropped."""
-    _no_expert_parallel(axis_name, ep_size, ep_psum, par)
+    dropped.
+
+    Expert parallelism: ``axis_name`` (the TP axis's process group, of
+    ``ep_size`` ranks) with ``p`` holding this rank's ``E / ep_size``
+    experts. The all_to_all mode (tokens sequence-sharded) buckets over
+    every expert and exchanges the buckets; ``ep_psum`` (tokens the same
+    on every rank) keeps the choices of this rank's experts and sums the
+    ranks' outputs with one all_reduce. ``par`` rides along for the
+    sorted dispatch's sort only (None inside EP, as in the reference)."""
     mo = cfg.moe
     t, d = x.shape
     t_real = t if n_real is None else int(n_real)
     e, k = mo.n_experts, mo.top_k
+    ep = axis_name is not None and ep_size > 1
+    if ep:
+        if e % ep_size:
+            raise ValueError(f"{e} experts do not split over an EP axis of {ep_size}")
+        if mo.expert_capacities is not None:
+            raise ValueError("expert_capacities is a non-EP feature: EP buckets travel as "
+                             "dense (E, C, D) through all_to_all")
     gates, eids = router_topk(dense(p["router"], x), k, mo.router_block)
+    if ep and ep_psum:
+        e_loc = e // ep_size
+        rank = dist.get_rank(axis_name)
+        local = (eids // e_loc) == rank
+        gates = gates * local  # zero the choices of other ranks' experts
+        eids = torch.where(local, eids - rank * e_loc, 0)
+        e = e_loc  # bucket over the local experts only
     flat_e = eids.reshape(-1)
     tok_of = torch.arange(t * k, device=x.device) // k
     cap = int(np.ceil(t_real * k / e * mo.capacity_factor))
     cap = max(4, cap + (-cap) % 4)
-    if mo.dispatch == "sorted" and t_real * k <= SORTED_CAP:
-        pos = _positions_sorted(flat_e, e)
+    sorted_cap = SORTED_CAP
+    if par is not None and t_real * k >= SORTED_CAP and e * t_real * k < 2 ** 31:
+        from repro_torch.parallel.dist_sort import DIST_MIN_TOTAL
+        from repro_torch.parallel.sharding import dist_sort_axis
+
+        if t_real * k >= DIST_MIN_TOTAL and dist_sort_axis(par, (t * k,)) is not None:
+            sorted_cap = SORTED_CAP_SHARDED
+    if mo.dispatch == "sorted" and t_real * k <= sorted_cap:
+        pos = _positions_sorted(flat_e, e, par=par)
     else:
         pos = _positions_cumsum(flat_e, e)
     src = x[tok_of]
@@ -179,11 +233,17 @@ def moe_ffn_local(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         keep = pos < cap
         dest = torch.where(keep, flat_e.long() * cap + pos, e * cap)
-        buf = x.new_zeros((e * cap + 1, d)).index_add_(0, dest, src)
-        out = _expert_ffn(buf[:-1].reshape(e, cap, d), p)
+        buf = x.new_zeros((e * cap + 1, d)).index_add_(0, dest, src)[:-1].reshape(e, cap, d)
+        if ep and not ep_psum:  # the buckets travel to their experts' owners and back
+            out = _expert_a2a(_expert_ffn(_expert_a2a(buf, axis_name, True), p),
+                              axis_name, False)
+        else:
+            out = _expert_ffn(buf, p)
         y_choice = out.reshape(e * cap, d)[dest.clamp(max=e * cap - 1)]
     w = (gates.reshape(-1) * keep).to(x.dtype)
     y = (y_choice * w[:, None]).reshape(t, k, d).sum(dim=1)
+    if ep and ep_psum:
+        dist.all_reduce(y, group=axis_name)
     if mo.n_shared_experts:
         h = F.silu(dense(p["shared_wi"], x)) * dense(p["shared_wg"], x)
         y = y + dense(p["shared_wo"], h)
@@ -194,9 +254,38 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
               rows: Optional[int] = None, par=None) -> torch.Tensor:
     """x (B, S, D): the tokens flattened B x S in order, as
     ``moe.py:277`` does (the right pads of a ragged prefill route and
-    take capacity too). ``rows``: the real rows of a padded decode batch."""
-    _no_expert_parallel(None, 1, False, par)
+    take capacity too). ``rows``: the real rows of a padded decode batch.
+    With ``par.ep_enabled``: expert parallelism over ``par``'s TP axis
+    (the module docstring), every rank passing and getting full arrays;
+    without it ``par`` rides along for the sorted dispatch's sort."""
     b, s, d = x.shape
-    y = moe_ffn_local(p, x.reshape(b * s, d), cfg,
-                      n_real=None if rows is None else rows * s)
-    return y.reshape(b, s, d)
+    if par is None or not par.ep_enabled:
+        y = moe_ffn_local(p, x.reshape(b * s, d), cfg,
+                          n_real=None if rows is None else rows * s, par=par)
+        return y.reshape(b, s, d)
+    if rows is not None:
+        raise ValueError("a padded decode batch (rows=) is not taken under expert parallelism")
+    ep_size = par.tp_size
+    if cfg.moe.n_experts % ep_size:
+        raise ValueError(f"{cfg.moe.n_experts} experts do not split over an EP axis "
+                         f"of {ep_size}")
+    if cfg.moe.expert_capacities is not None:
+        raise ValueError("expert_capacities is a non-EP feature: EP buckets travel as "
+                         "dense (E, C, D) through all_to_all")
+    group, me = par.group(par.tp_axis), par.coordinate(par.tp_axis)
+    e_loc = cfg.moe.n_experts // ep_size
+    seq_shardable = s % ep_size == 0 and s >= ep_size
+    xb = par.dp_slice(x)
+    if seq_shardable:
+        xb = xb[:, me * (s // ep_size):(me + 1) * (s // ep_size)]
+    pb = dict(p)
+    for name in ("wi", "wg", "wo"):  # the experts split over the TP axis
+        pb[name] = {"w": p[name]["w"][me * e_loc:(me + 1) * e_loc]}
+    bb, sb = xb.shape[:2]
+    y = moe_ffn_local(pb, xb.reshape(bb * sb, d), cfg, axis_name=group, ep_size=ep_size,
+                      ep_psum=not seq_shardable).reshape(bb, sb, d)
+    if seq_shardable:
+        from repro_torch.parallel.comm import all_gather_cat
+
+        y = all_gather_cat(y, group, dim=1)
+    return par.dp_gather(y)

@@ -51,6 +51,21 @@ Semantics that keep it invisible in healthy runs:
 
 The scheduler's retry (:mod:`repro_torch.serving.scheduler.engine`)
 owns a failed step.
+
+Under distribution (a ``sharded`` rung, or any call that a ``par``
+makes part of a collective) every rank must take the same rung: a rank
+that degrades while its peers sit in a collective hangs the group. The
+ladder decides from each rank's own state, so the failpoints and the
+breakers must decide alike on every rank. A seeded trigger (``p:P:seed``,
+``times:N``, ``every:N``) on identical call sequences does; so does a
+breaker fed by identical failures. A failure that only one rank sees (a
+card's real error, which propagates on the card anyway) ends that
+rank's call, and the group's collective times out. The sharded rung's
+tie order is the sample-sort's and the device tree's: bit-equal to the
+reference's sharded rung on the CPU, where the local phases are the
+reference's schedule routes; on the card the local phases are the
+kernels, whose tie order is the kernels' (values bit-equal everywhere;
+``stable=True`` pins one order).
 """
 from __future__ import annotations
 

@@ -105,8 +105,8 @@ def train(
     """Run (or resume) training; returns ``{"losses", "final_loss",
     "stragglers", "params"}`` as the reference's ``train`` does."""
     if par is not None:
-        raise NotImplementedError("par (sharded training) comes with distribution "
-                                  "(ROADMAP Queue 1, item 9)")
+        raise NotImplementedError("par (sharded training: the model's FSDP/TP layouts) is "
+                                  "ROADMAP Queue 1, item 10")
     dev = resolve_device(device)
     pipeline = TokenPipeline(cfg, dc)
     ckpt = CheckpointManager(tc.ckpt_dir)

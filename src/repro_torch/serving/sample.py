@@ -13,8 +13,14 @@ All randomness goes through one seam, :func:`categorical`:
 draws. The noise comes from a ``torch.Generator``, or is handed in
 (``gumbel=``), which lets a test feed both packages the same draws.
 
-``k_max=None`` in :func:`sample_topp` (the sort kernel) waits for a
-later slice.
+With ``par`` (a :class:`~repro_torch.parallel.Parallelism` whose TP axis
+divides the vocab) the scoring runs the device-tree top-k over that axis
+(``repro_torch.topk(..., par=par)``; a ragged ``k`` scores one uniform
+``max(k)`` top-k instead of the segmented call), and the token is the
+drawn candidate's own index (``take_along(idx, choice)``, as the
+reference does there), not :func:`canonical_token`. Every rank passes
+the same logits and a generator seeded alike, so every rank returns the
+same tokens.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.api import segment_topk, sort, topk
+from repro_torch.kernels.common import take_along
 
 
 def gumbel_noise(shape, *, generator: Optional[torch.Generator],
@@ -79,7 +86,7 @@ def sample_topk(logits: torch.Tensor, *, k: Union[int, Sequence[int]] = 64,
                 temperature: float = 1.0,
                 top_p: Union[float, Sequence[float]] = 1.0,
                 generator: Optional[torch.Generator] = None,
-                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                gumbel: Optional[torch.Tensor] = None, par=None) -> torch.Tensor:
     """Top-k + temperature categorical sampling: (B, V) -> (B,) int32.
 
     ``k`` may be one int per request: the scoring then runs as one ragged
@@ -92,25 +99,29 @@ def sample_topk(logits: torch.Tensor, *, k: Union[int, Sequence[int]] = 64,
         tps = ((float(top_p),) * len(ks) if isinstance(top_p, (int, float))
                else tuple(float(x) for x in top_p))
         return _sample_topk_ragged(logits, ks, temperature, tps,
-                                  generator=generator, gumbel=gumbel)
+                                  generator=generator, gumbel=gumbel, par=par)
     if not isinstance(top_p, (int, float)):
         raise ValueError("per-request top_p needs per-request k")
     if temperature <= 0.0 or k == 1:
         return sample_greedy(logits)
-    vals, _ = topk(logits, k)
+    vals, idx = topk(logits, k, par=par)
     choice = scored_draw(vals, temperature, top_p if top_p < 1.0 else None,
                          generator=generator, gumbel=gumbel)
+    if par is not None:  # the candidate's own index: no full-vocab compare
+        return take_along(idx, -1, choice[:, None])[:, 0].to(torch.int32)
     return canonical_token(logits, vals, choice)
 
 
 def _sample_topk_ragged(logits: torch.Tensor, ks: Sequence[int],
                        temperature: float, top_ps: Optional[Sequence[float]] = None,
                        *, generator: Optional[torch.Generator] = None,
-                       gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       gumbel: Optional[torch.Tensor] = None, par=None) -> torch.Tensor:
     """Mixed-k batch (the reference's ``_sample_topk_ragged``, ``sample.py:123``): each
     row's top-``k_r`` through one ``segment_topk`` call, laid out dense as
     (B, max k) with the lanes past a row's own k at -inf, then one
-    categorical draw per row over its own prefix."""
+    categorical draw per row over its own prefix. With ``par``: one
+    uniform ``max(k)`` top-k through ``topk(..., par=par)`` (the top-k_r of
+    a row is the k_r prefix of its top-max(k))."""
     b, v = logits.shape
     ks = tuple(int(x) for x in ks)
     if len(ks) != b or not all(1 <= x <= v for x in ks):
@@ -121,15 +132,20 @@ def _sample_topk_ragged(logits: torch.Tensor, ks: Sequence[int],
     if temperature <= 0.0 or all(x == 1 for x in ks):
         return sample_greedy(logits)
     k_max = max(ks)
-    vals, _, out_offs = segment_topk(logits.reshape(-1), tuple(range(0, (b + 1) * v, v)), ks)
-    # CSR -> dense (B, k_max): pad lanes read one appended slot
-    gmap = np.full((b, k_max), out_offs[-1], np.int64)
-    for r in range(b):
-        gmap[r, :out_offs[r + 1] - out_offs[r]] = out_offs[r] + np.arange(
-            out_offs[r + 1] - out_offs[r])
-    vals_ext = torch.cat([vals, vals.new_zeros((1,))])
-    dense_v = vals_ext[torch.as_tensor(gmap, device=logits.device)]
-    cnts = torch.as_tensor(np.diff(np.asarray(out_offs)), device=logits.device)[:, None]
+    if par is not None:
+        dense_v, dense_i = topk(logits, k_max, par=par)
+        cnts = torch.as_tensor(ks, device=logits.device)[:, None]
+    else:
+        vals, _, out_offs = segment_topk(logits.reshape(-1), tuple(range(0, (b + 1) * v, v)),
+                                         ks)
+        # CSR -> dense (B, k_max): pad lanes read one appended slot
+        gmap = np.full((b, k_max), out_offs[-1], np.int64)
+        for r in range(b):
+            gmap[r, :out_offs[r + 1] - out_offs[r]] = out_offs[r] + np.arange(
+                out_offs[r + 1] - out_offs[r])
+        vals_ext = torch.cat([vals, vals.new_zeros((1,))])
+        dense_v = vals_ext[torch.as_tensor(gmap, device=logits.device)]
+        cnts = torch.as_tensor(np.diff(np.asarray(out_offs)), device=logits.device)[:, None]
     lane = torch.arange(k_max, device=logits.device)[None, :]
     probs_logits = torch.where(lane < cnts, dense_v.float() / temperature,
                                float("-inf"))
@@ -137,6 +153,8 @@ def _sample_topk_ragged(logits: torch.Tensor, ks: Sequence[int],
         probs_logits = nucleus_mask(probs_logits, torch.tensor(
             top_ps, dtype=torch.float32, device=logits.device)[:, None])
     choice = categorical(probs_logits, generator=generator, gumbel=gumbel)
+    if par is not None:
+        return take_along(dense_i, -1, choice[:, None])[:, 0].to(torch.int32)
     return canonical_token(logits, dense_v, choice)
 
 
@@ -147,18 +165,20 @@ def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
 def sample_topp(logits: torch.Tensor, *, p: float = 0.9,
                 k_max: Optional[int] = 256, temperature: float = 1.0,
                 generator: Optional[torch.Generator] = None,
-                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                gumbel: Optional[torch.Tensor] = None, par=None) -> torch.Tensor:
     """Nucleus sampling on the top-``k_max`` prefix (the kernels hand the
     candidates back descending, so the nucleus is one cumulative sum).
     ``k_max=None``: the exact nucleus, the whole row ranked by
     ``sort(descending=True)`` with the token ids riding the permutation,
-    routed by ``plan`` (at a vocab of 151,936: the schedule executor)."""
+    routed by ``plan`` (at a vocab of 151,936: the schedule executor; with
+    ``par`` whose TP axis divides the vocab: the distributed sample-sort,
+    and the top-``k_max`` the device tree)."""
     if k_max is None:
         iota = torch.arange(logits.shape[-1], dtype=torch.int32,
                             device=logits.device).expand(logits.shape)
-        vals, idx = sort(logits, descending=True, payload=iota)
+        vals, idx = sort(logits, descending=True, payload=iota, par=par)
     else:
-        vals, idx = topk(logits, k_max)
+        vals, idx = topk(logits, k_max, par=par)
     probs = torch.softmax(vals.float() / temperature, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     keep = torch.cat([torch.ones_like(cum[:, :1], dtype=torch.bool),

@@ -27,6 +27,10 @@ def test_import_every_module_without_jax():
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "need = {'repro_torch.parallel', 'repro_torch.parallel.sharding',\n"
+        "        'repro_torch.parallel.dist_sort', 'repro_torch.parallel.pipeline',\n"
+        "        'repro_torch.parallel.compress', 'repro_torch.streaming.tree'}\n"
+        "assert need <= set(mods), need - set(mods)\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "sys.path.insert(0, sys.argv[1])\n"

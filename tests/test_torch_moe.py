@@ -20,8 +20,9 @@ a leading dense layer; the reference's weights carried over with
   orders, so a near-tie between a token's k-th and (k+1)-th logit could
   flip an expert; each of those tests records the smallest such gap and
   names it when the logits differ.
-* The refusals: expert parallelism (ROADMAP item 9), MoE through the
-  scheduler; the launcher at smoke width on the CPU. MLA
+* The refusals: what expert parallelism still refuses (ragged
+  capacities, an EP axis that does not divide the experts), MoE through
+  the scheduler; the launcher at smoke width on the CPU. MLA
   (deepseek-v2-lite) is held by ``tests/test_torch_mla.py``, the SSM and
   hybrid families by ``tests/test_torch_ssm.py``, the vlm and audio
   frontends by ``tests/test_torch_frontends.py``.
@@ -202,15 +203,33 @@ def test_sorted_dispatch_bit_equal_to_scatter():
 
 
 def test_expert_parallel_arguments_raise():
+    """What expert parallelism still refuses, before any collective runs:
+    ragged ``expert_capacities`` (the reference asserts it), an EP axis
+    that does not divide the experts, a padded decode batch. The EP paths
+    themselves run in ``tests/test_torch_parallel.py``."""
+    from repro_torch.parallel import make_parallelism
+
     jcfg, tcfg = _layer_cfgs()
+    _, caps = _layer_cfgs(capacity_factor=8.0, expert_capacities=(8,) * 4)
     _, tp, x = _exact_router_layer(jcfg, 4, seed=1)
     x = torch.from_numpy(x)
-    for kw in (dict(axis_name="model"), dict(ep_psum=True), dict(ep_size=2),
-               dict(par=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 9"):
-            t_moe.moe_ffn_local(tp, x, tcfg, **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_moe.moe_apply(tp, x[None], tcfg, par=object())
+    with pytest.raises(ValueError, match="expert_capacities is a non-EP feature"):
+        t_moe.moe_ffn_local(tp, x, caps, axis_name="model", ep_size=2)
+    with pytest.raises(ValueError, match="4 experts do not split over an EP axis of 3"):
+        t_moe.moe_ffn_local(tp, x, tcfg, axis_name="model", ep_size=3, ep_psum=True)
+
+    class Mesh:  # the attributes the spec functions read
+        axis_names = ("data", "model")
+
+        def __init__(self, tp):
+            self.shape = {"data": 1, "model": tp}
+
+    with pytest.raises(ValueError, match="do not split over an EP axis of 3"):
+        t_moe.moe_apply(tp, x[None], tcfg, par=make_parallelism(Mesh(3)))
+    with pytest.raises(ValueError, match="expert_capacities is a non-EP feature"):
+        t_moe.moe_apply(tp, x[None], caps, par=make_parallelism(Mesh(2)))
+    with pytest.raises(ValueError, match="rows="):
+        t_moe.moe_apply(tp, x[None], tcfg, rows=1, par=make_parallelism(Mesh(2)))
 
 
 # ---------------------------------------------------------------------------

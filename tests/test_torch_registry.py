@@ -8,8 +8,8 @@ median, the exact nucleus and the autotune cache against the reference.
 * Explicit asks run the named backend: ``cuda`` against the reference's
   ``pallas`` (its kernels in interpret mode), ``schedule`` / ``streaming``
   against the same names, ``lax`` equal in value. Asks a backend cannot
-  run raise ``ValueError``, as there; ``sharded`` raises
-  ``NotImplementedError`` (ROADMAP Queue 1, item 9).
+  run raise ``ValueError``, as there; so does ``sharded`` without a
+  ``par`` (``tests/test_torch_parallel.py`` runs it with one).
 * ``topk`` with ``axis=``, ``payload=``, ``block=``, ``with_indices``,
   integer keys and ``descending=False``; uint32 rows holding 0 and
   2^32 - 1 through every op; the median of unequal and even lists (the
@@ -183,7 +183,10 @@ def test_explicit_asks_a_backend_cannot_run_raise():
     jx = jnp.zeros((2, 8))
     with pytest.raises(ValueError):
         repro.merge(jx, jx, payload=(jx, jx), backend="streaming")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 9"):
+    # without a Parallelism no spec is sharded: both packages refuse the ask
+    with pytest.raises(ValueError, match="backend 'sharded' cannot run"):
+        repro.sort(jx, backend="sharded")
+    with pytest.raises(ValueError, match="backend 'sharded' cannot run"):
         repro_torch.sort(x, backend="sharded")
 
 

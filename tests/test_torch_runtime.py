@@ -20,7 +20,7 @@
   carry the differences along), and a run that fails at step 6 and
   resumes from step 4's checkpoint bit-equal to the uninterrupted one.
 * ``StragglerMonitor``, the launcher at smoke width on the CPU, and
-  ``par=`` refused (distribution is ROADMAP Queue 1, item 9).
+  ``par=`` refused (sharded training is ROADMAP Queue 1, item 10).
 """
 import dataclasses
 import json
@@ -371,9 +371,9 @@ def test_launcher_smoke_cpu(tmp_path, capsys):
 def test_par_refused(tmp_path):
     cfg = get_smoke_config("qwen3-8b")
     tc = TrainConfig(steps=1, ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         train(cfg, DataConfig(seq_len=8, global_batch=2), tc, OptConfig(), par=object(),
               device="cpu")
     step = make_train_step(cfg, OptConfig(), par=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         step({}, {}, {})

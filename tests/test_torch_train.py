@@ -328,7 +328,7 @@ def test_master_weights_and_par():
         assert torch.equal(a, b.to(a.dtype))
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
              "targets": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         loss_fn(master, batch, cfg, par=object())
     with pytest.raises(ValueError, match="remat"):
         loss_fn(master, batch, cfg, remat="some")
