@@ -227,6 +227,14 @@ script with a non-zero exit code when it fails:
       At one card the TP axis is 1, so every ``par`` call plans the
       single-device route and the distributed functions are called
       directly; on four cards the sharded routes run;
+   s. sharded parameters through the model (``phase_sharded``; the
+      model's ``par=``, on NCCL, one spawned rank a card): at one card a
+      (1, 1) mesh, Qwen3-8B's ``generate(par=par)`` at full width and
+      depth bit-equal to ``generate()`` (tokens, the first step's logits,
+      rows 4 and 5's launches) and one step of 3q's 4-layer trainer with
+      ``par`` bit-equal to one without; on four cards TP serving, FSDP
+      training at full depth and the FSDP and FSDP + TP steps against the
+      one-card step;
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
@@ -4973,12 +4981,18 @@ def _dist_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
                  torch.gather(logits, 1, want.long()[:, None]))
             ranks_agree(name, got)
         return check
+
+    def canonical_check(name):
+        def check(got, want):  # sample_topk draws the canonical token on every mesh
+            same(name, got, want)
+            ranks_agree(name, got)
+        return check
     for name, kw in (("sample_topk k 64", dict(k=64)),
                      ("sample_topk ragged k (64, 8, 32, 1)", dict(k=[64, 8, 32, 1]))):
         run(f"{name}, T 0.8", lambda kw=kw: sample_topk(
             logits, temperature=0.8, generator=gen.manual_seed(5), par=par, **kw),
             lambda kw=kw: sample_topk(logits, temperature=0.8, generator=gen.manual_seed(5),
-                                      **kw), token_check(name))
+                                      **kw), canonical_check(name))
     run("sample_topp p 0.9, k_max 256", lambda: sample_topp(
         logits, p=0.9, generator=gen.manual_seed(6), par=par),
         lambda: sample_topp(logits, p=0.9, generator=gen.manual_seed(6)),
@@ -5119,6 +5133,437 @@ def phase_dist(card) -> dict:
         f"in the ranks' calls); launches (rank 0) "
         f"{ {n: c for n, c in rec['launches'].items() if c} }")
     return rec["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 3s: sharded parameters through the model
+# ---------------------------------------------------------------------------
+
+#: (a)'s bounds of TP decode against one card, over 16 teacher-forced
+#: steps of 4 rows: the largest logits difference (0.113 measured on the
+#: H100) and the share of equal argmaxes (61 / 64 measured)
+TP_LOGITS_ATOL = 0.25
+TP_ARGMAX_MIN = 0.9
+#: (c)'s bounds of the sharded step against the one-card step, relative:
+#: the loss and grad norm (7.0e-6 and 1.5e-4 at most measured on the
+#: H100: the products run in bf16 and a TP row-parallel sum or a smaller
+#: batch a rank rounds its partial sums otherwise); and a checked leaf's
+#: update (new - initial), mean |difference| over mean |one card's|: a
+#: first AdamW step moves each element by about lr whatever the gradient's
+#: size, so only elements whose tiny gradient changes sign differ, where a
+#: lost shard's elements would not move at all (a quarter or more of a leaf)
+SHARDED_LOSS_RTOL = 1e-4
+SHARDED_GNORM_RTOL = 2e-3
+SHARDED_UPDATE_RTOL = 0.1
+
+
+def _sharded_one_card(dev, par, rec, say) -> None:
+    """3s at one card: the (1, 1) mesh bit-equal to no mesh."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import topk as K
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_cache, model_init, param_specs, prefill
+    from repro_torch.optim import OptConfig, opt_init
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.parallel import shard_params
+    from repro_torch.parallel.sharding import axis_sizes
+    from repro_torch.runtime import train_loop as TL
+    from repro_torch.serving import ServeConfig, generate
+
+    host = axis_sizes(make_host_mesh(device_type="cuda"))
+    if tuple(host.values()) != (1, 1):
+        raise AssertionError(f"make_host_mesh() on one card gives {host}, not (1, 1)")
+    say(f"  make_host_mesh() on one card: {host}")
+    cfg = get_config("qwen3-8b")
+    params = model_init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    rng = np.random.default_rng(0)  # 3a's prompts and sampling
+    bsz, plen, new, k, temp = 4, 128, 16, 64, 0.8
+    tokens = rng.integers(0, cfg.vocab_size, (bsz, plen)).astype(np.int32)
+    sc = ServeConfig(max_new_tokens=new, top_k=k, temperature=temp, seed=0)
+    tok_dev = torch.from_numpy(tokens).to(dev)
+    with torch.no_grad():
+        want_first, _ = prefill(params, {"tokens": tok_dev}, init_cache(cfg, bsz, plen, dev), cfg)
+    K.reset_launch_counts()
+    want = generate(params, {"tokens": tokens}, cfg, sc, device=dev)["tokens"]
+    torch.cuda.synchronize()
+    plain_launches = dict(K.LAUNCHES)
+    params = shard_params(params, par, param_specs(cfg))  # in place: no copy at (1, 1)
+    with torch.no_grad():
+        got_first, _ = prefill(params, {"tokens": tok_dev},
+                               init_cache(cfg, bsz, plen, dev, par=par), cfg, par=par)
+    got_first = got_first.full_tensor()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = generate(params, {"tokens": tokens}, cfg, sc, device=dev, par=par)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    tree = K.vocab_merge_launches(cfg.vocab_size, __import__("repro_torch").api.topk_block(
+        cfg.vocab_size, k), k)
+    expect = {**{n: 0 for n in K.LAUNCHES}, "vocab_phase1": new, "vocab_merge_level": new * tree}
+    if launches != expect or launches != plain_launches:
+        raise AssertionError(f"generate(par) launched {launches}; 3a's run {plain_launches}, "
+                             f"expected {expect}")
+    if not np.array_equal(got["tokens"], want):
+        raise AssertionError("generate(par) on a (1, 1) mesh drew other tokens")
+    if not torch.equal(got_first.view(torch.int16), want_first.view(torch.int16)):
+        raise AssertionError("the first step's logits under par are not bit-equal")
+    rec["launches"] = launches
+    say(f"  Qwen3-8B at full width (36 layers, bf16, seed 0) on a (1, 1) mesh: generate(par) "
+        f"tokens bit-equal to generate() ({bsz} x {new}, k {k}, temperature {temp}), the "
+        f"first step's logits bit-equal; {time.perf_counter() - t0:.1f} s; launches {launches}")
+    del params, want_first, got_first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS["qwen3-8b"])
+    dc = DataConfig(seq_len=512, global_batch=4, seed=0)
+    oc = OptConfig(lr=3e-4, warmup_steps=1, total_steps=6)
+    batch = {n: torch.from_numpy(v).to(dev)
+             for n, v in TokenPipeline(cfg4, dc).get_batch(0).items()}
+    p0 = model_init(torch.Generator(device=dev).manual_seed(0), cfg4, dev, torch.float32)
+    p0, _, m0 = TL.make_train_step(cfg4, oc)(p0, opt_init(p0), batch)
+    want_leaves = [t.cpu() for t in leaves(p0)]  # the state of one: room for the other
+    del p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    p1 = model_init(torch.Generator(device=dev).manual_seed(0), cfg4, dev, torch.float32,
+                    par=par)
+    p1, _, m1 = TL.make_train_step(cfg4, oc, par=par)(p1, opt_init(p1), batch)
+    for name in ("loss", "grad_norm"):
+        if not torch.equal(m0[name], m1[name]):
+            raise AssertionError(f"train step {name}: {float(m1[name])} under par, "
+                                 f"{float(m0[name])} without")
+    for a, b in zip(want_leaves, leaves(p1)):
+        if not torch.equal(a, b.full_tensor().cpu()):
+            raise AssertionError("a parameter after make_train_step(par) is not bit-equal")
+    say(f"  {cfg4.name} at {cfg4.n_layers} layers, float32 masters, batch 4 x 512: one "
+        f"make_train_step(par) step on (1, 1): loss {float(m1['loss']):.6f}, grad norm "
+        f"{float(m1['grad_norm']):.6f} and every updated parameter bit-equal to par=None's")
+
+
+def _events_ms(fn, n: int):
+    """Each of ``n`` calls of ``fn`` timed by CUDA events (ms)."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def _sharded_four_cards(dev, world, rec, say) -> None:
+    """3s on several cards: (a) TP serving, (b) FSDP training at full
+    depth, (c) FSDP and FSDP + TP steps against the one-card step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import decode_step, init_cache, model_init, prefill
+    from repro_torch.optim import OptConfig, opt_init
+    from repro_torch.parallel import init_mesh, make_parallelism
+    from repro_torch.runtime import train_loop as TL
+
+    cfg = get_config("qwen3-8b")
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    # (a) TP over (1, world): teacher-forced decode against this rank's one-card run;
+    # Qwen3-8B's 8 kv heads split four ways, chatglm3-6b's 2 do not (its 32 query
+    # heads split, the cache over head_dim)
+    par = make_parallelism(init_mesh("cuda", (1, world)))
+    bsz, plen, steps = 4, 128, 16
+    rec["a"] = {}
+    for arch in ("qwen3-8b", "chatglm3-6b"):
+        acfg = get_config(arch)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, acfg.vocab_size, (bsz, plen)).astype(np.int32)).to(dev)
+
+        def run(p, par_, forced):
+            kw = {} if par_ is None else {"par": par_}
+            out, toks, ms = [], [], []
+            with torch.no_grad():
+                cache = init_cache(acfg, bsz, plen + steps, dev, **kw)
+                lg, cache = prefill(p, {"tokens": tokens}, cache, acfg, **kw)
+                for i in range(steps):
+                    lg = lg.full_tensor() if par_ is not None else lg
+                    out.append(lg.float())
+                    tok = forced[i] if forced else lg.argmax(-1).to(torch.int32)[:, None]
+                    toks.append(tok)
+                    pos = torch.full((bsz, 1), plen + i, dtype=torch.int32, device=dev)
+                    if i == steps - 1:
+                        break
+                    a, b = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                    a.record()
+                    lg, cache = decode_step(p, tok, cache, acfg, positions=pos, **kw)
+                    b.record()
+                    torch.cuda.synchronize()
+                    ms.append(a.elapsed_time(b))
+            return out, toks, ms
+
+        params = model_init(torch.Generator(device=dev).manual_seed(0), acfg, dev)
+        one, forced, one_ms = run(params, None, [])
+        sp = model_init(torch.Generator(device=dev).manual_seed(0), acfg, dev, par=par)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp, _, tp_ms = run(sp, par, forced)
+        diff = max(float((a - b).abs().max()) for a, b in zip(one, tp))
+        agree, checked = 0, 0
+        for a, b in zip(one, tp):
+            top2 = a.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            d = (a - b).abs().amax(dim=-1)
+            same = a.argmax(-1) == b.argmax(-1)
+            agree += int(same.sum())
+            must = margin > 2 * d  # no difference of d can swap the top two
+            checked += int(must.sum())
+            if not bool(same[must].all()):
+                raise AssertionError(f"(a) {arch} TP decode: a greedy token differs where the "
+                                     f"one-card top-2 margin exceeds twice the logits' "
+                                     f"difference")
+        n = len(one) * bsz
+        say(f"  (a) {arch} served with TP over (1, {world}) ({acfg.n_kv_heads} kv heads, "
+            f"{acfg.n_heads} heads; bf16, each rank also holding the one-card weights): "
+            f"{steps} teacher-forced steps, logits max abs difference {diff:.6g} (bound "
+            f"{TP_LOGITS_ATOL}), argmax agreement {agree}/{n} (floor {TP_ARGMAX_MIN}), greedy "
+            f"tokens equal at all {checked} (row, step)s whose one-card top-2 margin exceeds "
+            f"twice the row's difference; decode step p50 {float(np.median(tp_ms)):.3f} ms "
+            f"under TP, {float(np.median(one_ms)):.3f} ms on one card (CUDA events, rank 0)")
+        rec["a"][arch] = {"diff": diff, "agree": agree, "n": n, "checked": checked,
+                          "tp_ms": float(np.median(tp_ms)), "one_ms": float(np.median(one_ms))}
+        if diff > TP_LOGITS_ATOL or agree < TP_ARGMAX_MIN * n:
+            raise AssertionError(f"(a) {arch} TP decode: logits {diff} apart (bound "
+                                 f"{TP_LOGITS_ATOL}), argmax agreement {agree}/{n} (floor "
+                                 f"{TP_ARGMAX_MIN})")
+        del params, sp, one, tp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) FSDP over (world, 1), full depth
+    dc = DataConfig(seq_len=512, global_batch=4, seed=0)
+    oc = OptConfig(lr=3e-4, warmup_steps=1, total_steps=6)
+    pipe = TokenPipeline(cfg, dc)
+    batches = [{n: torch.from_numpy(v).to(dev) for n, v in pipe.get_batch(i).items()}
+               for i in range(3)]
+    par_f = make_parallelism(init_mesh("cuda", (world, 1)), remat="full")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p = model_init(torch.Generator(device=dev).manual_seed(0), cfg, dev, torch.float32,
+                   par=par_f)  # placed a part at a time
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    state = opt_init(p)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step = TL.make_train_step(cfg, oc, par=par_f, remat="full")
+    losses, ms = [], []
+    box = {"p": p, "s": state}
+    for b in batches:
+        def one_step(b=b):
+            box["p"], box["s"], m = step(box["p"], box["s"], b)
+            losses.append(m["loss"])
+        ms += _events_ms(one_step, 1)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"(b) FSDP losses {losses}")
+    if max(peak, init_peak) > total_mem:
+        raise AssertionError(f"(b) peak {peak} (init {init_peak}) over the card's {total_mem}")
+    tok = dc.global_batch * dc.seq_len
+    p50 = float(np.median(ms))
+    say(f"  (b) Qwen3-8B at full depth ({cfg.n_layers} layers), FSDP over ({world}, 1), "
+        f"float32 masters, batch 4 x 512, remat full: model_init(par) {init_s:.1f} s, its "
+        f"peak {init_peak / 1e9:.2f} GB a card; "
+        f"state held {held / 1e9:.2f} GB a card; steps (CUDA events, rank 0) "
+        f"{[round(v, 2) for v in ms]} ms, p50 {p50:.2f} ms, {tok / p50 * 1e3:.0f} tokens/s; "
+        f"peak {peak / 1e9:.2f} GB of the card's {total_mem / 1e9:.2f} GB; losses "
+        f"{[round(v, 4) for v in losses]}")
+    rec["b"] = {"ms": ms, "p50": p50, "tok_s": tok / p50 * 1e3, "peak": peak,
+                "init_peak": init_peak,
+                "total_mem": total_mem, "held": held, "losses": losses}
+    split = _profile_step(lambda: step(box["p"], box["s"], batches[-1]), TL)
+    say(f"  (b) one more step under torch.profiler (rank 0): {split}")
+    del p, state, box
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) 4 layers: (world, 1) and (2, world // 2) against one card
+    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS["qwen3-8b"])
+    batch = {n: torch.from_numpy(v).to(dev)
+             for n, v in TokenPipeline(cfg4, dc).get_batch(0).items()}
+    def checked(p):  # the leaves whose update is held against one card's
+        body = p["stack"]["body"]
+        return {"body[0].attn.wq": body[0]["attn"]["wq"]["w"],
+                "body[-1].ffn.wo": body[-1]["ffn"]["wo"]["w"],
+                "final_norm": p["final_norm"]["scale"], "lm_head": p["lm_head"]["w"]}
+
+    p0 = model_init(torch.Generator(device=dev).manual_seed(0), cfg4, dev, torch.float32)
+    init = {n: t.detach().cpu().clone() for n, t in checked(p0).items()}
+    _, _, m0 = TL.make_train_step(cfg4, oc)(p0, opt_init(p0), batch)
+    want = (float(m0["loss"]), float(m0["grad_norm"]))
+    upd = {n: t.detach().cpu() - init[n] for n, t in checked(p0).items()}
+    del p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = []
+    for shape in ((world, 1), (2, world // 2)):
+        par_c = make_parallelism(init_mesh("cuda", shape))
+        pc = model_init(torch.Generator(device=dev).manual_seed(0), cfg4, dev, torch.float32,
+                        par=par_c)
+        _, _, mc = TL.make_train_step(cfg4, oc, par=par_c)(pc, opt_init(pc), batch)
+        got = (float(mc["loss"]), float(mc["grad_norm"]))
+        rl = abs(got[0] - want[0]) / abs(want[0])
+        rg = abs(got[1] - want[1]) / abs(want[1])
+        ru = {}
+        for n, t in checked(pc).items():
+            u = t.full_tensor().detach().cpu() - init[n]
+            ru[n] = float((u - upd[n]).abs().mean() / upd[n].abs().mean())
+        rows.append((shape, got, rl, rg, ru))
+        say(f"  (c) {cfg4.name} at {cfg4.n_layers} layers on {shape}: loss {got[0]:.6f} "
+            f"(one card {want[0]:.6f}, {rl:.3g} apart, relative), grad norm {got[1]:.6f} "
+            f"(one card {want[1]:.6f}, {rg:.3g} apart); the updates' mean |difference| "
+            f"over the one-card update's: {', '.join(f'{n} {v:.3g}' for n, v in ru.items())}; "
+            f"bounds {SHARDED_LOSS_RTOL}, {SHARDED_GNORM_RTOL} and {SHARDED_UPDATE_RTOL}")
+        if (rl > SHARDED_LOSS_RTOL or rg > SHARDED_GNORM_RTOL
+                or max(ru.values()) > SHARDED_UPDATE_RTOL):
+            raise AssertionError(f"(c) the step on {shape} is outside the bounds")
+        del pc
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["c"] = rows
+
+
+def _profile_step(fn, TL) -> str:
+    """Where a training step's device time goes: torch.profiler over one
+    call, the kernels summed by kind (NCCL collectives, products, the
+    rest) beside the wall, and AdamW (``opt_update``) as a range."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    real = TL.opt_update
+    TL.opt_update = _ranged(real, "opt_update")
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        TL.opt_update = real
+    kinds = {"nccl": 0.0, "products": 0.0, "other": 0.0}
+    launches, adam = 0, None
+    for ev in prof.key_averages():
+        if ev.key == "opt_update" and ev.device_type != DeviceType.CUDA:
+            adam = ev.cpu_time_total / 1e3
+            continue
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0)
+        name = ev.key.lower()
+        kind = ("nccl" if "nccl" in name else "products" if any(
+            w in name for w in ("gemm", "nvjet", "sm90", "cutlass", "xmma", "ampere")) else "other")
+        kinds[kind] += t / 1e3
+        launches += ev.count
+    busy = sum(kinds.values())
+    if busy <= 0:
+        return f"the profiler saw no device time; wall {wall:.1f} ms"
+    return (f"wall {wall:.1f} ms, {launches} kernels, device busy {busy:.1f} ms (NCCL "
+            f"{kinds['nccl']:.1f}, products {kinds['products']:.1f}, the rest "
+            f"{kinds['other']:.1f}); opt_update {adam if adam is None else round(adam, 1)} "
+            f"ms of host wall")
+
+
+def _sharded_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """One NCCL rank of phase 3s on ``cuda:<rank>``; writes its record
+    (its log lines, its launches) to ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # bootstrap over loopback: one host
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    from repro_torch.kernels import topk as K
+    from repro_torch.parallel import init_mesh, make_parallelism
+
+    dev = torch.device("cuda", rank)
+    rec = {"lines": [], "launches": {n: 0 for n in K.LAUNCHES}}
+    t0 = time.perf_counter()
+    try:
+        if world == 1:
+            par = make_parallelism(init_mesh("cuda", (1, 1)))
+            _sharded_one_card(dev, par, rec, rec["lines"].append)
+        else:
+            _sharded_four_cards(dev, world, rec, rec["lines"].append)
+        rec["seconds"] = time.perf_counter() - t0
+        torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(card) -> dict:
+    """Phase 3s: sharded parameters through the model (``par=`` through
+    ``forward`` / ``loss_fn`` / ``prefill`` / ``decode_step`` /
+    ``generate`` / ``make_train_step``) on NCCL, one spawned rank a card.
+    At one card the mesh is (1, 1): Qwen3-8B at full
+    width and depth served by ``generate(par=par)`` on 3a's prompts, its
+    tokens and first step's logits bit-equal to ``generate()``'s and rows
+    4 and 5 launching as in 3a; one ``make_train_step(par=par)`` step of
+    3q's 4-layer float32 trainer bit-equal to ``par=None``'s (loss, grad
+    norm, every updated parameter); ``make_host_mesh()`` gives (1, 1). On
+    four cards (the phase alone on a host of four): (a) Qwen3-8B (kv heads
+    split) and chatglm3-6b (2 kv heads: query heads split, the cache over
+    head_dim) served with TP over
+    (1, 4), teacher-forced decode logits against each rank's one-card run
+    (max abs difference, argmax agreement, equal greedy tokens wherever
+    the one-card top-2 margin exceeds twice the difference); (b) Qwen3-8B
+    at full depth trained with FSDP over (4, 1), float32 masters, batch 4
+    x 512, remat full, three steps: step p50 (CUDA events), tokens/s, the
+    peak memory of each card beside its memory; (c) 4 layers on (4, 1)
+    and (2, 2): loss and grad norm against the one-card step within
+    :data:`SHARDED_LOSS_RTOL` and :data:`SHARDED_GNORM_RTOL`, four leaves'
+    updates within :data:`SHARDED_UPDATE_RTOL`. (a) also holds the logits
+    within :data:`TP_LOGITS_ATOL` and the argmaxes equal at
+    :data:`TP_ARGMAX_MIN` of the (row, step)s at least. Returns rank 0's
+    launches (the one-card run's generate)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_sharded_rank, args=(world, os.path.join(d, "rendezvous"), d), nprocs=world,
+                 join=True, start_method="spawn")
+        recs = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+    for line in recs[0]["lines"]:
+        log(line)
+    props = torch.cuda.get_device_properties(0)
+    log(f"  the card's memory (dry-run budget): {props.total_memory} bytes; {card}")
+    log(f"  phase 3s {time.perf_counter() - t0:.1f} s ({max(r['seconds'] for r in recs):.1f} s "
+        f"in the ranks); {world} rank(s); {card}")
+    return recs[0]["launches"]
 
 
 def guard(phase: str) -> None:
@@ -5378,6 +5823,11 @@ def main() -> int:
     log(f"phase 3r: distribution on NCCL, one rank a card {since()}")
     runs.append(phase_dist(card))
     guard("3r")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3s: sharded parameters through the model, one rank a card {since()}")
+    runs.append(phase_sharded(card))
+    guard("3s")
     launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}
     log(f"  launches over all the main paths: {launches}")
     idle = [n for n, c in launches.items() if c == 0]

@@ -20,6 +20,14 @@ patterns (``<u2``) with the manifest naming ``bfloat16``, and come back
 bit-exact. ``restore`` reads a checkpoint the reference wrote too: its
 float32 and int32 leaves, and its bfloat16 leaves, which ``np.save``
 writes as ``|V2`` and the reference's own ``restore`` cannot cast.
+
+Sharded state (``CheckpointManager(..., par=...)``, leaves that are
+DTensors): a save writes the full logical arrays, each leaf gathered by
+every rank and written by rank 0 alone; ``wait`` ends with a barrier, so
+no rank looks for the latest step before rank 0 has published it. A
+restore places each leaf by its template leaf: a DTensor takes its own
+block of the full array, so a checkpoint written on any mesh restores on
+any other, and with no mesh.
 """
 from __future__ import annotations
 
@@ -31,8 +39,15 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.optim.adamw import map_tree
+
+
+def _is_dtensor(v) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(v, DTensor)
 
 
 def _flatten_with_paths(tree, prefix=()):
@@ -65,7 +80,9 @@ def _tree_set(tree, path, value):
 
 def _to_host(v) -> Tuple[np.ndarray, str]:
     """A leaf as a host array of its own (never a view of the live leaf)
-    and the dtype name the manifest records."""
+    and the dtype name the manifest records; a DTensor's full array."""
+    if _is_dtensor(v):
+        v = v.full_tensor()
     if isinstance(v, torch.Tensor):
         t = v.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -85,8 +102,18 @@ def _host_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def _from_file(arr: np.ndarray, dtype_name: str, like):
-    """A loaded leaf in ``like``'s type, on ``like``'s device."""
+    """A loaded leaf in ``like``'s type, on ``like``'s device; for a
+    DTensor ``like``, its block of the array placed as it is."""
     t = _host_tensor(arr, dtype_name)
+    if _is_dtensor(like):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.parallel.sharding import local_chunk
+
+        loc = local_chunk(t, like.device_mesh, like.placements)
+        loc = loc.to(device=like.device, dtype=like.dtype, copy=True)
+        return DTensor.from_local(loc, like.device_mesh, like.placements, run_check=False,
+                                  shape=like.shape, stride=like.stride())
     if isinstance(like, torch.Tensor):
         return t.to(device=like.device, dtype=like.dtype)
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy().astype(
@@ -94,9 +121,12 @@ def _from_file(arr: np.ndarray, dtype_name: str, like):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep_last: int = 3):
+    def __init__(self, directory: str, keep_last: int = 3, par=None):
         self.dir = directory
         self.keep_last = keep_last
+        #: sharded state: every rank gathers, rank 0 writes
+        self.par = par
+        self.writer = par is None or dist.get_rank() == 0
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -110,8 +140,14 @@ class CheckpointManager:
         self.wait()
         host = []
         for p, v in _flatten_with_paths(state):
+            if not self.writer:  # the gathers only: every rank takes part
+                if _is_dtensor(v):
+                    v.full_tensor()
+                continue
             arr, dt = _to_host(v)
             host.append(("/".join(p), arr, dt))
+        if not self.writer:
+            return
         manifest = {
             "step": int(step),
             "extra": extra or {},
@@ -149,13 +185,16 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self):
-        """Join the save in flight; a write that failed raises here."""
+        """Join the save in flight; a write that failed raises here. With
+        ``par``, every rank then waits for rank 0's write."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("checkpoint write failed") from err
+        if self.par is not None:
+            dist.barrier()
 
     def _gc(self):
         steps = self.all_steps()
@@ -197,7 +236,12 @@ class CheckpointManager:
             if list(arr.shape) != list(tmpl.shape):
                 raise ValueError(f"checkpoint leaf {name} has shape {arr.shape}, the "
                                  f"template {tuple(tmpl.shape)}")
-            if in_place:
+            if in_place and _is_dtensor(tmpl):
+                from repro_torch.parallel.sharding import local_chunk
+
+                tmpl.to_local().copy_(local_chunk(_host_tensor(arr, dtypes[name]),
+                                                  tmpl.device_mesh, tmpl.placements))
+            elif in_place:
                 tmpl.copy_(_host_tensor(arr, dtypes[name]))  # from the host, no device copy
             else:
                 state = _tree_set(state, p, _from_file(arr, dtypes[name], tmpl))

@@ -94,6 +94,11 @@ class ModelConfig:
     def is_encoder_only(self) -> bool:
         return not self.causal
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run the 500k-token long-context shape?"""
+        return self.family in ("ssm", "hybrid")
+
     def params_billions(self) -> float:
         """Parameter count of a dense (non-MLA, non-MoE) stack, in billions."""
         d, hd = self.d_model, self.head_dim
@@ -101,3 +106,28 @@ class ModelConfig:
         attn = d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.n_heads * hd * d
         ff_mult = 3 if self.mlp_act == "swiglu" else 2
         return (emb + self.n_layers * (attn + ff_mult * d * self.d_ff)) / 1e9
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One cell's workload shape (``repro.configs.base.ShapeConfig``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

@@ -2,4 +2,4 @@
 MLA), SSM, hybrid, and the vlm and audio frontends."""
 from .convert import opt_state_from_jax, params_from_jax  # noqa: F401
 from .model import (decode_step, forward, init_cache, loss_fn, model_init,  # noqa: F401
-                    prefill)
+                    param_specs, prefill)

@@ -31,6 +31,21 @@ def dense_init(generator: torch.Generator, in_dim: int,
     return p
 
 
+def dense_spec(spec: Sequence, bias: bool = False) -> dict:
+    """The logical axes of :func:`dense_init`'s leaves (``layers.py:24``):
+    ``spec`` names the weight's dims, the bias takes the output dims'."""
+    out = {"w": tuple(spec)}
+    if bias:
+        out["b"] = tuple(spec[1:])
+    return out
+
+
+#: the logical axes of a norm over the model width (``rmsnorm_init``)
+NORM_SPEC = {"scale": ("embed",)}
+#: the logical axes of a norm over a head (``head_rmsnorm_init``)
+HEAD_NORM_SPEC = {"scale": ("head_dim",)}
+
+
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``x @ w`` over the last axis of x and the first of w; adds a bias."""
     w = p["w"]
@@ -94,6 +109,14 @@ def mlp_init(generator, d_model: int, d_ff: int, act: str, dtype, device) -> dic
     if act == "swiglu":
         p["wg"] = dense_init(generator, d_model, d_ff, dtype, device)
     p["wo"] = dense_init(generator, d_ff, d_model, dtype, device)
+    return p
+
+
+def mlp_specs(act: str) -> dict:
+    p = {"wi": dense_spec(("embed", "mlp"))}
+    if act == "swiglu":
+        p["wg"] = dense_spec(("embed", "mlp"))
+    p["wo"] = dense_spec(("mlp", "embed"))
     return p
 
 

@@ -27,6 +27,7 @@ refused under EP, as the reference asserts: EP buckets travel as dense
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -36,7 +37,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from .layers import dense, dense_init
+from .layers import dense, dense_init, dense_spec
 
 #: the largest key count the sorted dispatch sorts (``moe.py:223``);
 #: above it the cumsum gives the positions
@@ -65,6 +66,19 @@ def moe_init(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
         p["shared_wi"] = dense_init(generator, d, fs, dtype, device)
         p["shared_wg"] = dense_init(generator, d, fs, dtype, device)
         p["shared_wo"] = dense_init(generator, fs, d, dtype, device)
+    return p
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`moe_init`'s leaves (``moe.py:39``)."""
+    p = {"router": dense_spec(("embed", "expert")),
+         "wi": {"w": ("expert", "embed", "mlp")},
+         "wg": {"w": ("expert", "embed", "mlp")},
+         "wo": {"w": ("expert", "mlp", "embed")}}
+    if cfg.moe.n_shared_experts:
+        p["shared_wi"] = dense_spec(("embed", "mlp"))
+        p["shared_wg"] = dense_spec(("embed", "mlp"))
+        p["shared_wo"] = dense_spec(("mlp", "embed"))
     return p
 
 
@@ -150,7 +164,22 @@ def _expert_a2a(buf: torch.Tensor, group, forward: bool) -> torch.Tensor:
     """The EP bucket exchange: forward, (E, C, D) -> (E/P, P*C, D), each
     rank's buckets of expert block ``j`` to rank ``j`` (the reference's
     ``all_to_all(split_axis=0, concat_axis=1, tiled=True)``); back, the
-    inverse."""
+    inverse. Differentiable: the gradient takes the inverse exchange."""
+    return _A2A.apply(buf, group, forward)
+
+
+class _A2A(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, buf, group, forward):
+        ctx.group, ctx.fwd = group, forward
+        return _expert_a2a_raw(buf, group, forward)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _expert_a2a_raw(g.contiguous(), ctx.group, not ctx.fwd), None, None
+
+
+def _expert_a2a_raw(buf: torch.Tensor, group, forward: bool) -> torch.Tensor:
     from repro_torch.parallel.comm import all_to_all
 
     p = dist.get_world_size(group)
@@ -165,7 +194,8 @@ def _expert_a2a(buf: torch.Tensor, group, forward: bool) -> torch.Tensor:
 
 def moe_ffn_local(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                   n_real: Optional[int] = None, axis_name=None, ep_size: int = 1,
-                  ep_psum: bool = False, par=None) -> torch.Tensor:
+                  ep_psum: bool = False, par=None,
+                  logits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Routed expert FFN of (T, D) tokens (``moe.py:166``). ``n_real``: the
     tokens before the padding rows that decode appends (they go last, so
     they never take a real token's slot); the capacity and the choice of
@@ -180,7 +210,9 @@ def moe_ffn_local(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     every expert and exchanges the buckets; ``ep_psum`` (tokens the same
     on every rank) keeps the choices of this rank's experts and sums the
     ranks' outputs with one all_reduce. ``par`` rides along for the
-    sorted dispatch's sort only (None inside EP, as in the reference)."""
+    sorted dispatch's sort only (None inside EP, as in the reference).
+    ``logits``: the router's (T, E) logits where the caller computed them
+    (under TP, from the router's column blocks), else ``p["router"]``'s."""
     mo = cfg.moe
     t, d = x.shape
     t_real = t if n_real is None else int(n_real)
@@ -192,7 +224,9 @@ def moe_ffn_local(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         if mo.expert_capacities is not None:
             raise ValueError("expert_capacities is a non-EP feature: EP buckets travel as "
                              "dense (E, C, D) through all_to_all")
-    gates, eids = router_topk(dense(p["router"], x), k, mo.router_block)
+    if logits is None:
+        logits = dense(p["router"], x)
+    gates, eids = router_topk(logits, k, mo.router_block)
     if ep and ep_psum:
         e_loc = e // ep_size
         rank = dist.get_rank(axis_name)
@@ -243,21 +277,92 @@ def moe_ffn_local(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     w = (gates.reshape(-1) * keep).to(x.dtype)
     y = (y_choice * w[:, None]).reshape(t, k, d).sum(dim=1)
     if ep and ep_psum:
-        dist.all_reduce(y, group=axis_name)
+        from repro_torch.parallel.spmd import reduce_from
+
+        y = reduce_from(y, axis_name)
     if mo.n_shared_experts:
         h = F.silu(dense(p["shared_wi"], x)) * dense(p["shared_wg"], x)
         y = y + dense(p["shared_wo"], h)
     return y
 
 
+def _moe_spmd(p: dict, x: torch.Tensor, cfg: ModelConfig, rows: Optional[int], ctx):
+    """:func:`moe_apply` of this rank's rows under ``ctx`` (a model call
+    under ``par``), each leaf in the layout its spec gives it. Where the
+    TP axis divides the experts they split over it (expert parallelism,
+    the reference's ``shard_map``, ``moe.py:269-305``; ``par.ep_enabled``
+    is required): ``wi`` / ``wg`` / ``wo`` by experts, the router by its
+    expert columns, its logits all-gathered; where the sequence divides
+    the axis each rank routes its block of it and the buckets travel by
+    all_to_all, else every rank routes every token and one all-reduce
+    sums the ranks' experts. Where the experts do not divide it every rank
+    routes every token through every expert, the experts' width split
+    over the axis where it divides (their spec's ``mlp``), one all-reduce
+    of the output. The shared experts run on all the rank's tokens after
+    it, their width split likewise."""
+    b, s, d = x.shape
+    par, mo = ctx.par, cfg.moe
+    n_real = None if rows is None else rows * s
+    if ctx.tp == 1:
+        return moe_ffn_local(ctx.local(p), x.reshape(b * s, d), cfg,
+                             n_real=n_real).reshape(b, s, d)
+    routed = dataclasses.replace(cfg, moe=dataclasses.replace(mo, n_shared_experts=0))
+    if not ctx.split(mo.n_experts):
+        width = ctx.split(mo.d_expert)
+        lp = ctx.local({k: p[k] for k in ("router", "wi", "wg", "wo")},
+                       {"wi": 2, "wg": 2, "wo": 1} if width else None, inside=width)
+        y = moe_ffn_local(lp, (ctx.copy_to(x) if width else x).reshape(b * s, d), routed,
+                          n_real=n_real, par=par)
+        y = (ctx.reduce_from(y) if width else y).reshape(b, s, d)
+        return y + _shared_spmd(p, x, cfg, ctx) if mo.n_shared_experts else y
+    if not par.ep_enabled:
+        raise ValueError(f"{mo.n_experts} experts split over a TP axis of {ctx.tp} by their "
+                         f"spec run under expert parallelism (make_parallelism(ep=True))")
+    ep_size = ctx.tp
+    seq_shardable = s % ep_size == 0 and s >= ep_size
+    xb = ctx.copy_to(x)
+    logits = ctx.gather_blocks(dense({"w": ctx.fetch(p["router"]["w"], 1)}, xb), -1)
+    pb = {name: {"w": ctx.fetch(p[name]["w"], 0)} for name in ("wi", "wg", "wo")}
+    if seq_shardable:
+        sb = s // ep_size
+        xb = xb[:, ctx.tp_rank * sb:(ctx.tp_rank + 1) * sb]
+        logits = logits[:, ctx.tp_rank * sb:(ctx.tp_rank + 1) * sb]
+    bb, sb = xb.shape[:2]
+    y = moe_ffn_local(pb, xb.reshape(bb * sb, d), routed, axis_name=ctx.tp_group,
+                      ep_size=ep_size, ep_psum=not seq_shardable,
+                      n_real=None if seq_shardable else n_real,
+                      logits=logits.reshape(bb * sb, -1)).reshape(bb, sb, d)
+    if seq_shardable:
+        y = ctx.gather_from(y, 1)
+    return y + _shared_spmd(p, x, cfg, ctx) if mo.n_shared_experts else y
+
+
+def _shared_spmd(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx) -> torch.Tensor:
+    """The shared experts of this rank's rows, their width split over the
+    TP axis where it divides (column- then row-parallel, one all-reduce)."""
+    b, s, d = x.shape
+    width = ctx.split(cfg.moe.d_expert * cfg.moe.n_shared_experts)
+    sp = ctx.local({k: p[k] for k in ("shared_wi", "shared_wg", "shared_wo")},
+                   {"shared_wi": 1, "shared_wg": 1, "shared_wo": 0} if width else None,
+                   inside=width)
+    xf = (ctx.copy_to(x) if width else x).reshape(b * s, d)
+    h = F.silu(dense(sp["shared_wi"], xf)) * dense(sp["shared_wg"], xf)
+    y = dense(sp["shared_wo"], h)
+    return (ctx.reduce_from(y) if width else y).reshape(b, s, d)
+
+
 def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              rows: Optional[int] = None, par=None) -> torch.Tensor:
+              rows: Optional[int] = None, par=None, ctx=None) -> torch.Tensor:
     """x (B, S, D): the tokens flattened B x S in order, as
     ``moe.py:277`` does (the right pads of a ragged prefill route and
     take capacity too). ``rows``: the real rows of a padded decode batch.
     With ``par.ep_enabled``: expert parallelism over ``par``'s TP axis
     (the module docstring), every rank passing and getting full arrays;
-    without it ``par`` rides along for the sorted dispatch's sort."""
+    without it ``par`` rides along for the sorted dispatch's sort.
+    ``ctx``: a model call under ``par`` (:func:`_moe_spmd`), ``x`` this
+    rank's rows."""
+    if ctx is not None:
+        return _moe_spmd(p, x, cfg, rows, ctx)
     b, s, d = x.shape
     if par is None or not par.ep_enabled:
         y = moe_ffn_local(p, x.reshape(b * s, d), cfg,
@@ -265,27 +370,14 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         return y.reshape(b, s, d)
     if rows is not None:
         raise ValueError("a padded decode batch (rows=) is not taken under expert parallelism")
-    ep_size = par.tp_size
-    if cfg.moe.n_experts % ep_size:
+    if cfg.moe.n_experts % par.tp_size:
         raise ValueError(f"{cfg.moe.n_experts} experts do not split over an EP axis "
-                         f"of {ep_size}")
+                         f"of {par.tp_size}")
     if cfg.moe.expert_capacities is not None:
         raise ValueError("expert_capacities is a non-EP feature: EP buckets travel as "
                          "dense (E, C, D) through all_to_all")
-    group, me = par.group(par.tp_axis), par.coordinate(par.tp_axis)
-    e_loc = cfg.moe.n_experts // ep_size
-    seq_shardable = s % ep_size == 0 and s >= ep_size
-    xb = par.dp_slice(x)
-    if seq_shardable:
-        xb = xb[:, me * (s // ep_size):(me + 1) * (s // ep_size)]
-    pb = dict(p)
-    for name in ("wi", "wg", "wo"):  # the experts split over the TP axis
-        pb[name] = {"w": p[name]["w"][me * e_loc:(me + 1) * e_loc]}
-    bb, sb = xb.shape[:2]
-    y = moe_ffn_local(pb, xb.reshape(bb * sb, d), cfg, axis_name=group, ep_size=ep_size,
-                      ep_psum=not seq_shardable).reshape(bb, sb, d)
-    if seq_shardable:
-        from repro_torch.parallel.comm import all_gather_cat
+    from repro_torch.parallel.spmd import SpmdContext
 
-        y = all_gather_cat(y, group, dim=1)
-    return par.dp_gather(y)
+    ctx = SpmdContext(par, b)
+    y = _moe_spmd(p, ctx.rows(x), cfg, None, ctx)
+    return par.dp_gather(y) if ctx.dp else y

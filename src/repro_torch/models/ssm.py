@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from .layers import dense, dense_init, rmsnorm
+from .layers import dense, dense_init, dense_spec, rmsnorm
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -61,6 +61,18 @@ def ssm_init(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
         "norm": {"scale": full((d_in,), 1.0)},
         "out_proj": dense_init(generator, d_in, cfg.d_model, dtype, device),
     }
+
+
+def ssm_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`ssm_init`'s leaves (``ssm.py:32``)."""
+    return {"in_proj": dense_spec(("embed", "mlp")),
+            "conv_w": {"w": (None, "mlp")},
+            "conv_b": {"b": ("mlp",)},
+            "A_log": {"a": ("heads",)},
+            "D": {"d": ("heads",)},
+            "dt_bias": {"b": ("heads",)},
+            "norm": {"scale": ("mlp",)},
+            "out_proj": dense_spec(("mlp", "embed"))}
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -126,14 +138,21 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def ssm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              cache: Optional[dict] = None, mode: str = "train"):
+              cache: Optional[dict] = None, mode: str = "train", ctx=None):
     """x (B, S, D) -> (out (B, S, D), cache) (``ssm_apply``, ``ssm.py:127``).
     ``mode``: train | prefill | decode. Prefill fills ``cache`` in place
     (the last ``d_conv - 1`` pre-convolution rows and the final state) and
     refuses a prompt shorter than ``d_conv - 1``. Decode advances the cache
     in place by one token; its rows past the cache's are ``decode_step``'s
     pads: the projections take them, the recurrence does not, and their
-    output is zero."""
+    output is zero. Under ``ctx`` (a call under ``par``):
+    :func:`_ssm_spmd`."""
+    if ctx is not None:
+        if ctx.tp == 1:
+            c, plan = ctx.cache_local(cache)
+            y, c = ssm_apply(ctx.local(p), x, cfg, cache=c, mode=mode)
+            return y, ctx.cache_store(cache, c, plan)
+        return _ssm_spmd(p, x, cfg, ctx, cache, mode)
     s = cfg.ssm
     d_in, nh, _ = ssm_dims(cfg)
     b, l, _ = x.shape
@@ -180,6 +199,118 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     y = y * F.silu(z)
     y = rmsnorm(p["norm"], y, cfg.norm_eps)
     return dense(p["out_proj"], y), cache
+
+
+def _ssm_spmd(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx, cache, mode: str):
+    """The mixer on a TP axis of more than one rank, each leaf in the
+    layout its spec gives it (no weight is gathered over the TP axis):
+
+    * ``in_proj``'s column block (``mlp``), the projection all-gathered
+      (its fused z, x, B, C, dt columns are not blocks of heads);
+    * the depthwise convolution on this rank's channel block (``conv_w``,
+      ``conv_b`` and the ``conv`` cache by channels), all-gathered;
+    * the scan on this rank's heads (``A_log``, ``D``, ``dt_bias`` and the
+      state cache by heads: the reference's head anchor, ``ssm.py:172``),
+      B and C whole; where the heads do not divide, every head, and the
+      state cache split over ``d_state`` is read by a partial ``C . h``
+      and one all-reduce;
+    * the gate, the norm (its mean square summed over the TP axis) and
+      ``out_proj``'s row block on this rank's block of ``d_in``, one
+      all-reduce of the output.
+
+    A leaf the spec does not split is whole on every rank. ``d_in`` that
+    does not divide the TP axis has no layout here and raises."""
+    s = cfg.ssm
+    d_in, nh, conv_dim = ssm_dims(cfg)
+    n_st, hd = s.d_state, s.head_dim
+    b, l, _ = x.shape
+    split_in = ctx.split(2 * d_in + 2 * n_st + nh)
+    split_conv, split_heads = ctx.split(conv_dim), ctx.split(nh)
+    if not ctx.split(d_in):
+        raise ValueError(f"{cfg.name}: the SSM's d_in {d_in} does not split over a TP axis "
+                         f"of {ctx.tp}")
+    shard = {"in_proj": 1 if split_in else None, "conv_w": 1 if split_conv else None,
+             "conv_b": 1 if split_conv else None, "out_proj": 0, "norm": 0}
+    if split_heads:
+        shard.update({"A_log": 0, "D": 0, "dt_bias": 1})
+    lp = ctx.local(p, shard, inside=True)
+    x = ctx.copy_to(x)
+    zxbcdt = dense(lp["in_proj"], x)
+    if split_in:
+        zxbcdt = ctx.gather_blocks(zxbcdt, -1)
+    z, xbc, dt = _split_zxbcdt(zxbcdt, cfg)
+    r, t = ctx.tp_rank, ctx.tp
+    heads = slice(r * nh // t, (r + 1) * nh // t) if split_heads else slice(None)
+    chans = slice(r * conv_dim // t, (r + 1) * conv_dim // t) if split_conv else slice(None)
+    a_coef = -torch.exp(lp["A_log"]["a"])
+    dt = _softplus(dt[..., heads].float() + lp["dt_bias"]["b"][None, None, :])
+    d_skip = lp["D"]["d"]
+    ctx.expect_split(cache, {"conv": 2 if split_conv else None})
+    c, plan = ctx.cache_local(cache)
+    if mode == "decode":
+        if l != 1 or c is None:
+            raise ValueError(f"SSM decode takes one token and a cache, not {l} tokens")
+        y = _ssm_decode_spmd(lp, xbc, dt, a_coef, d_skip, c, ctx.tp_dim(cache["ssm"]),
+                             cfg, ctx, heads, split_conv, b, x.dtype)
+    else:
+        if mode == "prefill" and c is not None and l < s.d_conv - 1:
+            raise ValueError(f"a prompt of {l} tokens is shorter than the SSM's d_conv - 1 = "
+                             f"{s.d_conv - 1}: decode's convolution window needs that many")
+        xbc_c = _causal_conv(xbc[..., chans], lp["conv_w"]["w"], lp["conv_b"]["b"])
+        if split_conv:
+            xbc_c = ctx.gather_blocks(xbc_c, -1)
+        xs = xbc_c[..., :d_in].reshape(b, l, nh, hd)[:, :, heads]
+        y, hfin = ssd_chunked(xs, dt, a_coef, xbc_c[..., d_in:d_in + n_st],
+                              xbc_c[..., d_in + n_st:], s.chunk)
+        y = (y + d_skip[None, None, :, None].to(y.dtype) * xs).reshape(b, l, -1)
+        if mode == "prefill" and c is not None:
+            c["conv"].copy_(xbc_raw_tail(zxbcdt, cfg, s.d_conv)[..., chans])
+            c["ssm"].copy_(hfin if split_heads else ctx.block(hfin, ctx.tp_dim(cache["ssm"])))
+    if not split_heads:  # every head: this rank's block of d_in
+        y = ctx.block(y, 2)
+    y = y * F.silu(ctx.block(z, 2))
+    yf = y.float()
+    var = ctx.tp_sum(torch.sum(yf * yf, dim=-1, keepdim=True)) / d_in
+    y = (yf * torch.rsqrt(var + cfg.norm_eps) * lp["norm"]["scale"].float()).to(y.dtype)
+    return ctx.reduce_from(dense(lp["out_proj"], y)), ctx.cache_store(cache, c, plan)
+
+
+@torch.no_grad()
+def _ssm_decode_spmd(p, xbc, dt, a_coef, d_skip, c, state_dim, cfg, ctx, heads, split_conv,
+                     b, dtype):
+    """:func:`_ssm_spmd`'s decode step on this rank's blocks of the
+    caches -> y (B, 1, d_in or this rank's heads' block)."""
+    from repro_torch.parallel.spmd import all_gather, all_reduce
+
+    s = cfg.ssm
+    d_in, nh, conv_dim = ssm_dims(cfg)
+    conv_state, hstate = c["conv"], c["ssm"]
+    nc = conv_state.shape[0]
+    t, r = ctx.tp, ctx.tp_rank
+    chans = slice(r * conv_dim // t, (r + 1) * conv_dim // t) if split_conv else slice(None)
+    window = torch.cat([conv_state, xbc[:nc, :, chans]], dim=1)  # (nc, K, channels)
+    conv_out = (window.float() * p["conv_w"]["w"].float()[None]).sum(dim=1)
+    xbc_t = F.silu(conv_out + p["conv_b"]["b"][None, :]).to(dtype)
+    if split_conv:
+        xbc_t = all_gather(xbc_t, ctx.tp_group, 1)
+    xt = xbc_t[:, :d_in].reshape(nc, nh, s.head_dim)[:, heads]
+    bt = xbc_t[:, d_in:d_in + s.d_state]
+    ct = xbc_t[:, d_in + s.d_state:]
+    if state_dim == 3:  # the state split over d_state: this rank's block of it
+        bt, ct = ctx.block(bt, 1), ctx.block(ct, 1)
+    dt1 = dt[:nc, 0, :]
+    dec = torch.exp(dt1 * a_coef[None, :])
+    upd = torch.einsum("bh,bn,bhp->bhpn", dt1, bt.float(), xt.float())
+    hstate.mul_(dec[:, :, None, None]).add_(upd)
+    conv_state.copy_(window[:, 1:])
+    y = torch.einsum("bn,bhpn->bhp", ct.float(), hstate)
+    if state_dim == 3:
+        y = all_reduce(y, ctx.tp_group)
+    y = y + d_skip[None, :, None] * xt.float()
+    y = y.reshape(nc, 1, -1).to(dtype)
+    if nc < b:  # the pad rows' output is zero
+        y = torch.cat([y, y.new_zeros((b - nc, 1, y.shape[-1]))])
+    return y
 
 
 def xbc_raw_tail(zxbcdt: torch.Tensor, cfg: ModelConfig, k: int) -> torch.Tensor:

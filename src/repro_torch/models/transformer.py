@@ -22,11 +22,11 @@ from typing import List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .attention import (attn_apply, attn_cache_init, attn_init, mla_apply, mla_cache_init,
-                        mla_init)
-from .layers import mlp, mlp_init, rmsnorm
-from .moe import moe_apply, moe_init
-from .ssm import ssm_apply, ssm_cache_init, ssm_init
+from .attention import (attn_apply, attn_cache_init, attn_init, attn_specs, mla_apply,
+                        mla_cache_init, mla_init, mla_specs)
+from .layers import NORM_SPEC, mlp, mlp_init, mlp_specs, rmsnorm
+from .moe import moe_apply, moe_init, moe_specs
+from .ssm import ssm_apply, ssm_cache_init, ssm_init, ssm_specs
 
 
 #: the frontend each frontend family takes
@@ -84,43 +84,93 @@ def block_init(generator, cfg: ModelConfig, dtype, device, *, ffn: str = "dense"
     return p
 
 
+def block_specs(cfg: ModelConfig, *, ffn: str = "dense") -> dict:
+    """The logical axes of :func:`block_init`'s leaves (``transformer.py:34``)."""
+    if ffn == "ssm":
+        return {"norm": dict(NORM_SPEC), "mixer": ssm_specs(cfg)}
+    attn = mla_specs if cfg.mla is not None else attn_specs
+    p = {"ln1": dict(NORM_SPEC), "attn": attn(cfg), "ln2": dict(NORM_SPEC)}
+    p["ffn"] = moe_specs(cfg) if ffn == "moe" else mlp_specs(cfg.mlp_act)
+    return p
+
+
+def _mlp(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx=None) -> torch.Tensor:
+    """The dense MLP; under ``ctx``, TP over its width where it divides:
+    ``wi`` / ``wg`` by columns, ``wo`` by rows, one all-reduce."""
+    if ctx is None:
+        return mlp(p, x, cfg.mlp_act)
+    split = ctx.split(cfg.d_ff)
+    lp = ctx.local(p, {"wi": 1, "wg": 1, "wo": 0} if split else None)
+    if not split:
+        return mlp(lp, x, cfg.mlp_act)
+    return ctx.reduce_from(mlp(lp, ctx.copy_to(x), cfg.mlp_act))
+
+
+def _norm(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx=None) -> torch.Tensor:
+    return rmsnorm(p if ctx is None else ctx.local(p), x, cfg.norm_eps)
+
+
 def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 cache: Optional[dict] = None, positions=None, ffn: str = "dense",
-                rows: Optional[int] = None):
+                rows: Optional[int] = None, ctx=None):
     """Pre-norm residual block (``transformer.py:55``); ``rows``: the real
     rows of a padded decode batch (the MoE capacity counts those). An SSM
-    block's decode takes its real rows from its cache."""
+    block's decode takes its real rows from its cache. ``ctx``: the
+    :class:`~repro_torch.parallel.spmd.SpmdContext` of a call under
+    ``par`` (each sublayer fetches its own weights)."""
     if ffn == "ssm":
-        y, cache = ssm_apply(p["mixer"], rmsnorm(p["norm"], x, cfg.norm_eps), cfg,
-                             cache=cache, mode=mode)
+        y, cache = ssm_apply(p["mixer"], _norm(p["norm"], x, cfg, ctx), cfg,
+                             cache=cache, mode=mode, ctx=ctx)
         return x + y, cache
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = _norm(p["ln1"], x, cfg, ctx)
     attn = mla_apply if cfg.mla is not None else attn_apply
-    a, cache = attn(p["attn"], h, cfg, cache=cache, mode=mode, positions=positions)
+    a, cache = attn(p["attn"], h, cfg, cache=cache, mode=mode, positions=positions, ctx=ctx)
     x = x + a
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h = _norm(p["ln2"], x, cfg, ctx)
     if ffn == "moe":
-        return x + moe_apply(p["ffn"], h, cfg, rows=rows), cache
-    return x + mlp(p["ffn"], h, cfg.mlp_act), cache
+        return x + moe_apply(p["ffn"], h, cfg, rows=rows, ctx=ctx), cache
+    return x + _mlp(p["ffn"], h, cfg, ctx), cache
 
 
 def _n_head(cfg: ModelConfig) -> int:
     return cfg.moe.first_dense_layers if cfg.moe is not None else 0
 
 
-def stack_init(generator, cfg: ModelConfig, dtype, device) -> dict:
+def stack_init(generator, cfg: ModelConfig, dtype, device, put=None) -> dict:
     """``{"head": [dense block ...]}`` (MoE stacks with leading dense
     layers only) and ``{"body": [block per layer]}``; the hybrid's
-    ``{"body": [SSM block ...], "shared": attention + MLP block}``."""
+    ``{"body": [SSM block ...], "shared": attention + MLP block}``.
+    ``put(block, *path)``, where given, takes each block as soon as it is
+    drawn (``path``: ``("body", i)``, ``("head", i)`` or ``("shared",)``)
+    and returns what the tree keeps."""
+    check_family(cfg)
+    put = put or (lambda blk, *path: blk)
+    n_head = _n_head(cfg)
+    p = {}
+    if n_head:
+        p["head"] = [put(block_init(generator, cfg, dtype, device), "head", i)
+                     for i in range(n_head)]
+    p["body"] = [put(block_init(generator, cfg, dtype, device, ffn=_layer_ffn_kind(cfg, i)),
+                     "body", i - n_head)
+                 for i in range(n_head, cfg.n_layers)]
+    if cfg.family == "hybrid":
+        p["shared"] = put(block_init(generator, cfg, dtype, device), "shared")
+    return p
+
+
+def stack_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`stack_init`'s tree: one spec dict a
+    layer. A body leaf has no leading layer axis, where the reference's
+    stacked leaf has one (``transformer.py:100``)."""
     check_family(cfg)
     n_head = _n_head(cfg)
     p = {}
     if n_head:
-        p["head"] = [block_init(generator, cfg, dtype, device) for _ in range(n_head)]
-    p["body"] = [block_init(generator, cfg, dtype, device, ffn=_layer_ffn_kind(cfg, i))
+        p["head"] = [block_specs(cfg) for _ in range(n_head)]
+    p["body"] = [block_specs(cfg, ffn=_layer_ffn_kind(cfg, i))
                  for i in range(n_head, cfg.n_layers)]
     if cfg.family == "hybrid":
-        p["shared"] = block_init(generator, cfg, dtype, device)
+        p["shared"] = block_specs(cfg)
     return p
 
 
@@ -164,17 +214,19 @@ def _remat(fn, remat: str):
 
 def stack_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 mode: str = "train", caches: Optional[dict] = None,
-                positions=None, rows: Optional[int] = None, remat: str = "none"):
+                positions=None, rows: Optional[int] = None, remat: str = "none",
+                ctx=None):
     """Run every layer (``stack_apply``, ``transformer.py:131``): the head
     blocks, then the body; in the hybrid, the shared block after every
     ``attn_every`` body layers, with the group's cache (``:153-227``).
     ``caches`` mirrors the parameters; the hybrid's ``shared`` caches are
     one a group. ``remat`` (none | full | dots) wraps each block as the
-    reference's ``wrap`` does."""
+    reference's ``wrap`` does; under ``ctx`` the recomputation gathers
+    the block's weights again, as FSDP does."""
     block = _remat(block_apply, remat)
     if cfg.family == "hybrid":
         return _hybrid_apply(p, x, cfg, mode=mode, caches=caches, positions=positions,
-                             block=block)
+                             block=block, ctx=ctx)
     out = {}
     head = p.get("head", [])
     ffn_kind = _layer_ffn_kind(cfg, len(head))
@@ -185,22 +237,23 @@ def stack_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         for i, lp in enumerate(p[part]):
             c = caches[part][i] if caches is not None else None
             x, c = block(lp, x, cfg, mode=mode, cache=c, positions=positions,
-                         ffn=kind, rows=rows)
+                         ffn=kind, rows=rows, ctx=ctx)
             new.append(c)
         out[part] = new
     return x, (out if caches is not None else None)
 
 
 def _hybrid_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                  caches: Optional[dict], positions, block=block_apply):
+                  caches: Optional[dict], positions, block=block_apply, ctx=None):
     out = {"body": [], "shared": []}
     for i, lp in enumerate(p["body"]):
         c = caches["body"][i] if caches is not None else None
-        x, c = block(lp, x, cfg, mode=mode, cache=c, ffn="ssm")
+        x, c = block(lp, x, cfg, mode=mode, cache=c, ffn="ssm", ctx=ctx)
         out["body"].append(c)
         if (i + 1) % cfg.attn_every == 0:
             c = caches["shared"][i // cfg.attn_every] if caches is not None else None
-            x, c = block(p["shared"], x, cfg, mode=mode, cache=c, positions=positions)
+            x, c = block(p["shared"], x, cfg, mode=mode, cache=c, positions=positions,
+                         ctx=ctx)
             out["shared"].append(c)
     return x, (out if caches is not None else None)
 

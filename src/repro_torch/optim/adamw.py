@@ -10,6 +10,12 @@ tensors in place, where the reference donates its buffers: the values
 are the same, and the step holds no second copy of the state. The
 step-dependent scalars (learning rate, clip scale, bias corrections) are
 0-d tensors on the state's device, so a step never waits for the card.
+
+Sharded leaves (DTensors, :func:`repro_torch.parallel.shard_params`):
+the moments take the parameters' placements (the reference's dry-run
+``opt_ps = {"mu": param_ps, "nu": param_ps, "step": P()}``), each rank
+updates its own blocks with the same arithmetic, and :func:`global_norm`
+is the norm over every element once, summed over the mesh.
 """
 from __future__ import annotations
 
@@ -63,16 +69,34 @@ def schedule(step, oc: OptConfig) -> torch.Tensor:
 
 
 def opt_init(params: Any) -> dict:
-    """Zero float32 moments shaped like ``params`` and step 0 on their device."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    """Zero float32 moments shaped like ``params`` (placed as they are,
+    for sharded leaves) and step 0 on their device."""
+    from torch.distributed.tensor import DTensor
+
+    def zeros(p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=torch.float32)
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
     dev = leaves(params)[0].device
     return {"mu": map_tree(zeros, params), "nu": map_tree(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in leaves(tree)))
+    """sqrt of the sum of squares of every leaf, in float32. For sharded
+    leaves each rank sums its blocks (a block held by several ranks
+    counted once) and the sum is all-reduced over the mesh."""
+    from torch.distributed.tensor import DTensor
+
+    ts = leaves(tree)
+    sharded = [t for t in ts if isinstance(t, DTensor)]
+    if not sharded:
+        return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in ts))
+    from repro_torch.parallel.spmd import mesh_sum, sharded_sq_norm
+
+    total = sum(sharded_sq_norm(t) for t in ts)
+    return torch.sqrt(mesh_sum(total, sharded[0].device_mesh))
 
 
 @torch.no_grad()
@@ -89,8 +113,14 @@ def opt_update(grads: Any, state: dict, params: Any, oc: OptConfig):
     stepf = step.to(torch.float32)
     b1c = 1 - torch.pow(oc.b1, stepf)
     b2c = 1 - torch.pow(oc.b2, stepf)
+    from torch.distributed.tensor import DTensor
+
     for g, m, v, p in zip(leaves(grads), leaves(state["mu"]), leaves(state["nu"]),
                           leaves(params)):
+        if isinstance(p, DTensor):  # each rank its own blocks, the same arithmetic
+            if tuple(g.placements) != tuple(p.placements):
+                g = g.redistribute(placements=p.placements)
+            g, m, v, p = (t.to_local() for t in (g, m, v, p))
         g = g.float() * scale
         m.mul_(oc.b1).add_((1 - oc.b1) * g)
         v.mul_(oc.b2).add_((1 - oc.b2) * g * g)

@@ -27,6 +27,9 @@ device. Here:
   (:func:`~.sharding.init_mesh` sets it); ``"cpu"`` is gloo, which only
   the tests ask for. A CUDA mesh without a card raises, as
   :func:`repro_torch.device.resolve_device` does.
+* The model stack under ``par`` (:mod:`.spmd`): parameters and caches
+  are DTensors placed by their specs, activations this rank's rows, the
+  TP regions entered and left by explicit collectives.
 * ``shard_map_compat`` has no counterpart: there is no tracer to hand a
   body to; each rank runs its local form eagerly.
 * Every rank must make the same calls in the same order, as under any
@@ -37,6 +40,7 @@ from .compress import compress, compress_tree, compressed_psum, decompress  # no
 from .dist_sort import (DIST_MIN_TOTAL, sample_merge_k, sample_merge_k_local,  # noqa: F401
                         sample_sort, sample_sort_local)
 from .pipeline import pipeline_apply, pipeline_apply_local  # noqa: F401
-from .sharding import (LOGICAL_RULES, Parallelism, PSpec, batch_pspecs,  # noqa: F401
-                       build_param_pspecs, cache_pspecs, dist_sort_axis, init_mesh,
-                       make_parallelism, to_named, vocab_topk_axis)
+from .sharding import (LOGICAL_RULES, Parallelism, PSpec, axis_sizes, batch_pspecs,  # noqa: F401
+                       build_param_pspecs, cache_pspecs, dist_sort_axis, full_params,
+                       init_mesh, make_parallelism, shard_params, shard_tree, to_named,
+                       vocab_topk_axis)

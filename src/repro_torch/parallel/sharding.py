@@ -10,12 +10,17 @@ counterpart of ``PartitionSpec``); :func:`to_named` turns one into the
 DTensor placements of a ``DeviceMesh`` (``Shard(d)`` / ``Replicate()``
 a mesh dim).
 
-These rules are pure functions over shapes and logical-axis trees. The
-port's own logical-axis tree for its parameters, applying these specs to
-a model, and :meth:`Parallelism.constrain` are ROADMAP Queue 1, item 10.
-The functions that read a mesh take a ``DeviceMesh`` or any object with
-``axis_names`` and a ``shape`` mapping, the two attributes the
-reference reads.
+The rules are pure functions over shapes and logical-axis trees; the
+ones that read a mesh take a ``DeviceMesh`` or any object with
+``axis_names`` and a ``shape`` mapping, the two attributes the reference
+reads. The model's logical-axis tree is
+:func:`repro_torch.models.param_specs`; :func:`shard_params` places a
+parameter tree by it as DTensors, :func:`shard_tree` any tree by its
+specs (:func:`cache_pspecs` for the decode caches), and
+:func:`full_params` gives the full logical arrays back.
+:meth:`Parallelism.constrain` is the reference's
+``with_sharding_constraint``: a DTensor ``redistribute``. How the model
+computes on these layouts is :mod:`.spmd`.
 """
 from __future__ import annotations
 
@@ -107,10 +112,22 @@ class Parallelism:
         return self.mesh.get_local_rank(axis)
 
     def constrain(self, x, *dims):
-        """The reference's ``with_sharding_constraint`` anchor: the sharded
-        activations of the model are ROADMAP Queue 1, item 10."""
-        raise NotImplementedError("Parallelism.constrain (sharded activations through the "
-                                  "model) is ROADMAP Queue 1, item 10")
+        """The reference's ``with_sharding_constraint`` anchor: ``x`` (a
+        DTensor, or a plain tensor taken as replicated over the mesh)
+        redistributed to the placements of ``PSpec(*dims)``; ``dims`` are
+        mesh-axis names, tuples of them, or None, one a tensor dim. An
+        axis the mesh lacks raises."""
+        from .spmd import as_dtensor
+
+        names = set(axis_sizes(self.mesh))
+        for e in dims:
+            for a in (e if isinstance(e, tuple) else (e,)):
+                if a is not None and a not in names:
+                    raise ValueError(f"constrain: the mesh {sorted(names)} lacks axis {a!r}")
+        if len(dims) > x.ndim:
+            raise ValueError(f"constrain: {len(dims)} dims for a tensor of {x.ndim}")
+        t = as_dtensor(x, self.mesh)
+        return t.redistribute(placements=to_named(PSpec(*dims), self.mesh))
 
     # -- the data-parallel split of full arrays (``P(dp, ...)`` on dim 0) --
 
@@ -261,8 +278,11 @@ def batch_pspecs(cfg, par: Parallelism):
 def cache_pspecs(cfg, par: Parallelism, cache_shapes):
     """Shard caches by name: the batch over dp; the attention contraction
     dim (kv heads / head_dim / latent / ssm heads) over TP; never the
-    sequence dim, which decode writes. ``cache_shapes``: the reference's
-    cache layout (``{"head"?, "body"}`` of layer-stacked leaves)."""
+    sequence dim, which decode writes. ``cache_shapes``: the port's cache
+    layout (:func:`repro_torch.models.init_cache`: ``head`` / ``body`` /
+    ``shared`` lists of per-layer dicts, no layer axis), leaves with a
+    ``shape`` (a ``device="meta"`` cache costs nothing); the names'
+    rules are the reference's (``sharding.py:159``)."""
     dp, tp = par.dp_axes, par.tp_axis
     tpn, dpn = par.tp_size, par.dp_size
 
@@ -305,4 +325,75 @@ def cache_pspecs(cfg, par: Parallelism, cache_shapes):
             spec = [None] + spec
         return PSpec(*spec)
 
-    return {key: walk(sub, stacked=(key != "head")) for key, sub in cache_shapes.items()}
+    return {key: walk(sub, stacked=False) for key, sub in cache_shapes.items()}
+
+
+# ---------------------------------------------------------------------------
+# placing trees as DTensors
+# ---------------------------------------------------------------------------
+
+
+def local_chunk(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's block of a full array under ``placements`` (DTensor's
+    own split: ``torch.chunk`` along each sharded dim, mesh dims in
+    order)."""
+    from torch.distributed.tensor import Shard
+
+    t = full
+    for i, (name, pl) in enumerate(zip(axis_sizes(mesh), placements)):
+        if isinstance(pl, Shard) and mesh.shape[i] > 1:
+            t = t.chunk(mesh.shape[i], dim=pl.dim)[mesh.get_local_rank(name)]
+    return t
+
+
+def place(t: torch.Tensor, mesh, placements):
+    """A full tensor (the same on every rank) as a DTensor: each rank
+    keeps its own block, copied out, with no communication."""
+    from torch.distributed.tensor import DTensor
+
+    loc = local_chunk(t, mesh, placements)
+    if loc is t:
+        loc = t.detach()
+    else:
+        loc = loc.detach().clone()
+    return DTensor.from_local(loc, mesh, placements, run_check=False, shape=t.shape,
+                              stride=t.stride() if t.is_contiguous() else None)
+
+
+def shard_tree(tree, pspecs, mesh):
+    """Place every tensor of ``tree`` by the matching :class:`PSpec` of
+    ``pspecs``, one leaf at a time: the full leaf is dropped from the
+    tree as its block is placed, so a full-width tree never has a second
+    copy."""
+    if isinstance(tree, dict):
+        for k in list(tree):
+            tree[k] = shard_tree(tree[k], pspecs[k], mesh)
+        return tree
+    if isinstance(tree, list):
+        for i in range(len(tree)):
+            tree[i] = shard_tree(tree[i], pspecs[i], mesh)
+        return tree
+    if isinstance(tree, tuple):
+        return tuple(shard_tree(v, s, mesh) for v, s in zip(tree, pspecs))
+    return place(tree, mesh, to_named(pspecs, mesh))
+
+
+def shard_params(params, par: Parallelism, specs):
+    """``params`` (full tensors, the same on every rank) placed as
+    DTensors by their logical-axis tree ``specs``
+    (:func:`repro_torch.models.param_specs`) under the rules of
+    :func:`build_param_pspecs`. The tree is updated in place, one leaf at
+    a time, and returned."""
+    return shard_tree(params, build_param_pspecs(params, specs, par.mesh), par.mesh)
+
+
+def full_params(tree):
+    """The full logical arrays of a tree of DTensors, on every rank; a
+    plain tensor stays as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: full_params(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(full_params(v) for v in tree)
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree

@@ -15,6 +15,13 @@ master weights. Nothing is compiled, so the reference's ``donate``
 (buffer donation to ``jax.jit``) has no counterpart: the in-place update
 already holds one copy of the state. ``train`` runs on the card unless
 ``device="cpu"``.
+
+With ``par`` (one process a rank, each with the same data pipeline and
+seed) the float32 masters and the moments are DTensors placed by the
+model's specs (FSDP over ``data``, TP over ``model``), each rank runs
+its rows of the batch (the batch splits over the dp axes), the
+gradients come back reduce-scattered to the parameters' placements,
+and the checkpoints hold the full arrays (rank 0 writes them).
 """
 from __future__ import annotations
 
@@ -55,7 +62,13 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, par=None, remat="none"):
     """``step_fn(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss's gradient with respect to every parameter
     leaf, then :func:`~repro_torch.optim.opt_update` (in place); metrics
-    ``loss``, ``grad_norm`` and ``lr`` as 0-d tensors."""
+    ``loss``, ``grad_norm`` and ``lr`` as 0-d tensors. With ``par`` the
+    leaves may be sharded (:func:`~repro_torch.parallel.shard_params`)
+    and the batch is the full one on every rank."""
+    from repro_torch.models.model import _check_par
+
+    _check_par(par)
+
     def step_fn(params, opt_state, batch):
         ps = leaves(params)
         for t in ps:
@@ -104,15 +117,16 @@ def train(
 ) -> dict:
     """Run (or resume) training; returns ``{"losses", "final_loss",
     "stragglers", "params"}`` as the reference's ``train`` does."""
-    if par is not None:
-        raise NotImplementedError("par (sharded training: the model's FSDP/TP layouts) is "
-                                  "ROADMAP Queue 1, item 10")
+    from repro_torch.models.model import _check_par
+
+    _check_par(par)
     dev = resolve_device(device)
     pipeline = TokenPipeline(cfg, dc)
-    ckpt = CheckpointManager(tc.ckpt_dir)
+    ckpt = CheckpointManager(tc.ckpt_dir, par=par)
 
+    placed = {} if par is None else {"par": par}  # each part placed as it is drawn
     params = model_init(torch.Generator(device=dev).manual_seed(tc.seed), cfg, dev,
-                        torch.float32)
+                        torch.float32, **placed)
     opt_state = opt_init(params)
     start_step = 0
     latest = ckpt.latest_step()

@@ -11,6 +11,13 @@ a synchronise per step. Prefill and decode are timed by
 ``REPRO_OBS`` is on. A vlm batch's ``patches`` go in front of the prompt:
 the cache holds ``frontend_len`` more positions and decode starts after
 them. The request scheduler is :mod:`repro_torch.serving.scheduler`.
+
+With ``par`` (``generate(..., par=...)``, one process a rank, each with
+the same batch and seed) the parameters and caches are sharded
+(:mod:`repro_torch.models.model`), the logits of each step reach the
+sampler as the full array on every rank, and ``par`` rides along to
+``sample_topk``: every rank draws the same tokens from identically
+seeded generators (``serving/engine.py:62-151`` of the reference).
 """
 from __future__ import annotations
 
@@ -47,18 +54,30 @@ class ServeConfig:
     time_steps: bool = False
 
 
+def _full(logits):
+    """The logits of a step as the full array (a DTensor's gathered)."""
+    from torch.distributed.tensor import DTensor
+
+    return logits.full_tensor() if isinstance(logits, DTensor) else logits
+
+
+def _sample(logits, top_k, temperature, top_p, generator, par):
+    """The step's draw; ``par`` rides along to the sampler."""
+    if temperature <= 0.0:
+        return sample_greedy(logits)
+    return sample_topk(logits, k=top_k, temperature=temperature, top_p=top_p,
+                       generator=generator, par=par)
+
+
 def make_serve_step(cfg: ModelConfig, top_k: Union[int, Sequence[int]] = 64,
                     temperature: float = 1.0,
-                    top_p: Union[float, Sequence[float]] = 1.0):
-    """(params, tokens (B,1), cache, positions, generator) -> (next (B,1), cache)."""
+                    top_p: Union[float, Sequence[float]] = 1.0, par=None):
+    """(params, tokens (B,1), cache, positions, generator) -> (next (B,1), cache).
+    With ``par`` the full tokens come back on every rank."""
 
     def serve_step(params, tokens, cache, positions, generator):
-        logits, cache = decode_step(params, tokens, cache, cfg, positions=positions)
-        if temperature <= 0.0:
-            nxt = sample_greedy(logits)
-        else:
-            nxt = sample_topk(logits, k=top_k, temperature=temperature,
-                              top_p=top_p, generator=generator)
+        logits, cache = decode_step(params, tokens, cache, cfg, positions=positions, par=par)
+        nxt = _sample(_full(logits), top_k, temperature, top_p, generator, par)
         return nxt[:, None], cache
 
     return serve_step
@@ -83,9 +102,17 @@ def _param_device(params: dict) -> torch.device:
     return params["final_norm"]["scale"].device
 
 
-@torch.inference_mode()
 def generate(params: dict, batch: Dict[str, object], cfg: ModelConfig,
-             sc: ServeConfig, device: DeviceLike = None) -> Dict[str, object]:
+             sc: ServeConfig, device: DeviceLike = None, par=None) -> Dict[str, object]:
+    """:func:`_generate` without autograd: ``torch.inference_mode`` on one
+    device, ``torch.no_grad`` under ``par`` (DTensor's ``from_local`` /
+    ``to_local`` take no inference tensors)."""
+    with (torch.inference_mode() if par is None else torch.no_grad()):
+        return _generate(params, batch, cfg, sc, device, par)
+
+
+def _generate(params: dict, batch: Dict[str, object], cfg: ModelConfig,
+              sc: ServeConfig, device: DeviceLike = None, par=None) -> Dict[str, object]:
     """Prefill the prompt batch, then decode ``max_new_tokens`` greedily or
     with top-k sampling. Returns the tokens (B, max_new_tokens) and times.
 
@@ -95,7 +122,7 @@ def generate(params: dict, batch: Dict[str, object], cfg: ModelConfig,
     families). ``batch["patches"]`` (B, frontend_len, frontend_dim) are a
     vlm batch's image patches. An encoder-only config (audio) has no
     decode and raises. ``device`` must be where ``params`` live; it
-    defaults to the card."""
+    defaults to the card. ``par``: the module docstring."""
     if cfg.is_encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode")
     dev = resolve_device(device)
@@ -121,20 +148,17 @@ def generate(params: dict, batch: Dict[str, object], cfg: ModelConfig,
         if sc.cache_len < total:
             raise ValueError(f"cache_len {sc.cache_len} < prompt + new tokens {total}")
         total = sc.cache_len
-    cache = block_until_ready(init_cache(cfg, bsz, total, dev))
+    cache = block_until_ready(init_cache(cfg, bsz, total, dev, par=par))
 
     with span("serve.prefill", kind="run", batch=bsz, prompt_len=prompt_len):
         (logits, cache), t_prefill = time_once(prefill, params, inputs, cache, cfg,
-                                               lengths=lengths)
+                                               lengths=lengths, par=par)
+    logits = _full(logits)
 
     step = make_serve_step(cfg, top_k=sc.top_k, temperature=sc.temperature,
-                           top_p=sc.top_p)
+                           top_p=sc.top_p, par=par)
     gen = torch.Generator(device=dev).manual_seed(sc.seed)
-    if sc.temperature <= 0.0:
-        tok = sample_greedy(logits)[:, None]
-    else:
-        tok = sample_topk(logits, k=sc.top_k, temperature=sc.temperature,
-                          top_p=sc.top_p, generator=gen)[:, None]
+    tok = _sample(logits, sc.top_k, sc.temperature, sc.top_p, gen, par)[:, None]
     toks = [tok]
     step_times = [] if sc.time_steps else None
     n_steps = sc.max_new_tokens - 1

@@ -16,11 +16,14 @@ draws. The noise comes from a ``torch.Generator``, or is handed in
 With ``par`` (a :class:`~repro_torch.parallel.Parallelism` whose TP axis
 divides the vocab) the scoring runs the device-tree top-k over that axis
 (``repro_torch.topk(..., par=par)``; a ragged ``k`` scores one uniform
-``max(k)`` top-k instead of the segmented call), and the token is the
-drawn candidate's own index (``take_along(idx, choice)``, as the
-reference does there), not :func:`canonical_token`. Every rank passes
-the same logits and a generator seeded alike, so every rank returns the
-same tokens.
+``max(k)`` top-k instead of the segmented call). The token is
+:func:`canonical_token` on every mesh, so a draw does not depend on the
+mesh or on how the sharded top-k orders tied candidates. The reference
+takes the drawn candidate's own index there instead (``sample.py:112``),
+because its logits row is sharded over the vocab and the compare would
+gather it; here every rank passes the full logits (and a generator
+seeded alike), so the compare needs no communication and every rank
+returns the same tokens.
 """
 from __future__ import annotations
 
@@ -30,7 +33,6 @@ import numpy as np
 import torch
 
 from repro_torch.api import segment_topk, sort, topk
-from repro_torch.kernels.common import take_along
 
 
 def gumbel_noise(shape, *, generator: Optional[torch.Generator],
@@ -104,11 +106,9 @@ def sample_topk(logits: torch.Tensor, *, k: Union[int, Sequence[int]] = 64,
         raise ValueError("per-request top_p needs per-request k")
     if temperature <= 0.0 or k == 1:
         return sample_greedy(logits)
-    vals, idx = topk(logits, k, par=par)
+    vals, _ = topk(logits, k, par=par)
     choice = scored_draw(vals, temperature, top_p if top_p < 1.0 else None,
                          generator=generator, gumbel=gumbel)
-    if par is not None:  # the candidate's own index: no full-vocab compare
-        return take_along(idx, -1, choice[:, None])[:, 0].to(torch.int32)
     return canonical_token(logits, vals, choice)
 
 
@@ -133,7 +133,7 @@ def _sample_topk_ragged(logits: torch.Tensor, ks: Sequence[int],
         return sample_greedy(logits)
     k_max = max(ks)
     if par is not None:
-        dense_v, dense_i = topk(logits, k_max, par=par)
+        dense_v, _ = topk(logits, k_max, par=par)
         cnts = torch.as_tensor(ks, device=logits.device)[:, None]
     else:
         vals, _, out_offs = segment_topk(logits.reshape(-1), tuple(range(0, (b + 1) * v, v)),
@@ -153,8 +153,6 @@ def _sample_topk_ragged(logits: torch.Tensor, ks: Sequence[int],
         probs_logits = nucleus_mask(probs_logits, torch.tensor(
             top_ps, dtype=torch.float32, device=logits.device)[:, None])
     choice = categorical(probs_logits, generator=generator, gumbel=gumbel)
-    if par is not None:
-        return take_along(dense_i, -1, choice[:, None])[:, 0].to(torch.int32)
     return canonical_token(logits, dense_v, choice)
 
 

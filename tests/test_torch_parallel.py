@@ -353,7 +353,11 @@ def test_ops_merge_matches_reference_and_single_device(ranks4):
 def test_topk_and_sampler_match_reference(ranks4):
     """``topk(par=)`` (auto: the device tree) and the sampler's tokens
     (one k, a ragged k, the nucleus) on every rank against the
-    reference's; the values against the port's single-device top-k."""
+    reference's; the values against the port's single-device top-k. The
+    logits are tie-rich (quarters of integers): the port's
+    ``sample_topk(par=)`` draws the canonical token (the lowest id of the
+    drawn value) on every mesh, the reference's unsharded token; the
+    reference's sharded one takes the candidate's own index."""
     world, inp, res = ranks4
     jpar = jpar_for(world)
     logits = jnp.asarray(inp["logits"])
@@ -366,9 +370,8 @@ def test_topk_and_sampler_match_reference(ranks4):
 
     @jax.jit
     def tokens(lg):
-        return (j_sample.sample_topk(jax.random.PRNGKey(1), lg, k=8, temperature=0.7, par=jpar),
-                j_sample.sample_topk(jax.random.PRNGKey(2), lg, k=ks, temperature=0.7,
-                                     par=jpar),
+        return (j_sample.sample_topk(jax.random.PRNGKey(1), lg, k=8, temperature=0.7),
+                j_sample.sample_topk(jax.random.PRNGKey(2), lg, k=ks, temperature=0.7),
                 j_sample.sample_topp(jax.random.PRNGKey(1), lg, p=0.8, k_max=8,
                                      temperature=0.7, par=jpar))
 
@@ -509,14 +512,18 @@ MESHES = (dict(data=2, model=4), dict(pod=2, data=16, model=16))
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "zamba2-2.7b",
                                   "internvl2-26b", "hubert-xlarge"])
 def test_pspecs_match_reference(arch):
-    """``build_param_pspecs`` / ``batch_pspecs`` / ``cache_pspecs`` on the
-    reference's spec trees and ``eval_shape`` shapes of the smoke configs,
-    on stand-in meshes of (2, 4) and (2, 16, 16)."""
+    """``build_param_pspecs`` / ``batch_pspecs`` on the reference's spec
+    trees and ``eval_shape`` shapes of the smoke configs, and
+    ``cache_pspecs`` on the port's own cache layout (a dict of one layer,
+    each layer of a list) against the reference's on its layout (a
+    layer-stacked dict: its leading layer entry dropped), on stand-in
+    meshes of (2, 4) and (2, 16, 16)."""
     from repro.configs import get_smoke_config as j_smoke
     from repro.models import init_cache as j_init_cache
     from repro.models import model_init as j_model_init
 
     from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_cache as t_init_cache
 
     jcfg, tcfg = j_smoke(arch), get_smoke_config(arch)
     cell = {}
@@ -544,11 +551,17 @@ def test_pspecs_match_reference(arch):
         assert {k: tuple(v) for k, v in jb.items()} == {k: tuple(v) for k, v in tb.items()}
         if cache is not None:
             jc = j_sharding.cache_pspecs(jcfg, jpar, cache)
-            tc = t_sharding.cache_pspecs(tcfg, tpar, cache)
-            assert flat(jc, P) == flat(tc, t_sharding.PSpec)
-            assert jax.tree.structure(jax.tree.map(lambda _: 0, jc, is_leaf=lambda x: isinstance(
-                x, P))) == jax.tree.structure(jax.tree.map(lambda _: 0, tc, is_leaf=lambda x: (
-                    isinstance(x, t_sharding.PSpec))))
+            tc = t_sharding.cache_pspecs(tcfg, tpar, t_init_cache(tcfg, 32, 64, device="meta"))
+            assert sorted(jc) == sorted(tc)
+            for part, jsub in jc.items():
+                if isinstance(jsub, list):  # the reference's unstacked head
+                    jlayers = [{k: tuple(v) for k, v in d.items()} for d in jsub]
+                else:  # stacked: one spec for every layer, less the layer entry
+                    one = {k: tuple(v)[1:] for k, v in jsub.items()}
+                    jlayers = [one] * len(tc[part])
+                    assert all(tuple(v)[0] is None for v in jsub.values())
+                assert [{k: tuple(v) for k, v in d.items()} for d in tc[part]] == jlayers
+            assert any(e is not None for d in tc["body"] for v in d.values() for e in v)
 
 
 def test_pspec_rules_fall_back_to_replication():

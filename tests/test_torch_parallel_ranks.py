@@ -259,8 +259,8 @@ def test_parallelism_sizes_and_splits():
     assert (par.dp_axes, par.tp_axis, par.dp_size, par.tp_size) == (("data",), "model", 2, 4)
     assert par.dp_for(8) == ("data",) and par.dp_for(3) is None
     assert par.tp_for(12) == "model" and par.tp_for(2) is None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        par.constrain(torch.zeros(2), None)
+    with pytest.raises(ValueError, match="lacks axis 'pod'"):
+        par.constrain(torch.zeros(2), "pod")
 
 
 def test_to_named_placements():

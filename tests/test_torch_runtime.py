@@ -19,8 +19,9 @@
   within rtol 1e-4 (the packages sum in other orders; twelve AdamW steps
   carry the differences along), and a run that fails at step 6 and
   resumes from step 4's checkpoint bit-equal to the uninterrupted one.
-* ``StragglerMonitor``, the launcher at smoke width on the CPU, and
-  ``par=`` refused (sharded training is ROADMAP Queue 1, item 10).
+* ``StragglerMonitor``, the launcher at smoke width on the CPU, and a
+  ``par=`` that is not a ``Parallelism`` refused (sharded training runs
+  in ``tests/test_torch_sharded_model.py``).
 """
 import dataclasses
 import json
@@ -371,9 +372,8 @@ def test_launcher_smoke_cpu(tmp_path, capsys):
 def test_par_refused(tmp_path):
     cfg = get_smoke_config("qwen3-8b")
     tc = TrainConfig(steps=1, ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="Parallelism"):
         train(cfg, DataConfig(seq_len=8, global_batch=2), tc, OptConfig(), par=object(),
               device="cpu")
-    step = make_train_step(cfg, OptConfig(), par=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        step({}, {}, {})
+    with pytest.raises(TypeError, match="Parallelism"):
+        make_train_step(cfg, OptConfig(), par=object())

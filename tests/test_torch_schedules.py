@@ -18,6 +18,9 @@
 Tolerance: bit-equal everywhere. The reference's executor compiles a
 network per shape on the CPU (seconds each), so the shapes are few.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,6 +53,13 @@ def _same(want, got):
         np.testing.assert_array_equal(g, w)
 
 
+def _jit(fn, *arrays, **static):
+    """The reference's executor call under one ``jax.jit``: one compile of
+    the whole network where eager dispatch compiles op after op; its
+    compares and selects give the same bits either way."""
+    return jax.jit(functools.partial(fn, **static))(*arrays)
+
+
 def _ties(rng, shape):
     x = rng.integers(-3, 4, shape).astype(np.int32)
     x[rng.random(shape) < 0.1] = np.iinfo(np.int32).max
@@ -63,8 +73,8 @@ def test_schedule_sort_matches_reference(kind, n):
     rng = np.random.default_rng(n)
     x = _ties(rng, (3, n))
     pay = rng.integers(0, 1000, (3, n)).astype(np.int32)
-    _same(JS.sort(jnp.asarray(x), kind=kind), TS.sort(torch.from_numpy(x), kind=kind))
-    _same(JS.sort(jnp.asarray(x), kind=kind, payload=jnp.asarray(pay)),
+    _same(_jit(JS.sort, jnp.asarray(x), kind=kind), TS.sort(torch.from_numpy(x), kind=kind))
+    _same(_jit(lambda v, p: JS.sort(v, kind=kind, payload=p), jnp.asarray(x), jnp.asarray(pay)),
           TS.sort(torch.from_numpy(x), kind=kind, payload=torch.from_numpy(pay)))
 
 
@@ -77,13 +87,13 @@ def test_schedule_topk_matches_reference(dtype, n, k, block):
     x = _ties(rng, (2, n)) if dtype == "int32" else (
         rng.integers(-2, 3, (2, n)) * 0.5).astype(np.float32)
     x[0, :8] = np.iinfo(np.int32).min if dtype == "int32" else -np.inf
-    want = JS.topk(jnp.asarray(x), k, block=block)
+    want = _jit(JS.topk, jnp.asarray(x), k=k, block=block)
     got = TS.topk(torch.from_numpy(x), k, block=block)
     _same(want, got)
     _same(want[0], TS.topk(torch.from_numpy(x), k, block=block, with_indices=False))
     if dtype == "int32" and block == 8:
         x[1] = np.iinfo(np.int32).min  # every lane ties the pads
-        _same(JS.topk(jnp.asarray(x), n, block=block), TS.topk(torch.from_numpy(x), n,
+        _same(_jit(JS.topk, jnp.asarray(x), k=n, block=block), TS.topk(torch.from_numpy(x), n,
                                                                block=block))
 
 
@@ -95,10 +105,10 @@ def test_schedule_merge_matches_reference(kind, m, n):
     b = np.sort(_ties(rng, (3, n)), -1)
     pa = np.arange(3 * m, dtype=np.int32).reshape(3, m)
     pb = np.arange(3 * n, dtype=np.int32).reshape(3, n) + 100
-    _same(JS.merge(jnp.asarray(a), jnp.asarray(b), kind=kind),
+    _same(_jit(JS.merge, jnp.asarray(a), jnp.asarray(b), kind=kind),
           TS.merge(torch.from_numpy(a), torch.from_numpy(b), kind=kind))
-    _same(JS.merge(jnp.asarray(a), jnp.asarray(b), kind=kind,
-                   payload=(jnp.asarray(pa), jnp.asarray(pb))),
+    _same(_jit(lambda u, v, p, q: JS.merge(u, v, kind=kind, payload=(p, q)), jnp.asarray(a),
+               jnp.asarray(b), jnp.asarray(pa), jnp.asarray(pb)),
           TS.merge(torch.from_numpy(a), torch.from_numpy(b), kind=kind,
                    payload=(torch.from_numpy(pa), torch.from_numpy(pb))))
 
@@ -127,7 +137,7 @@ def test_library_ragged_and_stable_merges_match_reference():
 def test_median9_matches_reference():
     x = np.random.default_rng(9).standard_normal((5, 4, 9)).astype(np.float32)
     x[0, 0, :3] = x[0, 0, 3]
-    _same(JS.median9(jnp.asarray(x)), TS.median9(torch.from_numpy(x)))
+    _same(_jit(JS.median9, jnp.asarray(x)), TS.median9(torch.from_numpy(x)))
 
 
 def _sched_fields(s):
@@ -189,7 +199,7 @@ def test_slabbed_cloud_equals_whole_cloud(monkeypatch, sorted_runs):
             assert torch.equal(a, b)
     # and the sort at 64 under the small budget still equals the reference
     xs = _ties(rng, (2, 64))
-    _same(JS.sort(jnp.asarray(xs)), TS.sort(torch.from_numpy(xs)))
+    _same(_jit(JS.sort, jnp.asarray(xs)), TS.sort(torch.from_numpy(xs)))
 
 
 def test_executor_uploads_a_wiring_once():

@@ -318,7 +318,8 @@ def test_remat_gradients_equal_none(stack):
 
 def test_master_weights_and_par():
     """``model_init`` draws the same values in any dtype (float32 masters
-    for training, ``cfg.dtype`` for serving); ``par`` raises."""
+    for training, ``cfg.dtype`` for serving); a ``par`` that is not a
+    ``Parallelism`` raises."""
     cfg = get_smoke_config("qwen3-8b")
     serve = model_init(torch.Generator().manual_seed(0), cfg, "cpu")
     master = model_init(torch.Generator().manual_seed(0), cfg, "cpu", torch.float32)
@@ -328,7 +329,7 @@ def test_master_weights_and_par():
         assert torch.equal(a, b.to(a.dtype))
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
              "targets": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="Parallelism"):
         loss_fn(master, batch, cfg, par=object())
     with pytest.raises(ValueError, match="remat"):
         loss_fn(master, batch, cfg, remat="some")
