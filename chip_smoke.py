@@ -117,6 +117,17 @@ script with a non-zero exit code when it fails:
       (rows 0-2 bit-equal), and the decode profile with the router's
       executor calls and the expert products as profiler ranges, beside
       the step's weight-read floor;
+   t. (inside 3h's window, on its weights) MoE through the request
+      scheduler at full width: (a) four greedy 128-token requests at tick
+      0 on four slots (``max_prefill_batch`` 4, pages of 16, 9 a slot),
+      the engine's tokens bit-equal to greedy ``generate`` on the same
+      (4, 128) batch with ``lengths`` and ``cache_len`` 144 (the same
+      prefill batch and decode rows); (b) 3b's six staggered requests on
+      four slots at ``max_prefill_batch`` 2: every request DONE, nothing
+      left allocated, a second drain bit-equal, the per-tick decode walls
+      and tokens/s; each drain's launches (rows 4 and 5 for the sampled
+      first tokens and the sampling ticks; the router runs on the
+      schedule executor) against their expected counts;
    i. deepseek-v2-lite-16b (MLA) at its published width and depth (15.71
       B parameters, 31.4 GB of random bf16 weights from seed 0, after
       3h's are freed), the runs and checks of 3h (rows 4 and 5 a sampled
@@ -235,6 +246,14 @@ script with a non-zero exit code when it fails:
       ``par`` bit-equal to one without; on four cards TP serving, FSDP
       training at full depth and the FSDP and FSDP + TP steps against the
       one-card step;
+   u. the four examples (``examples/torch_*.py``) through their
+      ``main`` with ``--device cuda``: the quickstart's and the stream
+      walkthrough's checks (merges and sorts equal to ``torch.sort``'s,
+      the median, ``tree_topk``'s values equal to ``torch.topk``'s, the
+      autotune cache hit in a temporary file), ``serve_topk``'s tokens in
+      the vocabulary, ``train_tiny_moe`` at 40 steps with finite losses
+      and its checkpoint in a temporary directory deleted after; each
+      one's wall time;
 4. times (CUDA events) of every kernel beside its bound, its plain
    version and one PyTorch call on the same input (``torch.topk``,
    ``torch.sort``, ``torch.kthvalue``: a yardstick the port never calls),
@@ -1116,18 +1135,7 @@ def phase_engine(dev, K, params, card) -> dict:
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = dict(K.LAUNCHES)
-    # first tokens: one vocab top-k per sampled request; decode ticks: one
-    # stable top-k (the spill of segment_topk) per tick with a sampler
-    want = {n: 0 for n in K.LAUNCHES}
-    for sp in sps:
-        if not sp.greedy:
-            want["vocab_phase1"] += 1
-            want["vocab_merge_level"] += levels(sp.k)
-    for _, _, ks in eng.tick_log:
-        if ks:
-            want["vocab_phase1"] += 1
-            want["vocab_merge_level"] += levels(max(ks))
+    got, want = dict(K.LAUNCHES), engine_launches(K, eng, levels)
     log(f"  launches, engine drain: {got} (expected {want})")
     if got != want:
         raise AssertionError(f"engine drain: launch counts {got} != {want}")
@@ -1159,6 +1167,164 @@ def phase_engine(dev, K, params, card) -> dict:
         f"{eng.t} ticks ({len(ticks)} decode ticks), {n_tok / wall:.1f} tok/s, decode tick "
         f"p50 {np.percentile(ticks, 50):.3f} ms (max {ticks.max():.3f} ms); {card}")
     return got
+
+
+def engine_launches(K, eng, levels) -> dict:
+    """The launches a drain of ``eng`` must make: one vocab top-k (phase
+    1 and its merge-tree levels) for each sampled first token and for
+    each decode tick with a sampling slot (the stable top-k of
+    ``segment_topk``'s spill)."""
+    want = {n: 0 for n in K.LAUNCHES}
+    for r in eng.requests.values():
+        if not r.params.greedy:
+            want["vocab_phase1"] += 1
+            want["vocab_merge_level"] += levels(r.params.k)
+    for _, _, ks in eng.tick_log:
+        if ks:
+            want["vocab_phase1"] += 1
+            want["vocab_merge_level"] += levels(max(ks))
+    return want
+
+
+def phase_moe_engine(dev, K, params, cfg, card) -> dict:
+    """Phase 3t: MoE through ``ScheduledEngine`` at full width, on 3h's
+    qwen3-moe-30b-a3b weights. A MoE request's tokens are those of the
+    reference engine's batch composition (capacity couples a batch's
+    rows), so (a) holds four requests that form one prefill batch and one
+    decode batch against ``generate`` on that batch, and (b) drains 3b's
+    staggered requests twice, bit for bit, with nothing left allocated."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import topk_block
+    from repro_torch.serving import ServeConfig, generate
+    from repro_torch.serving.scheduler import SamplingParams, ScheduledEngine, SchedulerConfig
+
+    vocab = cfg.vocab_size
+
+    def levels(k):  # merge-tree launches of one vocab top-k call
+        return K.vocab_merge_launches(vocab, topk_block(vocab, k), k)
+
+    def drain(sched, reqs):
+        eng = ScheduledEngine(params, cfg, sched, device=dev)
+        rids = [eng.submit(p, sp, arrival=a) for p, sp, a in reqs]
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, want = dict(K.LAUNCHES), engine_launches(K, eng, levels)
+        if got != want:
+            raise AssertionError(f"MoE engine drain: launch counts {got} != {want}")
+        drain_invariants(eng, "MoE engine drain")
+        states = {rid: r.state.value for rid, r in eng.requests.items()}
+        if set(states.values()) != {"done"}:
+            raise AssertionError(f"MoE engine drain: requests not all DONE: {states}")
+        return eng, [out[r] for r in rids], wall, got
+
+    # (a) one prefill batch of four 128-token prompts, then 4-row decode steps
+    new, plen = 16, 128
+    tokens = np.random.default_rng(3).integers(0, vocab, (4, plen)).astype(np.int32)
+    sched = SchedulerConfig(n_slots=4, max_prefill_batch=4, page_size=16, pages_per_slot=9)
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=new)
+    eng, got, wall, launches = drain(sched, [(t, greedy, 0) for t in tokens])
+    want = generate(params, {"tokens": tokens, "lengths": np.full(4, plen, np.int32)}, cfg,
+                    ServeConfig(max_new_tokens=new, temperature=0.0,
+                                cache_len=sched.slot_capacity), device=dev)["tokens"]
+    if not np.array_equal(np.stack(got), want):
+        raise AssertionError(f"MoE engine: tokens {np.stack(got)[:, :6].tolist()} != greedy "
+                             f"generate's on the same batch {want[:, :6].tolist()}")
+    if [n for _, n, _ in eng.tick_log] != [4] * (new - 1):
+        raise AssertionError(f"MoE engine: decode ticks {eng.tick_log}, not 4 rows each")
+    log(f"  (a) 4 x {plen} greedy through the engine (one prefill batch, {new - 1} decode "
+        f"ticks of 4 rows): bit-equal to generate on the (4, {plen}) batch; {wall:.3f} s "
+        f"wall, launches { {n: c for n, c in launches.items() if c} }; {card}")
+
+    # (b) 3b's six staggered requests, prefill batches of at most 2
+    plens, arrivals = (128, 77, 128, 33, 100, 5), (0, 0, 1, 2, 4, 6)
+    sps = [SamplingParams(k=64, temperature=0.8, seed=11),
+           SamplingParams(k=16, temperature=1.0, seed=12),
+           SamplingParams(k=256, temperature=0.7, top_p=0.9, seed=13),
+           SamplingParams(temperature=0.0, seed=14),
+           SamplingParams(k=64, temperature=0.8, top_p=0.95, max_new_tokens=1, seed=15),
+           SamplingParams(k=64, temperature=0.8, max_new_tokens=8, seed=16)]
+    rng = np.random.default_rng(7)
+    reqs = [(rng.integers(0, vocab, n).astype(np.int32), sp, a)
+            for n, sp, a in zip(plens, sps, arrivals)]
+    sched = dataclasses.replace(sched, max_prefill_batch=2)
+    runs = [drain(sched, reqs) for _ in range(2)]
+    for rid, (a, b) in enumerate(zip(runs[0][1], runs[1][1])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"MoE engine: request {rid} differs between two drains: "
+                                 f"{a.tolist()} != {b.tolist()}")
+    for i, (eng, out, wall, got) in enumerate(runs):
+        for n, c in got.items():
+            launches[n] += c
+        n_tok = sum(len(t) for t in out)
+        ticks = np.asarray(eng.tick_s) * 1e3
+        log(f"  (b) drain {i + 1}: {len(out)} requests, {n_tok} tokens in {wall:.3f} s wall, "
+            f"{eng.t} ticks ({len(ticks)} decode ticks of {[n for _, n, _ in eng.tick_log]} "
+            f"rows), {n_tok / wall:.1f} tok/s, decode tick p50 {np.percentile(ticks, 50):.3f} "
+            f"ms (max {ticks.max():.3f} ms); launches "
+            f"{ {n: c for n, c in got.items() if c} }; {card}")
+        log(f"      decode tick walls (ms): {[round(float(t), 3) for t in ticks]}")
+    log("  (b) every request DONE, nothing left allocated, the second drain bit-equal")
+    return launches
+
+
+def phase_examples(dev, K, card) -> dict:
+    """Phase 3u: the four examples through their ``main`` on the card,
+    each with its own checks; their launches summed."""
+    import importlib.util
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    def example(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    ckpt = os.path.join(tmp, "ckpt")
+    launches = {n: 0 for n in K.LAUNCHES}
+    try:
+        for name, argv in (
+                ("torch_quickstart", []),
+                ("torch_serve_topk", []),
+                ("torch_stream_merge", ["--cache", os.path.join(tmp, "autotune.json")]),
+                ("torch_train_tiny_moe", ["--steps", "40", "--ckpt-dir", ckpt])):
+            argv = ["--device", "cuda"] + argv
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = example(name).main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(K.LAUNCHES)
+            if "checks" in out and not (out["checks"] and all(out["checks"].values())):
+                raise AssertionError(f"{name}: checks failed: {out['checks']}")
+            if name == "torch_serve_topk":
+                t = out["tokens"]
+                if t.shape != (4, 12) or t.min() < 0 or t.max() >= 256:
+                    raise AssertionError(f"{name}: tokens of shape {t.shape} outside the vocab")
+            if name == "torch_train_tiny_moe":
+                if len(out["losses"]) != 40 or not all(map(math.isfinite, out["losses"])):
+                    raise AssertionError(f"{name}: losses {out['losses']}")
+                if not os.listdir(ckpt):
+                    raise AssertionError(f"{name}: no checkpoint written")
+            for n, c in got.items():
+                launches[n] += c
+            log(f"  {name} {' '.join(argv)}: {wall:.2f} s wall, its checks passed, launches "
+                f"{ {n: c for n, c in got.items() if c} }; {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 def phase_invariance(dev, params, cfg, card) -> None:
@@ -2865,7 +3031,8 @@ def decode_vs_prefill(dev, params, cfg, card) -> float:
 MLA_ERR_FACTOR = 4
 
 
-def phase_moe(dev, K, card, arch: str = "qwen3-moe-30b-a3b", gqa_err=None) -> dict:
+def phase_moe(dev, K, card, arch: str = "qwen3-moe-30b-a3b", gqa_err=None,
+              then=None) -> dict:
     """Phases 3h and 3i: a MoE model at its published width and depth
     (qwen3-moe-30b-a3b: 48 layers, d_model 2048, 128 experts top-8,
     d_expert 768, vocab 151,936; deepseek-v2-lite-16b: 27 layers, MLA,
@@ -2881,7 +3048,8 @@ def phase_moe(dev, K, card, arch: str = "qwen3-moe-30b-a3b", gqa_err=None) -> di
     expert products as ranges, beside the weight-read floor of a step. For
     MLA also the latent cache's size, and the absorbed decode against the
     expanded form (:func:`decode_vs_prefill`) within ``MLA_ERR_FACTOR``
-    times the GQA path's ``gqa_err``."""
+    times the GQA path's ``gqa_err``. ``then(params, cfg)``, if given,
+    runs last, on the model's weights."""
     import numpy as np
     import torch
 
@@ -3029,6 +3197,8 @@ def phase_moe(dev, K, card, arch: str = "qwen3-moe-30b-a3b", gqa_err=None) -> di
         log(f"    expert products {ranges['moe.expert_ffn'][1]:.3f} ms a step against their "
             f"floor {expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms (the step's "
             f"{step_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms); {card}")
+    if then is not None:  # a later phase on these weights before they are freed
+        then(params, cfg)
     return launches
 
 
@@ -5759,7 +5929,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3h: qwen3-moe-30b-a3b at full width {since()}")
-    runs.append(phase_moe(dev, K, card))
+
+    def phase_3t(moe_params, moe_cfg):
+        guard("3h")
+        log(f"phase 3t: MoE through the request scheduler at full width {since()}")
+        runs.append(phase_moe_engine(dev, K, moe_params, moe_cfg, card))
+        guard("3t")
+
+    runs.append(phase_moe(dev, K, card, then=phase_3t))
     guard("3h")
     gc.collect()
     torch.cuda.empty_cache()
@@ -5828,6 +6005,11 @@ def main() -> int:
     log(f"phase 3s: sharded parameters through the model, one rank a card {since()}")
     runs.append(phase_sharded(card))
     guard("3s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3u: the four examples on the card {since()}")
+    runs.append(phase_examples(dev, K, card))
+    guard("3u")
     launches = {n: sum(r[n] for r in runs) for n in K.LAUNCHES}
     log(f"  launches over all the main paths: {launches}")
     idle = [n for n, c in launches.items() if c == 0]

@@ -1,6 +1,6 @@
 """Scheduled serving engine: admit -> prefill -> slot insert ->
 continuous-batching decode, bit-identical per request to a solo
-``generate``.
+``generate`` on a dense stack.
 
 Counterpart of ``repro.serving.scheduler.engine``. One scheduler tick
 expires requests past their ``ttl_ticks`` / ``deadline_ms``, admits
@@ -9,10 +9,10 @@ and inserts the admissions, then runs one decode step over all occupied
 slots and draws every sampling request's next token from a single
 ``segment_topk`` call over their vocab rows.
 
-The contract (DESIGN.md §14): each request's tokens equal running it
-alone through :func:`repro_torch.serving.engine.generate` at batch 1 with
-``ServeConfig(cache_len=slot capacity, seed=params.seed)``. What makes it
-hold in the port:
+The dense contract (DESIGN.md §14): each request's tokens equal running
+it alone through :func:`repro_torch.serving.engine.generate` at batch 1
+with ``ServeConfig(cache_len=slot capacity, seed=params.seed)``. What
+makes it hold in the port:
 
   * prefill runs each admitted request alone at its exact length. The
     reference pads admissions to a pow2 bucket and prefills them as one
@@ -31,6 +31,24 @@ hold in the port:
     its first token and for every step, the sequence the solo path draws;
   * the gathered slot view has the solo cache's capacity.
 
+The MoE contract: a MoE request's tokens are those of the reference
+engine's batch composition on the same weights and the same arrivals,
+not those of a solo ``generate``. Expert capacity couples the rows of a
+batch (a token past its expert's capacity is dropped, and who is past
+it depends on every token of the batch), so the tokens depend on which
+requests share a prefill and a decode step, and the engine runs the
+reference's batches: the admissions of a tick grouped by pow2 bucket
+(floor ``page_size``), each group chunked to ``max_prefill_batch`` and
+each chunk prefilled as one right-padded ``(bb, bucket)`` batch with
+``lengths`` (the pads route and take capacity, as the reference's do),
+and one decode step over every occupied slot in slot order (the
+capacity counts the real rows, not the tile's pads). As in the
+reference, the paged pool takes only a stack whose cache is one
+``body`` group (GQA's K/V or MLA's latent leaves): a leading dense
+layer (deepseek-v2-lite-16b's ``head`` group) is refused with a
+``ValueError`` (the reference raises an ``AssertionError`` with the same
+message).
+
 A decode tick in which every slot is greedy scores nothing (no
 ``segment_topk`` call, no launch): nothing would read the candidates.
 
@@ -41,20 +59,21 @@ stage spans and the ``request`` root span (``obs.request_waterfalls``
 rebuilds each request's timeline from them), the ``sched.*`` counters,
 gauges and histograms, ``sched`` recorder events at each terminal state,
 and a flight-recorder dump (:func:`repro_torch.obs.recorder.crash_dump`)
-when ``run()`` meets an unhandled exception. Series that differ from the
-reference by design, because the port prefills each admitted request
-alone: ``sched.prefill_batches`` counts one a request, and the
-``sched.prefill`` span's ``batch`` is 1 and its ``bucket`` the request's
-pow2 bucket (``req.prefill``'s likewise); the reference counts one a
-batch of up to ``max_prefill_batch`` requests of a bucket. ``req.decode``'s
-``compiled`` marks the first tick of a batch signature, as the
-reference's does, though the port compiles nothing there.
+when ``run()`` meets an unhandled exception. ``sched.prefill_batches``
+counts one a prefill batch, and the ``sched.prefill`` / ``req.prefill``
+spans carry its ``batch`` and ``bucket``: for MoE the reference's
+values; for a dense stack, by design, one a request with ``batch`` 1
+(the reference counts one a batch of up to ``max_prefill_batch``
+requests of a bucket). ``req.decode``'s ``compiled`` marks the first
+tick of a batch signature, as the reference's does, though the port
+compiles nothing there.
 
 Every prefill, insert and decode launch runs under a bounded retry with
 exponential backoff; its ``sched.{prefill,insert,decode}`` failpoint
 (:mod:`repro_torch.resilience.failpoints`) fires before the launch, so a
 retry always sees whole inputs and draws the same noise. A launch whose
-retries run out fails its requests (FAILED), and the engine drains on.
+retries run out fails its requests (FAILED: a failed prefill batch fails
+every request in it), and the engine drains on.
 """
 from __future__ import annotations
 
@@ -98,6 +117,9 @@ class SchedulerConfig:
     #: pool size; the default reserves page 0 as scratch and gives every
     #: slot a full complement
     n_pages: Optional[int] = None
+    #: requests of one bucket prefilled together (MoE); a dense stack
+    #: prefills each request alone, so for it this changes nothing
+    max_prefill_batch: int = 4
     #: free-slot reuse order ("fifo" | "lifo"); tokens must not depend on it
     slot_order: str = "fifo"
     #: admission-queue bound; ``submit`` past it raises ``QueueFull``
@@ -110,6 +132,7 @@ class SchedulerConfig:
     def __post_init__(self):
         assert self.page_size >= 1 and (self.page_size & (self.page_size - 1)) == 0, \
             f"page_size must be a power of two, got {self.page_size}"
+        assert self.max_prefill_batch >= 1
         assert self.max_queue is None or self.max_queue >= 1
         assert self.max_retries >= 0 and self.retry_backoff_s >= 0.0
 
@@ -122,7 +145,10 @@ class ScheduledEngine:
     """Continuous-batching engine over a paged slot pool. ``submit()``
     requests (each with its :class:`SamplingParams` and arrival tick),
     then ``run()`` to drain, or drive ``step()`` tick by tick.
-    ``device`` must be where ``params`` live; it defaults to the card."""
+    ``device`` must be where ``params`` live; it defaults to the card.
+    The dense and MoE families are served; the others, and a stack whose
+    cache has another group than ``body`` (:class:`PagedKVCache`), raise
+    ``ValueError``."""
 
     def __init__(self, params: dict, cfg: ModelConfig,
                  sched: Optional[SchedulerConfig] = None, device: DeviceLike = None):
@@ -133,12 +159,6 @@ class ScheduledEngine:
                 f"{cfg.name}: the scheduler serves attention stacks of token "
                 f"prompts, not the {cfg.family} family (as "
                 "repro.serving.scheduler.ScheduledEngine: its paged slots hold KV caches)")
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE through the scheduler is not ported: expert capacity "
-                "couples the rows of a decode batch, so a request's tokens would depend on "
-                "the requests beside it (ROADMAP Queue 1, item 7: MoE through "
-                "ScheduledEngine)")
         self.dev = resolve_device(device)
         if params["embed"]["emb"].device.type != self.dev.type:
             raise ValueError(f"params live on {params['embed']['emb'].device}, "
@@ -333,14 +353,27 @@ class ScheduledEngine:
     def _bucket(self, plen: int) -> int:
         return max(self.sc.page_size, _next_pow2(plen))
 
-    def _prefill_one(self, r: Request):
-        """Prefill one prompt at its exact length: (logits (V,), caches)."""
-        ps = self.sc.page_size
-        npg = math.ceil(r.prompt.size / ps)
-        cache = init_cache(self.cfg, 1, npg * ps, self.dev)
-        tokens = torch.as_tensor(r.prompt[None], dtype=torch.int32).to(self.dev)
-        logits, cache = prefill(self.params, {"tokens": tokens}, cache, self.cfg)
-        return logits[0], cache["body"]
+    def _prefill_launch(self, blen: int, reqs: List[Request]):
+        """The prefill of one batch: (logits (bb, V), layer caches). A
+        dense stack's batch is one request at its exact length; a MoE
+        batch is the reference's right-padded ``(bb, blen)`` with
+        ``lengths`` (the module docstring)."""
+        if self.cfg.moe is None:
+            (r,) = reqs
+            toks, lengths = r.prompt[None], None
+            cache_len = math.ceil(r.prompt.size / self.sc.page_size) * self.sc.page_size
+        else:
+            toks = np.zeros((len(reqs), blen), np.int32)
+            for i, r in enumerate(reqs):
+                toks[i, :r.prompt.size] = r.prompt
+            cache_len = blen
+            lengths = torch.as_tensor([r.prompt.size for r in reqs],
+                                      dtype=torch.int32).to(self.dev)
+        cache = init_cache(self.cfg, len(reqs), cache_len, self.dev)
+        tokens = torch.as_tensor(toks, dtype=torch.int32).to(self.dev)
+        logits, cache = prefill(self.params, {"tokens": tokens}, cache, self.cfg,
+                                lengths=lengths)
+        return logits, cache["body"]
 
     def _first_token(self, logits_row: torch.Tensor, r: Request) -> int:
         """The head of ``generate``: greedy never draws; otherwise one
@@ -352,35 +385,50 @@ class ScheduledEngine:
                                top_p=p.top_p, generator=r.generator)[0])
 
     def _run_prefill(self, admitted: List[Request]) -> None:
-        ps = self.sc.page_size
+        """The admissions grouped by bucket in arrival order, each group
+        chunked to ``max_prefill_batch`` for MoE, to single requests for
+        a dense stack (the module docstring)."""
+        groups: Dict[int, List[Request]] = {}
+        for r in admitted:
+            groups.setdefault(self._bucket(r.prompt.size), []).append(r)
+        step = self.sc.max_prefill_batch if self.cfg.moe is not None else 1
+        for blen in sorted(groups):
+            reqs = groups[blen]
+            for i0 in range(0, len(reqs), step):
+                self._prefill_batch(blen, reqs[i0:i0 + step])
+
+    def _prefill_batch(self, blen: int, reqs: List[Request]) -> None:
+        ps, bb = self.sc.page_size, len(reqs)
         traced = obs_enabled()
-        order = sorted(admitted, key=lambda r: self._bucket(r.prompt.size))
-        for r in order:  # stable: arrival order within a bucket
-            blen = self._bucket(r.prompt.size)
-            t_pf0 = time.perf_counter_ns()
-            with span("sched.prefill", kind="run", batch=1, bucket=blen):
-                try:
-                    logits, body = self._with_retry("prefill", lambda: self._prefill_one(r))
-                    block_until_ready(logits)  # the span times the device work
-                except Exception as e:  # noqa: BLE001 — retries exhausted
+        t_pf0 = time.perf_counter_ns()
+        with span("sched.prefill", kind="run", batch=bb, bucket=blen):
+            try:
+                logits, body = self._with_retry("prefill",
+                                                lambda: self._prefill_launch(blen, reqs))
+                block_until_ready(logits)  # the span times the device work
+            except Exception as e:  # noqa: BLE001 — retries exhausted
+                for r in reqs:  # no slot was allocated yet: nothing leaks
                     self._end(r, RequestState.FAILED,
                               f"prefill failed: {type(e).__name__}: {e}")
-                    continue
-            t_pf1 = time.perf_counter_ns()
-            if traced:
-                # the stage spans share integer-ns endpoints, so queue_wait
-                # + prefill + insert is the request's TTFT exactly
+                return
+        t_pf1 = time.perf_counter_ns()
+        if traced:
+            # the stage spans share integer-ns endpoints, so queue_wait
+            # + prefill + insert is each request's TTFT exactly
+            for r in reqs:
                 record_span("req.queue_wait", r.t_submit_ns, t_pf0 - r.t_submit_ns,
                             rid=r.rid, trace_id=r.trace_id, arrival=r.arrival,
                             admit_tick=r.admit_tick)
                 record_span("req.prefill", t_pf0, t_pf1 - t_pf0, rid=r.rid,
-                            trace_id=r.trace_id, bucket=blen, batch=1)
-            obs_metrics.counter("sched.prefill_batches").inc()
+                            trace_id=r.trace_id, bucket=blen, batch=bb)
+        obs_metrics.counter("sched.prefill_batches").inc()
+        for i, r in enumerate(reqs):
             r.generator = torch.Generator(device=self.dev).manual_seed(r.params.seed)
-            tok = self._first_token(logits, r)
+            tok = self._first_token(logits[i], r)
             slot, pages = self.slots.alloc(self._npg_need(r))
             npg_store = math.ceil(r.prompt.size / ps)
-            blocks = {name: split_pages(body, name, npg_store, ps) for name in ("k", "v")}
+            blocks = {name: split_pages(body, name, i, npg_store, ps)
+                      for name in self.pool.leaves}
             page_ids = torch.as_tensor(pages[:npg_store]).to(self.dev)
             try:
                 self._with_retry("insert", lambda: self.pool.insert(page_ids, blocks))
@@ -406,8 +454,8 @@ class ScheduledEngine:
     # -------------------------------------------------------------- decode
 
     def _decode_tile(self, slots: List[int], reqs: List[Request]) -> torch.Tensor:
-        """One decode step over at most DECODE_TILE slots: logits (n, V);
-        the new K/V column of every slot written into its page."""
+        """One decode step over a group of slots: logits (n, V); the new
+        K/V column of every slot written into its page."""
         ps = self.sc.page_size
         pt = torch.as_tensor(self.slots.page_table[slots].astype(np.int64)).to(self.dev)
         lengths_np = np.asarray([r.length for r in reqs], np.int32)
@@ -425,9 +473,12 @@ class ScheduledEngine:
         return logits
 
     def _decode(self, slots: List[int], reqs: List[Request]) -> List[int]:
+        # a dense stack decodes tiles of DECODE_TILE slots; MoE every
+        # occupied slot in one step, as the reference (the module docstring)
+        tile = len(slots) if self.cfg.moe is not None else DECODE_TILE
         logits = torch.cat([
-            self._decode_tile(slots[i:i + DECODE_TILE], reqs[i:i + DECODE_TILE])
-            for i in range(0, len(slots), DECODE_TILE)])
+            self._decode_tile(slots[i:i + tile], reqs[i:i + tile])
+            for i in range(0, len(slots), tile)])
         samp = [i for i, r in enumerate(reqs) if not r.params.greedy]
         toks = torch.argmax(logits, dim=-1).to(torch.int32)
         if samp:

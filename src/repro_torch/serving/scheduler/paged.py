@@ -2,11 +2,13 @@
 
 Counterpart of ``repro.serving.scheduler.paged`` for the port's cache
 layout. The pool holds one tensor per leaf with the layers stacked in
-front: k ``(L, P, Hkv, D, page)`` and v ``(L, P, Hkv, page, D)``. A slot
-is a row of the page table; gathering a batch of slot rows and merging
-the page axis into the sequence axis gives the dense per-layer cache
-``{"k": (ns, Hkv, D, S), "v": (ns, Hkv, S, D), "pos": (ns,)}`` that
-``decode_step`` takes, with S = pages_per_slot * page_size.
+front: GQA's k ``(L, P, Hkv, D, page)`` and v ``(L, P, Hkv, page, D)``,
+MLA's ckv ``(L, P, kv_lora, page)`` and kpe ``(L, P, rope, page)``. A
+slot is a row of the page table; gathering a batch of slot rows and
+merging the page axis into the sequence axis gives the dense per-layer
+cache that ``decode_step`` takes (``{"k": (ns, Hkv, D, S), "v": (ns,
+Hkv, S, D), "pos": (ns,)}`` for GQA), with S = pages_per_slot *
+page_size.
 
 Invariants (DESIGN.md §14):
   * page 0 is reserved scratch: free page-table entries point at it, so a
@@ -29,7 +31,7 @@ import torch
 from repro_torch.models import init_cache
 
 #: sequence axis of each leaf, from the end of the per-page block
-_SEQ_AXIS = {"k": -1, "v": -2}
+_SEQ_AXIS = {"k": -1, "v": -2, "ckv": -1, "kpe": -1}
 
 
 def gather_view(leaves: Dict[str, torch.Tensor], page_table: torch.Tensor,
@@ -48,7 +50,7 @@ def gather_view(leaves: Dict[str, torch.Tensor], page_table: torch.Tensor,
         view[name] = g.reshape(tuple(g.shape[:ax - 1]) + (npg * g.shape[ax],)
                                + tuple(g.shape[ax + 1:]))
     n_layers = next(iter(leaves.values())).shape[0]
-    return {"body": [{"k": view["k"][i], "v": view["v"][i], "pos": lengths.clone()}
+    return {"body": [{**{name: v[i] for name, v in view.items()}, "pos": lengths.clone()}
                      for i in range(n_layers)]}
 
 
@@ -57,27 +59,23 @@ def take_col(body: List[dict], name: str, positions: torch.Tensor) -> torch.Tens
     sequence axis), at per-row ``positions`` (ns,)."""
     rows = torch.arange(positions.shape[0], device=positions.device)
     pos = positions.long()
-    if name == "k":
-        return torch.stack([lc["k"][rows, :, :, pos] for lc in body])
-    return torch.stack([lc["v"][rows, :, pos, :] for lc in body])
+    return torch.stack([lc[name].movedim(lc[name].ndim + _SEQ_AXIS[name], 1)[rows, pos]
+                        for lc in body])
 
 
 def scatter_col(pool: torch.Tensor, name: str, col: torch.Tensor,
                 page_ids: torch.Tensor, offs: torch.Tensor) -> None:
     """Write one column per slot into the pool in place: ``col`` (L, ns,
     *block without the sequence axis) lands at (page_ids[s], offs[s])."""
-    pid, off = page_ids.long(), offs.long()
-    if name == "k":
-        pool[:, pid, :, :, off] = col.movedim(1, 0)
-    else:
-        pool[:, pid, :, off, :] = col.movedim(1, 0)
+    seq = pool.movedim(pool.ndim + _SEQ_AXIS[name], 2)  # a view: (L, P, page, *rest)
+    seq[:, page_ids.long(), offs.long()] = col
 
 
-def split_pages(layer_caches: List[dict], name: str, npg: int,
+def split_pages(layer_caches: List[dict], name: str, row: int, npg: int,
                 page_size: int) -> torch.Tensor:
-    """Cut row 0 of a prefill cache into page blocks for a pool write:
+    """Cut one row of a prefill cache into page blocks for a pool write:
     (L, npg, *block with the sequence axis = page_size)."""
-    leaf = torch.stack([lc[name][0] for lc in layer_caches])  # (L, *block)
+    leaf = torch.stack([lc[name][row] for lc in layer_caches])  # (L, *block)
     ax = leaf.ndim + _SEQ_AXIS[name]
     leaf = leaf.narrow(ax, 0, npg * page_size)
     leaf = leaf.reshape(tuple(leaf.shape[:ax]) + (npg, page_size)
@@ -86,13 +84,19 @@ def split_pages(layer_caches: List[dict], name: str, npg: int,
 
 
 class PagedKVCache:
-    """The device-side page pool of a dense attention stack."""
+    """The device-side page pool of a homogeneous attention stack (GQA's
+    K/V or MLA's latent leaves). A cache with another group than ``body``
+    (a leading dense layer's ``head``) raises ``ValueError``, with the
+    message of the reference's ``AssertionError``."""
 
     def __init__(self, cfg, n_pages: int, page_size: int, device):
         cache = init_cache(cfg, n_pages, page_size, device)
+        if set(cache) != {"body"}:
+            raise ValueError(f"paged slots need a homogeneous attention stack, "
+                             f"got cache groups {sorted(cache)}")
         self.leaves: Dict[str, torch.Tensor] = {
             name: torch.stack([lc[name] for lc in cache["body"]])
-            for name in _SEQ_AXIS}
+            for name in cache["body"][0] if name != "pos"}
         del cache
         self.n_pages = n_pages
         self.page_size = page_size

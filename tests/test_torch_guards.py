@@ -1,7 +1,9 @@
-"""Guards of the PyTorch port: it never imports JAX or the JAX package,
-it never drops to the CPU on its own, and ``chip_smoke.py`` finds the
-package by itself and fails cleanly without a card."""
+"""Guards of the PyTorch port: it, its examples and ``chip_smoke.py``
+never import JAX or the JAX package, it never drops to the CPU on its
+own, and ``chip_smoke.py`` finds the package by itself and fails cleanly
+without a card."""
 import ast
+import importlib.util
 import os
 import pathlib
 import shutil
@@ -54,8 +56,14 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+EXAMPLES = ("torch_quickstart", "torch_serve_topk", "torch_stream_merge",
+            "torch_train_tiny_moe")
+
+
 def test_source_scan_finds_no_jax_or_reference_import():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [f.stem for f in examples] == sorted(EXAMPLES)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 15
     for f in files:
         roots = set(_imported_roots(f))
@@ -85,6 +93,12 @@ def test_entry_points_raise_without_a_card(no_card):
         generate(params, {"tokens": toks}, cfg, ServeConfig(max_new_tokens=2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launcher.main(["--arch", "qwen3-8b", "--smoke", "--new-tokens", "2"])
+    for name in EXAMPLES:  # the examples' default device is the card too
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main([])
 
 
 def test_chip_smoke_from_another_cwd_fails_without_a_card(no_card, tmp_path):

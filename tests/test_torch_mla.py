@@ -19,7 +19,8 @@ over with ``params_from_jax``.
   step's logits against the last-position logits of a prefill of the
   prompt and that token, in the port alone, to 1e-4.
 * ``check_family`` takes the config; the launcher serves it at smoke width
-  on the CPU; ``ScheduledEngine`` still refuses it (MoE).
+  on the CPU; ``ScheduledEngine`` refuses it with the reference's message
+  (its leading dense layer is a second cache group).
 """
 import dataclasses
 import os
@@ -320,5 +321,6 @@ def test_scheduler_refuses_deepseek():
 
     cfg = get_smoke_config(ARCH)
     params = model_init(torch.Generator().manual_seed(0), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="MoE through ScheduledEngine"):
+    with pytest.raises(ValueError, match=r"paged slots need a homogeneous attention stack, "
+                                         r"got cache groups \['body', 'head'\]"):
         ScheduledEngine(params, cfg, device="cpu")

@@ -21,8 +21,8 @@ a leading dense layer; the reference's weights carried over with
   flip an expert; each of those tests records the smallest such gap and
   names it when the logits differ.
 * The refusals: what expert parallelism still refuses (ragged
-  capacities, an EP axis that does not divide the experts), MoE through
-  the scheduler; the launcher at smoke width on the CPU. MLA
+  capacities, an EP axis that does not divide the experts), a MoE stack
+  with a leading dense layer through the scheduler; the launcher at smoke width on the CPU. MLA
   (deepseek-v2-lite) is held by ``tests/test_torch_mla.py``, the SSM and
   hybrid families by ``tests/test_torch_ssm.py``, the vlm and audio
   frontends by ``tests/test_torch_frontends.py``.
@@ -339,11 +339,18 @@ def test_decode_at_b9_counts_the_real_rows(models, router_gaps, monkeypatch):
 
 
 def test_scheduler_refuses_moe():
+    """The scheduler serves MoE (``tests/test_torch_sched_moe.py``) but, as
+    the reference, refuses a stack whose cache has a second group: here
+    the leading dense layer's ``head``."""
     from repro_torch.serving.scheduler import ScheduledEngine
 
     cfg = get_smoke_config(ARCH)
+    ScheduledEngine(model_init(torch.Generator().manual_seed(0), cfg, "cpu"), cfg,
+                    device="cpu")
+    cfg = _variant(cfg, "shared_dense")
     params = model_init(torch.Generator().manual_seed(0), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="MoE through ScheduledEngine"):
+    with pytest.raises(ValueError, match=r"paged slots need a homogeneous attention stack, "
+                                         r"got cache groups \['body', 'head'\]"):
         ScheduledEngine(params, cfg, device="cpu")
 
 

@@ -22,8 +22,13 @@ median, the exact nucleus and the autotune cache against the reference.
 
 Tolerance: bit-equal (values as bits, int32 indices and payload lanes),
 except the lax rung's float values: equal. The reference is pointed at
-an empty autotune cache, the port at its own temporary ones.
+an empty autotune cache, the port at its own temporary ones. The
+reference's calls on the schedule executor and its kernels run under one
+``jax.jit`` each (``_jit``): one compile of the whole network where eager
+dispatch compiles op after op; the compares and selects give the same
+bits either way.
 """
+import functools
 import os
 
 import jax
@@ -72,6 +77,11 @@ def _same(want, got, values_equal=False):
         if w.dtype.kind == "f" and not values_equal:
             w, g = w.view(np.uint8), g.view(np.uint8)
         np.testing.assert_array_equal(g, w)
+
+
+def _jit(fn, *arrays, **static):
+    """The reference's call ``fn(*arrays, **static)`` under one ``jax.jit``."""
+    return jax.jit(functools.partial(fn, **static))(*arrays)
 
 
 def _sorted_f32(rng, shape, desc=False):
@@ -195,21 +205,22 @@ def test_explicit_sort_and_topk_asks_match_reference():
     x = (rng.integers(-4, 5, (3, 24)) * 0.5).astype(np.float32)
     pay = np.arange(72, dtype=np.int32).reshape(3, 24)
     for be in ("schedule", "lax"):
-        _same(repro.sort(jnp.asarray(x), backend=be, payload=jnp.asarray(pay), stable=True),
+        _same(_jit(repro.sort, jnp.asarray(x), backend=be, payload=jnp.asarray(pay),
+                   stable=True),
               repro_torch.sort(torch.from_numpy(x), backend=be, payload=torch.from_numpy(pay),
                                stable=True), values_equal=be == "lax")
-        _same(repro.topk(jnp.asarray(x), 5, backend=be),
+        _same(_jit(repro.topk, jnp.asarray(x), k=5, backend=be),
               repro_torch.topk(torch.from_numpy(x), 5, backend=be), values_equal=be == "lax")
-    _same(repro.topk(jnp.asarray(x), 5, backend="pallas"),
+    _same(_jit(repro.topk, jnp.asarray(x), k=5, backend="pallas"),
           repro_torch.topk(torch.from_numpy(x), 5, backend="cuda"))
     # the values-only kernel wrappers: top-k, and a merge2 with no kernel layout
     from repro.kernels import ops as jkops
 
     from repro_torch.kernels import ops as tkops
 
-    _same(jkops.topk(jnp.asarray(x), 5), tkops.topk(torch.from_numpy(x), 5))
+    _same(_jit(jkops.topk, jnp.asarray(x), k=5), tkops.topk(torch.from_numpy(x), 5))
     a, b = np.sort(x[:, :7], -1), np.sort(x[:, 7:12], -1)
-    _same(jkops.merge2(jnp.asarray(a), jnp.asarray(b), n_cols=3),
+    _same(_jit(jkops.merge2, jnp.asarray(a), jnp.asarray(b), n_cols=3),
           tkops.merge2(torch.from_numpy(a), torch.from_numpy(b), n_cols=3))
 
 
@@ -223,21 +234,21 @@ def test_topk_new_arguments_match_reference():
     # integer keys: the top-k kernels on raw int32, the reference's accelerator route
     x = rng.integers(-6, 6, (50, 3)).astype(np.int32)
     feat = rng.standard_normal((50, 3, 2)).astype(np.float32)
-    w = repro.topk(jnp.asarray(x), 6, axis=0, block=16, payload={"f": jnp.asarray(feat)},
-                   backend="pallas")
+    w = _jit(lambda v, f: repro.topk(v, 6, axis=0, block=16, payload={"f": f},
+                                     backend="pallas"), jnp.asarray(x), jnp.asarray(feat))
     g = repro_torch.topk(torch.from_numpy(x), 6, axis=0, block=16,
                          payload={"f": torch.from_numpy(feat)})
     _same(w[:2] + (w[2]["f"],), g[:2] + (g[2]["f"],))
-    _same(repro.topk(jnp.asarray(x), 6, axis=0, with_indices=False, backend="pallas"),
+    _same(_jit(repro.topk, jnp.asarray(x), k=6, axis=0, with_indices=False, backend="pallas"),
           repro_torch.topk(torch.from_numpy(x), 6, axis=0, with_indices=False))
-    _same(repro.topk(jnp.asarray(x), 6, axis=0, descending=False, stable=True),
+    _same(_jit(repro.topk, jnp.asarray(x), k=6, axis=0, descending=False, stable=True),
           repro_torch.topk(torch.from_numpy(x), 6, axis=0, descending=False, stable=True))
     xf = (rng.integers(-6, 6, (3, 40)) * 0.25).astype(np.float32)
-    _same(repro.topk(jnp.asarray(xf), 4, descending=False),
+    _same(_jit(repro.topk, jnp.asarray(xf), k=4, descending=False),
           repro_torch.topk(torch.from_numpy(xf), 4, descending=False))
     # float keys on the kernels' route, a payload gathered at the winners
-    _same(repro.topk(jnp.asarray(xf.T.copy()), 4, axis=0, backend="pallas",
-                     payload=jnp.asarray(xf.T.copy())),
+    _same(_jit(lambda v: repro.topk(v, 4, axis=0, backend="pallas", payload=v),
+               jnp.asarray(xf.T.copy())),
           repro_torch.topk(torch.from_numpy(xf.T.copy()), 4, axis=0,
                            payload=torch.from_numpy(xf.T.copy())))
 
@@ -248,20 +259,20 @@ def test_unsafe_floats_match_reference():
     rng = np.random.default_rng(8)
     x = (rng.integers(-8, 9, (4, 12)) * 0.5 + 0.25).astype(np.float32)
     tx = torch.from_numpy(x)
-    _same(repro.sort(jnp.asarray(x), nan_policy="unsafe", backend="schedule", stable=True,
-                     payload=jnp.asarray(x)),
+    _same(_jit(lambda v: repro.sort(v, nan_policy="unsafe", backend="schedule", stable=True,
+                                    payload=v), jnp.asarray(x)),
           repro_torch.sort(tx, nan_policy="unsafe", backend="schedule", stable=True,
                            payload=tx))
-    _same(repro.sort(jnp.asarray(x), nan_policy="unsafe"),
+    _same(_jit(repro.sort, jnp.asarray(x), nan_policy="unsafe"),
           repro_torch.sort(tx, nan_policy="unsafe"))
-    _same(repro.topk(jnp.asarray(x), 3, nan_policy="unsafe", backend="pallas"),
+    _same(_jit(repro.topk, jnp.asarray(x), k=3, nan_policy="unsafe", backend="pallas"),
           repro_torch.topk(tx, 3, nan_policy="unsafe"))
     offs = (0, 5, 12, 30, 48)
-    w = repro.segment_sort(jnp.asarray(x.reshape(-1)), offs, nan_policy="unsafe",
-                           backend="segmented")
+    w = _jit(repro.segment_sort, jnp.asarray(x.reshape(-1)), segment_offsets=offs,
+             nan_policy="unsafe", backend="segmented")
     _same(w, repro_torch.segment_sort(tx.reshape(-1), offs, nan_policy="unsafe"))
-    w = repro.segment_topk(jnp.asarray(x.reshape(-1)), offs, 3, nan_policy="unsafe",
-                           backend="segmented")
+    w = _jit(repro.segment_topk, jnp.asarray(x.reshape(-1)), segment_offsets=offs, k=3,
+             nan_policy="unsafe", backend="segmented")
     g = repro_torch.segment_topk(tx.reshape(-1), offs, 3, nan_policy="unsafe")
     _same(w[:2], g[:2])
     with pytest.raises(ValueError, match="nan_policy"):
@@ -273,20 +284,20 @@ def test_uint32_matches_reference():
     u = rng.integers(0, 2 ** 32, (3, 24), dtype=np.uint64).astype(np.uint32)
     u[0, :4] = (0, 2 ** 32 - 1, 0, 2 ** 32 - 1)
     tu = torch.from_numpy(u)
-    _same(repro.sort(jnp.asarray(u)), repro_torch.sort(tu))
+    _same(_jit(repro.sort, jnp.asarray(u)), repro_torch.sort(tu))
     pay = np.arange(72, dtype=np.int32).reshape(3, 24)
-    _same(repro.sort(jnp.asarray(u), payload=jnp.asarray(pay), descending=True,
-                     backend="schedule"),
+    _same(_jit(repro.sort, jnp.asarray(u), payload=jnp.asarray(pay), descending=True,
+               backend="schedule"),
           repro_torch.sort(tu, payload=torch.from_numpy(pay), descending=True,
                            backend="schedule"))
-    _same(repro.topk(jnp.asarray(u), 5), repro_torch.topk(tu, 5))
+    _same(_jit(repro.topk, jnp.asarray(u), k=5), repro_torch.topk(tu, 5))
     a, b = np.sort(u[:, :12], -1), np.sort(u[:, 12:], -1)
-    _same(repro.merge(jnp.asarray(a), jnp.asarray(b)),
+    _same(_jit(repro.merge, jnp.asarray(a), jnp.asarray(b)),
           repro_torch.merge(torch.from_numpy(a), torch.from_numpy(b)))
     lists = [np.sort(u[:, 8 * j:8 * j + 7], -1) for j in range(3)]
-    _same(repro.merge_k([jnp.asarray(l) for l in lists]),
+    _same(_jit(lambda *ls: repro.merge_k(list(ls)), *map(jnp.asarray, lists)),
           repro_torch.merge_k([torch.from_numpy(l) for l in lists]))
-    _same(repro.median_of_lists([jnp.asarray(l) for l in lists]),
+    _same(_jit(lambda *ls: repro.median_of_lists(list(ls)), *map(jnp.asarray, lists)),
           repro_torch.median_of_lists([torch.from_numpy(l) for l in lists]))
 
 

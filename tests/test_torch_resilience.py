@@ -23,9 +23,11 @@ reference's (``repro.resilience``), on the CPU.
   tied bf16 rows with ±0.0, ±inf and NaN, and which rungs agree with each
   other (the contract in ``resilience/ladder.py``'s docstring).
 """
+import functools
 import importlib
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -1026,6 +1028,13 @@ def test_tie_order_across_rungs(op, tied):
     assert groups == _TIE_GROUPS[op]
 
 
+def _jit(fn, *arrays, **static):
+    """The reference's call ``fn(*arrays, **static)`` under one ``jax.jit``:
+    one compile of the whole network where eager dispatch compiles op
+    after op; the compares and selects give the same bits either way."""
+    return jax.jit(functools.partial(fn, **static))(*arrays)
+
+
 @pytest.mark.parametrize("rung", ["fused", "cuda", "schedule", "lax"])
 def test_tie_order_each_rung_matches_the_reference(rung, tied):
     """The port's fused, cuda, schedule and lax rungs against the
@@ -1072,16 +1081,18 @@ def test_tie_order_each_rung_matches_the_reference(rung, tied):
         jspec = JSpec(op="topk", lengths=(64,), batch=4, dtype="int32", k=16)
         _, widx = j_get_backend("pallas").run["topk"](j_encode(jx), 16, spec=jspec)
         check(got, (np.take_along_axis(_np(jx), np.asarray(widx), -1), widx))
-    else:
+    else:  # the reference's calls under one jax.jit each (_jit)
         check(repro_torch.sort(x, payload=tp[:, :64], backend=rung),
-              repro.sort(jx, payload=jp[:, :64], backend=rung))
-        check(repro_torch.topk(x, 16, backend=rung), repro.topk(jx, 16, backend=rung))
+              _jit(lambda v, p: repro.sort(v, payload=p, backend=rung), jx, jp[:, :64]))
+        check(repro_torch.topk(x, 16, backend=rung), _jit(repro.topk, jx, k=16, backend=rung))
         check(repro_torch.merge(a, b, payload=(tp[:, :32], tp[:, 32:64]), backend=rung),
-              repro.merge(ja, jb, payload=(jp[:, :32], jp[:, 32:64]), backend=rung))
+              _jit(lambda u, v, p: repro.merge(u, v, payload=(p[:, :32], p[:, 32:64]),
+                                               backend=rung), ja, jb, jp))
         check(repro_torch.merge_k([a, b, c], payload=[tp[:, :32], tp[:, 32:64], tp[:, 64:]],
                                   backend=rung),
-              repro.merge_k([ja, jb, jc], payload=[jp[:, :32], jp[:, 32:64], jp[:, 64:]],
-                            backend=rung))
+              _jit(lambda u, v, w, p: repro.merge_k(
+                  [u, v, w], payload=[p[:, :32], p[:, 32:64], p[:, 64:]], backend=rung),
+                  ja, jb, jc, jp))
 
 
 def test_unsafe_signed_zeros_follow_the_answering_rung():
