@@ -128,6 +128,18 @@ script with a non-zero exit code when it fails:
       and tokens/s; each drain's launches (rows 4 and 5 for the sampled
       first tokens and the sampling ticks; the router runs on the
       schedule executor) against their expected counts;
+   v. (inside 3h's window, after 3t, on its weights; ``phase_switches``)
+      the escape hatches and the family registry: with the fused rungs
+      off, the sampler's top-k on the unfused rung (rows 4 and 5, indices
+      bit-equal to the fused call's), a sort and a merge with a payload on
+      the executor (no launch; bit-equal to the CPU's), a values-only
+      merge still on row 1; with the segmented switch off, 3d's segment
+      sort and top-k on the per-segment plain version (no class launch)
+      and a prefill and four greedy decode steps of the sorted dispatch
+      with no class sort, logits and tokens bit-equal to the switch on;
+      ``register_family``: loms's programs under a new name on rows 2 and
+      1, then bitonic's under the same name, each bit-equal to the
+      family's own; the phase's seconds (at most 30);
    i. deepseek-v2-lite-16b (MLA) at its published width and depth (15.71
       B parameters, 31.4 GB of random bf16 weights from seed 0, after
       3h's are freed), the runs and checks of 3h (rows 4 and 5 a sampled
@@ -3029,6 +3041,255 @@ def decode_vs_prefill(dev, params, cfg, card) -> float:
 #: an H100 80GB HBM3 at 700 W: 2.009e-06 against GQA's 2.347e-06 (0.86x),
 #: so 4 leaves more than 4x of headroom
 MLA_ERR_FACTOR = 4
+
+
+#: the name phase 3v registers a family under (removed again after)
+TWIN_FAMILY = "loms_twin"
+
+
+def phase_switches(dev, K, params, cfg, card) -> dict:
+    """Phase 3v (inside 3h's window, on its qwen3-moe-30b-a3b weights):
+    the escape hatches and the family registry on the card, every call
+    with its launch counts zeroed before and read after.
+
+    Fused switch off (``set_fused_enabled(False)``): ``topk`` on the
+    sampler's (4, 151,936) bf16 logits, k 64, plans ``vocab_topk`` on
+    ``cuda`` and runs the unfused rung, rows 4 and 5 as often as fused;
+    indices bit-equal to the fused call, values too but in NaN lanes (the
+    unfused rung returns the input's own NaN, the fused one decodes a
+    canonical NaN: the reference's two rungs do the same). A sort of
+    (512, 1024) bf16 with an int32 payload plans ``loms_merge_tree`` and
+    launches nothing (the executor), a merge of (512, 512 + 512) f32 with
+    a payload plans ``payload`` and launches nothing; their values are
+    bit-equal to the fused calls' but in NaN lanes (the executor returns
+    the input's values at its permutation), values and payload to the
+    same calls on a CPU copy (the sort's first 128 rows). A values-only merge at row 1's shape, (65,536, 32 +
+    32) f32, stays on ``cuda``: row 1 once, bit-equal to the fused call.
+
+    Segmented switch off: ``segment_sort`` and ``segment_topk`` at phase
+    3d's classes (1024 expert ids with their token ids; 4096 x 1024 bf16
+    scores, top-64) plan ``reference`` and launch nothing; the values are
+    bit-equal to ``backend="segmented"`` (which launches its class
+    kernels), the payload and indices to the same calls on the CPU (the
+    per-segment stable argsort: at width 1024 the class network's tie
+    order is its own). Then a prefill of 3h's batch and four greedy
+    decode steps with ``dispatch="sorted"``: switch on, row 6 once a MoE
+    layer a step; off, never; tokens and logits bit-equal.
+
+    ``register_family``: loms's generators under a new name run rows 2
+    and 1 (the program executor) bit-equal to ``network="loms"`` (values
+    and permutations, on rows with ties); re-registered with bitonic's,
+    the next calls equal ``network="bitonic"``'s (the programs kept on the
+    card by name were dropped). Both switches and the registry are
+    restored however the phase ends. Returns the phase's launches."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.api import SortSpec, plan, set_fused_enabled, topk_block
+    from repro_torch.kernels.launch import forget_family
+    from repro_torch.kernels.loms_merge import loms_merge2
+    from repro_torch.kernels.sort import loms_sort
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.networks import NetworkFamily, register_family, registry
+    from repro_torch.networks.families import BUILTIN_FAMILIES
+    from repro_torch.segmented import bucket_segments, set_segmented_enabled
+
+    t0 = time.perf_counter()
+    total = {n: 0 for n in K.LAUNCHES}
+
+    def counted(name, fn, want):
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got, want = dict(K.LAUNCHES), {**{n: 0 for n in K.LAUNCHES}, **want}
+        log(f"  launches, {name}: { {n: c for n, c in got.items() if c} }")
+        if got != want:
+            raise AssertionError(f"3v {name}: launch counts {got} != {want}")
+        for n, c in got.items():
+            total[n] += c
+        return out
+
+    def detail(**spec):
+        d = plan(SortSpec(**spec))
+        return d.backend, d.detail
+
+    def same(name, got, want, nan_lanes=False):
+        """Bit-equal; with ``nan_lanes`` a NaN lane needs a NaN only (a
+        route that returns the input's own value keeps its NaN bits, a
+        decoded key a canonical NaN)."""
+        for g, w in zip(got, want):
+            g, w = g.cpu(), w.cpu()
+            nan = torch.isnan(w) if nan_lanes and w.dtype.is_floating_point else None
+            if nan is not None and not torch.equal(nan, torch.isnan(g)):
+                raise AssertionError(f"3v {name}: NaN lanes differ")
+            if nan is not None:
+                g, w = g[~nan], w[~nan]
+            if g.shape != w.shape or not torch.equal(
+                    bits(g) if g.dtype.is_floating_point else g,
+                    bits(w) if w.dtype.is_floating_point else w):
+                raise AssertionError(f"3v {name}: not bit-equal")
+
+    prev = set_fused_enabled(True), set_segmented_enabled(True)
+    try:
+        # -- the fused switch --------------------------------------------------
+        V, k = cfg.vocab_size, 64
+        logits = special_logits(4, V, torch.bfloat16, dev, seed=31)
+        tree = K.vocab_merge_launches(V, topk_block(V, k, batch=4, dtype=torch.bfloat16), k)
+        rows45 = {"vocab_phase1": 1, "vocab_merge_level": tree}
+        fv, fi = counted("top-k, fused", lambda: repro_torch.topk(logits, k), rows45)
+        x = seg_tile(512, 1024, torch.bfloat16, dev, seed=32)
+        pay = torch.arange(512 * 1024, dtype=torch.int32, device=dev).reshape(512, 1024)
+        f_sort = counted("sort with a payload, fused",
+                         lambda: repro_torch.sort(x, payload=pay), {"loms_sort": 1})
+        a = total_order_sorted(seg_tile(512, 512, torch.float32, dev, seed=33))
+        b = total_order_sorted(seg_tile(512, 512, torch.float32, dev, seed=34))
+        pa = torch.arange(512 * 512, dtype=torch.int32, device=dev).reshape(512, 512)
+        pb = pa + 512 * 512
+        f_merge = counted("merge with a payload, fused",
+                          lambda: repro_torch.merge(a, b, payload=(pa, pb)),
+                          {"loms_merge2": 1})
+        va = total_order_sorted(seg_tile(65_536, 32, torch.float32, dev, seed=35))
+        vb = total_order_sorted(seg_tile(65_536, 32, torch.float32, dev, seed=36))
+        f_vmerge = counted("values-only merge, fused", lambda: repro_torch.merge(va, vb),
+                           {"loms_merge2": 1})
+        set_fused_enabled(False)
+        routes = (detail(op="topk", lengths=(V,), k=k, batch=4, dtype="bfloat16"),
+                  detail(op="sort", lengths=(1024,), batch=512, dtype="bfloat16",
+                         has_payload=True),
+                  detail(op="merge", lengths=(512, 512), batch=512, has_payload=True),
+                  detail(op="merge", lengths=(32, 32), batch=65_536))
+        want_routes = (("cuda", "vocab_topk"), ("schedule", "loms_merge_tree"),
+                       ("schedule", "payload"), ("cuda", "loms_merge2"))
+        log(f"  fused off, routes: {routes}")
+        if routes != want_routes:
+            raise AssertionError(f"3v fused off: routes {routes} != {want_routes}")
+        uv, ui = counted("top-k, fused off", lambda: repro_torch.topk(logits, k), rows45)
+        same("top-k, fused off: against fused", (uv, ui), (fv, fi), nan_lanes=True)
+        log(f"  top-k fused off: indices bit-equal to fused, values too but in "
+            f"{int(torch.isnan(fv).sum())} NaN lanes (NaN in both)")
+        u_sort = counted("sort with a payload, fused off",
+                         lambda: repro_torch.sort(x, payload=pay), {})
+        u_merge = counted("merge with a payload, fused off",
+                          lambda: repro_torch.merge(a, b, payload=(pa, pb)), {})
+        u_vmerge = counted("values-only merge, fused off", lambda: repro_torch.merge(va, vb),
+                           {"loms_merge2": 1})
+        same("sort, fused off: values against fused", u_sort[:1], f_sort[:1], nan_lanes=True)
+        same("merge, fused off: values against fused", u_merge[:1], f_merge[:1],
+             nan_lanes=True)
+        same("values-only merge, fused off", (u_vmerge,), (f_vmerge,))
+        cpu_rows = 128  # rows sort on their own; the CPU's executor takes 8 s for all 512
+        same("sort, fused off: against the CPU", (t[:cpu_rows] for t in u_sort),
+             repro_torch.sort(x[:cpu_rows].cpu(), payload=pay[:cpu_rows].cpu()))
+        same("merge, fused off: against the CPU", u_merge,
+             repro_torch.merge(a.cpu(), b.cpu(), payload=(pa.cpu(), pb.cpu())))
+        log(f"  fused off: sort and merge with a payload on the executor, values bit-equal "
+            f"to the fused calls' but in NaN lanes ({int(torch.isnan(x).sum())} in the "
+            f"sort), values and payload to the CPU's; the values-only merge on row 1, "
+            f"bit-equal")
+        set_fused_enabled(True)
+
+        # -- the segmented switch ----------------------------------------------
+        rng = np.random.default_rng(3)  # phase 3d's inputs
+        experts = torch.from_numpy(rng.integers(0, 64, 1024).astype(np.int32)).to(dev)
+        tok_ids = torch.arange(1024, dtype=torch.int32, device=dev)
+        nq, nc, kq = 4096, 1024, 64
+        scores = seg_tile(nq, nc, torch.bfloat16, dev, seed=9).reshape(-1)
+        q_offs = tuple(range(0, (nq + 1) * nc, nc))
+        classes = {"seg_sort": sum(c.width > 1 for lens in ([1024], np.diff(q_offs))
+                                   for c in bucket_segments(lens, 1024)[0])}
+
+        def seg_calls(backend):
+            return (repro_torch.segment_sort(experts, (0, 1024), payload=tok_ids,
+                                             backend=backend),
+                    repro_torch.segment_topk(scores, q_offs, kq, backend=backend)[:2])
+
+        kern = counted("segment_sort / segment_topk, backend='segmented'",
+                       lambda: seg_calls("segmented"), classes)
+        set_segmented_enabled(False)
+        route = detail(op="sort", lengths=(1024,), segment_offsets=((0, 1024),))
+        if route != ("segmented", "reference"):
+            raise AssertionError(f"3v segmented off: route {route}")
+        auto = counted("segment_sort / segment_topk, segmented off",
+                       lambda: seg_calls("auto"), {})
+        same("segment_sort / segment_topk, segmented off: values against the kernels",
+             (auto[0][0], auto[1][0]), (kern[0][0], kern[1][0]))
+        cpu = (repro_torch.segment_sort(experts.cpu(), (0, 1024), payload=tok_ids.cpu()),
+               repro_torch.segment_topk(scores.cpu(), q_offs, kq)[:2])
+        same("segment_sort / segment_topk, segmented off: against the CPU",
+             auto[0] + auto[1], cpu[0] + cpu[1])
+        log("  segmented off: the per-segment plain version, no class launch; values "
+            "bit-equal to the class kernels', payload and indices to the CPU's")
+
+        srt = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="sorted"))
+        bsz, plen, steps = 4, 128, 4
+        toks = torch.from_numpy(np.random.default_rng(0).integers(  # 3h's prompts
+            0, cfg.vocab_size, (bsz, plen)).astype(np.int32)).to(dev)
+        moe_layers = cfg.n_layers - cfg.moe.first_dense_layers
+
+        def greedy_steps():
+            with torch.inference_mode():
+                lg, cache = prefill(params, {"tokens": toks},
+                                    init_cache(srt, bsz, plen + steps, dev), srt)
+                outs, nxt = [lg], torch.argmax(lg, -1).to(torch.int32)[:, None]
+                tokens = [nxt]
+                for i in range(steps):
+                    pos = torch.full((bsz, 1), plen + i, dtype=torch.int32, device=dev)
+                    lg, cache = decode_step(params, nxt, cache, srt, positions=pos)
+                    nxt = torch.argmax(lg, -1).to(torch.int32)[:, None]
+                    outs.append(lg)
+                    tokens.append(nxt)
+                return outs, torch.cat(tokens, 1)
+
+        set_segmented_enabled(True)
+        on = counted("MoE prefill + 4 greedy decode steps, sorted dispatch",
+                     greedy_steps, {"seg_sort": moe_layers * steps})
+        set_segmented_enabled(False)
+        off = counted("the same steps, segmented off", greedy_steps, {})
+        same("MoE steps, segmented off: logits", off[0], on[0])
+        same("MoE steps, segmented off: tokens", (off[1],), (on[1],))
+        log(f"  MoE segmented off: the dispatch sort on the executor; prefill and {steps} "
+            f"decode steps' logits and tokens bit-equal ({moe_layers * steps} class sorts "
+            "with the switch on)")
+        set_segmented_enabled(True)
+
+        # -- register_family ---------------------------------------------------
+        xs = seg_tile(512, 1024, torch.bfloat16, dev, seed=37)
+        ma = total_order_sorted(seg_tile(512, 512, torch.float32, dev, seed=38))
+        mb = total_order_sorted(seg_tile(512, 512, torch.float32, dev, seed=39))
+        n_cols = BUILTIN_FAMILIES["loms"][0](512, 512).n_cols  # the family's own columns
+
+        def rows12(family, cols=None):
+            s = loms_sort(xs, network=family, key_dtype=torch.bfloat16, want_perm=True)
+            m = loms_merge2(ma, mb, network=family, n_cols=cols or 2,
+                            key_dtype=torch.float32, want_perm=True)
+            return s[:2] + m[:2]
+
+        one_each = {"loms_sort": 1, "loms_merge2": 1}
+        register_family(NetworkFamily(TWIN_FAMILY, *BUILTIN_FAMILIES["loms"]))
+        twin = counted(f"rows 2 and 1, network={TWIN_FAMILY!r} (loms)",
+                       lambda: rows12(TWIN_FAMILY), one_each)
+        loms = counted("rows 2 and 1, network='loms'", lambda: rows12("loms", n_cols),
+                       one_each)
+        same(f"{TWIN_FAMILY} as loms", twin, loms)
+        register_family(NetworkFamily(TWIN_FAMILY, *BUILTIN_FAMILIES["bitonic"]))
+        twin = counted(f"rows 2 and 1, network={TWIN_FAMILY!r} (bitonic)",
+                       lambda: rows12(TWIN_FAMILY), one_each)
+        bitonic = counted("rows 2 and 1, network='bitonic'", lambda: rows12("bitonic"),
+                          one_each)
+        same(f"{TWIN_FAMILY} as bitonic", twin, bitonic)
+        if torch.equal(bitonic[1], loms[1]) or torch.equal(bitonic[3], loms[3]):
+            raise AssertionError("3v: loms and bitonic permutations agree; the "
+                                 "re-registration check shows nothing")
+        log(f"  register_family: {TWIN_FAMILY} ran loms's programs, then bitonic's, each "
+            "bit-equal (values and permutations) to the family's own name")
+    finally:
+        set_fused_enabled(prev[0])
+        set_segmented_enabled(prev[1])
+        registry._REGISTRY.pop(TWIN_FAMILY, None)
+        forget_family(TWIN_FAMILY)
+    log(f"  phase 3v {time.perf_counter() - t0:.1f} s; launches {total}; {card}")
+    return total
 
 
 def phase_moe(dev, K, card, arch: str = "qwen3-moe-30b-a3b", gqa_err=None,
@@ -5935,6 +6196,9 @@ def main() -> int:
         log(f"phase 3t: MoE through the request scheduler at full width {since()}")
         runs.append(phase_moe_engine(dev, K, moe_params, moe_cfg, card))
         guard("3t")
+        log(f"phase 3v: the escape hatches and the family registry {since()}")
+        runs.append(phase_switches(dev, K, moe_params, moe_cfg, card))
+        guard("3v")
 
     runs.append(phase_moe(dev, K, card, then=phase_3t))
     guard("3h")

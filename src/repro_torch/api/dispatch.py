@@ -9,19 +9,20 @@ its accelerator rows ("TPU") for ``"cuda"``, and ``pallas`` named
 
   op      condition                                  backend    detail
   ------  -----------------------------------------  ---------  ---------------
-  (any)   CSR segment offsets                        segmented  bucketed_cuda
+  (any)   CSR segment offsets, cuda, segmented on    segmented  bucketed_cuda
+  (any)   CSR segment offsets otherwise              segmented  reference
   (any)   an explicit ``backend=``                   that one   explicit
   topk    TP-sharded vocab                           sharded    tree_topk
   topk    cuda, axis > 512                           cuda       vocab_topk
   topk    cuda, axis <= 512                          cuda       router_topk
   topk    otherwise                                  schedule   blockwise_topk
   sort    TP-sharded, total >= DIST_MIN_TOTAL        sharded    sample_sort
-  sort    cuda, fits the budget, not stable          cuda       loms_sort_fused
+  sort    cuda, fused on, fits, not stable           cuda       loms_sort_fused
   sort    otherwise (stable / over budget / host)    schedule   loms_merge_tree
   median  cuda, loms, equal odd lists               cuda       kway_median
   median  otherwise                                  schedule   loms_median
   merge   TP-sharded, total >= DIST_MIN_TOTAL        sharded    sample_merge_k
-  merge   payload, cuda, fits, not stable            cuda       fused_payload
+  merge   payload, cuda, fused on, fits, not stable  cuda       fused_payload
   merge   payload / stable otherwise                 schedule   payload
   merge   a network other than loms                  schedule   network
   merge   no common column count                     schedule   ragged
@@ -37,6 +38,15 @@ count of them) is planned as in the reference and answered by the
 degradation ladder (:mod:`repro_torch.resilience.ladder`) walks on. The
 ladder also reroutes a plan whose rung has an open circuit breaker
 (``source="breaker"``, :func:`~repro_torch.resilience.ladder.reroute`).
+The fused switch (:func:`~.fused.set_fused_enabled`,
+``REPRO_DISABLE_FUSED=1``) takes the two fused rows out: a sort goes to
+``loms_merge_tree`` and a merge with a payload to ``payload``, both on
+the schedule executor, and the measured ranking stops offering ``cuda``
+for them; median and values-only merges stay on ``cuda`` (unfused). The
+segmented switch (:func:`~repro_torch.segmented.set_segmented_enabled`,
+``REPRO_DISABLE_SEGMENTED=1``) plans auto segment ops as ``reference``,
+the per-segment plain version, on the card too; an explicit
+``backend="segmented"`` still runs the class kernels.
 The budget is the reference's routing budget (``streaming.planner``). A
 measured route sample in the autotune cache overrides the rule as in the
 reference (:func:`record_route_us`). The sharded rows need ``spec.sharded``, which
@@ -59,7 +69,7 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.parallel.dist_sort import DIST_MIN_TOTAL
 from repro_torch.resilience.ladder import reroute
 
-from .fused import dtype_of
+from .fused import dtype_of, fused_enabled
 from .registry import get_backend
 from .spec import BACKEND_AUTO, SortSpec
 
@@ -95,7 +105,14 @@ def _dist_eligible(spec: SortSpec) -> bool:
 
 
 def _plan_segmented(spec: SortSpec) -> Decision:
-    """CSR segment specs all go to the segmented backend."""
+    """CSR segment specs all go to the segmented backend: the class
+    kernels on the card unless the segmented switch is off."""
+    from repro_torch.segmented import segmented_enabled
+
+    if not segmented_enabled():
+        return Decision("segmented", "reference",
+                        "segmented kernels disabled (escape hatch): the per-segment "
+                        "plain version")
     if spec.device == "cuda":
         return Decision("segmented", "bucketed_cuda",
                         f"{spec.n_segments} segments in pow2 size classes: one class "
@@ -161,7 +178,7 @@ def _resolve(spec: SortSpec) -> Decision:
             return Decision("sharded", "sample_sort",
                             f"TP-sharded, total {spec.total} >= {DIST_MIN_TOTAL}: "
                             "sample-sort over the mesh axis")
-        if on_card and cuda.supports(spec):
+        if on_card and fused_enabled() and cuda.supports(spec):
             return Decision("cuda", "loms_sort_fused",
                             "fits the budget: single-launch fused merge-tree sort")
         return Decision("schedule", "loms_merge_tree",
@@ -177,7 +194,7 @@ def _resolve(spec: SortSpec) -> Decision:
                         f"TP-sharded, total {spec.total} >= {DIST_MIN_TOTAL}: local "
                         "k-way merge of list slices + sample-sort exchange")
     if spec.needs_perm:
-        if on_card and cuda.supports(spec):
+        if on_card and fused_enabled() and cuda.supports(spec):
             return Decision("cuda", "fused_payload",
                             "fits the budget: the payload rides the kernel's "
                             "permutation (single fused launch)")
@@ -258,12 +275,15 @@ def measured_route_us(spec: SortSpec, backend: str) -> Optional[float]:
 def _measured_override(spec: SortSpec, dec: Decision) -> Decision:
     """Prefer the fastest measured candidate over the rule: auto,
     single-device, dense specs with samples of at least two capable
-    backends at this exact point."""
+    backends at this exact point. With the fused rungs off, ``cuda`` is
+    no candidate for a sort or a spec that carries a permutation."""
     if (not measured_dispatch_enabled() or spec.backend != BACKEND_AUTO
             or spec.segmented or spec.sharded or dec.backend in ("sharded", "lax")):
         return dec
     samples = {}
     for b in _MEASURED_CANDIDATES:
+        if b == "cuda" and not fused_enabled() and (spec.op == "sort" or spec.needs_perm):
+            continue
         if not get_backend(b).supports(spec):
             continue
         us = measured_route_us(spec, b)

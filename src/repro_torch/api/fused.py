@@ -16,10 +16,20 @@ order need not be a stable argsort's); values-only, backward recomputes
 it with one stable argsort of the keys, the subgradient convention of a
 sort. The TPU had no backward kernel, so backward is plain torch.
 :func:`topk_vjp` is the fused top-k's backward (``fused.py:354``).
+
+``set_fused_enabled(False)`` (or ``REPRO_DISABLE_FUSED=1``, the
+reference's switch) is the escape hatch and the unfused baseline: the
+planner stops offering the fused rows (a sort and a merge with a payload
+go to the schedule executor), :func:`fused_cfg_for` declines, so the
+fused rungs of ``sort``, ``merge``, ``merge_k`` and ``topk`` skip. An
+explicit ``backend="cuda"`` still runs the kernels for a values-only
+spec, unfused: the key encode, the reversal and the decode around the
+kernel as torch passes (top-k: rows 4 and 5, or 3, on the encoded keys).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -29,6 +39,22 @@ from repro_torch.kernels.common import (encode_key_values, gather_lanes, key_tra
 from repro_torch.resilience.failpoints import failpoint
 
 from .spec import SortSpec
+
+_ENABLED = True
+
+
+def fused_enabled() -> bool:
+    """Whether the fused rungs may run (the switch and
+    ``REPRO_DISABLE_FUSED``)."""
+    return _ENABLED and os.environ.get("REPRO_DISABLE_FUSED") != "1"
+
+
+def set_fused_enabled(enabled: bool) -> bool:
+    """Turn the fused rungs on or off; returns the previous setting."""
+    global _ENABLED
+    prev = _ENABLED
+    _ENABLED = bool(enabled)
+    return prev
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -75,11 +101,12 @@ class FusedCfg:
 
 
 def fused_cfg_for(spec: SortSpec, batch: int, dtype: torch.dtype) -> Optional[FusedCfg]:
-    """The config of one eligible sort or merge (None if ineligible)."""
+    """The config of one eligible sort or merge (None if ineligible or
+    the fused rungs are off)."""
     from repro_torch.streaming.planner import plan_op
 
     kernel_op = {"sort": "sort", "merge": "merge2", "merge_k": "kway"}.get(spec.op)
-    if kernel_op is None or not fused_eligible(spec):
+    if kernel_op is None or not fused_enabled() or not fused_eligible(spec):
         return None
     key_dtype = (dtype if spec.nan_policy == "last" and key_transformable(dtype)
                  else None)

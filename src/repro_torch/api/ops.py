@@ -36,7 +36,11 @@ back from the class kernels to the per-segment plain version
 The cuda backend's fused rung is one launch of kernel row 1 (merge), row
 2 (sort) or row 8 (k-way merge); its top-k the router kernel (row 3) or
 the vocab kernels (rows 4 and 5); its median one launch of row 8. A CPU
-tensor takes the same route through the kernels' plain versions. The
+tensor takes the same route through the kernels' plain versions. With
+the fused rungs off (:func:`~.fused.set_fused_enabled`) every fused
+rung skips: a top-k runs the unfused ``cuda`` rung (the keys encoded,
+the same kernels, the values decoded), a sort or a merge with a payload
+the schedule executor. The
 integer types other than int32 (int8, int16, uint8, uint16, uint32) run
 as order-preserving int32 keys whose extremes are the type's
 (:func:`~.keys.widen_int_keys`) and come back narrowed; a top-k pad
@@ -55,6 +59,7 @@ from repro_torch.kernels.topk import topk_tiles
 from repro_torch.resilience.failpoints import failpoint
 from repro_torch.resilience.ladder import LadderSkip, run_ladder, rungs_for
 
+from .fused import fused_enabled
 from .keys import (decode_keys, encode_keys, has_int_widening, has_key_transform,
                    narrow_int_keys, widen_int_keys)
 from .payload import stabilize_ties, take_rows
@@ -209,7 +214,7 @@ def topk(x, k: int, *, axis: int = -1, descending: bool = True, stable: bool = F
 
     def attempt(rung: str):
         if rung in ("fused", "cuda"):
-            if rung == "fused" and stable:
+            if rung == "fused" and (stable or not fused_enabled()):
                 raise LadderSkip
             from repro_torch.kernels.ops import topk as kernel_topk, topk_rows
 
@@ -242,7 +247,11 @@ def _as_tensor(x, device: DeviceLike) -> torch.Tensor:
 
 def _segmented(op: str, offsets, values: torch.Tensor, *, k=None, descending: bool,
                has_payload: bool, backend: str, nan_policy: str):
-    """Plan one segment op: its registered backend's adapter and spec."""
+    """Plan one segment op: its registered backend's adapter, the spec and
+    whether the class kernels run (``use_kernel``; the ``reference`` route,
+    where the segmented switch puts auto calls, is the per-segment plain
+    version). The spec is planned for the card, so a CPU tensor takes the
+    class kernels' plain versions, as the CPU tests hold them."""
     from repro_torch.segmented.bucketing import normalize_offsets
 
     from .dispatch import plan
@@ -255,10 +264,11 @@ def _segmented(op: str, offsets, values: torch.Tensor, *, k=None, descending: bo
                     dtype=_dtype_name(values.dtype), k=k, descending=descending,
                     has_payload=has_payload, backend=backend, nan_policy=nan_policy,
                     segment_offsets=offs)
-    return get_backend(plan(spec).backend).run[op], spec
+    dec = plan(spec)
+    return get_backend(dec.backend).run[op], spec, dec.detail != "reference"
 
 
-def _segmented_degrade(spec, call, device=None):
+def _segmented_degrade(spec, call, device=None, use_kernel: bool = True):
     """The segmented backend's fall-back from the class kernels to the
     per-segment plain version (``segmented/reference.py``), as the
     reference's: with resilience on and an auto ask, a failed kernel path
@@ -266,13 +276,16 @@ def _segmented_degrade(spec, call, device=None):
     off the card, ``device`` being the values') feeds a breaker on the
     synthetic ``segmented_kernel`` rung, is counted, and ``call(False)``
     answers; an open breaker skips the kernel path until its cooldown
-    probe. ``call(use_kernel)`` runs the op."""
+    probe. ``call(use_kernel)`` runs the op; a plan without the class
+    kernels (``use_kernel`` False) runs the plain version alone."""
     from repro_torch.resilience.breaker import breaker_for
     from repro_torch.resilience.ladder import (degradable, record_fallback, resilience_enabled,
                                                spec_class)
 
     from .spec import BACKEND_AUTO
 
+    if not use_kernel:
+        return call(False)
     if not (resilience_enabled() and spec.backend == BACKEND_AUTO):
         return call(True)
     cls = spec_class(spec)
@@ -301,12 +314,13 @@ def segment_sort(values, segment_offsets, *, descending: bool = False,
     ride each segment's permutation. Returns the sorted values, or
     ``(values, payload_tree)``."""
     values, narrow = _int_keys(_as_tensor(values, device))
-    run, spec = _segmented("sort", (segment_offsets,), values, descending=descending,
-                           has_payload=payload is not None, backend=backend,
-                           nan_policy=nan_policy)
+    run, spec, use_kernel = _segmented("sort", (segment_offsets,), values,
+                                       descending=descending,
+                                       has_payload=payload is not None, backend=backend,
+                                       nan_policy=nan_policy)
     out, _, ptree = _segmented_degrade(spec, lambda uk: run(
         values, spec=spec, descending=descending, payload=payload, nan_policy=nan_policy,
-        use_kernel=uk), values.device)
+        use_kernel=uk), values.device, use_kernel)
     out = _unkey(out, narrow)
     return out if payload is None else (out, ptree)
 
@@ -319,12 +333,13 @@ def segment_merge(a, b, offsets_a, offsets_b, *, descending: bool = False,
     ``(tree_a, tree_b)``. Returns ``(values, out_offsets)`` or
     ``(values, payload_tree, out_offsets)``."""
     (a, narrow), (b, _) = _int_keys(_as_tensor(a, device)), _int_keys(_as_tensor(b, device))
-    run, spec = _segmented("merge", (offsets_a, offsets_b), a, descending=descending,
-                           has_payload=payload is not None, backend=backend,
-                           nan_policy=nan_policy)
+    run, spec, use_kernel = _segmented("merge", (offsets_a, offsets_b), a,
+                                       descending=descending,
+                                       has_payload=payload is not None, backend=backend,
+                                       nan_policy=nan_policy)
     out, _, ptree, out_offs = _segmented_degrade(spec, lambda uk: run(
         a, b, spec=spec, descending=descending, payload=payload, nan_policy=nan_policy,
-        use_kernel=uk), a.device)
+        use_kernel=uk), a.device, use_kernel)
     out = _unkey(out, narrow)
     return (out, out_offs) if payload is None else (out, ptree, out_offs)
 
@@ -339,12 +354,13 @@ def segment_topk(values, segment_offsets, k, *, descending: bool = True,
     CSR layout, ``idx`` int32 positions within the segment."""
     values, narrow = _int_keys(_as_tensor(values, device))
     ks = list(k) if isinstance(k, (list, tuple)) else [int(k)]
-    run, spec = _segmented("topk", (segment_offsets,), values, k=max(ks) if ks else 1,
-                           descending=descending, has_payload=payload is not None,
-                           backend=backend, nan_policy=nan_policy)
+    run, spec, use_kernel = _segmented("topk", (segment_offsets,), values,
+                                       k=max(ks) if ks else 1, descending=descending,
+                                       has_payload=payload is not None, backend=backend,
+                                       nan_policy=nan_policy)
     out, idx, ptree, out_offs = _segmented_degrade(spec, lambda uk: run(
         values, k, spec=spec, descending=descending, payload=payload, nan_policy=nan_policy,
-        use_kernel=uk), values.device)
+        use_kernel=uk), values.device, use_kernel)
     out = _unkey(out, narrow)
     return (out, idx, out_offs) if payload is None else (out, idx, ptree, out_offs)
 
@@ -354,12 +370,13 @@ def segment_argmax(values, segment_offsets, *, backend: str = "auto",
     """Per-segment argmax ``(vals (S,), idx (S,))``; empty segments give
     the dtype minimum and index -1."""
     values, narrow = _int_keys(_as_tensor(values, device))
-    run, spec = _segmented("argmax", (segment_offsets,), values, k=1, descending=True,
-                           has_payload=False, backend=backend, nan_policy=nan_policy)
+    run, spec, use_kernel = _segmented("argmax", (segment_offsets,), values, k=1,
+                                       descending=True, has_payload=False, backend=backend,
+                                       nan_policy=nan_policy)
     vals, idx = _segmented_degrade(spec, lambda uk: run(values, spec=spec,
                                                         nan_policy=nan_policy,
                                                         use_kernel=uk),
-                                   values.device)
+                                   values.device, use_kernel)
     return _unkey(vals, narrow), idx
 
 
@@ -467,6 +484,13 @@ class _DecodeMedian(torch.autograd.Function):
         return g.to(raw.dtype), None
 
 
+def _check_nonempty(what: str, t: torch.Tensor, ax: int) -> None:
+    """Refuse an empty list, as the reference does (it divides by zero)."""
+    if t.shape[ax] == 0:
+        raise ValueError(f"{what} of shape {tuple(t.shape)} is empty along axis {ax}: "
+                         "the ops need an element in every list")
+
+
 def _lists_batched(lists, axis: int, device: DeviceLike):
     """The lists as (B, n_i) rows of one dtype: ``(flats, lead, ax, ndim)``."""
     from .payload import canonical_axis, to_batched_last
@@ -476,6 +500,8 @@ def _lists_batched(lists, axis: int, device: DeviceLike):
     if ndim < 1 or any(t.ndim != ndim for t in lists):
         raise ValueError(f"lists of one rank needed, got {[tuple(t.shape) for t in lists]}")
     ax = canonical_axis(axis, ndim)
+    for j, t in enumerate(lists):
+        _check_nonempty(f"list {j}", t, ax)
     flats, lead = [], None
     for t in lists:
         f, ld = to_batched_last(t, ax)
@@ -636,6 +662,7 @@ def sort(x, *, axis: int = -1, descending: bool = False, stable: bool = False,
     _check_dtype(x.dtype, nan_policy)
     ndim = x.ndim
     ax = canonical_axis(axis, ndim)
+    _check_nonempty("x", x, ax)
     x2, lead = to_batched_last(x, ax)
     batch, n = x2.shape
     spec = SortSpec(op="sort", lengths=(n,), batch=batch, dtype=_dtype_name(x2.dtype),

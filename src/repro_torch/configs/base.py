@@ -100,12 +100,62 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid")
 
     def params_billions(self) -> float:
-        """Parameter count of a dense (non-MLA, non-MoE) stack, in billions."""
-        d, hd = self.d_model, self.head_dim
+        """The rough parameter count in billions, the reference's
+        (``base.py:108``): embeddings, attention (GQA or MLA), the FFN (every
+        expert and shared expert of an MoE layer; a leading dense layer
+        counted as MoE), the SSM mixer, and for a hybrid the SSM layers plus
+        one shared attention block. A dense stack is exact."""
+        d = self.d_model
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        attn = d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.n_heads * hd * d
+        per_layer = 0.0
+        hd = self.head_dim
+        if self.family != "ssm":
+            if self.mla is not None:
+                m = self.mla
+                per_layer += d * self.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                per_layer += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                per_layer += m.kv_lora_rank * self.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+                per_layer += self.n_heads * m.v_head_dim * d
+            else:
+                per_layer += d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.n_heads * hd * d
         ff_mult = 3 if self.mlp_act == "swiglu" else 2
-        return (emb + self.n_layers * (attn + ff_mult * d * self.d_ff)) / 1e9
+        if self.moe is not None:
+            per_layer += ff_mult * d * self.moe.d_expert * (
+                self.moe.n_experts + self.moe.n_shared_experts)
+        elif self.d_ff:
+            per_layer += ff_mult * d * self.d_ff
+        if self.family == "ssm":
+            per_layer = self._ssm_layer_params()
+        total = emb + self.n_layers * per_layer
+        if self.family == "hybrid":
+            shared_attn = d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.n_heads * hd * d
+            shared_attn += ff_mult * d * self.d_ff
+            total = emb + self.n_layers * self._ssm_layer_params() + shared_attn
+        return total / 1e9
+
+    def _ssm_layer_params(self) -> int:
+        """The parameters of one SSM mixer layer."""
+        s, d = self.ssm, self.d_model
+        d_in = s.expand * d
+        conv_dim = d_in + 2 * s.d_state
+        return (d * (2 * d_in + 2 * s.d_state + d_in // s.head_dim)
+                + conv_dim * s.d_conv + d_in * d)
+
+    def active_params_billions(self) -> float:
+        """The parameters a token runs through, in billions (the
+        reference's, ``base.py:159``): an MoE layer counts its routed top-k
+        experts and its shared experts; any other stack all of its
+        parameters."""
+        if self.moe is None:
+            return self.params_billions()
+        d = self.d_model
+        ff_mult = 3 if self.mlp_act == "swiglu" else 2
+        full = self.params_billions()
+        all_experts = ff_mult * d * self.moe.d_expert * self.moe.n_experts * self.n_layers / 1e9
+        active = ff_mult * d * self.moe.d_expert * (
+            self.moe.top_k + self.moe.n_shared_experts) * self.n_layers / 1e9
+        return full - all_experts + active - (
+            ff_mult * d * self.moe.d_expert * self.moe.n_shared_experts * self.n_layers / 1e9)
 
 
 @dataclasses.dataclass(frozen=True)

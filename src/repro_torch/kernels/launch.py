@@ -118,6 +118,15 @@ def sort_prefix(family: str, width: int) -> int:
     return s2ms_prefix(sort_program(family, width))
 
 
+def forget_family(family: str) -> None:
+    """Drop what is kept by the name ``family`` (its programs on the card
+    and its sort prefixes): ``networks.register_family`` calls it when a
+    name is given a new family."""
+    for key in [k for k in _PROGRAMS if k[2] == family]:
+        del _PROGRAMS[key]
+    sort_prefix.cache_clear()
+
+
 def cuda_checks(what: str, tensors: Sequence[torch.Tensor], key_dtype: torch.dtype,
                 n_payloads: int = 0) -> None:
     """Raise on what the kernels do not take: another key type, too many

@@ -42,7 +42,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.networks import merge_program, merge_runs
+from repro_torch.networks import builtin_family, merge_program, merge_runs
 from .common import (canonical_nan, check_mode, decode_key_values, encode_key_values,
                      gather_lanes)
 from . import launch
@@ -91,8 +91,8 @@ def lane_bytes(payloads: Sequence[torch.Tensor]) -> Tuple[int, ...]:
 def tile_cols(network: str, m: int, n: int, n_cols: int, use_mxu: bool) -> int:
     """The column count C of the program if the tiled kernel can run it
     (the key mode, a single level of columns: s2ms C = 1, loms C <= 16,
-    both runs non-empty), else 0."""
-    if use_mxu or m <= 0 or n <= 0:
+    both runs non-empty, the name holding its built-in family), else 0."""
+    if use_mxu or m <= 0 or n <= 0 or not builtin_family(network):
         return 0
     if network == "s2ms":
         return 1

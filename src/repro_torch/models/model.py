@@ -355,9 +355,34 @@ def prefill(p: dict, batch: dict, cache: dict, cfg: ModelConfig, *,
         lengths = ctx.rows(lengths)
     rows = torch.arange(x.shape[0], device=x.device)
     last = x[rows, (lengths - 1).long()][:, None]
-    for lc in cache.get("head", []) + cache["body"]:
-        lc["pos"] = lengths.clone() if ctx is None else ctx.to_global(lengths.clone())
+    cache = cache_with_lengths(cache, lengths if ctx is None else ctx.to_global(lengths))
     return _global(ctx, _logits(p, last, cfg, ctx)[:, 0], cfg), cache
+
+
+def _map_layer_caches(tree, fn):
+    """``fn`` applied to every layer's attention cache (a dict with a
+    ``pos`` leaf) of a cache tree, other nodes as they are."""
+    if isinstance(tree, dict) and "pos" in tree:
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_layer_caches(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_layer_caches(v, fn) for v in tree)
+    return tree
+
+
+def cache_with_lengths(cache, lengths):
+    """``cache`` with every layer's ``pos`` set to the rows' valid lengths
+    (B,) (``model.py:118``), so that after a right-padded ragged prefill
+    each row's next decode step writes at its own prompt length. Each
+    layer gets its own int32 copy; a tensor stays where it is, a sequence
+    of ints goes to the device of the layer's positions."""
+    def fix(lc):
+        new = lengths if isinstance(lengths, torch.Tensor) else torch.as_tensor(
+            np.asarray(lengths), device=lc["pos"].device)
+        return {**lc, "pos": new.to(torch.int32).clone()}
+
+    return _map_layer_caches(cache, fix)
 
 
 def _global(ctx, logits: torch.Tensor, cfg: ModelConfig):

@@ -105,21 +105,32 @@ def _positions_cumsum(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
     return (pos * oh).sum(-1).to(torch.int32)
 
 
+def class_sort_dispatch(n: int, device, par=None) -> bool:
+    """Whether the dispatch sort of ``n`` keys on ``device`` takes the
+    class sort (kernel row 6): on the card, one size class wide, no
+    ``par``, the segmented switch on (``moe.py:109``)."""
+    from repro_torch.segmented import max_class_width, segmented_enabled
+
+    return (par is None and segmented_enabled() and torch.device(device).type == "cuda"
+            and n <= max_class_width(torch.int32))
+
+
 def _positions_sorted(flat_e: torch.Tensor, n_experts: int, par=None) -> torch.Tensor:
     """The same positions from a sort of the unique keys ``expert * n +
     arrival`` with an iota payload (``moe.py:84``): rank minus the start of
-    the expert. On the card, where ``n`` fits one size class and no
-    ``par`` is offered, the class sort (kernel row 6) sorts them, as the
-    reference's TPU does; else, and on the CPU, the schedule executor;
-    with ``par`` the planner, which may pick the distributed sample-sort."""
+    the expert. On the card, where ``n`` fits one size class, no ``par``
+    is offered and the segmented switch is on, the class sort (kernel row
+    6) sorts them, as the reference's TPU does; else, and on the CPU, the
+    schedule executor; with ``par`` the planner, which may pick the
+    distributed sample-sort. The keys are unique, so every route gives
+    the same positions."""
     from repro_torch.api.ops import segment_sort, sort
-    from repro_torch.segmented import max_class_width
 
     n = flat_e.shape[0]
     dev = flat_e.device
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     keys = flat_e.to(torch.int32) * n + iota
-    if par is None and dev.type == "cuda" and n <= max_class_width(torch.int32):
+    if class_sort_dispatch(n, dev, par):
         sorted_keys, perm = segment_sort(keys, (0, n), payload=iota, backend="segmented")
     else:
         sorted_keys, perm = sort(keys, payload=iota,

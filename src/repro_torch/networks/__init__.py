@@ -9,6 +9,6 @@ from .families import PERIODIC3_MAX_WIDTH, divisor_cols, pick_merge_cols  # noqa
 from .program import (MergeProgram, PairStage, SortProgram,  # noqa: F401
                       encode_program, merge_runs, program_to_schedule,
                       run_sort_program, s2ms_prefix, sort_program_to_schedule)
-from .registry import (NetworkFamily, capable_families, family_names,  # noqa: F401
-                       get_family, kway_schedule, median_schedule, merge_program,
-                       sort_program)
+from .registry import (NetworkFamily, builtin_family, capable_families,  # noqa: F401
+                       family_names, get_family, kway_schedule, median_schedule,
+                       merge_program, register_family, sort_program)

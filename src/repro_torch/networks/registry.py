@@ -2,9 +2,11 @@
 
 Counterpart of ``repro.networks.registry``. Kernels ask for a program by
 family name, so the family that runs, and with it the tie order, is
-chosen in one place. ``kway_schedule`` / ``median_schedule`` route the
-k-way and median Schedule builders (``repro_torch.core.loms``) through
-the same door, so the kernel layer never imports ``core`` itself.
+chosen in one place, and the set of families stays open:
+:func:`register_family` adds one, or replaces the family of a taken
+name. ``kway_schedule`` / ``median_schedule`` route the k-way and median
+Schedule builders (``repro_torch.core.loms``) through the same door, so
+the kernel layer never imports ``core`` itself.
 """
 from __future__ import annotations
 
@@ -14,9 +16,9 @@ from typing import Callable, Optional, Sequence, Tuple
 from .families import BUILTIN_FAMILIES, pick_merge_cols  # noqa: F401
 from .program import MergeProgram, SortProgram
 
-__all__ = ["NetworkFamily", "get_family", "family_names", "merge_program",
-           "sort_program", "capable_families", "pick_merge_cols", "kway_schedule",
-           "median_schedule"]
+__all__ = ["NetworkFamily", "register_family", "builtin_family", "get_family",
+           "family_names", "merge_program", "sort_program", "capable_families",
+           "pick_merge_cols", "kway_schedule", "median_schedule"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +32,39 @@ class NetworkFamily:
 
 _REGISTRY = {name: NetworkFamily(name, m, s, mc, sc)
              for name, (m, s, mc, sc) in BUILTIN_FAMILIES.items()}
+
+
+def register_family(fam: NetworkFamily) -> None:
+    """Register ``fam`` under ``fam.name``: a new name adds a family (it
+    joins ``capable_families``, and with it the autotune tournament), a
+    taken one replaces that family. The programs the kernel wrappers keep
+    on the card by family name are dropped, so the next call runs the new
+    family's programs.
+
+    The CUDA kernels run any program :func:`~.program.encode_program`
+    encodes: a family whose levels use the IR's level kinds (columns, or
+    pairs of ``xor`` / ``reflect`` / ``brick_odd`` stages) reaches the sort
+    and the 2-way merge (rows 2 and 1), the class sort and merge (rows 6
+    and 7), and, values only, the grid merge (row 9, whose card kernel
+    merges by its own merge path and uses the family on the CPU only).
+    The IR admits no other kind (``MergeProgram`` and ``PairStage``
+    refuse one when built). The tiled and row-merge paths of rows 1 and 7
+    implement the built-in ``loms`` and ``s2ms`` devices themselves, so
+    they take only those names while they hold their built-in families
+    (:func:`builtin_family`); every other family runs the program
+    executor."""
+    _REGISTRY[fam.name] = fam
+    from repro_torch.kernels.launch import forget_family
+
+    forget_family(fam.name)
+
+
+def builtin_family(name: str) -> bool:
+    """Whether ``name`` holds the built-in family of that name."""
+    builtin = BUILTIN_FAMILIES.get(name)
+    fam = _REGISTRY.get(name)
+    return builtin is not None and fam is not None and (
+        (fam.merge, fam.sort, fam.merge_capable, fam.sort_capable) == tuple(builtin))
 
 
 def get_family(name: str) -> NetworkFamily:

@@ -27,6 +27,13 @@ launch takes the family (and a merge the column count) of
 ``nan_policy="unsafe"`` runs as ``"last"`` with -0.0 and +0.0 tied (see
 ``_check_values``).
 
+``set_segmented_enabled(False)`` (or ``REPRO_DISABLE_SEGMENTED=1``, the
+reference's switch) is the escape hatch: auto routing of the
+``segment_*`` ops plans the per-segment plain version
+(``segmented/reference.py``) instead of the class launches, on the card
+too, and the MoE dispatch sorts on the schedule executor. An explicit
+``backend="segmented"`` still runs the class kernels.
+
 Telemetry (``REPRO_OBS`` on), with the reference's series:
 ``segmented.class_launches`` counts the class-kernel calls a call makes,
 each one launch on the card (``LAUNCHES["seg_sort"]`` plus
@@ -41,6 +48,7 @@ from __future__ import annotations
 
 import itertools
 import math
+import os
 from typing import Tuple
 
 import numpy as np
@@ -66,6 +74,24 @@ from .reference import ref_segment_merge, ref_segment_sort, ref_segment_topk
 
 #: hard cap on the dense class width (the reference's ``MAX_CLASS_WIDTH``)
 MAX_CLASS_WIDTH = 2048
+
+_ENABLED = True
+
+
+def segmented_enabled() -> bool:
+    """Whether auto routing may pick the class kernels (the switch and
+    ``REPRO_DISABLE_SEGMENTED``)."""
+    return _ENABLED and os.environ.get("REPRO_DISABLE_SEGMENTED") != "1"
+
+
+def set_segmented_enabled(enabled: bool) -> bool:
+    """Turn the class kernels' auto routing on or off; returns the
+    previous setting."""
+    global _ENABLED
+    prev = _ENABLED
+    _ENABLED = bool(enabled)
+    return prev
+
 #: the network family the class launches run (the planner's heuristic
 #: default; the reference's autotune cache may pick another)
 def class_plan(widths: Tuple[int, ...], n_segs: int, dtype: torch.dtype):

@@ -85,9 +85,11 @@ def split_pages(layer_caches: List[dict], name: str, row: int, npg: int,
 
 class PagedKVCache:
     """The device-side page pool of a homogeneous attention stack (GQA's
-    K/V or MLA's latent leaves). A cache with another group than ``body``
-    (a leading dense layer's ``head``) raises ``ValueError``, with the
-    message of the reference's ``AssertionError``."""
+    K/V or MLA's latent leaves), each leaf (L, pages, *block). A cache with
+    another group than ``body`` (a leading dense layer's ``head``) raises
+    ``ValueError``, with the message of the reference's
+    ``AssertionError``. ``n_layers`` is the leaves' leading axis and
+    ``nbytes`` the bytes of all the leaves, as the reference's."""
 
     def __init__(self, cfg, n_pages: int, page_size: int, device):
         cache = init_cache(cfg, n_pages, page_size, device)
@@ -100,6 +102,11 @@ class PagedKVCache:
         del cache
         self.n_pages = n_pages
         self.page_size = page_size
+        self.n_layers = next(iter(self.leaves.values())).shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size() for a in self.leaves.values())
 
     def insert(self, pages: torch.Tensor, blocks: Dict[str, torch.Tensor]) -> None:
         """Write page blocks (L, npg, *block) at page ids ``pages``."""

@@ -153,21 +153,30 @@ def _global_positions(lists: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return pos
 
 
-def chunked_merge_k(lists: Sequence[torch.Tensor], *, tile: Optional[int] = None
-                    ) -> torch.Tensor:
+def chunked_merge_k(lists: Sequence[torch.Tensor], *, tile: Optional[int] = None,
+                    plan: Optional[MergePlan] = None) -> torch.Tensor:
     """k-way merge of ascending rows (..., n_j) into (..., sum n_j) at a
-    fixed tile (``plan_chunked_k``'s by default). Each output tile takes
-    the k segments its merge-path split points select, padded with the
-    key type's maximum, and the k-way kernel merges all B · tiles segment
-    rows in one launch. Floats merge as their total-order keys, decoded
-    (NaN last and canonical, -0.0 below +0.0); int32 as it is."""
+    fixed tile: ``tile``, else ``plan.tile``, else ``plan_chunked_k``'s.
+    Each output tile takes the k segments its merge-path split points
+    select, padded with the key type's maximum, and the k-way kernel
+    merges all B · tiles segment rows in one launch. Floats merge as their
+    total-order keys, decoded (NaN last and canonical, -0.0 below +0.0);
+    int32 as it is. Two lists are :func:`chunked_merge` with the same
+    ``tile`` and ``plan``. Of three or more, 1-D lists may be empty (an
+    empty list's segments are all padding), as in the reference; batched
+    rows with an empty list raise ``ValueError`` (the reference divides
+    by zero there)."""
     from repro_torch.kernels.kway import kway_merge
     from repro_torch.networks import kway_schedule
 
     if len(lists) < 2:
         raise ValueError("chunked_merge_k needs at least two lists")
     if len(lists) == 2:
-        return chunked_merge(lists[0], lists[1], tile=tile)
+        return chunked_merge(lists[0], lists[1], tile=tile, plan=plan)
+    for j, t in enumerate(lists):
+        if t.ndim > 1 and t.shape[-1] == 0:
+            raise ValueError(f"list {j} of shape {tuple(t.shape)} is empty: batched rows "
+                             "need an element in every list (1-D lists may be empty)")
     flat, lead = [], None
     for t in lists:
         f, ld = _as_batched(t)
@@ -180,16 +189,22 @@ def chunked_merge_k(lists: Sequence[torch.Tensor], *, tile: Optional[int] = None
         raise ValueError("the lists of a chunked merge need one dtype")
     keys = [encode_key_values(f) for f in flat] if key_transformable(dtype) else flat
     lens = tuple(f.shape[-1] for f in flat)
-    if min(lens) < 1:
-        raise ValueError(f"every list needs an element, got lengths {lens}")
     bsz, k, total = flat[0].shape[0], len(flat), sum(lens)
-    t = int(tile if tile is not None else plan_chunked_k(lens, batch=bsz).tile)
+    if total == 0:
+        return flat[0].new_empty(lead + (0,))
+    if tile is None:
+        tile = (plan if plan is not None else plan_chunked_k(lens, batch=bsz)).tile
+    t = int(tile)
     out_tiles = -(-total // t)
     grid = (torch.arange(out_tiles + 1, device=flat[0].device) * t).expand(bsz, -1)
     lane = torch.arange(t, device=flat[0].device)
     fill = sentinel_max(keys[0].dtype)
     segs = []
     for j, pj in enumerate(_global_positions(keys)):
+        if not lens[j]:  # an empty list: every segment is padding
+            segs.append(torch.full((bsz, out_tiles, t), fill, dtype=keys[j].dtype,
+                                   device=keys[j].device))
+            continue
         # how many of list j land in the first i * t outputs, for each i
         split = torch.searchsorted(pj.contiguous(), grid.contiguous())
         start, seg_len = split[:, :-1], split[:, 1:] - split[:, :-1]

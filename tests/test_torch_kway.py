@@ -25,7 +25,10 @@
 Tolerance: bit-equal everywhere (values compared as their bits); the
 gradients float32 with ``rtol=0`` and ``atol=0`` (scatters of the
 cotangent are exact). The reference is pointed at an empty autotune
-cache, so every call plans the heuristic route the port plans.
+cache, so every call plans the heuristic route the port plans. The
+reference's library calls and gradients run under one ``jax.jit`` each:
+one compile of the whole network where eager dispatch compiles op after
+op; the compares and selects give the same bits.
 """
 import os
 
@@ -230,10 +233,12 @@ def kernel_results():
         lanes = ([_both(ids, "int32"), _both(_values(rng, (rows, total), "float32"),
                                              "bfloat16")] if pay else [])
         key = dtype if dtype != "int32" else None
-        want = kway_merge_pallas(
-            jnp.concatenate(js, -1), repro.networks.kway_schedule(lens),
-            tuple(p[0] for p in lanes), n_stages=n_stages, block_batch=8, use_mxu=False,
-            interpret=True, lens=lens, key_dtype=key, descending=desc, want_perm=True)
+        sched = repro.networks.kway_schedule(lens)
+        want = jax.jit(lambda x, lv, sched=sched, n_stages=n_stages, lens=lens, key=key,
+                       desc=desc: kway_merge_pallas(
+            x, sched, lv, n_stages=n_stages, block_batch=8, use_mxu=False,
+            interpret=True, lens=lens, key_dtype=key, descending=desc, want_perm=True))(
+            jnp.concatenate(js, -1), tuple(p[0] for p in lanes))
         got = kway_merge_plain(
             torch.cat(ts, -1), kway_schedule(lens), tuple(p[1] for p in lanes),
             n_stages=n_stages, lens=lens, key_dtype=_TDT[dtype] if key else None,
@@ -287,7 +292,8 @@ def test_merge_k_matches_fused_reference(lens, dtype, desc):
     rng = np.random.default_rng(sum(lens))
     rows, total = 5, sum(lens)
     js, ts = _sorted_lists(rng, rows, lens, dtype, desc)
-    want, _ = jfused.fused_merge_k(_jcfg(lens, rows, dtype, desc), tuple(js), ())
+    cfg = _jcfg(lens, rows, dtype, desc)
+    want, _ = jax.jit(lambda ls: jfused.fused_merge_k(cfg, ls, ()))(tuple(js))
     _assert_same((want,), (repro_torch.merge_k(ts, descending=desc),))
     # a payload tree: int32 ids with a feature dim, float32 rows
     ids = np.arange(rows * total * 2, dtype=np.int32).reshape(rows, total, 2)
@@ -297,8 +303,9 @@ def test_merge_k_matches_fused_reference(lens, dtype, desc):
                "emb": torch.from_numpy(emb[:, a:b].copy())}
               for a, b in zip(offs[:-1], offs[1:])]
     lanes = (jnp.asarray(emb), jnp.asarray(ids))  # the tree's leaves, keys sorted
-    want_v, (w_emb, w_id) = jfused.fused_merge_k(
-        _jcfg(lens, rows, dtype, desc, has_payload=True), tuple(js), lanes)
+    cfg = _jcfg(lens, rows, dtype, desc, has_payload=True)
+    want_v, (w_emb, w_id) = jax.jit(lambda ls, lv: jfused.fused_merge_k(cfg, ls, lv))(
+        tuple(js), lanes)
     got_v, tree = repro_torch.merge_k(ts, descending=desc, payload=ttrees)
     _assert_same((want_v, w_id, w_emb), (got_v, tree["id"], tree["emb"]))
 
@@ -327,12 +334,14 @@ def test_merge_k_schedule_routes_match_reference():
     js, ts = _sorted_lists(rng, 3, lens, "float32", descending=True)
     pos = [np.full((3, n), j, dtype=np.int32) for j, n in enumerate(lens)]
     for kw in (dict(stable=True), dict(network="mwms")):
-        want = repro.merge_k(js, descending=True, payload=[jnp.asarray(p) for p in pos],
-                             **kw)
+        want = jax.jit(lambda ls, ps, kw=kw: repro.merge_k(ls, descending=True, payload=ps,
+                                                           **kw))(js, [jnp.asarray(p)
+                                                                       for p in pos])
         got = repro_torch.merge_k(ts, descending=True,
                                   payload=[torch.from_numpy(p) for p in pos], **kw)
         _assert_same(want, got)
-    _assert_same((repro.merge_k(js, descending=True, network="tree"),),
+    _assert_same((jax.jit(lambda ls: repro.merge_k(ls, descending=True, network="tree"))(
+        js),),
                  (repro_torch.merge_k(ts, descending=True, network="tree"),))
 
 
@@ -347,12 +356,13 @@ def test_merge_k_past_the_budget_streams_like_the_reference():
         ls = [np.sort((rng.integers(-8, 9, (2, 500)) * 0.5).astype(np.float32), -1)
               for _ in range(3)]  # ties
         ls = [l[:, ::-1].copy() if desc else l for l in ls]
-        g = jax.grad(lambda *v: jnp.sum(repro.merge_k(v, descending=desc) * w),
-                     argnums=(0, 1, 2))(*map(jnp.asarray, ls))
+        g = jax.jit(jax.grad(lambda *v: jnp.sum(repro.merge_k(v, descending=desc) * w),
+                             argnums=(0, 1, 2)))(*map(jnp.asarray, ls))
         tl = [torch.from_numpy(l).requires_grad_() for l in ls]
         got = repro_torch.merge_k(tl, descending=desc)
         (got * torch.from_numpy(w)).sum().backward()
-        _assert_same((repro.merge_k([jnp.asarray(l) for l in ls], descending=desc),), (got,))
+        _assert_same((jax.jit(lambda v: repro.merge_k(v, descending=desc))(
+            [jnp.asarray(l) for l in ls]),), (got,))
         for a, b in zip(tl, g):
             np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), rtol=0, atol=0)
 
@@ -364,11 +374,10 @@ def test_merge_k_past_the_budget_streams_like_the_reference():
 def test_median_of_lists_matches_reference(lens, dtype, network):
     rng = np.random.default_rng(len(lens))
     js, ts = _sorted_lists(rng, 6, lens, dtype)
+    want = jax.jit(lambda ls: repro.median_of_lists(ls, network=network))(js)
     if len(set(lens)) > 1:  # the lax rung: the middle of a sort, as the reference's ladder
-        _assert_same((repro.median_of_lists(js, network=network),),
-                     (repro_torch.median_of_lists(ts, network=network),))
+        _assert_same((want,), (repro_torch.median_of_lists(ts, network=network),))
         return
-    want = repro.median_of_lists(js, network=network)
     got = repro_torch.median_of_lists(ts, network=network)
     assert got.shape == (6,)
     _assert_same((want,), (got,))
@@ -382,7 +391,7 @@ def test_chunked_merge_k_matches_reference():
     rng = np.random.default_rng(13)
     lens = (100, 37, 120)
     js, ts = _sorted_lists(rng, 2, lens, "int32")
-    want = jchunked_merge_k(js, tile=16, interpret=True)
+    want = jax.jit(lambda ls: jchunked_merge_k(ls, tile=16, interpret=True))(js)
     _assert_same((want,), (repro_torch.chunked_merge_k(ts, tile=16),))
     # one list row, no batch axis, the planner's tile
     _assert_same((np.sort(np.concatenate([np.asarray(j[0]) for j in js])),),
@@ -430,8 +439,8 @@ def test_merge_k_and_median_gradients_match_jax():
         # values only (one stable argsort of the keys), with a payload leaf
         # (the kernel's permutation), and on the schedule route (stable=True)
         cfg = _jcfg(lens, 3, "float32", desc)
-        g = jax.grad(lambda *v: jnp.sum(jfused.fused_merge_k(cfg, v, ())[0] * w),
-                     argnums=(0, 1, 2))(*map(jnp.asarray, ls))
+        g = jax.jit(jax.grad(lambda *v: jnp.sum(jfused.fused_merge_k(cfg, v, ())[0] * w),
+                             argnums=(0, 1, 2)))(*map(jnp.asarray, ls))
         tl = [torch.from_numpy(l).requires_grad_() for l in ls]
         (repro_torch.merge_k(tl, descending=desc) * tw).sum().backward()
         for a, b in zip(tl, g):
@@ -442,7 +451,8 @@ def test_merge_k_and_median_gradients_match_jax():
             out, (pe,) = jfused.fused_merge_k(cfg, v, (e,))
             return jnp.sum(out * w) + jnp.sum(pe * we)
 
-        g = jax.grad(jloss, argnums=(0, 1, 2, 3))(jnp.asarray(emb), *map(jnp.asarray, ls))
+        g = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3)))(jnp.asarray(emb),
+                                                           *map(jnp.asarray, ls))
         tl = [torch.from_numpy(l).requires_grad_() for l in ls]
         te = torch.from_numpy(emb).requires_grad_()
         pays = [te[:, 7 * j:7 * j + 7] for j in range(3)]
@@ -450,8 +460,9 @@ def test_merge_k_and_median_gradients_match_jax():
         ((out * tw).sum() + (pe * twe).sum()).backward()
         for a, b in zip([te] + tl, g):
             np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), rtol=0, atol=0)
-        g = jax.grad(lambda *v: jnp.sum(repro.merge_k(v, descending=desc, stable=True) * w),
-                     argnums=(0, 1, 2))(*map(jnp.asarray, ls))
+        g = jax.jit(jax.grad(
+            lambda *v: jnp.sum(repro.merge_k(v, descending=desc, stable=True) * w),
+            argnums=(0, 1, 2)))(*map(jnp.asarray, ls))
         tl = [torch.from_numpy(l).requires_grad_() for l in ls]
         (repro_torch.merge_k(tl, descending=desc, stable=True) * tw).sum().backward()
         for a, b in zip(tl, g):
@@ -459,8 +470,8 @@ def test_merge_k_and_median_gradients_match_jax():
     # the median: the cotangent goes to the input that held it
     ls = [np.sort(x[:, 7 * j:7 * j + 7], -1) for j in range(3)]
     wm = rng.standard_normal(3).astype(np.float32)
-    g = jax.grad(lambda *v: jnp.sum(repro.median_of_lists(v) * wm), argnums=(0, 1, 2))(
-        *map(jnp.asarray, ls))
+    g = jax.jit(jax.grad(lambda *v: jnp.sum(repro.median_of_lists(v) * wm),
+                         argnums=(0, 1, 2)))(*map(jnp.asarray, ls))
     tl = [torch.from_numpy(l).requires_grad_() for l in ls]
     (repro_torch.median_of_lists(tl) * torch.from_numpy(wm)).sum().backward()
     for a, b in zip(tl, g):

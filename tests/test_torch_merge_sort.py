@@ -24,8 +24,11 @@ Tolerance: bit-equal everywhere (values compared as their bits), except
 the gradients: float32, ``rtol=0`` and ``atol=0`` (a scatter of the
 cotangent is exact). The reference reads an autotune cache; it is pointed
 at an empty one, so every call plans the heuristic loms family, as the
-port does.
+port does. The reference's library calls and gradients run under one
+``jax.jit`` each: one compile of the whole network where eager dispatch
+compiles op after op; the compares and selects give the same bits.
 """
+import functools
 import os
 
 import jax
@@ -79,6 +82,14 @@ def _values(rng, shape, dtype):
     for val, frac in ((np.nan, 0.05), (np.inf, 0.05), (-np.inf, 0.05), (-0.0, 0.1)):
         x[rng.random(shape) < frac] = val
     return x
+
+
+def _jit(fn, *args, **static):
+    """The reference's call ``fn(*args, **static)`` under one ``jax.jit``;
+    a leading non-array argument (a fused config) is static."""
+    if args and not isinstance(args[0], (jax.Array, tuple, list)):
+        return jax.jit(functools.partial(fn, args[0], **static))(*args[1:])
+    return jax.jit(functools.partial(fn, **static))(*args)
 
 
 def _both(x, dtype):
@@ -151,19 +162,18 @@ def test_loms_merge2_plain_matches_pallas(m, n, family):
             jb, tb = _sorted(rng, (rows, n), dtype, desc)
             pays = _payloads(rng, rows, m + n)
             key = dtype if dtype != "int32" else None
-            want = loms_merge2_pallas(
-                ja, jb, tuple(p[0] for p in pays), network=family, n_cols=n_cols,
-                block_batch=8, use_mxu=False, interpret=True, key_dtype=key,
-                descending=desc, want_perm=True)
+            want = _jit(loms_merge2_pallas,
+                        ja, jb, tuple(p[0] for p in pays), network=family, n_cols=n_cols,
+                        block_batch=8, use_mxu=False, interpret=True, key_dtype=key,
+                        descending=desc, want_perm=True)
             got = loms_merge2_plain(
                 ta, tb, tuple(p[1] for p in pays), network=family, n_cols=n_cols,
                 key_dtype=_TDT[dtype] if key else None, descending=desc, want_perm=True)
             _assert_same((want[0], want[1]) + tuple(want[2]),
                          (got[0], got[1]) + tuple(got[2]))
     # values only: no position lane in the reference
-    want = loms_merge2_pallas(ja, jb, network=family, n_cols=n_cols, block_batch=8,
-                              use_mxu=False, interpret=True, key_dtype=key,
-                              descending=desc)
+    want = _jit(loms_merge2_pallas, ja, jb, network=family, n_cols=n_cols, block_batch=8,
+                use_mxu=False, interpret=True, key_dtype=key, descending=desc)
     got = loms_merge2_plain(ta, tb, network=family, n_cols=n_cols,
                             key_dtype=_TDT[dtype] if key else None, descending=desc)
     assert got[1] is None and got[2] == ()
@@ -184,9 +194,9 @@ def test_loms_sort_plain_matches_pallas(n, family, dtypes):
             jx, tx = _both(_values(rng, (rows, n), dtype), dtype)
             pays = _payloads(rng, rows, n)
             key = dtype if dtype != "int32" else None
-            want = loms_sort_pallas(jx, tuple(p[0] for p in pays), network=family,
-                                    block_batch=8, use_mxu=False, interpret=True,
-                                    key_dtype=key, descending=desc, want_perm=True)
+            want = _jit(loms_sort_pallas, jx, tuple(p[0] for p in pays), network=family,
+                        block_batch=8, use_mxu=False, interpret=True,
+                        key_dtype=key, descending=desc, want_perm=True)
             got = loms_sort_plain(tx, tuple(p[1] for p in pays), network=family,
                                   key_dtype=_TDT[dtype] if key else None,
                                   descending=desc, want_perm=True)
@@ -216,7 +226,7 @@ def test_merge_matches_fused_reference(dtype, desc, m, n):
     ja, ta = _sorted(rng, (rows, m), dtype, desc)
     jb, tb = _sorted(rng, (rows, n), dtype, desc)
     cfg = _jcfg("merge", (m, n), rows, dtype, desc)
-    want, _ = jfused.fused_merge_k(cfg, (ja, jb), ())
+    want, _ = _jit(jfused.fused_merge_k, cfg, (ja, jb), ())
     _assert_same((want,), (repro_torch.merge(ta, tb, descending=desc),))
     # a payload tree: int32 ids and float32 rows of a feature dim
     ids = np.arange(rows * (m + n), dtype=np.int32).reshape(rows, m + n)
@@ -229,7 +239,7 @@ def test_merge_matches_fused_reference(dtype, desc, m, n):
                "emb": torch.from_numpy(emb[:, m:].copy())}]
     cfg = _jcfg("merge", (m, n), rows, dtype, desc, has_payload=True)
     lanes = (jnp.asarray(emb), jnp.asarray(ids))  # the tree's leaves, keys sorted
-    want_v, (w_emb, w_id) = jfused.fused_merge_k(cfg, (ja, jb), lanes)
+    want_v, (w_emb, w_id) = _jit(jfused.fused_merge_k, cfg, (ja, jb), lanes)
     got_v, got_tree = repro_torch.merge(ta, tb, descending=desc, payload=ttrees)
     _assert_same((want_v, w_id, w_emb), (got_v, got_tree["id"], got_tree["emb"]))
 
@@ -265,11 +275,11 @@ def test_sort_matches_fused_reference(dtype, desc, n):
     rows = 4
     jx, tx = _both(_values(rng, (rows, n), dtype), dtype)
     cfg = _jcfg("sort", (n,), rows, dtype, desc)
-    want, _ = jfused.fused_sort(cfg, jx, ())
+    want, _ = _jit(jfused.fused_sort, cfg, jx, ())
     _assert_same((want,), (repro_torch.sort(tx, descending=desc),))
     pay = np.arange(rows * n * 2, dtype=np.int32).reshape(rows, n, 2)
     cfg = _jcfg("sort", (n,), rows, dtype, desc, has_payload=True)
-    want_v, (want_p,) = jfused.fused_sort(cfg, jx, (jnp.asarray(pay),))
+    want_v, (want_p,) = _jit(jfused.fused_sort, cfg, jx, (jnp.asarray(pay),))
     got_v, got_p = repro_torch.sort(tx, descending=desc, payload=torch.from_numpy(pay))
     _assert_same((want_v, want_p), (got_v, got_p))
     # axis 0 of the transpose is the same sort
@@ -286,7 +296,7 @@ def test_merge_past_the_budget_streams_like_the_reference():
         jb, tb = _sorted(rng, (2, 3000), "float32", desc)
         spec = SortSpec(op="merge", lengths=(3000, 3000), batch=2)
         assert plan(spec).backend == "streaming"
-        want = repro.merge(ja, jb, descending=desc)
+        want = jax.jit(lambda p, q: repro.merge(p, q, descending=desc))(ja, jb)
         _assert_same((want,), (repro_torch.merge(ta, tb, descending=desc),))
 
 
@@ -303,7 +313,7 @@ def test_sort_and_merge_gradients_match_jax():
     we = rng.standard_normal((3, 40, 2)).astype(np.float32)
     for desc in (False, True):
         cfg = _jcfg("sort", (40,), 3, "float32", desc)
-        gj = jax.grad(lambda v: jnp.sum(jfused.fused_sort(cfg, v, ())[0] * w))(
+        gj = jax.jit(jax.grad(lambda v: jnp.sum(jfused.fused_sort(cfg, v, ())[0] * w)))(
             jnp.asarray(x))
         tx = torch.from_numpy(x.copy()).requires_grad_()
         (repro_torch.sort(tx, descending=desc) * torch.from_numpy(w)).sum().backward()
@@ -315,7 +325,7 @@ def test_sort_and_merge_gradients_match_jax():
             out, (pe,) = jfused.fused_sort(cfg, v, (e,))
             return jnp.sum(out * w) + jnp.sum(pe * we)
 
-        gv, ge = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(emb))
+        gv, ge = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jnp.asarray(x), jnp.asarray(emb))
         tx = torch.from_numpy(x.copy()).requires_grad_()
         te = torch.from_numpy(emb.copy()).requires_grad_()
         out, pe = repro_torch.sort(tx, descending=desc, payload=te)
@@ -329,8 +339,8 @@ def test_sort_and_merge_gradients_match_jax():
     for desc in (False, True):
         aa, bb = (a[:, ::-1].copy(), b[:, ::-1].copy()) if desc else (a, b)
         cfg = _jcfg("merge", (16, 24), 3, "float32", desc)
-        ga, gb = jax.grad(lambda p, q: jnp.sum(
-            jfused.fused_merge_k(cfg, (p, q), ())[0] * wm), argnums=(0, 1))(
+        ga, gb = jax.jit(jax.grad(lambda p, q: jnp.sum(
+            jfused.fused_merge_k(cfg, (p, q), ())[0] * wm), argnums=(0, 1)))(
             jnp.asarray(aa), jnp.asarray(bb))
         ta = torch.from_numpy(aa).requires_grad_()
         tb = torch.from_numpy(bb).requires_grad_()
@@ -367,6 +377,28 @@ def test_plan_matches_reference_on_the_accelerator(op, lens, kw):
         assert (cpu.backend, cpu.detail) == (want_cpu.backend, want_cpu.detail)
 
 
+@pytest.mark.parametrize("switch", ["fused", "segmented"])
+@pytest.mark.parametrize("op,lens,kw", _TABLE)
+def test_plan_matches_reference_with_a_switch_off(op, lens, kw, switch):
+    """The same rows with the fused or the segmented switch off in both
+    packages (restored after)."""
+    from repro.api.fused import set_fused_enabled as j_fused
+    from repro.segmented import set_segmented_enabled as j_seg
+    from repro_torch.api.fused import set_fused_enabled as t_fused
+    from repro_torch.segmented import set_segmented_enabled as t_seg
+
+    j_set, t_set = (j_fused, t_fused) if switch == "fused" else (j_seg, t_seg)
+    prev = j_set(False), t_set(False)
+    try:
+        want = repro.plan(JSpec(op=op, lengths=lens, device="tpu", **kw))
+        got = plan(SortSpec(op=op, lengths=lens, **kw))
+    finally:
+        j_set(prev[0])
+        t_set(prev[1])
+    assert (got.backend, got.detail) == (
+        "cuda" if want.backend == "pallas" else want.backend, want.detail)
+
+
 def test_chunked_merge_loop_matches_reference():
     """The one-launch-a-tile loop (``mode="loop"``, once refused) on
     batched rows with leading axes: the reference's loop in interpret
@@ -388,6 +420,12 @@ def test_chunked_merge_loop_matches_reference():
         repro_torch.chunked_merge(torch.from_numpy(a), torch.from_numpy(b), mode="tiles")
 
 
+def _jit_payload_merge(ja, jb, pa, pb):
+    """The reference's payload merge on the schedule executor, jitted."""
+    return jax.jit(lambda p, q, x, y: repro.merge(p, q, payload=(x, y), backend="schedule"))(
+        ja, jb, jnp.asarray(pa), jnp.asarray(pb))
+
+
 def _route_case(name, rng):
     """The inputs of one route the port used to refuse, and the
     reference's answer on its accelerator's route for them."""
@@ -395,46 +433,47 @@ def _route_case(name, rng):
         ja, ta = _sorted(rng, (3, 7), "float32", False)
         jb, tb = _sorted(rng, (3, 5), "float32", False)
         pa, pb = (np.arange(3 * n, dtype=np.int32).reshape(3, n) for n in (7, 5))
-        want = repro.merge(ja, jb, payload=(jnp.asarray(pa), jnp.asarray(pb)),
-                           backend="schedule")
+        want = _jit_payload_merge(ja, jb, pa, pb)
         return want, repro_torch.merge(ta, tb, payload=(torch.from_numpy(pa),
                                                         torch.from_numpy(pb)))
     if name == "stable_merge":
         ja, ta = _sorted(rng, (4, 8), "float32", False)
         jb, tb = _sorted(rng, (4, 8), "float32", False)
-        return (repro.merge(ja, jb, stable=True, backend="schedule"),
-                repro_torch.merge(ta, tb, stable=True))
+        return (jax.jit(lambda p, q: repro.merge(p, q, stable=True, backend="schedule"))(
+            ja, jb), repro_torch.merge(ta, tb, stable=True))
     if name == "stable_sort":
         jx, tx = _both(_values(rng, (4, 8), "float32"), "float32")
         pay = np.arange(32, dtype=np.int32).reshape(4, 8)
-        return (repro.sort(jx, stable=True, payload=jnp.asarray(pay), backend="schedule"),
+        return (jax.jit(lambda v, p: repro.sort(v, stable=True, payload=p,
+                                                backend="schedule"))(jx, jnp.asarray(pay)),
                 repro_torch.sort(tx, stable=True, payload=torch.from_numpy(pay)))
     if name == "sort_past_budget":  # npad > 2048: the executor's merge tree
         jx, tx = _both(_values(rng, (1, 2049), "int32"), "int32")
-        return repro.sort(jx, backend="schedule"), repro_torch.sort(tx)
+        return (jax.jit(lambda v: repro.sort(v, backend="schedule"))(jx),
+                repro_torch.sort(tx))
     if name == "payload_merge_past_budget":
         ja, ta = _sorted(rng, (1, 4096), "float32", False)
         jb, tb = _sorted(rng, (1, 4096), "float32", False)
         pa, pb = (np.arange(4096, dtype=np.int32)[None] + off for off in (0, 4096))
-        want = repro.merge(ja, jb, payload=(jnp.asarray(pa), jnp.asarray(pb)),
-                           backend="schedule")
+        want = _jit_payload_merge(ja, jb, pa, pb)
         return want, repro_torch.merge(ta, tb, payload=(torch.from_numpy(pa),
                                                         torch.from_numpy(pb)))
     if name == "bitonic_sort":
         jx, tx = _both(_values(rng, (4, 8), "int32"), "int32")
-        return (repro.sort(jx, network="bitonic", backend="schedule"),
+        return (jax.jit(lambda v: repro.sort(v, network="bitonic", backend="schedule"))(jx),
                 repro_torch.sort(tx, network="bitonic"))
     if name == "unsafe_sort":  # finite raw floats: the fused rung's raw-float mode
         x = (rng.integers(-3, 4, (4, 8)) * 0.5).astype(np.float32)
         x[rng.random((4, 8)) < 0.2] = -0.0
         jx, tx = _both(x, "float32")
         spec = JSpec(op="sort", lengths=(8,), batch=4, nan_policy="unsafe", device="tpu")
-        want, _ = jfused.fused_sort(jfused.fused_cfg_for(spec, 4, jnp.float32), jx, ())
+        cfg = jfused.fused_cfg_for(spec, 4, jnp.float32)
+        want, _ = jax.jit(lambda v: jfused.fused_sort(cfg, v, ()))(jx)
         return want, repro_torch.sort(tx, nan_policy="unsafe")
     assert name == "uint32_sort"  # values only: unique, whatever the route
     u = rng.integers(0, 2 ** 32, (2, 4), dtype=np.uint64).astype(np.uint32)
     u[0, :2] = (0, 2 ** 32 - 1)
-    return repro.sort(jnp.asarray(u)), repro_torch.sort(torch.from_numpy(u))
+    return jax.jit(repro.sort)(jnp.asarray(u)), repro_torch.sort(torch.from_numpy(u))
 
 
 @pytest.mark.parametrize("name", ["ragged", "stable_merge", "stable_sort",

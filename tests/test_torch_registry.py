@@ -4,7 +4,8 @@ median, the exact nucleus and the autotune cache against the reference.
 
 * ``backend_names`` and ``decision_table`` equal the reference's, with
   ``pallas`` named ``cuda`` (its accelerator rows, ``"tpu"``, for the
-  port's ``"cuda"``); ``plan()``'s segmented rows too.
+  port's ``"cuda"``), with the fused and segmented switches on and off;
+  ``plan()``'s segmented rows too.
 * Explicit asks run the named backend: ``cuda`` against the reference's
   ``pallas`` (its kernels in interpret mode), ``schedule`` / ``streaming``
   against the same names, ``lax`` equal in value. Asks a backend cannot
@@ -117,10 +118,30 @@ def _row(r, rename=False):
             name(r["detail"]), r["network"], r["source"])
 
 
-@pytest.mark.parametrize("ref_dev,dev", [("tpu", "cuda"), ("cpu", "cpu")])
-def test_decision_table_matches_reference(ref_dev, dev):
-    want = [_row(r, rename=True) for r in repro.decision_table(ref_dev)]
-    got = [_row(r) for r in repro_torch.decision_table(dev)]
+@pytest.mark.parametrize(
+    "ref_dev,dev,fused,segmented",
+    [("tpu", "cuda", True, True), ("cpu", "cpu", True, True),
+     ("tpu", "cuda", False, True), ("tpu", "cuda", True, False),
+     ("tpu", "cuda", False, False), ("cpu", "cpu", False, False)],
+    ids=["tpu-cuda", "cpu-cpu", "tpu-cuda-fused_off", "tpu-cuda-segmented_off",
+         "tpu-cuda-both_off", "cpu-cpu-both_off"])
+def test_decision_table_matches_reference(ref_dev, dev, fused, segmented):
+    """With each switch on and off (both packages' ``set_fused_enabled`` /
+    ``set_segmented_enabled``, restored after)."""
+    from repro.api.fused import set_fused_enabled as j_fused
+    from repro.segmented import set_segmented_enabled as j_seg
+    from repro_torch.api import set_fused_enabled as t_fused
+    from repro_torch.segmented import set_segmented_enabled as t_seg
+
+    prev = j_fused(fused), t_fused(fused), j_seg(segmented), t_seg(segmented)
+    try:
+        want = [_row(r, rename=True) for r in repro.decision_table(ref_dev)]
+        got = [_row(r) for r in repro_torch.decision_table(dev)]
+    finally:
+        j_fused(prev[0])
+        t_fused(prev[1])
+        j_seg(prev[2])
+        t_seg(prev[3])
     assert got == want
     assert all(r["tuned_us"] is None for r in repro_torch.decision_table(dev))
 
